@@ -1,17 +1,19 @@
-"""Moving weights from the JAX package into the port.
+"""Moving weights and training state from the JAX package into the port.
 
 The two packages share state-dict keys and shapes (``Linear.weight``
 is ``[in, out]`` in both), so converting the JAX model's
 ``functional_state()[0]`` — taken to numpy by the caller — is
-``torch.from_numpy`` plus checks.  Both functions raise on a missing
-or extra key and on a shape or dtype mismatch.
+``torch.from_numpy`` of a copy plus checks; a JAX trainer's optimizer
+slots and step count carry over the same way (``load_train_state``).
+Each function raises on a missing or extra key and on a shape or dtype
+mismatch.
 """
 import numpy as np
 import torch
 
 from .core.device import resolve_device
 
-__all__ = ['state_from_numpy', 'load_numpy_state']
+__all__ = ['state_from_numpy', 'load_numpy_state', 'load_train_state']
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.float64): torch.float64,
@@ -27,7 +29,7 @@ def state_from_numpy(params, device=None):
         arr = np.asarray(arr)
         if arr.dtype not in _DTYPES:
             raise TypeError(f'{name}: unsupported dtype {arr.dtype}')
-        out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        out[name] = torch.from_numpy(np.array(arr, copy=True)).to(device)
     return out
 
 
@@ -52,3 +54,36 @@ def load_numpy_state(module, params):
         for name, src in state.items():
             own[name].copy_(src)
     return module
+
+
+def load_train_state(trainer, params, opt_state, step):
+    """Carry a JAX ``ParallelTrainer``'s state into the port's trainer,
+    so a run started in one package continues in the other.
+
+    ``params`` is the JAX trainer's ``params`` (``{name: array}``),
+    ``opt_state`` its ``opt_state`` (``{name: {'moment1', 'moment2'}}``
+    for Adam/AdamW) and ``step`` its ``_step_no``, all as numpy.  The
+    weights load into ``trainer.model``, the slots become the
+    optimizer's accumulators, and both step counters are set, so the
+    next ``trainer.step`` is update number ``step + 1``.  Raises on a
+    missing or extra name and on a shape or dtype mismatch."""
+    model, opt = trainer.model, trainer.optimizer
+    load_numpy_state(model, params)
+    named = dict(model.named_parameters())
+    missing = sorted(set(named) - set(opt_state))
+    extra = sorted(set(opt_state) - set(named))
+    if missing or extra:
+        raise KeyError(f'optimizer state mismatch: missing {missing}, '
+                       f'extra {extra}')
+    accumulators = {}
+    for name, slots in opt_state.items():
+        p = named[name]
+        state = state_from_numpy(slots, device=p.device)
+        for slot, t in state.items():
+            if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
+                raise ValueError(f'{name}.{slot}: {tuple(t.shape)} '
+                                 f'{t.dtype} != {tuple(p.shape)} {p.dtype}')
+        accumulators[id(p)] = state
+    opt._accumulators = accumulators
+    opt._global_step = trainer._step_no = int(step)
+    return trainer

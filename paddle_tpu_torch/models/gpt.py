@@ -1,51 +1,60 @@
-"""GPT causal LM, the serving half (counterpart of
-``paddle_tpu/models/gpt.py``).
+"""GPT causal LM (counterpart of ``paddle_tpu/models/gpt.py``).
 
-This slice ports the cached forward that decoding and the serving
-engine run: the dense-cache attention branch (prompt prefill and
-``generate``) and the paged branch (the engine's batched decode), the
-MLP, the blocks, the tied head, ``prefill``/``decode_step``/
-``generate`` and the ``gpt_tiny``/``gpt_small`` constructors.  Every
-LayerNorm runs the hand-written CUDA kernel (``ops/fused_norm.py``).
+Serving: the cached forward that decoding and the serving engine run,
+the dense-cache attention branch (prompt prefill and ``generate``) and
+the paged branch (the engine's batched decode), ``prefill``/
+``decode_step``/``generate``.  Training: the uncached ``forward(ids)``,
+whose attention is flash attention (the hand-written CUDA forward and
+backward kernels of ``ops/flash_attention.py``), and ``loss`` with and
+without the fused CE head (``ops/fused_ce.py``).  Every LayerNorm runs
+the hand-written CUDA LayerNorm kernel (``ops/fused_norm.py``).  Ops the
+reference dispatches by name cast their inputs through the AMP policy
+(``amp.amp_cast``), under the same names.
 
-The uncached ``forward(ids)`` (flash attention in the reference) and
-``loss`` belong to the training slice and raise here.  Dropout is not
-applied: the cached forward always runs in eval mode, as the
-reference's ``functional_call(..., training=False)`` does.
+Dropout is not ported: the cached forward runs in eval mode, as the
+reference's ``functional_call(..., training=False)`` does, and the
+uncached forward raises in training mode when ``dropout > 0`` (the
+reference's attention-dropout path needs the fused softmax kernel).
+MoE, sequence parallelism and striped sp wait for their slices.
 """
 import math
 
 import torch
 from torch import nn
 
+from ..amp import amp_cast
 from ..core.compile_cache import bucket_pow2
 from ..core.device import resolve_device
 from ..distributed.fleet.meta_parallel import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+from ..nn import functional as F
 from ..nn.layer.common import Embedding
 from ..nn.layer.norm import LayerNorm
+from ..ops.flash_attention import can_use_pallas, flash_attention
+from ..ops.fused_ce import fused_linear_cross_entropy
 from ..ops.fused_gelu_linear import mlp_gelu
 from ..ops.paged_attention import paged_attention, write_kv
 from ..ops.sampling import sample_rows
 
 __all__ = ['GPTConfig', 'GPT', 'GPTForCausalLM', 'gpt_tiny', 'gpt_small']
 
-_TRAINING_SLICE = ('ports with the training slice (flash attention '
-                   'forward and backward kernels); this slice serves '
-                   'through the cached forward only')
-
 
 class GPTConfig:
-    """The reference ``GPTConfig``'s fields that the serving slice uses,
-    with the same defaults.  The training and multi-chip fields
-    (sequence parallel, MoE, fused head, striped sp, scan decode) come
-    with the slices that use them.  ``dropout`` is kept for signature
-    parity; the cached forward runs in eval mode and applies none, as
-    in the reference."""
+    """The reference ``GPTConfig``'s single-device fields, with the same
+    defaults.  The multi-chip fields (sequence parallel, MoE, striped
+    sp, scan decode) come with the slices that use them.
+
+    ``fused_head``: the training forward returns the final hidden
+    states and ``loss`` fuses the tied head matmul with the softmax CE
+    (``ops/fused_ce.py``), chunked over the vocab in
+    ``fused_head_chunks`` chunks.  ``initializer_range`` is kept for
+    parity; the reference's init does not read it either."""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, max_seq_len=1024, intermediate_size=None,
-                 dropout=0.1, layer_norm_epsilon=1e-5):
+                 dropout=0.1, layer_norm_epsilon=1e-5,
+                 initializer_range=0.02, fused_head=False,
+                 fused_head_chunks=8):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -54,6 +63,9 @@ class GPTConfig:
         self.intermediate_size = intermediate_size or 4 * hidden_size
         self.dropout = dropout
         self.layer_norm_epsilon = layer_norm_epsilon
+        self.initializer_range = initializer_range
+        self.fused_head = fused_head
+        self.fused_head_chunks = fused_head_chunks
 
 
 def _cached_attention(q, kb, vb, p):
@@ -88,17 +100,37 @@ class CausalSelfAttention(nn.Module):
                                         gather_output=False, device=device)
         self.proj = RowParallelLinear(cfg.hidden_size, cfg.hidden_size,
                                       input_is_parallel=True, device=device)
+        self.dropout = cfg.dropout
+
+    def _flash(self, q, k, v):
+        """Uncached causal attention through the flash kernels:
+        ``[B, nh, T, hd]`` in and out."""
+        B, nh, T, hd = q.shape
+        if self.training and self.dropout > 0.0:
+            raise NotImplementedError(
+                'attention dropout in training needs the fused softmax '
+                'kernel, not ported yet; train with dropout=0.0')
+        if not can_use_pallas(T, T, hd):
+            raise NotImplementedError(
+                f'head_dim {hd}: the flash kernels take multiples of 16 '
+                'up to 128, and the non-flash attention needs the fused '
+                'softmax kernel, not ported yet')
+        q, k, v = amp_cast('flash_attention', q, k, v)
+        y = flash_attention(q.reshape(B * nh, T, hd),
+                            k.reshape(B * nh, T, hd),
+                            v.reshape(B * nh, T, hd), causal=True)
+        return y.reshape(B, nh, T, hd)
 
     def forward(self, x, cache=None, pos=None):
-        if cache is None:
-            raise NotImplementedError(
-                f'uncached attention {_TRAINING_SLICE}')
         B, T, H = x.shape
         qkv = self.qkv(x).reshape(B, T, 3, self.n_head, self.head_dim)
         q = qkv[:, :, 0].transpose(1, 2)             # [B, nh, T, hd]
         k = qkv[:, :, 1].transpose(1, 2)
         v = qkv[:, :, 2].transpose(1, 2)
-        if getattr(cache, 'paged', False):
+        if cache is None:
+            y = self._flash(q, k, v)
+            new_cache = None
+        elif getattr(cache, 'paged', False):
             # serving decode: one token per sequence, k/v written into
             # the pool through the block table, ragged length masking
             if T != 1:
@@ -150,9 +182,16 @@ class GPTBlock(nn.Module):
 
     def forward(self, x, cache=None, pos=None):
         a, new_cache = self.attn(self.ln1(x), cache=cache, pos=pos)
-        x = x + a
-        x = x + self.mlp(self.ln2(x))
+        x = _add(x, a)
+        x = _add(x, self.mlp(self.ln2(x)))
         return x, new_cache
+
+
+def _add(a, b):
+    """``a + b`` as the reference's gray ``add`` op under AMP (O1: both
+    low when either is; O2: both low)."""
+    a, b = amp_cast('add', a, b)
+    return a + b
 
 
 class GPT(nn.Module):
@@ -172,16 +211,24 @@ class GPT(nn.Module):
                               device=device)
 
     def forward(self, input_ids, caches=None, pos=None):
-        if caches is None:
-            raise NotImplementedError(f'uncached forward {_TRAINING_SLICE}')
         T = input_ids.shape[1]
+        if caches is None:
+            # training path: position rows 0..T-1, flash attention
+            if T > self.config.max_seq_len:
+                raise ValueError(f'sequence length {T} exceeds '
+                                 f'max_seq_len {self.config.max_seq_len}')
+            x = _add(self.wte(input_ids),
+                     F.embedding_prefix(self.wpe.weight, T))
+            for blk in self.blocks:
+                x, _ = blk(x)
+            return self.ln_f(x)
         steps = torch.arange(T, device=input_ids.device)
         if torch.is_tensor(pos) and pos.dim() == 1:
             # the serving engine's ragged live set: a [B] start vector
             posv = pos.long()[:, None] + steps[None, :]
         else:
             posv = int(pos) + steps
-        x = self.wte(input_ids) + self.wpe(posv)
+        x = _add(self.wte(input_ids), self.wpe(posv))
         new_caches = []
         for blk, c in zip(self.blocks, caches):
             x, nc = blk(x, cache=c, pos=pos)
@@ -190,11 +237,13 @@ class GPT(nn.Module):
 
 
 class GPTForCausalLM(nn.Module):
-    """GPT + tied LM head over the cached forward.
+    """GPT + tied LM head; ``forward`` returns logits (or, training with
+    ``fused_head``, hidden states), ``loss`` the causal LM loss.
 
     ``device=None`` is the CUDA card (raises without one); ``seed``
     draws the random init from an explicit CPU ``torch.Generator``, so
-    the same seed gives the same weights on every device."""
+    the same seed gives the same weights on every device.  The model is
+    built in eval mode (serving); a trainer switches it to train()."""
 
     def __init__(self, config, device=None, seed=0):
         super().__init__()
@@ -217,15 +266,44 @@ class GPTForCausalLM(nn.Module):
         load_numpy_state(self, params)
         return self
 
+    def _head(self, h):
+        h, w = amp_cast('matmul', h, self.gpt.wte.weight)
+        return torch.matmul(h, w.t())
+
     def forward(self, input_ids, caches=None, pos=None):
-        if caches is None:
-            raise NotImplementedError(f'uncached forward {_TRAINING_SLICE}')
-        h, new_caches = self.gpt(input_ids, caches=caches, pos=pos)
-        logits = torch.matmul(h, self.gpt.wte.weight.t())
-        return logits, new_caches
+        if caches is not None:
+            h, new_caches = self.gpt(input_ids, caches=caches, pos=pos)
+            return self._head(h), new_caches
+        h = self.gpt(input_ids)
+        if self.config.fused_head and self.training:
+            # the head matmul happens inside loss() (ops/fused_ce.py)
+            return h
+        return self._head(h)
 
     def loss(self, logits, labels, aux_losses=None):
-        raise NotImplementedError(f'GPTForCausalLM.loss {_TRAINING_SLICE}')
+        """Causal LM loss: shift-by-one cross entropy, mean over the
+        ``B * (T - 1)`` predicted tokens.
+
+        With ``config.fused_head``, a training forward returns hidden
+        states ``[B, T, H]`` and the tied head, softmax and CE fuse
+        here (``ops/fused_ce.py``, a gray op under AMP); the branch is
+        keyed off the shape the forward produced, as in the reference.
+        ``aux_losses`` (MoE) is not ported."""
+        if aux_losses:
+            raise NotImplementedError('MoE auxiliary losses are not '
+                                      'ported yet')
+        cfg = self.config
+        B, T, D = logits.shape
+        labels = torch.as_tensor(labels, device=logits.device)
+        if cfg.fused_head and D == cfg.hidden_size and D != cfg.vocab_size:
+            h, w = amp_cast('fused_lm_head_ce', logits, self.gpt.wte.weight)
+            losses = fused_linear_cross_entropy(
+                h[:, :-1, :].reshape(B * (T - 1), D), w.t(),
+                labels[:, 1:].reshape(B * (T - 1)),
+                num_chunks=cfg.fused_head_chunks)
+            return losses.mean()
+        return F.cross_entropy(logits[:, :-1, :].reshape(B * (T - 1), D),
+                               labels[:, 1:].reshape(B * (T - 1)))
 
     def init_decode_caches(self, batch_size, max_len):
         """Per-layer dense f32 KV buffers ``[B, nh, max_len, hd]``."""

@@ -8,14 +8,22 @@ root:
 
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
-Tolerances: f32 1e-5 (the kernel sums a row in another order than
-PyTorch's reductions); bf16 2e-2 on y (both round y to bf16, from f32
-values that differ in the last bits), 1e-5 on the f32 statistics.
+Tolerances, LayerNorm: f32 1e-5 (the kernel sums a row in another
+order than PyTorch's reductions); bf16 2e-2 on y (both round y to bf16,
+from f32 values that differ in the last bits), 1e-5 on the f32
+statistics.
+
+Tolerances, flash attention (each kernel against its own plain twin on
+the same inputs): f32 1e-5 on o and lse and 1e-4 on dq/dk/dv (the
+kernel's online softmax and tile sums run in another order than the
+twin's matmuls over whole rows); bf16 2e-2 on o/dq/dk/dv (both round
+the f32 result to bf16) and 1e-4 on the f32 lse.
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_norm
 
 
@@ -78,3 +86,80 @@ def test_layer_norm_kernel_refuses_what_it_does_not_take():
     x, g, b = _inputs(4, 128, torch.float16)
     with pytest.raises(TypeError):
         fused_norm._fwd_cuda(x, g, b, 1e-5)
+
+
+def _attn_inputs(bh, t, d, dtype, seed=3):
+    rs = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rs.randn(bh, t, d).astype(np.float32))
+                   .cuda().to(dtype) for _ in range(4))
+    g_lse = torch.from_numpy(rs.randn(bh, t).astype(np.float32)).cuda()
+    return q, k, v, do, g_lse
+
+
+_FLASH_TOL = {torch.float32: (1e-5, 1e-5, 1e-4),      # o, lse, grads
+              torch.bfloat16: (2e-2, 1e-4, 2e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bh,t,d', [(4, 256, 64), (2, 200, 64),
+                                    (3, 77, 128), (2, 64, 16), (1, 1, 32)])
+@pytest.mark.parametrize('causal', [False, True, 'strict'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain_twins(bh, t, d, causal, dtype):
+    _cuda()
+    q, k, v, do, g_lse = _attn_inputs(bh, t, d, dtype)
+    scale = 1.0 / np.sqrt(d)
+    tol_o, tol_lse, tol_g = _FLASH_TOL[dtype]
+    before = [kn.launches for kn in (fa.FWD_KERNEL, fa.DQ_KERNEL,
+                                     fa.DKV_KERNEL)]
+    o, lse = fa._fwd_cuda(q, k, v, causal, scale)
+    ro, rlse = fa._reference_lse(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), ro.to(dtype).float(), rtol=tol_o,
+                               atol=tol_o)
+    torch.testing.assert_close(lse, rlse, rtol=tol_lse, atol=tol_lse)
+    # both backward kernels on the twin's (o, lse), with the g_lse fold
+    delta = (do.float() * ro.to(dtype).float()).sum(-1) - g_lse
+    args = (q, k, v, do, rlse, delta, causal, scale)
+    dq = fa._bwd_dq_cuda(*args)
+    dk, dv = fa._bwd_dkv_cuda(*args)
+    rdq = fa._bwd_dq_reference(*args)
+    rdk, rdv = fa._bwd_dkv_reference(*args)
+    torch.cuda.synchronize()
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol_g,
+                                   atol=tol_g)
+    after = [kn.launches for kn in (fa.FWD_KERNEL, fa.DQ_KERNEL,
+                                    fa.DKV_KERNEL)]
+    assert after == [b + 1 for b in before]
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_the_card_matches_the_cpu():
+    _cuda()
+    q, k, v, do, g_lse = _attn_inputs(2, 130, 64, torch.float32, seed=5)
+    outs = []
+    for dev in ('cuda', 'cpu'):
+        qs, ks, vs = (t.to(dev).clone().requires_grad_() for t in (q, k, v))
+        o, lse = fa.flash_attention_lse(qs, ks, vs, True, None)
+        torch.autograd.backward((o, lse), (do.to(dev), g_lse.to(dev)))
+        outs.append([t.detach().cpu() for t in (o, lse, qs.grad, ks.grad,
+                                                 vs.grad)])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_what_they_do_not_take():
+    _cuda()
+    q, k, v, _, _ = _attn_inputs(2, 64, 8, torch.float32)
+    with pytest.raises(ValueError, match='D % 16'):
+        fa._fwd_cuda(q, k, v, True, 1.0)
+    q, k, v, _, _ = _attn_inputs(2, 64, 64, torch.float16)
+    with pytest.raises(TypeError):
+        fa._fwd_cuda(q, k, v, True, 1.0)
+    q, k, v, _, _ = _attn_inputs(2, 64, 64, torch.float32)
+    with pytest.raises(ValueError, match='contiguous'):
+        fa._fwd_cuda(q.transpose(0, 1), k.transpose(0, 1),
+                     v.transpose(0, 1), True, 1.0)

@@ -1,0 +1,200 @@
+"""The port's flash attention against the JAX package's, on the CPU.
+
+The same numpy-seeded q/k/v/do (bh 2, T 256, D 64, f32) go through the
+reference's Pallas kernels in TPU-interpret mode (blocks 128, as
+``tests/test_ops_kernels.py`` runs them) and through the port's public
+functions on CPU tensors, which run the plain twins of the CUDA
+kernels.  Causal modes ``False``, ``True`` and ``'strict'``.
+
+Tolerances: 1e-5 on o and lse (f32; the kernels' online softmax sums in
+another order than the twin's whole-row softmax), 1e-4 on dq/dk/dv.
+Strict mode's row 0 has no valid column: its lse is a sentinel (-1e30 in
+the Pallas kernel, -1e29 in the reference's plain function and in the
+port, whose CUDA kernel matches its twin), so that row's lse is checked
+to be <= -1e29 and the others are compared.
+"""
+import importlib
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+jfa = importlib.import_module('paddle_tpu.ops.flash_attention')
+pfa = importlib.import_module('paddle_tpu_torch.ops.flash_attention')
+
+FWD_TOL = 1e-5
+GRAD_TOL = 1e-4
+SCALE = 0.125
+MODES = [False, True, 'strict']
+
+
+def _inputs(bh=2, t=256, d=64, seed=0):
+    rs = np.random.RandomState(seed)
+    q, k, v, do = (rs.randn(bh, t, d).astype(np.float32) for _ in range(4))
+    g_lse = rs.randn(bh, t).astype(np.float32)
+    return q, k, v, do, g_lse
+
+
+def _torch(*arrays, grad=False):
+    return [torch.from_numpy(a).requires_grad_(grad) for a in arrays]
+
+
+def _check_lse(got, want, causal):
+    got, want = np.asarray(got), np.asarray(want)
+    if causal == 'strict':
+        assert (got[:, 0] <= -1e29).all() and (want[:, 0] <= -1e29).all()
+        got, want = got[:, 1:], want[:, 1:]
+    np.testing.assert_allclose(got, want, rtol=FWD_TOL, atol=FWD_TOL)
+
+
+@pytest.mark.parametrize('causal', MODES)
+def test_forward_matches_the_pallas_kernel(causal):
+    q, k, v, _, _ = _inputs()
+    with pltpu.force_tpu_interpret_mode():
+        jo, jlse = jfa._fwd_pallas(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), SCALE, causal, 128, 128)
+    o, lse = pfa.flash_attention_lse(*_torch(q, k, v), causal, SCALE)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=FWD_TOL,
+                               atol=FWD_TOL)
+    assert lse.shape == (2, 256) and lse.dtype == torch.float32
+    _check_lse(lse.numpy(), np.asarray(jlse)[:, :, 0], causal)
+    if causal == 'strict':
+        assert float(o[:, 0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('causal', MODES)
+def test_gradients_match_jax_grad_through_the_pallas_kernels(causal):
+    q, k, v, do, _ = _inputs(seed=1)
+
+    def loss(a, b, c):
+        return jnp.sum(jfa._flash(a, b, c, causal, SCALE, 128, 128)
+                       * jnp.asarray(do))
+
+    with pltpu.force_tpu_interpret_mode():
+        jg = jax.grad(loss, argnums=(0, 1, 2))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = _torch(q, k, v, grad=True)
+    pfa.flash_attention(tq, tk, tv, causal=causal, scale=SCALE).backward(
+        torch.from_numpy(do))
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize('causal', MODES)
+def test_lse_cotangent_folds_in_exactly(causal):
+    """The g_lse fold (delta - g_lse) against jax.vjp of _flash_lse."""
+    q, k, v, do, g_lse = _inputs(seed=2)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(
+            lambda a, b, c: jfa._flash_lse(a, b, c, causal, SCALE, 128, 128),
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        jg = vjp((jnp.asarray(do), jnp.asarray(g_lse)))
+    tq, tk, tv = _torch(q, k, v, grad=True)
+    o, lse = pfa.flash_attention_lse(tq, tk, tv, causal, SCALE)
+    torch.autograd.backward((o, lse), _torch(do, g_lse))
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize('causal', MODES)
+def test_backward_twins_equal_autograd_through_the_forward_twin(causal):
+    """The explicit backward twins (the kernels' algebra, clamp and
+    masking) against torch autograd through ``_reference_lse``."""
+    q, k, v, do, g_lse = _inputs(bh=2, t=96, d=32, seed=3)
+    tq, tk, tv = _torch(q, k, v, grad=True)
+    o, lse = pfa._reference_lse(tq, tk, tv, causal, SCALE)
+    torch.autograd.backward((o, lse), _torch(do, g_lse))
+    o, lse = o.detach(), lse.detach()
+    tdo, tg = _torch(do, g_lse)
+    delta = (tdo * o).sum(-1) - tg
+    args = (*_torch(q, k, v), tdo, lse, delta, causal, SCALE)
+    dq = pfa._bwd_dq_reference(*args)
+    dk, dv = pfa._bwd_dkv_reference(*args)
+    for got, want in ((dq, tq.grad), (dk, tk.grad), (dv, tv.grad)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize('causal', MODES)
+def test_ragged_length_matches_the_reference_function(causal):
+    """T = 200 is no multiple of any tile: the port (the CUDA kernels
+    mask the ragged last tile) against the reference's plain
+    ``_reference_lse`` and jax.grad through it."""
+    q, k, v, do, _ = _inputs(bh=3, t=200, d=48, seed=4)
+    scale = 1.0 / math.sqrt(48)
+    jo, jlse = jfa._reference_lse(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal, scale)
+
+    def loss(a, b, c):
+        return jnp.sum(jfa._reference_lse(a, b, c, causal, scale)[0]
+                       * jnp.asarray(do))
+
+    jg = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v))
+    tq, tk, tv = _torch(q, k, v, grad=True)
+    o, lse = pfa.flash_attention_lse(tq, tk, tv, causal, None)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo),
+                               rtol=FWD_TOL, atol=FWD_TOL)
+    _check_lse(lse.detach().numpy(), jlse, causal)
+    # the public path on CPU tensors is the kernels' twin
+    to, tlse = pfa._reference_lse(*_torch(q, k, v), causal, scale)
+    assert torch.equal(o.detach(), to) and torch.equal(lse.detach(), tlse)
+    o.backward(torch.from_numpy(do))
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def test_bf16_inputs_give_bf16_outputs_and_f32_lse():
+    q, k, v, do, _ = _inputs(bh=2, t=64, d=32, seed=5)
+    tq, tk, tv = (t.to(torch.bfloat16).requires_grad_()
+                  for t in _torch(q, k, v))
+    o, lse = pfa.flash_attention_lse(tq, tk, tv, True, None)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    o.backward(torch.from_numpy(do).to(torch.bfloat16))
+    assert all(t.grad.dtype == torch.bfloat16 for t in (tq, tk, tv))
+    ro, _ = pfa._reference_lse(tq, tk, tv, True, 1.0 / math.sqrt(32))
+    np.testing.assert_allclose(o.detach().float().numpy(),
+                               ro.detach().numpy(), rtol=1e-2, atol=1e-2)
+
+
+def test_shape_gate_and_block_arguments():
+    assert pfa.can_use_pallas(1, 1, 16) and pfa.can_use_pallas(200, 200, 64)
+    assert pfa.can_use_pallas(1024, 1024, 128)
+    assert not pfa.can_use_pallas(128, 128, 8)
+    assert not pfa.can_use_pallas(128, 128, 72)
+    assert not pfa.can_use_pallas(128, 128, 256)
+    assert not pfa.can_use_pallas(0, 128, 64)
+    q, k, v, _, _ = _inputs(bh=1, t=32, d=16)
+    base = pfa.flash_attention(*_torch(q, k, v), causal=True)
+    same = pfa.flash_attention(*_torch(q, k, v), causal=True, block_q=128,
+                               block_k=256)
+    assert torch.equal(base, same)
+    for bad in (0, -64, 1.5, True):
+        with pytest.raises(ValueError, match='block_q'):
+            pfa.flash_attention(*_torch(q, k, v), block_q=bad)
+
+
+def test_a_tensor_on_another_device_raises_instead_of_falling_back():
+    q = torch.empty((1, 8, 16), device='meta')
+    with pytest.raises(ValueError, match='no kernel for device'):
+        pfa.flash_attention(q, q, q, causal=True)
+
+
+def test_kernels_are_registered_with_their_tpu_counterparts():
+    names = {kn.name: kn for kn in (pfa.FWD_KERNEL, pfa.DQ_KERNEL,
+                                    pfa.DKV_KERNEL)}
+    assert set(names) == {'flash_attention_fwd', 'flash_attention_bwd_dq',
+                          'flash_attention_bwd_dkv'}
+    assert names['flash_attention_fwd'].replaces.endswith(':151')
+    assert names['flash_attention_bwd_dq'].replaces.endswith(':245')
+    assert names['flash_attention_bwd_dkv'].replaces.endswith(':295')
+    for kn in names.values():
+        assert kn.route == 'cuda'
+        assert kn.source_path == 'paddle_tpu_torch/csrc/flash_attention.cu'

@@ -205,9 +205,17 @@ def test_load_numpy_state_rejects_mismatch(models):
 
 
 def test_uncached_forward_belongs_to_training_slice(models):
-    _, pm, _ = models
-    with pytest.raises(NotImplementedError, match='training slice'):
-        pm(torch.zeros((1, 4), dtype=torch.int64))
+    """The training slice's uncached forward (flash attention) gives the
+    JAX model's uncached logits, and the cached prefill's."""
+    jm, pm, _ = models
+    ids = np.random.RandomState(3).randint(0, 128, (2, 8)).astype(np.int64)
+    got = pm(torch.from_numpy(ids)).detach().numpy()
+    np.testing.assert_allclose(got, _jax_logits(jm(paddle.to_tensor(ids))),
+                               rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    plog, _ = pm.prefill(torch.from_numpy(ids), 0,
+                         pm.init_decode_caches(2, 8))
+    np.testing.assert_allclose(got, plog.numpy(), rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL)
 
 
 def test_serve_config_rejects_unported_features():

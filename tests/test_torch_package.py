@@ -65,7 +65,11 @@ def test_forbidden_names():
 
 def test_import_leaves_jax_unloaded():
     code = ('import sys, paddle_tpu_torch, paddle_tpu_torch.serving, '
-            'paddle_tpu_torch.models, paddle_tpu_torch.convert; '
+            'paddle_tpu_torch.models, paddle_tpu_torch.convert, '
+            'paddle_tpu_torch.amp, paddle_tpu_torch.optimizer, '
+            'paddle_tpu_torch.parallel, paddle_tpu_torch.distributed, '
+            'paddle_tpu_torch.ops.flash_attention, '
+            'paddle_tpu_torch.ops.fused_ce; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "paddle_tpu")]; print(bad); '
             'sys.exit(1 if bad else 0)')

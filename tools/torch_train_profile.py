@@ -1,0 +1,177 @@
+"""Where the port's training time goes, on one CUDA card.
+
+    python3 tools/torch_train_profile.py [--steps 2] [--out build/torch_train_profile.json]
+
+Run from the repository root.  One training step of ``gpt_small`` at
+full width in the configuration of ``chip_smoke.py``'s training phase
+(B 8, T 1024, bf16 O2, fused CE head in 8 chunks, AdamW, random seeded
+weights), after 2 warm-up steps, under ``torch.profiler`` (CUPTI device
+timestamps) for ``--steps`` steps: wall time per step, the device's
+busy and idle share (the union of kernel intervals over the wall
+window), device time by kernel and by kind of kernel, host time by
+operator, and for each of the trainer's forward, backward and optimizer
+ranges its host time and its span on the device's timeline (first to
+last kernel launched inside it, gaps included).
+
+Prints a summary and writes the whole result as JSON to ``--out``.
+"""
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import chip_smoke  # noqa: E402  (the smoke's model, config and helpers)
+
+# kinds of device kernels, first match wins (lower-case substrings)
+KINDS = [('flash_attention_fwd', ('flash_fwd',)),
+         ('flash_attention_bwd_dq', ('flash_bwd_dq',)),
+         ('flash_attention_bwd_dkv', ('flash_bwd_dkv',)),
+         ('fused_layer_norm', ('layer_norm_fwd',)),
+         ('matmul (cuBLAS/CUTLASS)', ('gemm', 'cutlass', 'sm90_xmma',
+                                      'nvjet', 'cublas', 'splitk')),
+         ('reduction', ('reduce',)),
+         ('copy / cast', ('copy', 'cast')),
+         ('elementwise', ('elementwise', 'vectorized', 'unrolled')),
+         ('index / gather / scatter', ('index', 'gather', 'scatter',
+                                       'embedding'))]
+RANGES = ('ParallelTrainer.forward', 'ParallelTrainer.backward',
+          'ParallelTrainer.optimizer')
+
+
+def _kind(name):
+    low = name.lower()
+    for kind, keys in KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return 'other'
+
+
+def _busy_us(events):
+    """Length of the union of device-kernel intervals, and their count."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy, len(spans)
+
+
+def training_breakdown(steps=2, top=20):
+    from paddle_tpu_torch.models.gpt import gpt_small
+    model = gpt_small(device='cuda', seed=0, **chip_smoke.TRAIN_MODEL_KW)
+    trainer = chip_smoke._trainer(model, amp_o2=True)
+    ids = np.random.RandomState(0).randint(
+        0, model.config.vocab_size,
+        (chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ)).astype(np.int64)
+    for _ in range(chip_smoke.TRAIN_WARMUP):
+        trainer.step(ids, ids)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = trainer.step(ids, ids)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # the trainer's record_function ranges also appear on the device's
+    # timeline as annotations; they are spans, not kernels
+    device = [e for e in prof.events() if chip_smoke.is_device_event(e)]
+    events = [e for e in device if e.name not in RANGES]
+    spans = {}
+    for e in device:
+        if e.name in RANGES:
+            spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end
+                                                      - e.time_range.start)
+    busy_us, n_kernels = _busy_us(events)
+    by_kind = {}
+    for e in events:
+        k = _kind(e.name)
+        by_kind[k] = by_kind.get(k, 0.0) + (e.time_range.end
+                                            - e.time_range.start)
+    avgs = prof.key_averages()
+    dev = sorted((e for e in avgs if chip_smoke.is_device_event(e)
+                  and e.key not in RANGES),
+                 key=chip_smoke.self_device_us, reverse=True)
+    host = sorted((e for e in avgs if not chip_smoke.is_device_event(e)
+                   and e.key not in RANGES),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    ranges = {e.key: float(e.cpu_time_total) / steps for e in avgs
+              if e.key in RANGES and not chip_smoke.is_device_event(e)}
+    tokens = chip_smoke.TRAIN_BATCH * chip_smoke.TRAIN_SEQ
+    res = {
+        'steps': steps, 'loss': float(loss),
+        'wall_ms_per_step': wall_us / steps / 1e3,
+        'tokens_per_s_under_profiler': tokens * steps / (wall_us / 1e6),
+        'device_busy_ms_per_step': busy_us / steps / 1e3,
+        'device_idle_share': 1.0 - busy_us / wall_us,
+        'kernel_launches_per_step': n_kernels / steps,
+        'device_ms_per_step_by_kind': {
+            k: v / steps / 1e3 for k, v in sorted(
+                by_kind.items(), key=lambda kv: kv[1], reverse=True)},
+        'host_ms_per_step_by_range': {k: v / 1e3
+                                      for k, v in ranges.items()},
+        'device_span_ms_per_step_by_range': {k: v / steps / 1e3
+                                             for k, v in spans.items()},
+        'device_kernels': [
+            {'name': e.key[:120], 'count': int(e.count),
+             'device_ms_per_step': chip_smoke.self_device_us(e) / steps
+             / 1e3} for e in dev[:top]],
+        'host_ops': [
+            {'name': e.key[:80], 'count': int(e.count),
+             'self_cpu_ms_per_step': float(e.self_cpu_time_total) / steps
+             / 1e3} for e in host[:top]],
+    }
+    print(f'train under the profiler: {steps} steps, wall '
+          f'{res["wall_ms_per_step"]:.2f} ms/step, device busy '
+          f'{res["device_busy_ms_per_step"]:.2f} ms/step, idle share '
+          f'{res["device_idle_share"]:.4f}, '
+          f'{res["kernel_launches_per_step"]:.0f} kernels/step', flush=True)
+    for k, v in res['device_ms_per_step_by_kind'].items():
+        print(f'  kind   {v:9.3f} ms/step {k}')
+    for k, v in res['host_ms_per_step_by_range'].items():
+        print(f'  range  {v:9.3f} ms/step host, '
+              f'{res["device_span_ms_per_step_by_range"].get(k, 0.0):9.3f} '
+              f'ms/step device span {k}')
+    for k in res['device_kernels']:
+        print(f'  device {k["device_ms_per_step"]:9.3f} ms/step '
+              f'{k["count"]:6d}x {k["name"]}')
+    for h in res['host_ops']:
+        print(f'  host   {h["self_cpu_ms_per_step"]:9.3f} ms/step '
+              f'{h["count"]:6d}x {h["name"]}')
+    return res
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--steps', type=int, default=2)
+    ap.add_argument('--out', default='build/torch_train_profile.json')
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print('torch_train_profile: no CUDA device', file=sys.stderr)
+        return 2
+    name = chip_smoke.device_phase()
+    chip_smoke.build_phase()
+    res = {'device': name, 'training': training_breakdown(args.steps)}
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, 'w') as f:
+        json.dump(res, f, indent=1)
+    print(f'wrote {args.out}')
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())
