@@ -17,7 +17,15 @@ From the repository root, with one CUDA card.  It
    launch work).  LayerNorm at the serving and training shapes; the
    three flash attention kernels (forward, dq, dk/dv) at the training
    shape (96 x 1024 x 64 bf16 causal), in f32, in ``'strict'`` mode
-   with an lse cotangent, and at a ragged T of 200;
+   with an lse cotangent, at a ragged T of 200 and at BERT-base's
+   768 x 128 x 64 bf16 non-causal; the softmax kernel
+   at BERT-base's attention scores (64 x 12 x 128 x 128, f32 and bf16),
+   at GPT's row of 1024 and at a ragged row of 200; the masked softmax
+   through the public ``ops.fused_softmax(x, mask)`` at BERT's shape
+   with a seeded padding mask, at the ragged shape and with a full bf16
+   mask; the GEMM+GELU forward and backward kernels at BERT-base's fc
+   (8192 x 768 x 3072, bf16 and f32) and at a ragged 1000 x 700 x 3001
+   with the erf GELU;
 4. serves 32 seeded Poisson requests with ``gpt_small`` at full width
    (random seeded weights) through ``ServingEngine`` with the
    benchmark's serving config, and checks the outcome: every request
@@ -34,7 +42,22 @@ From the repository root, with one CUDA card.  It
    B 1, T 256 gives the card the same loss and gradients as the same
    weights on the CPU through the plain twins; it prints ms/step,
    tokens/s, peak device memory and an MFU share;
-6. prints one JSON line listing every kernel, then as its last line
+6. trains ``gpt_small`` 2 steps at its dropout 0.1 (B 2, T 1024, bf16
+   O2): finite losses, the softmax kernel 12 times per step, no flash;
+7. trains ``bert_base`` at full width through ``ParallelTrainer.step``
+   in the benchmark's BERT configuration (B 64, T 128, bf16 O2, fused
+   MLM head in 8 chunks, AdamW lr 1e-4, MLM labels on 15% of positions)
+   three times: at the published dropout 0.1 (2 warm-up and 5 timed
+   steps: the softmax kernel in every layer), at the benchmark's dropout
+   0 (1 + 3 steps: non-causal flash) and at dropout 0.1 with
+   ``USE_PALLAS_MLP`` (1 + 3 steps: the GEMM+GELU kernels in every
+   MLP), each with finite, falling losses and exact launch counts per
+   step; then one f32 step at B 2 with ``USE_PALLAS_MLP`` and dropout
+   1e-9 (every element kept at scale 1, the softmax branch taken) on
+   the card against the same weights on the CPU;
+8. prints one JSON line with the training results, one listing every
+   kernel (its launches on each path, each path's counts set to 0 just
+   before it and read just after), then as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  Without a
@@ -62,7 +85,8 @@ KERNEL_SHAPES = [((64, 768), torch.float32, 1e-5),     # decode, S=64
                  ((8192, 768), torch.bfloat16, 2e-2)]  # training, B8 T1024
 
 # flash attention cases: (case, B, H, T, D, dtype, causal, with g_lse),
-# the first being the training path's shape.  Tolerances (kernel vs its
+# the first being GPT training's shape, the last BERT-base's (dropout
+# 0).  Tolerances (kernel vs its
 # own twin, |got - want| <= tol * (1 + |want|)): f32 1e-5 on o and lse
 # and 1e-4 on dq/dk/dv (online softmax and tile sums in another order
 # than the twin's whole-row matmuls); bf16 2e-2 on o/dq/dk/dv (both
@@ -70,7 +94,8 @@ KERNEL_SHAPES = [((64, 768), torch.float32, 1e-5),     # decode, S=64
 FLASH_CASES = [('train', 8, 12, 1024, 64, torch.bfloat16, True, False),
                ('f32', 8, 12, 1024, 64, torch.float32, True, False),
                ('strict', 8, 12, 1024, 64, torch.bfloat16, 'strict', True),
-               ('ragged', 8, 12, 200, 64, torch.float32, False, False)]
+               ('ragged', 8, 12, 200, 64, torch.float32, False, False),
+               ('bert', 64, 12, 128, 64, torch.bfloat16, False, False)]
 FLASH_TOL = {torch.float32: (1e-5, 1e-5, 1e-4),
              torch.bfloat16: (2e-2, 1e-4, 2e-2)}
 FLASH_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
@@ -93,6 +118,51 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 # one f32 step on the card vs the CPU: loss relative, each gradient's
 # max |diff| relative to its max |value| (12 layers, sums reordered)
 PARITY_SEQ, PARITY_LOSS_RTOL, PARITY_GRAD_RTOL = 256, 1e-4, 1e-3
+
+# softmax cases: (case, x shape, dtype, mask shape or None); the first
+# of each kernel is its main-path shape: BERT-base's attention scores
+# [B 64, H 12, T 128, T 128], f32 after AMP (softmax is black-listed).
+# Tolerances (kernel vs twin, |got - want| <= tol * (1 + |want|)): f32
+# 1e-6 (one exp and one division per element, the row's sums in another
+# order), bf16 2^-8 (both round an f32 value below 1 to bf16)
+SOFTMAX_CASES = [
+    ('bert', (64, 12, 128, 128), torch.float32, None),
+    ('bert_bf16', (64, 12, 128, 128), torch.bfloat16, None),
+    ('gpt', (2, 12, 1024, 1024), torch.float32, None),
+    ('ragged', (8, 12, 200, 200), torch.float32, None),
+    ('bert_padding', (64, 12, 128, 128), torch.float32, (64, 1, 1, 128)),
+    ('ragged_padding', (8, 12, 200, 200), torch.float32, (8, 1, 1, 200)),
+    ('bf16_full_mask', (8, 12, 128, 128), torch.bfloat16, (8, 12, 128, 128)),
+]
+SOFTMAX_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8}
+SOFTMAX_KERNELS = ('fused_softmax', 'fused_softmax_masked')
+
+# GEMM+GELU cases: (case, M, K, N, dtype, approximate); the first is
+# BERT-base's fc at B 64 x T 128 under bf16 O2.  Tolerances (kernel vs
+# twin, relative as above): f32 1e-4 (K-term sums in another order than
+# cuBLAS's), bf16 2e-2 (both round the f32 result to bf16)
+GELU_CASES = [('bert_fc', 8192, 768, 3072, torch.bfloat16, True),
+              ('bert_fc_f32', 8192, 768, 3072, torch.float32, True),
+              ('ragged_erf', 1000, 700, 3001, torch.float32, False)]
+GELU_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+GELU_KERNELS = ('fused_linear_gelu_fwd', 'fused_linear_gelu_bwd')
+
+# BERT-base pretraining, bench.py::bench_bert's configuration at the
+# model's own dropout: vocab 30522, hidden 768, 12 layers, 12 heads, FFN
+# 3072, LayerNorm eps 1e-12, max_seq_len 128, fused MLM head in 8
+# chunks, AdamW lr 1e-4, bf16 O2, B 64 x T 128, MLM labels on 15% of
+# positions.  Runs: (name, dropout, USE_PALLAS_MLP, warm-up, timed)
+BERT_MODEL_KW = dict(max_seq_len=128, fused_head=True, fused_head_chunks=8)
+BERT_BATCH, BERT_SEQ, BERT_LR = 64, 128, 1e-4
+BERT_RUNS = [('bert_dropout', 0.1, False, 2, 5),
+             ('bert_flash', 0.0, False, 1, 3),
+             ('bert_dropout_gemm_gelu', 0.1, True, 1, 3)]
+# the f32 card-vs-CPU BERT step: B 2, dropout 1e-9 (1 - p rounds to 1 in
+# f32: every element kept at scale 1, yet the softmax branch runs)
+BERT_PARITY_BATCH, BERT_PARITY_DROPOUT = 2, 1e-9
+
+# GPT-2 small with its dropout (0.1) in training: the softmax branch
+GPT_DROPOUT_BATCH, GPT_DROPOUT_STEPS = 2, 2
 
 
 def log(*args):
@@ -371,6 +441,162 @@ def flash_kernel_phase():
     return rows
 
 
+def _ops_module(name):
+    """``paddle_tpu_torch.ops.<name>`` as a module (the package's
+    ``fused_softmax`` attribute is the function of that name)."""
+    import importlib
+    return importlib.import_module(f'paddle_tpu_torch.ops.{name}')
+
+
+def softmax_kernel_phase():
+    """Both softmax kernels against their plain twin on the card, the
+    masked one launched through the public ``ops.fused_softmax(x,
+    mask)`` (no model path reaches it, as in the reference)."""
+    from paddle_tpu_torch.ops import fused_softmax
+    fsm = _ops_module('fused_softmax')
+    rows = {k: [] for k in SOFTMAX_KERNELS}
+    gen = torch.Generator().manual_seed(2)
+    for case, shape, dtype, mshape in SOFTMAX_CASES:
+        x = (3 * torch.randn(shape, generator=gen)).to('cuda', dtype)
+        mask = None
+        if mshape is not None:
+            # padding: each sequence keeps a seeded prefix, -1e9 after
+            keep = torch.rand(mshape, generator=gen) < 0.8
+            if mshape[1:3] == (1, 1):
+                lens = torch.randint(shape[-1] // 4, shape[-1] + 1,
+                                     (mshape[0], 1, 1, 1), generator=gen)
+                keep = torch.arange(shape[-1]) < lens
+            mask = torch.where(keep, 0.0, -1e9).cuda()
+        kname = SOFTMAX_KERNELS[mask is not None]
+        y = fused_softmax(x, mask)
+        want = fsm._reference(x, mask)
+        torch.cuda.synchronize()
+        tol = SOFTMAX_TOL[dtype]
+        err, ok = worst_err(y, want, tol)
+        if not ok:
+            raise AssertionError(f'{kname} {case} {shape} {dtype}: max '
+                                 f'|y - plain| {err:.3e} beyond tol {tol}')
+        if mask is None:
+            lib = lambda: torch.softmax(x, dim=-1)  # noqa: E731
+            library = 'torch.softmax'
+        else:
+            lib = lambda: torch.softmax(x + mask, dim=-1)  # noqa: E731
+            library = 'torch.softmax(x + mask): two calls'
+        fns = {'': lambda: fused_softmax(x, mask),
+               'plain_': lambda: fsm._reference(x, mask), 'library_': lib}
+        n, h = x.numel() // shape[-1], shape[-1]
+        nbytes = 2 * x.numel() * x.element_size() + (
+            0 if mask is None else mask.numel() * 4)
+        row = {'case': case, 'shape': list(shape),
+               'mask_shape': None if mask is None else list(mshape),
+               'dtype': str(dtype).replace('torch.', ''), 'tol': tol,
+               'max_abs_err': err, 'library': library,
+               'bytes': nbytes, 'flops': 4 * n * h}
+        time_row(row, fns, iters=50, warmup=5, prof_iters=20)
+        # bytes bound; ~4 f32 operations per element (max, subtract,
+        # exp, divide) are far below the f32 peak
+        row['bound_ms'], row['bound_by'] = bound(nbytes, 4 * n * h,
+                                                 torch.float32)
+        log(f'kernel {kname} {case} {list(shape)} {row["dtype"]}'
+            + ('' if mask is None else f' mask {list(mshape)}')
+            + f': max_abs_err {err:.3e} (tol {tol:.3g}) | device: kernel '
+            f'{row["ms"] * 1e3:.2f} us, plain {row["plain_ms"] * 1e3:.2f} '
+            f'us, {library} {row["library_ms"] * 1e3:.2f} us '
+            f'({row["ms_from"]}) | per call: kernel '
+            f'{row["call_ms"] * 1e3:.2f} us | bound '
+            f'{row["bound_ms"] * 1e3:.2f} us ({row["bound_by"]})')
+        rows[kname].append(row)
+    return rows
+
+
+def gelu_bounds(M, K, N, dtype):
+    """{kernel: (bound_ms, bound_by, flops, bytes)}: 2*M*N*K flops each;
+    forward reads x, w and the f32 bias and writes y, backward also
+    reads dy and writes dz."""
+    es = torch.empty((), dtype=dtype).element_size()
+    io = (M * K + K * N) * es + 4 * N
+    work = {'fused_linear_gelu_fwd': io + M * N * es,
+            'fused_linear_gelu_bwd': io + 2 * M * N * es}
+    flops = 2 * M * N * K
+    return {k: (*bound(nb, flops, dtype), flops, nb)
+            for k, nb in work.items()}
+
+
+def gelu_kernel_phase():
+    """The GEMM+GELU forward and backward kernels against their plain
+    twins on the card, timed beside the twin, one library call and the
+    bound."""
+    import torch.nn.functional as TF
+    fgl = _ops_module('fused_gelu_linear')
+    rows = {k: [] for k in GELU_KERNELS}
+    gen = torch.Generator().manual_seed(3)
+    fused_act = hasattr(torch, '_addmm_activation')
+    for case, M, K, N, dtype, approx in GELU_CASES:
+        x = torch.randn((M, K), generator=gen).to('cuda', dtype)
+        w = (0.05 * torch.randn((K, N), generator=gen)).to('cuda', dtype)
+        b = torch.randn((N,), generator=gen).cuda()
+        dy = torch.randn((M, N), generator=gen).to('cuda', dtype)
+        y = fgl._fwd_cuda(x, w, b, approx)
+        dz = fgl._bwd_cuda(x, w, b, dy, approx)
+        ry = fgl._reference(x, w, b, approx)
+        rdz = fgl._dz_reference(x, w, b, dy, approx)
+        torch.cuda.synchronize()
+        tol = GELU_TOL[dtype]
+        errs = {}
+        for kname, got, want in ((GELU_KERNELS[0], y, ry),
+                                 (GELU_KERNELS[1], dz, rdz)):
+            errs[kname], ok = worst_err(got, want, tol)
+            if not ok:
+                raise AssertionError(
+                    f'{kname} {case} {M}x{K}x{N} {dtype}: max |out - '
+                    f'plain| {errs[kname]:.3e} beyond tol {tol} * (1 + '
+                    '|plain|)')
+        bl = b.to(dtype)
+        form = 'tanh' if approx else 'none'
+        if approx and fused_act:
+            lib_fwd = lambda: torch._addmm_activation(  # noqa: E731
+                bl, x, w, use_gelu=True)
+            fwd_name = 'torch._addmm_activation(use_gelu=True)'
+        else:
+            lib_fwd = lambda: TF.gelu(TF.linear(  # noqa: E731
+                x, w.t(), bl), approximate=form)
+            fwd_name = 'F.linear + F.gelu: two calls'
+        lib_bwd = lambda: torch.ops.aten.gelu_backward(  # noqa: E731
+            dy, torch.addmm(bl, x, w), approximate=form)
+        fns = {GELU_KERNELS[0]: {
+                   '': lambda: fgl._fwd_cuda(x, w, b, approx),
+                   'plain_': lambda: fgl._reference(x, w, b, approx),
+                   'library_': lib_fwd},
+               GELU_KERNELS[1]: {
+                   '': lambda: fgl._bwd_cuda(x, w, b, dy, approx),
+                   'plain_': lambda: fgl._dz_reference(x, w, b, dy,
+                                                       approx),
+                   'library_': lib_bwd}}
+        libs = {GELU_KERNELS[0]: fwd_name,
+                GELU_KERNELS[1]: 'torch.addmm + aten.gelu_backward: two '
+                                 'calls'}
+        bounds = gelu_bounds(M, K, N, dtype)
+        for kname in GELU_KERNELS:
+            row = {'case': case, 'shape': [M, K, N],
+                   'dtype': str(dtype).replace('torch.', ''),
+                   'approximate': approx, 'tol': tol,
+                   'max_abs_err': errs[kname], 'library': libs[kname]}
+            time_row(row, fns[kname], iters=10, warmup=2, prof_iters=5)
+            (row['bound_ms'], row['bound_by'], row['flops'],
+             row['bytes']) = bounds[kname]
+            row['tflops'] = row['flops'] / (row['ms'] / 1e3) / 1e12
+            log(f'kernel {kname} {case} {M}x{K}x{N} {row["dtype"]} '
+                f'gelu={form}: max_abs_err {errs[kname]:.3e} | device: '
+                f'kernel {row["ms"] * 1e3:.1f} us '
+                f'({row["tflops"]:.2f} TFLOP/s), plain '
+                f'{row["plain_ms"] * 1e3:.1f} us, {libs[kname]} '
+                f'{row["library_ms"] * 1e3:.1f} us ({row["ms_from"]}) | '
+                f'per call: kernel {row["call_ms"] * 1e3:.1f} us | bound '
+                f'{row["bound_ms"] * 1e3:.2f} us ({row["bound_by"]})')
+            rows[kname].append(row)
+    return rows
+
+
 def serving_phase():
     """gpt_small at full width through the continuous-batching engine."""
     from paddle_tpu_torch.models.gpt import gpt_small
@@ -466,7 +692,7 @@ def serving_phase():
     return launches
 
 
-def _trainer(model, amp_o2):
+def _trainer(model, amp_o2, lr=TRAIN_LR):
     from paddle_tpu_torch.distributed.fleet import DistributedStrategy
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import ParallelTrainer
@@ -474,56 +700,82 @@ def _trainer(model, amp_o2):
     if amp_o2:
         strategy.amp = True
         strategy.amp_configs['use_pure_fp16'] = True
-    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+    opt = AdamW(learning_rate=lr, parameters=model.parameters())
     return ParallelTrainer(model, opt, lambda out, y: model.loss(out, y),
                            strategy=strategy)
+
+
+def _run_steps(trainer, batch, warmup, steps):
+    """The main path of a training run: every count at 0 just before,
+    read just after.  Returns (losses, launches, warm-up s, timed s,
+    peak bytes)."""
+    from paddle_tpu_torch.ops import _build
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [trainer.step(*batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    losses += [trainer.step(*batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    return ([trainer.loss_float(x) for x in losses], launches, warm_s, dt,
+            torch.cuda.max_memory_allocated())
+
+
+def _check_run(what, losses, launches, per_step, steps):
+    """Finite losses, the last below the first, and exactly
+    ``per_step[k] * steps`` launches of each kernel."""
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f'{what}: non-finite training loss: {losses}')
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f'{what}: loss did not fall on one batch: '
+                             f'{losses}')
+    for name, n in per_step.items():
+        if launches[name] != n * steps:
+            raise AssertionError(f'{what}: {name} launched '
+                                 f'{launches[name]} times in {steps} steps, '
+                                 f'expected {n} x {steps}')
+
+
+def _per_step(L, ln, softmax=0, flash=0, gelu=0):
+    """Launches per training step of every kernel."""
+    return {'fused_layer_norm': ln, 'fused_softmax': softmax * L,
+            'fused_softmax_masked': 0,
+            **{k: flash * L for k in FLASH_KERNELS},
+            **{k: gelu * L for k in GELU_KERNELS}}
+
+
+def _launch_summary(launches, per_step, steps):
+    return ', '.join(f'{k} {launches[k] // steps}'
+                     for k, n in per_step.items() if n) \
+        + f' per step (x {steps} steps, exact)'
 
 
 def training_phase():
     """gpt_small at full width through ParallelTrainer.step, the
     benchmark's configuration."""
     from paddle_tpu_torch.models.gpt import gpt_small
-    from paddle_tpu_torch.ops import _build
     model = gpt_small(device='cuda', seed=0, **TRAIN_MODEL_KW)
     cfg = model.config
+    L = cfg.num_layers
     n_params = sum(p.numel() for p in model.parameters())
     log(f'train model: gpt_small vocab {cfg.vocab_size}, hidden '
-        f'{cfg.hidden_size}, layers {cfg.num_layers}, heads '
-        f'{cfg.num_heads}, max_seq_len {cfg.max_seq_len}, {n_params} '
-        f'parameters, seed 0; B {TRAIN_BATCH}, T {TRAIN_SEQ}, bf16 O2, '
-        f'fused head in {cfg.fused_head_chunks} chunks, AdamW lr '
-        f'{TRAIN_LR}')
+        f'{cfg.hidden_size}, layers {L}, heads {cfg.num_heads}, '
+        f'max_seq_len {cfg.max_seq_len}, {n_params} parameters, seed 0; '
+        f'B {TRAIN_BATCH}, T {TRAIN_SEQ}, bf16 O2, fused head in '
+        f'{cfg.fused_head_chunks} chunks, AdamW lr {TRAIN_LR}')
     trainer = _trainer(model, amp_o2=True)
     ids = np.random.RandomState(0).randint(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)
-
-    # the main path: counts at 0 just before, read just after
-    _build.reset_launches()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    losses = [trainer.step(ids, ids) for _ in range(TRAIN_WARMUP)]
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    losses += [trainer.step(ids, ids) for _ in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t1
-    launches = {k.name: k.launches for k in _build.KERNELS}
-    peak = torch.cuda.max_memory_allocated()
-    losses = [trainer.loss_float(x) for x in losses]
-
+    losses, launches, warm_s, dt, peak = _run_steps(
+        trainer, (ids, ids), TRAIN_WARMUP, TRAIN_STEPS)
     steps = TRAIN_WARMUP + TRAIN_STEPS
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f'non-finite training loss: {losses}')
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f'loss did not fall on one batch: {losses}')
-    want = {'fused_layer_norm': (2 * cfg.num_layers + 1) * steps,
-            **{k: cfg.num_layers * steps for k in FLASH_KERNELS}}
-    for name, n in want.items():
-        if launches[name] != n:
-            raise AssertionError(f'{name} launched {launches[name]} times '
-                                 f'in {steps} steps, expected {n}')
+    per_step = _per_step(L, 2 * L + 1, flash=1)
+    _check_run('train', losses, launches, per_step, steps)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     ms_step = dt / TRAIN_STEPS * 1e3
     # model flops per step: 6 * parameters * tokens (wte counted once,
@@ -531,14 +783,11 @@ def training_phase():
     # unmasked pair per layer and head (4*D forward, 8*D backward)
     hd = cfg.hidden_size // cfg.num_heads
     attn = 12 * hd * attention_pairs(TRAIN_SEQ, TRAIN_SEQ, True) \
-        * TRAIN_BATCH * cfg.num_heads * cfg.num_layers
+        * TRAIN_BATCH * cfg.num_heads * L
     flops = 6 * n_params * tokens + attn
     mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
     log(f'train: losses {", ".join(f"{x:.4f}" for x in losses)} (finite, '
-        f'falling); launches {launches["fused_layer_norm"]} LayerNorm = '
-        f'25 x {steps}, ' + ', '.join(f'{launches[k]} {k}'
-                                      for k in FLASH_KERNELS)
-        + f' = 12 x {steps}')
+        f'falling); launches {_launch_summary(launches, per_step, steps)}')
     log(f'train: warm-up {TRAIN_WARMUP} steps {warm_s:.2f} s; '
         f'{TRAIN_STEPS} steps in {dt:.3f} s = {ms_step:.1f} ms/step, '
         f'{tokens * TRAIN_STEPS / dt:.0f} tokens/s; peak '
@@ -549,26 +798,40 @@ def training_phase():
                'tokens_per_s': tokens * TRAIN_STEPS / dt,
                'peak_bytes': peak, 'mfu': mfu, 'losses': losses,
                'warmup_s': warm_s, 'launches': launches}
-    summary['parity'] = training_parity()
+    del model, trainer
+    summary['parity'] = _card_vs_cpu(
+        f'gpt_small B 1 T {PARITY_SEQ}',
+        lambda dev: gpt_small(device=dev, seed=0, **dict(
+            TRAIN_MODEL_KW, max_seq_len=PARITY_SEQ)),
+        lambda cfg: 2 * [np.random.RandomState(1).randint(
+            0, cfg.vocab_size, (1, PARITY_SEQ)).astype(np.int64)],
+        _per_step(L, 2 * L + 1, flash=1))
     return summary
 
 
-def training_parity():
-    """One f32 training step of gpt_small at B 1, T 256: the card (the
-    kernels) against the same weights on the CPU (the plain twins)."""
-    from paddle_tpu_torch.models.gpt import gpt_small
-    kw = dict(TRAIN_MODEL_KW, max_seq_len=PARITY_SEQ)
-    got, ids = {}, None
+def _card_vs_cpu(what, make_model, make_batch, per_step):
+    """One f32 training step of the same seeded weights on the card (the
+    kernels, launched as ``per_step`` says) and on the CPU (the plain
+    twins): the loss within PARITY_LOSS_RTOL and each gradient's max
+    |diff| within PARITY_GRAD_RTOL of its max |value|."""
+    from paddle_tpu_torch.ops import _build
+    got = {}
     for dev in ('cuda', 'cpu'):
-        model = gpt_small(device=dev, seed=0, **kw)
-        if ids is None:
-            ids = np.random.RandomState(1).randint(
-                0, model.config.vocab_size, (1, PARITY_SEQ)).astype(np.int64)
+        model = make_model(dev)
         trainer = _trainer(model, amp_o2=False)
-        loss = trainer.loss_float(trainer.step(ids, ids))
+        batch = make_batch(model.config)
+        _build.reset_launches()
+        loss = trainer.loss_float(trainer.step(*batch))
         got[dev] = (loss, {n: p.grad.detach().cpu()
-                           for n, p in model.named_parameters()})
-    (l_card, g_card), (l_cpu, g_cpu) = got['cuda'], got['cpu']
+                           for n, p in model.named_parameters()
+                           if p.grad is not None},
+                    {k.name: k.launches for k in _build.KERNELS})
+        del model, trainer
+    (l_card, g_card, launches), (l_cpu, g_cpu, _) = got['cuda'], got['cpu']
+    for name, n in per_step.items():
+        if launches[name] != n:
+            raise AssertionError(f'f32 step {what}: {name} launched '
+                                 f'{launches[name]} times, expected {n}')
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     worst, worst_name = 0.0, None
     for name, want in g_cpu.items():
@@ -578,15 +841,128 @@ def training_parity():
             worst, worst_name = rel, name
     if not (loss_rel <= PARITY_LOSS_RTOL and worst <= PARITY_GRAD_RTOL):
         raise AssertionError(
-            f'f32 training step card vs CPU: loss {l_card} vs {l_cpu} '
-            f'(rel {loss_rel:.3e}, tol {PARITY_LOSS_RTOL}); worst gradient '
+            f'f32 step {what}, card vs CPU: loss {l_card} vs {l_cpu} (rel '
+            f'{loss_rel:.3e}, tol {PARITY_LOSS_RTOL}); worst gradient '
             f'{worst_name} rel {worst:.3e} (tol {PARITY_GRAD_RTOL})')
-    log(f'parity: f32 training step B 1 T {PARITY_SEQ}, card vs CPU plain '
-        f'twins: loss {l_card:.6f} vs {l_cpu:.6f} (rel {loss_rel:.3e}, tol '
-        f'{PARITY_LOSS_RTOL}); worst gradient {worst_name} max |diff| / '
-        f'max |grad| {worst:.3e} (tol {PARITY_GRAD_RTOL})')
+    log(f'parity: f32 step {what}, card ({_launch_summary(launches, per_step, 1)}'
+        f') vs CPU plain twins: loss {l_card:.6f} vs {l_cpu:.6f} (rel '
+        f'{loss_rel:.3e}, tol {PARITY_LOSS_RTOL}); worst gradient '
+        f'{worst_name} max |diff| / max |grad| {worst:.3e} (tol '
+        f'{PARITY_GRAD_RTOL})')
     return {'loss_rel': loss_rel, 'worst_grad_rel': worst,
             'worst_grad': worst_name}
+
+
+def bert_batch(vocab_size, batch, seq, seed=0):
+    """Seeded ids and MLM labels (15% of positions, -100 elsewhere), as
+    bench.py makes them."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, vocab_size, (batch, seq)).astype(np.int64)
+    lbl = np.where(rs.rand(batch, seq) < 0.15,
+                   rs.randint(0, vocab_size, (batch, seq)), -100)
+    return ids, lbl.astype(np.int64)
+
+
+def bert_phase():
+    """bert_base at full width through ParallelTrainer.step, the bench's
+    configuration, at dropout 0.1 (softmax), 0 (flash), and 0.1 with the
+    GEMM+GELU kernels (USE_PALLAS_MLP); then the f32 card-vs-CPU step."""
+    from paddle_tpu_torch.models.bert import bert_base
+    fgl = _ops_module('fused_gelu_linear')
+    out = {}
+    for run, dropout, pallas_mlp, warmup, steps in BERT_RUNS:
+        model = bert_base(device='cuda', seed=0, dropout=dropout,
+                          **BERT_MODEL_KW)
+        cfg = model.config
+        L = cfg.num_layers
+        n_params = sum(p.numel() for p in model.parameters())
+        trainer = _trainer(model, amp_o2=True, lr=BERT_LR)
+        batch = bert_batch(cfg.vocab_size, BERT_BATCH, BERT_SEQ)
+        fgl.USE_PALLAS_MLP = pallas_mlp
+        try:
+            losses, launches, warm_s, dt, peak = _run_steps(
+                trainer, batch, warmup, steps)
+        finally:
+            fgl.USE_PALLAS_MLP = False
+        total = warmup + steps
+        per_step = _per_step(L, 2 * L + 2, softmax=int(dropout > 0),
+                             flash=int(dropout == 0), gelu=int(pallas_mlp))
+        _check_run(run, losses, launches, per_step, total)
+        tokens = BERT_BATCH * BERT_SEQ
+        ms_step = dt / steps * 1e3
+        # model flops per step: 6 * parameters * tokens (word_emb counted
+        # once, for the tied decoder's matmul) plus non-causal attention,
+        # 12 * D per (q, k) pair per layer and head
+        hd = cfg.hidden_size // cfg.num_heads
+        attn = 12 * hd * BERT_SEQ * BERT_SEQ * BERT_BATCH * cfg.num_heads * L
+        flops = 6 * n_params * tokens + attn
+        mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
+        if run == BERT_RUNS[0][0]:
+            log(f'bert model: bert_base vocab {cfg.vocab_size}, hidden '
+                f'{cfg.hidden_size}, layers {L}, heads {cfg.num_heads}, '
+                f'FFN {cfg.intermediate_size}, eps '
+                f'{cfg.layer_norm_epsilon}, {n_params} parameters, seed 0; '
+                f'B {BERT_BATCH}, T {BERT_SEQ}, bf16 O2, fused MLM head in '
+                f'{cfg.fused_head_chunks} chunks, AdamW lr {BERT_LR}')
+        log(f'{run} (dropout {dropout}, USE_PALLAS_MLP {pallas_mlp}): '
+            f'losses {", ".join(f"{x:.4f}" for x in losses)} (finite, '
+            f'falling); launches '
+            f'{_launch_summary(launches, per_step, total)}')
+        log(f'{run}: warm-up {warmup} steps {warm_s:.2f} s; {steps} steps '
+            f'in {dt:.3f} s = {ms_step:.1f} ms/step, '
+            f'{tokens * steps / dt:.0f} tokens/s; peak '
+            f'max_memory_allocated {peak / 2**30:.2f} GiB; MFU {mfu:.4f} = '
+            f'(6 * {n_params} params * {tokens} tokens + {attn:.4g} '
+            f'attention flops) / (step time * 989e12)')
+        out[run] = {'dropout': dropout, 'use_pallas_mlp': pallas_mlp,
+                    'ms_per_step': ms_step,
+                    'tokens_per_s': tokens * steps / dt, 'peak_bytes': peak,
+                    'mfu': mfu, 'losses': losses, 'warmup_s': warm_s,
+                    'launches': launches}
+        del model, trainer
+        torch.cuda.empty_cache()
+    fgl.USE_PALLAS_MLP = True
+    try:
+        out['parity'] = _card_vs_cpu(
+            f'bert_base B {BERT_PARITY_BATCH} T {BERT_SEQ}, dropout '
+            f'{BERT_PARITY_DROPOUT}, USE_PALLAS_MLP',
+            lambda dev: bert_base(device=dev, seed=0,
+                                  dropout=BERT_PARITY_DROPOUT,
+                                  **BERT_MODEL_KW),
+            lambda cfg: bert_batch(cfg.vocab_size, BERT_PARITY_BATCH,
+                                   BERT_SEQ, seed=1),
+            _per_step(L, 2 * L + 2, softmax=1, gelu=1))
+    finally:
+        fgl.USE_PALLAS_MLP = False
+    return out
+
+
+def gpt_dropout_phase():
+    """gpt_small with its dropout 0.1 through ParallelTrainer.step: the
+    attention takes the softmax branch in every layer."""
+    from paddle_tpu_torch.models.gpt import gpt_small
+    model = gpt_small(device='cuda', seed=0,
+                      **dict(TRAIN_MODEL_KW, dropout=0.1))
+    L = model.config.num_layers
+    trainer = _trainer(model, amp_o2=True)
+    ids = np.random.RandomState(0).randint(
+        0, model.config.vocab_size,
+        (GPT_DROPOUT_BATCH, TRAIN_SEQ)).astype(np.int64)
+    losses, launches, _, dt, peak = _run_steps(
+        trainer, (ids, ids), 0, GPT_DROPOUT_STEPS)
+    per_step = _per_step(L, 2 * L + 1, softmax=1)
+    _check_run('gpt_dropout', losses, launches, per_step, GPT_DROPOUT_STEPS)
+    ms_step = dt / GPT_DROPOUT_STEPS * 1e3
+    log(f'gpt_dropout: gpt_small dropout 0.1, B {GPT_DROPOUT_BATCH} T '
+        f'{TRAIN_SEQ}, bf16 O2: losses '
+        f'{", ".join(f"{x:.4f}" for x in losses)} (finite, falling); '
+        f'launches {_launch_summary(launches, per_step, GPT_DROPOUT_STEPS)}'
+        f'; {ms_step:.1f} ms/step (the first step included); peak '
+        f'max_memory_allocated {peak / 2**30:.2f} GiB')
+    del model, trainer
+    torch.cuda.empty_cache()
+    return {'losses': losses, 'ms_per_step': ms_step, 'peak_bytes': peak,
+            'launches': launches}
 
 
 def main():
@@ -595,21 +971,31 @@ def main():
         return 2
     import paddle_tpu_torch  # noqa: F401  (fails outside the repo)
     from paddle_tpu_torch.ops import _build
-    import paddle_tpu_torch.ops.flash_attention  # noqa: F401  (registers)
+    for mod in ('flash_attention', 'fused_softmax', 'fused_gelu_linear'):
+        _ops_module(mod)                                # registers
     name = device_phase()
     build_phase()
     timings = kernel_phase()
     timings.update(flash_kernel_phase())
+    timings.update(softmax_kernel_phase())
+    timings.update(gelu_kernel_phase())
     serve_launches = serving_phase()
     train = training_phase()
-    log(json.dumps({'train': train}))
+    gpt_dropout = gpt_dropout_phase()
+    bert = bert_phase()
+    log(json.dumps({'train': train, 'gpt_dropout': gpt_dropout,
+                    'bert': bert}))
+    paths = {'serve': serve_launches, 'train': train['launches'],
+             'gpt_dropout': gpt_dropout['launches'],
+             **{run: bert[run]['launches'] for run, *_ in BERT_RUNS}}
     kernels = []
     for k in _build.KERNELS:
         rows = timings[k.name]
-        # LayerNorm: the decode shape (most launches); flash: training
+        # the first row is the main path's shape: LayerNorm the decode
+        # shape (most launches), flash GPT training, softmax and
+        # GEMM+GELU BERT-base training
         head = rows[0]
-        by_path = {'serve': serve_launches[k.name],
-                   'train': train['launches'][k.name]}
+        by_path = {p: launches[k.name] for p, launches in paths.items()}
         kernels.append({
             'name': k.name, 'route': k.route, 'source': k.source_path,
             'replaces': k.replaces, 'launches': sum(by_path.values()),
@@ -621,6 +1007,11 @@ def main():
             'library_ms': head['library_ms'],
             'ms_from': head['ms_from'], 'call_ms': head['call_ms'],
             'shapes': rows})
+        if k.name == 'fused_softmax_masked':
+            kernels[-1]['launched_in'] = (
+                'the kernel comparison only, through the public '
+                'ops.fused_softmax(x, mask): no model path passes a mask, '
+                'as in the reference')
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

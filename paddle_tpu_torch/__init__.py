@@ -16,5 +16,6 @@ The package imports ``torch``, numpy and the standard library only —
 never ``jax`` and nothing of ``paddle_tpu``.
 """
 from .core.device import resolve_device
+from .core.rng import seed
 
-__all__ = ['resolve_device']
+__all__ = ['resolve_device', 'seed']

@@ -5,16 +5,20 @@ the dense-cache attention branch (prompt prefill and ``generate``) and
 the paged branch (the engine's batched decode), ``prefill``/
 ``decode_step``/``generate``.  Training: the uncached ``forward(ids)``,
 whose attention is flash attention (the hand-written CUDA forward and
-backward kernels of ``ops/flash_attention.py``), and ``loss`` with and
-without the fused CE head (``ops/fused_ce.py``).  Every LayerNorm runs
-the hand-written CUDA LayerNorm kernel (``ops/fused_norm.py``).  Ops the
-reference dispatches by name cast their inputs through the AMP policy
+backward kernels of ``ops/flash_attention.py``) while attention dropout
+is inactive, and otherwise the reference's plain branch (scores, the
+causal ``-1e9`` mask, ``F.softmax`` through the hand-written softmax
+kernel of ``ops/fused_softmax.py``, dropout, the product with v); and
+``loss`` with and without the fused CE head (``ops/fused_ce.py``).
+The reference's dropouts are all here (embedding, attention
+probabilities, attention output, MLP output), drawing from the device's
+generator (``core.rng``); the serving paths run in eval mode, where
+they are the identity.  Every LayerNorm runs the hand-written CUDA
+LayerNorm kernel (``ops/fused_norm.py``), each MLP's fc+GELU goes
+through ``mlp_gelu`` (``ops/fused_gelu_linear.py``).  Ops the reference
+dispatches by name cast their inputs through the AMP policy
 (``amp.amp_cast``), under the same names.
 
-Dropout is not ported: the cached forward runs in eval mode, as the
-reference's ``functional_call(..., training=False)`` does, and the
-uncached forward raises in training mode when ``dropout > 0`` (the
-reference's attention-dropout path needs the fused softmax kernel).
 MoE, sequence parallelism and striped sp wait for their slices.
 """
 import math
@@ -28,7 +32,7 @@ from ..core.device import resolve_device
 from ..distributed.fleet.meta_parallel import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
 from ..nn import functional as F
-from ..nn.layer.common import Embedding
+from ..nn.layer.common import Dropout, Embedding
 from ..nn.layer.norm import LayerNorm
 from ..ops.flash_attention import can_use_pallas, flash_attention
 from ..ops.fused_ce import fused_linear_cross_entropy
@@ -100,26 +104,36 @@ class CausalSelfAttention(nn.Module):
                                         gather_output=False, device=device)
         self.proj = RowParallelLinear(cfg.hidden_size, cfg.hidden_size,
                                       input_is_parallel=True, device=device)
-        self.dropout = cfg.dropout
+        self.attn_drop = Dropout(cfg.dropout)
+        self.resid_drop = Dropout(cfg.dropout)
 
-    def _flash(self, q, k, v):
-        """Uncached causal attention through the flash kernels:
-        ``[B, nh, T, hd]`` in and out."""
+    def _use_flash(self, T):
+        """Flash attention unless attention dropout is active
+        (training mode) or the head dim is not the kernels'."""
+        dropout_active = self.training and self.attn_drop.p > 0.0
+        return not dropout_active and can_use_pallas(T, T, self.head_dim)
+
+    def _uncached(self, q, k, v):
+        """Uncached causal attention, ``[B, nh, T, hd]`` in and out:
+        the flash kernels, or the reference's plain branch."""
         B, nh, T, hd = q.shape
-        if self.training and self.dropout > 0.0:
-            raise NotImplementedError(
-                'attention dropout in training needs the fused softmax '
-                'kernel, not ported yet; train with dropout=0.0')
-        if not can_use_pallas(T, T, hd):
-            raise NotImplementedError(
-                f'head_dim {hd}: the flash kernels take multiples of 16 '
-                'up to 128, and the non-flash attention needs the fused '
-                'softmax kernel, not ported yet')
-        q, k, v = amp_cast('flash_attention', q, k, v)
-        y = flash_attention(q.reshape(B * nh, T, hd),
-                            k.reshape(B * nh, T, hd),
-                            v.reshape(B * nh, T, hd), causal=True)
-        return y.reshape(B, nh, T, hd)
+        if self._use_flash(T):
+            q, k, v = amp_cast('flash_attention', q, k, v)
+            y = flash_attention(q.reshape(B * nh, T, hd),
+                                k.reshape(B * nh, T, hd),
+                                v.reshape(B * nh, T, hd), causal=True)
+            return y.reshape(B, nh, T, hd)
+        q, k = amp_cast('matmul', q, k)
+        att = torch.matmul(q, k.transpose(-1, -2))
+        att, = amp_cast('multiply', att)
+        att = att * (1.0 / math.sqrt(hd))
+        att, = amp_cast('subtract', att)
+        mask = torch.ones((T, T), dtype=att.dtype, device=att.device).tril()
+        att = att - (1.0 - mask) * 1e9
+        att = F.softmax(att, axis=-1)
+        att = self.attn_drop(att)
+        att, v = amp_cast('matmul', att, v)
+        return torch.matmul(att, v)
 
     def forward(self, x, cache=None, pos=None):
         B, T, H = x.shape
@@ -128,7 +142,7 @@ class CausalSelfAttention(nn.Module):
         k = qkv[:, :, 1].transpose(1, 2)
         v = qkv[:, :, 2].transpose(1, 2)
         if cache is None:
-            y = self._flash(q, k, v)
+            y = self._uncached(q, k, v)
             new_cache = None
         elif getattr(cache, 'paged', False):
             # serving decode: one token per sequence, k/v written into
@@ -153,7 +167,7 @@ class CausalSelfAttention(nn.Module):
             y = _cached_attention(q, kb, vb, p)
             new_cache = (kb, vb)
         y = y.transpose(1, 2).reshape(B, T, H)
-        return self.proj(y), new_cache
+        return self.resid_drop(self.proj(y)), new_cache
 
 
 class GPTMLP(nn.Module):
@@ -165,9 +179,10 @@ class GPTMLP(nn.Module):
         self.proj = RowParallelLinear(cfg.intermediate_size,
                                       cfg.hidden_size,
                                       input_is_parallel=True, device=device)
+        self.drop = Dropout(cfg.dropout)
 
     def forward(self, x):
-        return self.proj(mlp_gelu(x, self.fc))
+        return self.drop(self.proj(mlp_gelu(x, self.fc)))
 
 
 class GPTBlock(nn.Module):
@@ -204,6 +219,7 @@ class GPT(nn.Module):
                                           config.hidden_size, device=device)
         self.wpe = Embedding(config.max_seq_len, config.hidden_size,
                              device=device)
+        self.drop = Dropout(config.dropout)
         self.blocks = nn.ModuleList([GPTBlock(config, device=device)
                                      for _ in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size,
@@ -217,8 +233,8 @@ class GPT(nn.Module):
             if T > self.config.max_seq_len:
                 raise ValueError(f'sequence length {T} exceeds '
                                  f'max_seq_len {self.config.max_seq_len}')
-            x = _add(self.wte(input_ids),
-                     F.embedding_prefix(self.wpe.weight, T))
+            x = self.drop(_add(self.wte(input_ids),
+                               F.embedding_prefix(self.wpe.weight, T)))
             for blk in self.blocks:
                 x, _ = blk(x)
             return self.ln_f(x)
@@ -228,7 +244,7 @@ class GPT(nn.Module):
             posv = pos.long()[:, None] + steps[None, :]
         else:
             posv = int(pos) + steps
-        x = _add(self.wte(input_ids), self.wpe(posv))
+        x = self.drop(_add(self.wte(input_ids), self.wpe(posv)))
         new_caches = []
         for blk, c in zip(self.blocks, caches):
             x, nc = blk(x, cache=c, pos=pos)

@@ -1,5 +1,5 @@
 """Layers and functionals of the port (counterpart of ``paddle_tpu/nn``)."""
 from . import functional
-from .layer import Embedding, LayerNorm, Linear
+from .layer import Dropout, Embedding, LayerNorm, Linear
 
-__all__ = ['functional', 'Embedding', 'LayerNorm', 'Linear']
+__all__ = ['functional', 'Dropout', 'Embedding', 'LayerNorm', 'Linear']

@@ -1,7 +1,7 @@
-from .activation import gelu
-from .common import embedding, embedding_prefix, linear
+from .activation import gelu, softmax, tanh
+from .common import dropout, embedding, embedding_prefix, linear
 from .loss import cross_entropy
 from .norm import layer_norm
 
-__all__ = ['gelu', 'embedding', 'embedding_prefix', 'linear',
-           'cross_entropy', 'layer_norm']
+__all__ = ['gelu', 'softmax', 'tanh', 'dropout', 'embedding',
+           'embedding_prefix', 'linear', 'cross_entropy', 'layer_norm']

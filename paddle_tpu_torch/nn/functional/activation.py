@@ -1,10 +1,14 @@
 """Activation functionals (counterpart of
-``paddle_tpu/nn/functional/activation.py``; the port has ``gelu``)."""
+``paddle_tpu/nn/functional/activation.py``; the port has ``gelu``,
+``softmax`` and ``tanh``).  Each casts its input through the AMP policy
+under the reference's op name."""
+import torch
 import torch.nn.functional as TF
 
 from ...amp import amp_cast
+from ...ops.fused_softmax import fused_softmax
 
-__all__ = ['gelu']
+__all__ = ['gelu', 'softmax', 'tanh']
 
 
 def gelu(x, approximate=False):
@@ -13,3 +17,22 @@ def gelu(x, approximate=False):
     reference's ``mlp_gelu`` uses."""
     x, = amp_cast('gelu', x)
     return TF.gelu(x, approximate='tanh' if approximate else 'none')
+
+
+def softmax(x, axis=-1, dtype=None):
+    """Softmax along ``axis``: the last axis goes through
+    ``fused_softmax`` (the hand-written kernel on a CUDA tensor), any
+    other through ``torch.softmax``, as in the reference.  ``softmax``
+    is black-listed under AMP, so the kernel sees f32 scores; ``dtype``
+    casts the input first."""
+    x, = amp_cast('softmax', x)
+    if dtype is not None:
+        x = x.to(dtype)
+    if axis in (-1, x.dim() - 1):
+        return fused_softmax(x)
+    return torch.softmax(x, dim=axis)
+
+
+def tanh(x):
+    x, = amp_cast('tanh', x)
+    return torch.tanh(x)

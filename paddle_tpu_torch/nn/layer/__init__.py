@@ -1,4 +1,4 @@
-from .common import Embedding, Linear
+from .common import Dropout, Embedding, Linear
 from .norm import LayerNorm
 
-__all__ = ['Embedding', 'Linear', 'LayerNorm']
+__all__ = ['Dropout', 'Embedding', 'Linear', 'LayerNorm']

@@ -15,7 +15,7 @@ from torch import nn
 from ...core.device import resolve_device
 from .. import functional as F
 
-__all__ = ['Linear', 'Embedding', 'xavier_normal_']
+__all__ = ['Linear', 'Embedding', 'Dropout', 'xavier_normal_']
 
 
 def xavier_normal_(param, generator):
@@ -62,3 +62,17 @@ class Embedding(nn.Module):
 
     def forward(self, x):
         return F.embedding(x, self.weight)
+
+
+class Dropout(nn.Module):
+    """``F.dropout`` with the module's training flag."""
+
+    def __init__(self, p=0.5, axis=None, mode='upscale_in_train'):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, x):
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)

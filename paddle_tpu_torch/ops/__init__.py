@@ -2,5 +2,6 @@
 PyTorch twins, and the plain PyTorch counterparts of the reference's
 jnp hot ops."""
 from .fused_norm import fused_layer_norm
+from .fused_softmax import fused_softmax
 
-__all__ = ['fused_layer_norm']
+__all__ = ['fused_layer_norm', 'fused_softmax']

@@ -21,8 +21,10 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 __all__ = ['Kernel', 'KERNELS', 'build', 'load', 'sources',
-           'reset_launches']
+           'reset_launches', 'stream']
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
@@ -166,6 +168,15 @@ class Kernel:
 
 
 KERNELS = []
+
+
+def stream(device):
+    """The current CUDA stream of ``device``, as the int a launch
+    takes."""
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return torch.cuda.current_stream().cuda_stream
+    return torch.cuda.current_stream().cuda_stream
 
 
 def reset_launches():

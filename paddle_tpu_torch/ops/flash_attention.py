@@ -30,7 +30,7 @@ import math
 
 import torch
 
-from ._build import Kernel
+from ._build import Kernel, stream
 
 __all__ = ['flash_attention', 'flash_attention_lse', 'can_use_pallas']
 
@@ -141,13 +141,6 @@ def _check_blocks(block_q, block_k):
             raise ValueError(f'{name} must be a positive int, got {b!r}')
 
 
-def _stream(device):
-    if device.index != torch.cuda.current_device():
-        with torch.cuda.device(device):
-            return torch.cuda.current_stream().cuda_stream
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _check(name, tensors, dtype=None):
     """Device, dtype, rank and contiguity checks before a launch."""
     device = tensors[0].device
@@ -192,7 +185,7 @@ def _fwd_cuda(q, k, v, causal, scale):
     FWD_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       o.data_ptr(), lse.data_ptr(), bh, tq, tk, d,
                       float(scale), _causal_code(causal), code,
-                      _stream(device))
+                      stream(device))
     return o, lse
 
 
@@ -205,7 +198,7 @@ def _bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
     DQ_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                      dq.data_ptr(), bh, tq, tk, d, float(scale),
-                     _causal_code(causal), code, _stream(device))
+                     _causal_code(causal), code, stream(device))
     return dq
 
 
@@ -220,7 +213,7 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
                       do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                       dk.data_ptr(), dv.data_ptr(), bh, tq, tk, d,
                       float(scale), _causal_code(causal), code,
-                      _stream(device))
+                      stream(device))
     return dk, dv
 
 

@@ -1,19 +1,230 @@
-"""The fc+GELU half of a transformer MLP.
+"""Fused matmul + bias + GELU: hand-written CUDA forward and recompute
+backward, and the fc+GELU half of a transformer MLP.
 
-Counterpart of ``paddle_tpu/ops/fused_gelu_linear.py::mlp_gelu`` on
-its default path (``USE_PALLAS_MLP = False`` there): the ``fc`` linear,
-then the tanh-form GELU.  The reference's opt-in Pallas GEMM+GELU
-kernels (``_fwd_kernel``/``_bwd_kernel``) are queued for a later slice
-of the port.
+Counterpart of ``paddle_tpu/ops/fused_gelu_linear.py``.  Its two TPU
+kernels (``_fwd_kernel``, ``_bwd_kernel``) become
+``csrc/fused_gelu_linear.cu`` (CUDA C++ for sm_90a; its header states
+the bound and the design):
+
+    forward : y  = gelu(x @ w + b)          one kernel, no z in memory
+    backward: dz = dy * gelu'(x @ w + b)    one kernel, recomputes z
+              dx = dz @ w.T ; dw = x.T @ dz ; db = sum(dz)   (torch)
+
+Both kernels compute ``x @ w`` themselves, with an f32 accumulator; the
+autograd function saves ``(x, w, b)`` and not the ``[M, N]``
+pre-activation, the reference's design point.  ``dx``, ``dw`` and
+``db`` (f32 sum) are plain ``torch.matmul``/``sum`` outside the
+kernels, as the reference leaves them to XLA.  The kernels take f32 or
+bf16 ``x``/``w`` (one dtype; ``fused_linear_gelu`` promotes a mixed
+pair), any ``M``, ``N``, ``K`` and an optional bias; the reference's
+block-divisibility gate (``_pick_blocks``) and its bias requirement are
+TPU rules and do not carry over.
+
+Plain twins: ``_reference`` (the kernels' arithmetic: the product of
+the operands widened to f32, not rounded to x's dtype before the bias
+as the reference's jnp ``_reference`` does for bf16) and ``_dz_reference``
+(the backward kernel's ``dz``).  A wrapper runs a twin only for a
+tensor on the CPU; on a CUDA tensor it launches its kernel or raises.
+
+``mlp_gelu`` is the models' dispatch: ``fc`` then the tanh-form GELU by
+default, or, with ``USE_PALLAS_MLP = True`` (the reference's opt-in
+switch and name), ``fused_linear_gelu`` under the AMP name
+``'fused_linear_gelu'``.
 """
-from ..nn import functional as F
+import ctypes
+import math
 
-__all__ = ['mlp_gelu']
+import torch
+
+from ..amp import amp_cast
+from ..nn import functional as F
+from ._build import Kernel, stream
+
+__all__ = ['fused_linear_gelu', 'mlp_gelu', 'USE_PALLAS_MLP']
+
+# the reference's default: the models' MLPs take fc + GELU unless this
+# is switched on (or fused_linear_gelu is called directly)
+USE_PALLAS_MLP = False
+
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_ptr = ctypes.c_void_p
+_int = ctypes.c_int
+FWD_KERNEL = Kernel(
+    'fused_linear_gelu_fwd', source='fused_gelu_linear',
+    symbol='ptt_linear_gelu_fwd',
+    argtypes=[_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _ptr],
+    replaces='paddle_tpu/ops/fused_gelu_linear.py:72')
+BWD_KERNEL = Kernel(
+    'fused_linear_gelu_bwd', source='fused_gelu_linear',
+    symbol='ptt_linear_gelu_bwd',
+    argtypes=[_ptr] * 5 + [_int, _int, _int, _int, _int, _ptr],
+    replaces='paddle_tpu/ops/fused_gelu_linear.py:84')
+
+
+def _gelu_f32(z, approximate):
+    if approximate:
+        inner = _SQRT_2_OVER_PI * (z + 0.044715 * z * z * z)
+        return 0.5 * z * (1.0 + torch.tanh(inner))
+    return 0.5 * z * (1.0 + torch.erf(z / math.sqrt(2.0)))
+
+
+def _gelu_grad_f32(z, approximate):
+    if approximate:
+        inner = _SQRT_2_OVER_PI * (z + 0.044715 * z * z * z)
+        t = torch.tanh(inner)
+        sech2 = 1.0 - t * t
+        dinner = _SQRT_2_OVER_PI * (1.0 + 3 * 0.044715 * z * z)
+        return 0.5 * (1.0 + t) + 0.5 * z * sech2 * dinner
+    cdf = 0.5 * (1.0 + torch.erf(z / math.sqrt(2.0)))
+    pdf = torch.exp(-0.5 * z * z) / math.sqrt(2.0 * math.pi)
+    return cdf + z * pdf
+
+
+def _preact(x2d, w, b):
+    z = torch.matmul(x2d.float(), w.float())
+    return z if b is None else z + b.float()
+
+
+def _reference(x2d, w, b, approximate):
+    """Plain twin of the forward kernel: ``gelu(x @ w + b)`` in f32, in
+    x's dtype."""
+    return _gelu_f32(_preact(x2d, w, b), approximate).to(x2d.dtype)
+
+
+def _dz_reference(x2d, w, b, dy, approximate):
+    """Plain twin of the backward kernel: ``dy * gelu'(x @ w + b)`` in
+    f32, in x's dtype."""
+    z = _preact(x2d, w, b)
+    return (dy.float() * _gelu_grad_f32(z, approximate)).to(x2d.dtype)
+
+
+def _checked(x2d, w, b, dy=None):
+    """``(M, N, K, dtype code, f32 bias or None)`` after the kernels'
+    checks."""
+    code = _DTYPE_CODE.get(x2d.dtype)
+    if code is None or w.dtype != x2d.dtype or (
+            dy is not None and dy.dtype != x2d.dtype):
+        raise TypeError(f'fused_linear_gelu kernels take one dtype, float32 '
+                        f'or bfloat16, for x, w (and dy); got {x2d.dtype}, '
+                        f'{w.dtype}' + ('' if dy is None else f', {dy.dtype}'))
+    M, K = x2d.shape
+    if w.dim() != 2 or w.shape[0] != K:
+        raise ValueError(f'fused_linear_gelu: x [M, K] and w [K, N], got '
+                         f'{tuple(x2d.shape)} and {tuple(w.shape)}')
+    N = w.shape[1]
+    if b is not None:
+        if b.numel() != N:
+            raise ValueError(f'fused_linear_gelu: bias must have N = {N} '
+                             f'elements, got {b.numel()}')
+        b = b.reshape(N).float().contiguous()
+    if dy is not None and tuple(dy.shape) != (M, N):
+        raise ValueError(f'fused_linear_gelu: dy {tuple(dy.shape)} is not '
+                         f'[{M}, {N}]')
+    for t in (x2d, w, b, dy):
+        if t is None:
+            continue
+        if t.device != x2d.device:
+            raise ValueError('fused_linear_gelu: every input must lie on '
+                             f'{x2d.device}')
+        if not t.is_contiguous():
+            raise ValueError('fused_linear_gelu kernels need contiguous '
+                             'inputs')
+    if K < 1 or M > 65535 * 128 or max(M, N, K) >= 2 ** 31:
+        raise ValueError(f'fused_linear_gelu kernels take K >= 1, M <= '
+                         f'{65535 * 128} and dims below 2^31; got M={M}, '
+                         f'N={N}, K={K}')
+    return M, N, K, code, b
+
+
+def _fwd_cuda(x2d, w, b, approximate):
+    """Launch the forward kernel: ``gelu(x @ w + b)`` in x's dtype."""
+    M, N, K, code, bf = _checked(x2d, w, b)
+    y = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
+    FWD_KERNEL.launch(x2d.data_ptr(), w.data_ptr(),
+                      None if bf is None else bf.data_ptr(), y.data_ptr(),
+                      M, N, K, int(bool(approximate)), code,
+                      stream(x2d.device))
+    return y
+
+
+def _bwd_cuda(x2d, w, b, dy, approximate):
+    """Launch the backward kernel: ``dy * gelu'(x @ w + b)`` in x's
+    dtype."""
+    M, N, K, code, bf = _checked(x2d, w, b, dy)
+    dz = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
+    BWD_KERNEL.launch(x2d.data_ptr(), w.data_ptr(),
+                      None if bf is None else bf.data_ptr(), dy.data_ptr(),
+                      dz.data_ptr(), M, N, K, int(bool(approximate)), code,
+                      stream(x2d.device))
+    return dz
+
+
+def _on_cpu(t, name):
+    if t.device.type != 'cpu':
+        raise ValueError(f'{name}: no kernel for device {t.device}')
+
+
+def _fwd(x2d, w, b, approximate):
+    if x2d.is_cuda:
+        return _fwd_cuda(x2d, w, b, approximate)
+    _on_cpu(x2d, 'fused_linear_gelu')
+    return _reference(x2d, w, b, approximate)
+
+
+def _dz(x2d, w, b, dy, approximate):
+    if x2d.is_cuda:
+        return _bwd_cuda(x2d, w, b, dy, approximate)
+    _on_cpu(x2d, 'fused_linear_gelu backward')
+    return _dz_reference(x2d, w, b, dy, approximate)
+
+
+class _FusedLinearGelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2d, w, b, approximate):
+        ctx.save_for_backward(x2d, w, b)
+        ctx.approximate = approximate
+        return _fwd(x2d, w, b, approximate)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, w, b = ctx.saved_tensors
+        dz = _dz(x2d, w, b, dy.contiguous(), ctx.approximate)
+        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        dx = torch.matmul(dz, w.t()).to(x2d.dtype) if need_x else None
+        dw = torch.matmul(x2d.t(), dz).to(w.dtype) if need_w else None
+        db = dz.float().sum(dim=0).to(b.dtype) if need_b else None
+        return dx, dw, db, None
+
+
+def fused_linear_gelu(x, w, b, approximate=True):
+    """``gelu(x @ w + b)`` for ``x [..., K]``, ``w [K, N]`` and ``b
+    [N]`` (or None).  On CUDA tensors it launches the hand-written
+    kernels (the forward here, the recompute ``dz`` in the backward) or
+    raises; on CPU tensors it runs their plain twins.  The output has
+    x's dtype, after x and w are promoted to one dtype."""
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    lead, K = tuple(x.shape[:-1]), x.shape[-1]
+    x2d = x.to(dtype).reshape(-1, K).contiguous()
+    w = w.to(dtype).contiguous()
+    approximate = bool(approximate)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x2d, w, b)):
+        y = _FusedLinearGelu.apply(x2d, w, b, approximate)
+    else:
+        y = _fwd(x2d, w, b, approximate)
+    return y.reshape(lead + (w.shape[1],))
 
 
 def mlp_gelu(x, fc, shard_spec=None):
-    """``gelu(fc(x), approximate=True)``.  ``shard_spec`` is accepted
-    for signature parity with the reference and has no effect on one
-    device."""
+    """The fc+GELU half of a transformer MLP (``fc`` is a Linear with
+    ``weight [in, out]`` and ``bias``): ``gelu(fc(x), approximate=True)``
+    by default; with ``USE_PALLAS_MLP`` on, the fused kernels under the
+    AMP name ``'fused_linear_gelu'`` (white-listed).  ``shard_spec`` is
+    accepted for signature parity and has no effect on one device."""
     del shard_spec
+    if USE_PALLAS_MLP:
+        xv, wv, bv = amp_cast('fused_linear_gelu', x, fc.weight, fc.bias)
+        return fused_linear_gelu(xv, wv, bv, approximate=True)
     return F.gelu(fc(x), approximate=True)

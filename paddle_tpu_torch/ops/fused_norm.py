@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from ._build import Kernel
+from ._build import Kernel, stream
 
 __all__ = ['fused_layer_norm', 'MAX_HIDDEN']
 
@@ -85,14 +85,9 @@ def _fwd_cuda(x2d, gamma, beta, eps):
     pb = _checked_ptr(beta, device, h)
     y = torch.empty_like(x2d)
     stats = torch.empty((2, n), dtype=torch.float32, device=device)
-    if device.index != torch.cuda.current_device():
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream().cuda_stream
-    else:
-        stream = torch.cuda.current_stream().cuda_stream
     ps = stats.data_ptr()
     KERNEL.launch(px, pg, pb, y.data_ptr(), ps, ps + 4 * n, n, h,
-                  float(eps), code, stream)
+                  float(eps), code, stream(device))
     return y, stats[0], stats[1]
 
 

@@ -1,0 +1,190 @@
+"""Fused (optionally masked) softmax: hand-written CUDA forward, plain
+backward.
+
+Counterpart of ``paddle_tpu/ops/fused_softmax.py``.  Its two TPU kernels
+(``_kernel`` and ``_masked_kernel``) become ``csrc/fused_softmax.cu``
+(CUDA C++ for sm_90a; its header states the bound and the design):
+softmax over the last axis in f32, of ``x + mask`` in the masked
+variant, the output in x's dtype (f32 or bf16), any row length and any
+number of rows.
+
+The mask is indexed by strides, not materialised: the reference
+broadcasts it to x's shape in HBM before its kernel (``:97-99``); here
+the wrapper takes ``mask.expand(x.shape)`` (stride 0 on every broadcast
+dim), coalesces x's leading dims to at most four, and the kernel maps
+each row to its mask offset.  A mask is cast to f32 before the
+broadcast (the reference's kernel reads it as f32), which for a
+broadcast padding mask is a few KB.
+
+``_reference`` is the plain PyTorch twin (the reference's
+``_reference``): the wrapper runs it only for a tensor on the CPU, and
+``chip_smoke.py`` holds the kernels to it on the card.  The backward is
+the reference's ``_sm_bwd`` in plain PyTorch, as the reference's is jnp:
+``dx = y * (g - sum(g * y))`` in f32, cast to y's dtype, and the mask's
+gradient is ``dx`` summed to the mask's shape.
+
+``block_rows`` is the reference's TPU row-block size: it is validated
+and ignored (the kernel takes one warp, or one block, per row), and
+neither its ``h % 128`` nor its row-block gate (``:95``) carries over.
+"""
+import ctypes
+
+import torch
+
+from ._build import Kernel, stream
+
+__all__ = ['fused_softmax']
+
+_BLOCK_ROWS = 256
+_MASK_DIMS = 4          # leading dims the kernel's mask index takes
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_ptr = ctypes.c_void_p
+_int = ctypes.c_int
+KERNEL = Kernel(
+    'fused_softmax', source='fused_softmax', symbol='ptt_softmax_fwd',
+    argtypes=[_ptr, _ptr, _int, _int, _int, _ptr],
+    replaces='paddle_tpu/ops/fused_softmax.py:26')
+MASKED_KERNEL = Kernel(
+    'fused_softmax_masked', source='fused_softmax',
+    symbol='ptt_softmax_masked_fwd',
+    argtypes=[_ptr, _ptr, _ptr, _int, _int,
+              ctypes.POINTER(ctypes.c_longlong), _int, _ptr],
+    replaces='paddle_tpu/ops/fused_softmax.py:33')
+
+
+def _reference(x, mask):
+    """Plain twin of both kernels: softmax of ``x`` (``+ mask``) over
+    the last axis in f32, in x's dtype."""
+    xf = x.float()
+    if mask is not None:
+        xf = xf + mask.float()
+    return torch.softmax(xf, dim=-1).to(x.dtype)
+
+
+def _mask_meta(mask, shape):
+    """``(mask f32 view, meta)`` for the masked kernel: ``meta`` holds
+    ``d1, d2, d3, s0, s1, s2, s3, sh`` (``csrc/fused_softmax.cu``'s
+    ``MaskIndex``).  x's leading dims are coalesced where the mask's
+    strides allow; more than four that do not coalesce make the mask
+    contiguous at x's shape first."""
+    m = mask if mask.dtype == torch.float32 else mask.float()
+    m = m.expand(shape)
+    dims = []
+    for size, stride in zip(shape[:-1], m.stride()[:-1]):
+        if size == 1:
+            continue
+        if dims and dims[-1][1] == stride * size:
+            dims[-1] = (dims[-1][0] * size, stride)
+        else:
+            dims.append((size, stride))
+    if len(dims) > _MASK_DIMS:
+        m = m.contiguous()
+        n = m.numel() // shape[-1]
+        dims = [(n, shape[-1])]
+    dims = [(1, 0)] * (_MASK_DIMS - len(dims)) + dims
+    sizes, strides = zip(*dims)
+    meta = (ctypes.c_longlong * 8)(*sizes[1:], *strides, m.stride()[-1])
+    return m, meta
+
+
+def _fwd_cuda(x, mask):
+    """Launch the kernel (the masked one when ``mask`` is given) on a
+    contiguous ``x``; raises on what it does not take."""
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None:
+        raise TypeError(f'fused_softmax kernel takes float32 or bfloat16, '
+                        f'got {x.dtype}')
+    if not x.is_contiguous():
+        raise ValueError('fused_softmax kernel needs a contiguous x')
+    h = x.shape[-1]
+    n = x.numel() // h if h else 0
+    if n >= 2 ** 31 or h >= 2 ** 31:
+        raise ValueError(f'fused_softmax kernel takes fewer than 2^31 rows '
+                         f'and columns, got {n} x {h}')
+    y = torch.empty_like(x)
+    if n == 0:
+        return y
+    if mask is None:
+        KERNEL.launch(x.data_ptr(), y.data_ptr(), n, h, code,
+                      stream(x.device))
+        return y
+    if mask.device != x.device:
+        raise ValueError(f'fused_softmax: mask on {mask.device}, x on '
+                         f'{x.device}')
+    m, meta = _mask_meta(mask, x.shape)
+    MASKED_KERNEL.launch(x.data_ptr(), m.data_ptr(), y.data_ptr(), n, h,
+                         meta, code, stream(x.device))
+    return y
+
+
+def _fwd(x, mask):
+    """The kernels for a CUDA tensor, the plain twin for a CPU one."""
+    if x.is_cuda:
+        return _fwd_cuda(x, mask)
+    if x.device.type != 'cpu':
+        raise ValueError(f'fused_softmax: no kernel for device {x.device}')
+    return _reference(x, mask)
+
+
+def _sm_bwd(y, g):
+    """The reference's ``_sm_bwd``: ``dx = y * (g - sum(g * y))`` in
+    f32, in y's dtype."""
+    yf, gf = y.float(), g.float()
+    return (yf * (gf - (gf * yf).sum(dim=-1, keepdim=True))).to(y.dtype)
+
+
+class _Softmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mask):
+        y = _fwd(x, mask)
+        ctx.save_for_backward(y)
+        ctx.mask_meta = None if mask is None else (mask.shape, mask.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        dx = _sm_bwd(y, g)
+        dmask = None
+        if ctx.needs_input_grad[1]:
+            # d/dmask of softmax(x + mask) is d/dx, summed over the dims
+            # the mask was broadcast along
+            shape, dtype = ctx.mask_meta
+            dmask = dx.float().sum_to_size(shape).to(dtype)
+        return dx, dmask
+
+
+def _check_block_rows(block_rows):
+    if (isinstance(block_rows, bool) or int(block_rows) != block_rows
+            or int(block_rows) < 1):
+        raise ValueError(f'block_rows must be a positive int, got '
+                         f'{block_rows!r}')
+
+
+def _broadcasts_to(shape, target):
+    try:
+        return tuple(torch.broadcast_shapes(shape, target)) == tuple(target)
+    except RuntimeError:
+        return False
+
+
+def fused_softmax(x, mask=None, block_rows=_BLOCK_ROWS):
+    """Softmax over the last axis of ``x``, of ``x + mask`` when an
+    additive ``mask`` (broadcastable to x's shape) is given, computed
+    in f32 and returned in x's dtype.  On a CUDA tensor it launches the
+    hand-written kernel (or raises); on a CPU tensor it runs the plain
+    twin.  Differentiable in ``x`` and ``mask``.  ``block_rows`` is
+    validated and ignored (module docstring)."""
+    _check_block_rows(block_rows)
+    if x.dim() == 0:
+        raise ValueError('fused_softmax needs at least one axis')
+    if mask is not None and not _broadcasts_to(mask.shape, x.shape):
+        raise ValueError(f'fused_softmax: mask {tuple(mask.shape)} does '
+                         f'not broadcast to x {tuple(x.shape)}')
+    x = x.contiguous()
+    if torch.is_grad_enabled() and (
+            x.requires_grad or (mask is not None and mask.requires_grad)):
+        return _Softmax.apply(x, mask)
+    return _fwd(x, mask)

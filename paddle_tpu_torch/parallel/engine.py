@@ -8,7 +8,11 @@ them), backward, and the optimizer's update at step number
 ``_step_no + 1``, and returns the loss as a 0-d tensor on the device
 without a host sync (the reference's ``step`` is lazy too).  The port
 runs eagerly: there is no compiled step, parameters are updated in
-place, and ``donate`` has nothing to do.
+place, and ``donate`` has nothing to do.  ``step`` puts the model in
+training mode, so dropout draws from the device's generator
+(``core.rng``) where the reference threads a key into its compiled
+step; ``eval_step`` runs without dropout.  Outputs may be any
+structure the loss takes (BERT's ``(hidden or logits, nsp_logits)``).
 
 Everything the reference adds around the single-device step — a mesh,
 the pipeline engine, fused K-step loops, the NaN guard, the watchdog,

@@ -18,13 +18,27 @@ the same inputs): f32 1e-5 on o and lse and 1e-4 on dq/dk/dv (the
 kernel's online softmax and tile sums run in another order than the
 twin's matmuls over whole rows); bf16 2e-2 on o/dq/dk/dv (both round
 the f32 result to bf16) and 1e-4 on the f32 lse.
+
+Tolerances, softmax (plain and masked): f32 1e-6 on y (one exp and one
+division per element; the row's sums in another order); bf16 2^-8 (both
+round an f32 value below 1 to bf16).
+
+Tolerances, GEMM+GELU forward and backward: f32 1e-4 * (1 + |twin|)
+(K-term products accumulated in another order than cuBLAS's); bf16 2e-2
+* (1 + |twin|) (both round the f32 result to bf16).
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_gelu_linear as fgl
 from paddle_tpu_torch.ops import fused_norm
+
+# the module: the package's `fused_softmax` attribute is the function
+fsm = importlib.import_module('paddle_tpu_torch.ops.fused_softmax')
 
 
 def _cuda():
@@ -163,3 +177,128 @@ def test_flash_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match='contiguous'):
         fa._fwd_cuda(q.transpose(0, 1), k.transpose(0, 1),
                      v.transpose(0, 1), True, 1.0)
+
+
+_SM_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(64, 12, 128, 128), (4, 1024), (3, 200),
+                                   (5, 1), (2, 3, 77), (2, 3000)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_softmax_kernel_matches_plain_twin(shape, dtype):
+    _cuda()
+    rs = np.random.RandomState(11)
+    x = torch.from_numpy((3 * rs.randn(*shape)).astype(np.float32)) \
+        .cuda().to(dtype)
+    before = fsm.KERNEL.launches
+    y = fsm._fwd_cuda(x, None)
+    want = fsm._reference(x, None)
+    torch.cuda.synchronize()
+    assert fsm.KERNEL.launches == before + 1 and y.dtype == dtype
+    torch.testing.assert_close(y.float(), want.float(), rtol=_SM_TOL[dtype],
+                               atol=_SM_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('x_shape,m_shape', [
+    ((8, 12, 128, 128), (8, 1, 1, 128)), ((2, 3, 5, 200), (5, 200)),
+    ((2, 3, 5, 7), (2, 3, 5, 1)), ((2, 3, 5, 7), (2, 3, 5, 7)),
+    ((2, 2, 2, 2, 2, 3), (2, 1, 2, 1, 2, 3)), ((2, 1500), (1, 1500))])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_masked_softmax_kernel_matches_plain_twin(x_shape, m_shape, dtype):
+    _cuda()
+    rs = np.random.RandomState(12)
+    x = torch.from_numpy((3 * rs.randn(*x_shape)).astype(np.float32)) \
+        .cuda().to(dtype)
+    mask = torch.from_numpy(np.where(rs.rand(*m_shape) < 0.3, -1e9, 0.0)
+                            .astype(np.float32)).cuda()
+    before = fsm.MASKED_KERNEL.launches
+    y = fsm._fwd_cuda(x, mask)
+    want = fsm._reference(x, mask)
+    torch.cuda.synchronize()
+    assert fsm.MASKED_KERNEL.launches == before + 1
+    torch.testing.assert_close(y.float(), want.float(), rtol=_SM_TOL[dtype],
+                               atol=_SM_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_softmax_autograd_on_the_card_matches_the_cpu():
+    _cuda()
+    rs = np.random.RandomState(13)
+    x = torch.from_numpy(rs.randn(2, 3, 9, 40).astype(np.float32))
+    mask = torch.from_numpy(rs.randn(2, 1, 1, 40).astype(np.float32))
+    g = torch.from_numpy(rs.randn(2, 3, 9, 40).astype(np.float32))
+    outs = []
+    for dev in ('cuda', 'cpu'):
+        xs, ms = (t.to(dev).clone().requires_grad_() for t in (x, mask))
+        fsm.fused_softmax(xs, ms).backward(g.to(dev))
+        outs.append([t.cpu() for t in (xs.grad, ms.grad)])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def _gemm_inputs(m, k, n, dtype, seed=14):
+    rs = np.random.RandomState(seed)
+    x, dy = (torch.from_numpy(rs.randn(*s).astype(np.float32)).cuda()
+             .to(dtype) for s in ((m, k), (m, n)))
+    w = torch.from_numpy((0.05 * rs.randn(k, n)).astype(np.float32)) \
+        .cuda().to(dtype)
+    b = torch.from_numpy(rs.randn(n).astype(np.float32)).cuda()
+    return x, w, b, dy
+
+
+_GEMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m,k,n', [(1024, 768, 3072), (37, 53, 29),
+                                   (128, 1, 130), (300, 129, 257)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('approximate', [True, False])
+def test_linear_gelu_kernels_match_plain_twins(m, k, n, dtype, approximate):
+    _cuda()
+    x, w, b, dy = _gemm_inputs(m, k, n, dtype)
+    tol = _GEMM_TOL[dtype]
+    before = (fgl.FWD_KERNEL.launches, fgl.BWD_KERNEL.launches)
+    for bias in (b, None):
+        y = fgl._fwd_cuda(x, w, bias, approximate)
+        dz = fgl._bwd_cuda(x, w, bias, dy, approximate)
+        ry = fgl._reference(x, w, bias, approximate)
+        rdz = fgl._dz_reference(x, w, bias, dy, approximate)
+        torch.cuda.synchronize()
+        for got, want in ((y, ry), (dz, rdz)):
+            assert got.dtype == dtype
+            diff = (got.float() - want.float()).abs()
+            assert bool((diff <= tol * (1 + want.float().abs())).all()), \
+                float(diff.max())
+    assert (fgl.FWD_KERNEL.launches, fgl.BWD_KERNEL.launches) == \
+        (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+def test_linear_gelu_autograd_on_the_card_matches_the_cpu():
+    _cuda()
+    x, w, b, dy = _gemm_inputs(70, 96, 50, torch.float32, seed=15)
+    outs = []
+    for dev in ('cuda', 'cpu'):
+        xs, ws, bs = (t.to(dev).clone().requires_grad_() for t in (x, w, b))
+        fgl.fused_linear_gelu(xs, ws, bs).backward(dy.to(dev))
+        outs.append([t.cpu() for t in (xs.grad, ws.grad, bs.grad)])
+    for a, c in zip(*outs):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_new_kernels_refuse_what_they_do_not_take():
+    _cuda()
+    x = torch.zeros((4, 8), dtype=torch.float16, device='cuda')
+    with pytest.raises(TypeError):
+        fsm._fwd_cuda(x, None)
+    with pytest.raises(ValueError, match='contiguous'):
+        fsm._fwd_cuda(torch.zeros((8, 4), device='cuda').t(), None)
+    xf, w, b, _ = _gemm_inputs(4, 8, 6, torch.float32)
+    with pytest.raises(TypeError, match='one dtype'):
+        fgl._fwd_cuda(xf, w.to(torch.bfloat16), b, True)
+    with pytest.raises(ValueError, match='contiguous'):
+        fgl._fwd_cuda(xf, w.t().contiguous().t(), b, True)

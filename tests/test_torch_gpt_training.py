@@ -29,6 +29,8 @@ round-off of ~1e-9, which Adam's ``m / sqrt(v)`` scales up to steps of
 up to ``lr`` with arbitrary sign; that slice is held to its bound,
 ``2 * lr * steps``, instead.
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,6 +55,8 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
 from paddle_tpu_torch.optimizer import Adam, AdamW
 from paddle_tpu_torch.parallel import ParallelTrainer
+
+pfs = importlib.import_module('paddle_tpu_torch.ops.fused_softmax')
 
 TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -180,6 +184,29 @@ def test_loss_and_every_gradient_match_jax(weights, ids, fused_head):
     assert set(got) == set(want_grads)
     for name, g in want_grads.items():
         _close(got[name].grad.numpy(), g, GRAD_TOL, name)
+
+
+def test_dropout_branch_matches_jax_grad(weights, ids, monkeypatch):
+    """At dropout 1e-9 both packages take the non-flash attention
+    (dropout counts as active when p > 0) and, since ``1 - p`` rounds to
+    1 in f32, keep every element at scale 1: the port's softmax branch
+    (scores, causal -1e9 mask, ``fused_softmax``, dropout) against
+    ``jax.grad`` of the reference's."""
+    kw = dict(MODEL_KW, dropout=1e-9)
+    jm = jax_gpt_tiny(**kw)
+    jm.load_functional_state({k: jnp.asarray(v) for k, v in weights.items()})
+    want_loss, want_grads = _jax_loss_and_grads(jm, ids)
+    calls = []
+    real = pfs._fwd
+    monkeypatch.setattr(pfs, '_fwd', lambda x, m: calls.append(x.shape)
+                        or real(x, m))
+    pm = gpt_tiny(device='cpu', **kw).load_numpy_state(weights).train()
+    loss = pm.loss(pm(torch.from_numpy(ids)), torch.from_numpy(ids))
+    _close(float(loss.detach()), want_loss, TOL)
+    loss.backward()
+    for name, p in pm.named_parameters():
+        _close(p.grad.numpy(), want_grads[name], GRAD_TOL, name)
+    assert calls == [(2, 4, 32, 32)] * MODEL_KW['num_layers']
 
 
 @pytest.mark.parametrize('n,h,v,chunks', [(20, 16, 50, 8), (33, 24, 50, 3),
@@ -347,9 +374,13 @@ def test_what_is_not_ported_raises(weights, ids):
     st.recompute = True
     with pytest.raises(NotImplementedError, match='recompute'):
         ParallelTrainer(pm, opt, pm.loss, strategy=st)
+    # dropout trains now (tests/test_torch_dropout.py); MoE does not
     drop = gpt_tiny(device='cpu', **dict(MODEL_KW, dropout=0.1)).train()
-    with pytest.raises(NotImplementedError, match='dropout'):
-        drop(torch.from_numpy(ids))
+    logits = drop(torch.from_numpy(ids))
+    assert logits.shape == (2, 32, 128)
+    with pytest.raises(NotImplementedError, match='MoE'):
+        drop.loss(logits, torch.from_numpy(ids),
+                  aux_losses=[torch.zeros(())])
     drop.eval()
     assert drop(torch.from_numpy(ids)).shape == (2, 32, 128)
     for bad in (dict(grad_clip=object()),

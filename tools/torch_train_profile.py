@@ -1,12 +1,15 @@
 """Where the port's training time goes, on one CUDA card.
 
-    python3 tools/torch_train_profile.py [--steps 2] [--out build/torch_train_profile.json]
+    python3 tools/torch_train_profile.py [--model gpt|bert] [--steps 2] [--out build/torch_train_profile.json]
 
-Run from the repository root.  One training step of ``gpt_small`` at
-full width in the configuration of ``chip_smoke.py``'s training phase
-(B 8, T 1024, bf16 O2, fused CE head in 8 chunks, AdamW, random seeded
-weights), after 2 warm-up steps, under ``torch.profiler`` (CUPTI device
-timestamps) for ``--steps`` steps: wall time per step, the device's
+Run from the repository root.  Training steps at full width with random
+seeded weights, in the configuration of one of ``chip_smoke.py``'s
+training runs: ``--model gpt`` (the default) ``gpt_small`` at B 8, T
+1024, bf16 O2, fused CE head in 8 chunks, AdamW lr 3e-4; ``--model
+bert`` ``bert_base`` at its dropout 0.1, B 64, T 128, bf16 O2, fused
+MLM head in 8 chunks, AdamW lr 1e-4, MLM labels on 15% of positions.
+After 2 warm-up steps, ``--steps`` steps run under ``torch.profiler``
+(CUPTI device timestamps): wall time per step, the device's
 busy and idle share (the union of kernel intervals over the wall
 window), device time by kernel and by kind of kernel, host time by
 operator, and for each of the trainer's forward, backward and optimizer
@@ -35,6 +38,9 @@ KINDS = [('flash_attention_fwd', ('flash_fwd',)),
          ('flash_attention_bwd_dq', ('flash_bwd_dq',)),
          ('flash_attention_bwd_dkv', ('flash_bwd_dkv',)),
          ('fused_layer_norm', ('layer_norm_fwd',)),
+         # PyTorch's own are softmax_warp_forward/backward
+         ('fused_softmax', ('softmax_warp<', 'softmax_block<')),
+         ('fused_linear_gelu', ('linear_gelu<',)),
          ('matmul (cuBLAS/CUTLASS)', ('gemm', 'cutlass', 'sm90_xmma',
                                       'nvjet', 'cublas', 'splitk')),
          ('reduction', ('reduce',)),
@@ -70,21 +76,38 @@ def _busy_us(events):
     return busy, len(spans)
 
 
-def training_breakdown(steps=2, top=20):
+def _setup(model_name):
+    """(trainer, batch, tokens per step) of the named configuration."""
+    if model_name == 'bert':
+        from paddle_tpu_torch.models.bert import bert_base
+        _, dropout, _, _, _ = chip_smoke.BERT_RUNS[0]
+        model = bert_base(device='cuda', seed=0, dropout=dropout,
+                          **chip_smoke.BERT_MODEL_KW)
+        trainer = chip_smoke._trainer(model, amp_o2=True,
+                                      lr=chip_smoke.BERT_LR)
+        batch = chip_smoke.bert_batch(model.config.vocab_size,
+                                      chip_smoke.BERT_BATCH,
+                                      chip_smoke.BERT_SEQ)
+        return trainer, batch, chip_smoke.BERT_BATCH * chip_smoke.BERT_SEQ
     from paddle_tpu_torch.models.gpt import gpt_small
     model = gpt_small(device='cuda', seed=0, **chip_smoke.TRAIN_MODEL_KW)
     trainer = chip_smoke._trainer(model, amp_o2=True)
     ids = np.random.RandomState(0).randint(
         0, model.config.vocab_size,
         (chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ)).astype(np.int64)
+    return trainer, (ids, ids), chip_smoke.TRAIN_BATCH * chip_smoke.TRAIN_SEQ
+
+
+def training_breakdown(model_name='gpt', steps=2, top=20):
+    trainer, batch, tokens = _setup(model_name)
     for _ in range(chip_smoke.TRAIN_WARMUP):
-        trainer.step(ids, ids)
+        trainer.step(*batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            loss = trainer.step(ids, ids)
+            loss = trainer.step(*batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # the trainer's record_function ranges also appear on the device's
@@ -111,9 +134,8 @@ def training_breakdown(steps=2, top=20):
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     ranges = {e.key: float(e.cpu_time_total) / steps for e in avgs
               if e.key in RANGES and not chip_smoke.is_device_event(e)}
-    tokens = chip_smoke.TRAIN_BATCH * chip_smoke.TRAIN_SEQ
     res = {
-        'steps': steps, 'loss': float(loss),
+        'model': model_name, 'steps': steps, 'loss': float(loss),
         'wall_ms_per_step': wall_us / steps / 1e3,
         'tokens_per_s_under_profiler': tokens * steps / (wall_us / 1e6),
         'device_busy_ms_per_step': busy_us / steps / 1e3,
@@ -135,7 +157,7 @@ def training_breakdown(steps=2, top=20):
              'self_cpu_ms_per_step': float(e.self_cpu_time_total) / steps
              / 1e3} for e in host[:top]],
     }
-    print(f'train under the profiler: {steps} steps, wall '
+    print(f'{model_name} train under the profiler: {steps} steps, wall '
           f'{res["wall_ms_per_step"]:.2f} ms/step, device busy '
           f'{res["device_busy_ms_per_step"]:.2f} ms/step, idle share '
           f'{res["device_idle_share"]:.4f}, '
@@ -157,6 +179,7 @@ def training_breakdown(steps=2, top=20):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--model', choices=('gpt', 'bert'), default='gpt')
     ap.add_argument('--steps', type=int, default=2)
     ap.add_argument('--out', default='build/torch_train_profile.json')
     args = ap.parse_args()
@@ -165,7 +188,8 @@ def main():
         return 2
     name = chip_smoke.device_phase()
     chip_smoke.build_phase()
-    res = {'device': name, 'training': training_breakdown(args.steps)}
+    res = {'device': name,
+           'training': training_breakdown(args.model, args.steps)}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, 'w') as f:
         json.dump(res, f, indent=1)
