@@ -7,7 +7,9 @@ From the repository root, with one CUDA card.  It
 1. prints the card (``nvidia-smi`` name and power limit) and turns
    TF32 off for matmuls and cuDNN, so f32 means f32;
 2. builds every kernel under ``paddle_tpu_torch/csrc/`` with nvcc (one
-   process per source, all at once) and prints the build seconds;
+   process per source, all at once), prints the build seconds and each
+   flash kernel's registers, stack and local (spill) bytes from
+   ``cuobjdump --dump-resource-usage``;
 3. holds each kernel to its plain PyTorch twin at the shapes its
    paths give it, with the tolerance stated, and times the kernel, the
    twin and one PyTorch library call computing the same function beside
@@ -17,8 +19,11 @@ From the repository root, with one CUDA card.  It
    launch work).  LayerNorm at the serving and training shapes; the
    three flash attention kernels (forward, dq, dk/dv) at the training
    shape (96 x 1024 x 64 bf16 causal), in f32, in ``'strict'`` mode
-   with an lse cotangent, at a ragged T of 200 and at BERT-base's
-   768 x 128 x 64 bf16 non-causal; the softmax kernel
+   with an lse cotangent, at a ragged T of 200 (f32 and bf16), at D 128
+   (32 x 512 x 128 bf16 causal) and at BERT-base's 768 x 128 x 64 bf16
+   non-causal, each with its achieved TFLOP/s, and for bf16 a second
+   launch of the tensor-core forward and dk/dv that must repeat the
+   first bit for bit; the softmax kernel
    at BERT-base's attention scores (64 x 12 x 128 x 128, f32 and bf16),
    at GPT's row of 1024 and at a ragged row of 200; the masked softmax
    through the public ``ops.fused_softmax(x, mask)`` at BERT's shape
@@ -90,11 +95,16 @@ KERNEL_SHAPES = [((64, 768), torch.float32, 1e-5),     # decode, S=64
 # own twin, |got - want| <= tol * (1 + |want|)): f32 1e-5 on o and lse
 # and 1e-4 on dq/dk/dv (online softmax and tile sums in another order
 # than the twin's whole-row matmuls); bf16 2e-2 on o/dq/dk/dv (both
-# round the f32 result to bf16) and 1e-4 on the f32 lse
+# round the f32 result to bf16; the tensor-core forward and dk/dv also
+# round P and dS to bf16, which the CPU replay in
+# tests/test_torch_flash_attention.py holds within half of 2e-2) and
+# 1e-4 on the f32 lse
 FLASH_CASES = [('train', 8, 12, 1024, 64, torch.bfloat16, True, False),
                ('f32', 8, 12, 1024, 64, torch.float32, True, False),
                ('strict', 8, 12, 1024, 64, torch.bfloat16, 'strict', True),
                ('ragged', 8, 12, 200, 64, torch.float32, False, False),
+               ('ragged_bf16', 8, 12, 200, 64, torch.bfloat16, True, False),
+               ('d128_bf16', 4, 8, 512, 128, torch.bfloat16, True, False),
                ('bert', 64, 12, 128, 64, torch.bfloat16, False, False)]
 FLASH_TOL = {torch.float32: (1e-5, 1e-5, 1e-4),
              torch.bfloat16: (2e-2, 1e-4, 2e-2)}
@@ -269,7 +279,40 @@ def build_phase():
     secs = time.perf_counter() - t0
     log(f'build: {len(paths)} kernel source(s) in {secs:.2f} s '
         f'({", ".join(_build.sources())})')
+    log_resources(_build, 'flash_attention')
     return secs
+
+
+def log_resources(_build, source):
+    """Registers, stack and local (spill) bytes a thread of each kernel
+    in ``csrc/<source>.cu`` uses, as ``cuobjdump --dump-resource-usage``
+    reads them from the built library (dynamic shared memory is set per
+    launch and not listed)."""
+    import os
+    import re
+    import shutil
+    lib = _build._target(source)[1]
+    tool = os.path.join(os.path.dirname(_build._nvcc()), 'cuobjdump')
+    if not os.path.exists(tool):
+        log(f'resources {source}: not measured (no {tool})')
+        return
+    out = subprocess.run([tool, '--dump-resource-usage', lib],
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    names = re.findall(r'Function (\S+):', out)
+    plain = names
+    if shutil.which('c++filt'):
+        plain = subprocess.run(['c++filt'], input='\n'.join(names),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.split('\n')
+    for mangled, name in zip(names, plain):
+        usage = re.search(re.escape(mangled) + r':\s*(.*)', out).group(1)
+        fields = dict(re.findall(r'(REG|STACK|SHARED|LOCAL):(\d+)', usage))
+        short = re.search(r'(\w+<[^<>]*>)\(', name)
+        log(f'resources {source}: {short.group(1) if short else name} '
+            f'registers {fields.get("REG")}, stack {fields.get("STACK")} '
+            f'B, static shared {fields.get("SHARED")} B, local (spill) '
+            f'{fields.get("LOCAL")} B')
 
 
 def kernel_phase():
@@ -390,6 +433,18 @@ def flash_kernel_phase():
                         f'- plain| {err:.3e} beyond tol {tol} * (1 + '
                         '|plain|)')
                 errs[kname] = max(errs[kname], err)
+        if dtype == torch.bfloat16:
+            # the tensor-core kernels use no atomics: a second launch on
+            # the same inputs repeats the first bit for bit
+            again = (*fa._fwd_cuda(q, k, v, causal, scale),
+                     *fa._bwd_dkv_cuda(*args))
+            torch.cuda.synchronize()
+            for what, a, b in zip(('o', 'lse', 'dk', 'dv'),
+                                  (o, lse, dk, dv), again):
+                if not torch.equal(a, b):
+                    raise AssertionError(f'flash {case}: a second launch '
+                                         f'changed {what}')
+            log(f'flash {case}: forward and dk/dv repeat bit for bit')
         # the library: SDPA on the [B, H, T, D] view, forward alone and
         # its autograd backward (dq, dk and dv together)
         q4, k4, v4 = (t.view(B, H, T, D).detach().requires_grad_()
@@ -429,9 +484,11 @@ def flash_kernel_phase():
             time_row(row, fns[kname], iters=20, warmup=3, prof_iters=10)
             (row['bound_ms'], row['bound_by'], row['flops'],
              row['bytes']) = bounds[kname]
+            row['tflops'] = row['flops'] / (row['ms'] / 1e3) / 1e12
             log(f'kernel {kname} {case} {bh}x{T}x{D} {row["dtype"]} '
                 f'causal={causal}: max_abs_err {errs[kname]:.3e} | device: '
-                f'kernel {row["ms"] * 1e3:.1f} us, plain '
+                f'kernel {row["ms"] * 1e3:.1f} us '
+                f'({row["tflops"]:.1f} TFLOP/s), plain '
                 f'{row["plain_ms"] * 1e3:.1f} us, SDPA '
                 f'{row["library_ms"] * 1e3:.1f} us ({row["ms_from"]}) | '
                 f'per call: kernel {row["call_ms"] * 1e3:.1f} us | bound '

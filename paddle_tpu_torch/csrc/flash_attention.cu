@@ -1,10 +1,10 @@
 // Flash attention for Hopper (sm_90a): the forward and its two backward
-// kernels, SIMT, f32 accumulation.
+// kernels.
 //
 // Replaces the TPU kernels of paddle_tpu/ops/flash_attention.py:
-//   flash_fwd     <- _fwd_kernel     (:151)
-//   flash_bwd_dq  <- _bwd_dq_kernel  (:245)
-//   flash_bwd_dkv <- _bwd_dkv_kernel (:295)
+//   flash_fwd_mma, flash_fwd         <- _fwd_kernel     (:151)
+//   flash_bwd_dq                     <- _bwd_dq_kernel  (:245)
+//   flash_bwd_dkv_mma, flash_bwd_dkv <- _bwd_dkv_kernel (:295)
 // Same functions over [B*H, T, D] (row-major, contiguous): online-softmax
 // attention with o and the per-row logsumexp (lse) out of the forward,
 // and the recompute backward p = exp(min(s - lse, 0)),
@@ -16,48 +16,89 @@
 // mode's row 0 (no valid column) yields o = 0 and lse = -1e29 + log(1e-30)
 // (the plain twin's clamp of the row max), not a uniform row.  lse is
 // stored flat [B*H, T] f32: the reference's [.., 8] layout was a TPU
-// tiling constraint.
+// tiling constraint.  The TPU kernel carried its running max, sum and
+// accumulators (m_sc, l_sc, acc_sc, dq_sc, dk_sc) across the sequential
+// third grid axis; blocks here run in parallel and in no order, so that
+// axis is a loop inside one block, and no kernel uses atomics: a launch
+// is deterministic.  In causal modes the tiles strictly above the
+// diagonal are skipped, and the heaviest tiles are launched first.
 //
 // Bound: at the training shape (B*H 96, T 1024, D 64, bf16, causal) the
 // forward moves ~50 MB and does 4*D flops per unmasked (q, k) pair
-// (~12.9 GFLOP); the backward ~6*D (dq) and ~8*D (dk/dv) per pair.  At
-// the bf16 tensor-core peak the flops take ~13 us against ~15 us of
-// bytes, so on paper the forward sits near the ridge.  These kernels do
-// not use the tensor cores: every product is an f32 FMA on the SIMT
-// pipes (67 TFLOP/s peak), fed from shared memory, so they are bound by
-// shared-memory loads and FMA issue, tens of times above the bound.
-// wgmma, TMA and a producer/consumer pipeline are later work.
+// (~12.9 GFLOP); dq ~6*D and dk/dv ~8*D per pair.  At the bf16
+// tensor-core peak (989 TFLOP/s) the forward's flops take ~13 us against
+// ~15 us of bytes (near the ridge), dk/dv's ~26 us against ~20 us: both
+// are bound by the tensor cores and by feeding them, not by HBM.
 //
-// Design, simple first.  The TPU kernel carried its running max, sum and
-// accumulator (m_sc, l_sc, acc_sc, dq_sc, dk_sc) across the sequential
-// third grid axis; blocks here run in parallel and in no order, so that
-// axis becomes a loop inside one block:
-//   forward: one block per (bh, 64-row q-tile), streaming 64-row K/V
-//            tiles through shared memory;
-//   dq:      one block per (bh, q-tile), looping over k-tiles;
-//   dk/dv:   one block per (bh, 64-row k-tile), looping over q-tiles;
-// no atomics anywhere.  In causal modes the tiles strictly above the
-// diagonal are skipped.  256 threads form a 16 x 16 grid; a thread owns
-// rows ty + 16i (i < 4) and columns tx + 16j of each 64 x 64 score tile,
-// and head-dim columns tx + 16j (j < D/16) of its accumulators, so a
-// row's statistics live in the same 16 lanes of one warp (shuffle
-// reductions, no shared memory).  At D = 128 a thread holds at most 32
-// (forward, dq) or 64 (dk/dv) f32 accumulators: D is split across the 16
-// lanes of a row, never held whole by one thread, which keeps the
-// registers from spilling.  Tiles are loaded from bf16 or f32 and kept
-// as f32 in shared memory with rows padded to D + 1 (and 64 + 1) floats,
-// so that the column-strided reads of the score loops hit 16 distinct
-// banks.  Shared memory per block: 4 tiles of 64 x (D+1) plus one or two
-// 64 x 65 probability tiles, at most ~166 KB (dk/dv, D = 128), set with
+// bf16 inputs, forward and dk/dv (flash_fwd_mma, flash_bwd_dkv_mma):
+// tensor cores.  Every product is mma.sync.m16n8k16 (bf16 operands, f32
+// accumulators in registers; hopper_mma.cuh has the fragment layouts).
+// Tiles live in shared memory as bf16, rows padded by 16 bytes (row
+// stride D + 8 elements, an odd multiple of 16 bytes modulo 128), so
+// that the 8 row addresses of each ldmatrix hit 8 distinct groups of 4
+// banks: no conflicts for any D.  Loads are cp.async (16 bytes a thread,
+// rows beyond T and columns beyond D zero-filled through the src-size
+// operand), double-buffered: the copy of tile i+1 is issued before the
+// math on tile i.  4 warps, each owning 16 rows of the block's tile.
+//   forward: one block per (bh, 64-row q-tile), heaviest causal tiles
+//     first; Q's A fragments stay in registers for the whole loop over
+//     64-key K/V tiles; S = Q.K^T lands in accumulator fragments, the
+//     online max and sum run on them (exp2 with log2(e) folded into the
+//     scale; the row's max combined by __shfl_xor_sync over the quad of
+//     lanes that shares it, the sum kept per lane until the end), and P,
+//     rounded to bf16 in registers, is the A operand of P.V (ldmatrix
+//     .trans on V).  The mask is applied only on tiles that straddle the
+//     diagonal or the ragged edge.  (128-row q-tiles, 4 warps of two m16
+//     tiles each, reuse every K/V fragment twice but need 248 registers
+//     at D = 64: 2 blocks an SM, and 28% slower on the card; over 8 warps
+//     at D = 128 the 128-register cap spills.)
+//   dk/dv: one block per (bh, 64-key k-tile); K and V stay resident in
+//     shared memory while 64-row (D <= 64) or 32-row (D > 64, to bound
+//     the registers) Q/dO tiles stream past with their lse and delta
+//     rows.  S^T = K.Q^T and dP^T = V.dO^T come out indexed by key, so
+//     P^T and dS^T = P^T o (dP^T - delta) * scale are formed in
+//     registers, rounded to bf16, and fed as A operands to dV += P^T.dO
+//     and dK += dS^T.Q (ldmatrix.trans on dO and Q).  dK and dV are
+//     written once, in bf16.
+// Rounding P and dS to bf16 for the second products is what the TPU
+// kernels do too: their f32 dot_general at default precision rounds the
+// operands to bf16 on the matrix unit.  D is a template parameter (32,
+// 64, 128): a D of 16, 48, 80, 96 or 112 runs in the next instantiation
+// up, its extra columns zero-filled.  Shared memory per block: forward
+// (64 + 4 * 64) rows, dk/dv (2 * 64 + 4 * BQ) rows of D + 8 bf16 plus
+// 4 * BQ floats: at most ~85 KB (forward, D = 128), set with
 // cudaFuncAttributeMaxDynamicSharedMemorySize.
 //
+// f32 inputs, and dq for both dtypes (flash_fwd, flash_bwd_dq,
+// flash_bwd_dkv): SIMT, every product an f32 FMA (67 TFLOP/s peak), kept
+// for f32 accuracy (the f32 parity runs hold 1e-5; TF32 would not).
+// forward and dq: one block per (bh, 64-row q-tile) looping over k-tiles;
+// dk/dv: one block per (bh, 64-row k-tile) looping over q-tiles.  256
+// threads form a 16 x 16 grid; a thread owns rows ty + 16i (i < 4) and
+// columns tx + 16j of each 64 x 64 score tile, and head-dim columns
+// tx + 16j (j < D/16) of its accumulators, so a row's statistics live in
+// the same 16 lanes of one warp (shuffle reductions, no shared memory).
+// At D = 128 a thread holds at most 32 (forward, dq) or 64 (dk/dv) f32
+// accumulators: D is split across the 16 lanes of a row, never held
+// whole by one thread, which keeps the registers from spilling.  Tiles
+// are loaded from bf16 or f32 and kept as f32 in shared memory with rows
+// padded to D + 1 (and 64 + 1) floats, so that the column-strided reads
+// of the score loops hit 16 distinct banks.  Shared memory per block: 4
+// tiles of 64 x (D+1) plus one or two 64 x 65 probability tiles, at most
+// ~166 KB (dk/dv, D = 128).  These are bound by shared-memory loads and
+// FMA issue, tens of times above the bound; dq's move to the tensor
+// cores is next.
+//
 // Limits the wrapper (paddle_tpu_torch/ops/flash_attention.py) enforces:
-// contiguous q/k/v/do of one dtype (f32 or bf16), D % 16 == 0 and
-// 16 <= D <= 128, any T >= 1, B*H <= 65535.
+// contiguous q/k/v/do of one dtype (f32 or bf16), bf16 ones 16-byte
+// aligned, D % 16 == 0 and 16 <= D <= 128, any T >= 1, B*H <= 65535.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -486,6 +527,385 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- bf16 on the tensor cores: flash_fwd_mma, flash_bwd_dkv_mma ----
+
+using bf16 = __nv_bfloat16;
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+// rows of a block's own tile, 16 per warp: the forward's q-tile, dk/dv's
+// k-tile
+constexpr int kMmaRows = 16 * kMmaWarps;
+constexpr int kMmaKeys = 64;  // keys of a forward K/V tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__host__ __device__ __forceinline__ int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+// q rows of a dk/dv Q/dO tile: above D = 64, 32 rows keep S^T and dP^T
+// (BQ / 2 floats a lane each) in registers beside dK and dV (D / 2 each)
+template <int DP>
+__host__ __device__ constexpr int dkv_q_rows() {
+  return DP <= 64 ? 64 : 32;
+}
+
+// rows [row0, row0 + ROWS) of a [n, d] bf16 matrix into a shared tile of
+// DP + 8 bf16 a row, asynchronously; rows >= n and columns >= d are
+// zero-filled (src-size 0), nothing past them is read
+template <int ROWS, int DP>
+__device__ __forceinline__ void load_tile_async(bf16* dst,
+                                                const bf16* __restrict__ src,
+                                                int row0, int n, int d) {
+  constexpr int kChunks = DP / 8;  // 16-byte chunks of a row
+  static_assert(ROWS * kChunks % kMmaThreads == 0, "whole chunks a thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / kMmaThreads; ++i) {
+    const int e = threadIdx.x + i * kMmaThreads;
+    const int r = e / kChunks;
+    const int c = e % kChunks * 8;
+    const bool in = row0 + r < n && c < d;
+    hopper::cp_async16(dst + r * (DP + 8) + c,
+                       in ? src + static_cast<size_t>(row0 + r) * d + c : src,
+                       in ? 16 : 0);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  float* __restrict__ lse, int tq, int tk, int d, float scale,
+                  int causal) {
+  constexpr int LD = DP + 8;
+  constexpr int NT = kMmaKeys / 8;  // n8 tiles of a warp's score rows
+  constexpr int DT = DP / 8;        // n8 tiles of a warp's output rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kMmaRows][LD]
+  bf16* Ks = Qs + kMmaRows * LD;                 // [2][kMmaKeys][LD]
+  bf16* Vs = Ks + 2 * kMmaKeys * LD;             // [2][kMmaKeys][LD]
+
+  const int lane = threadIdx.x & 31;
+  const int wrow = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
+  const int bh = blockIdx.y;
+  // heaviest causal q-tiles (most k-tiles) first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaRows;
+  const bf16* qb = q + static_cast<size_t>(bh) * tq * d;
+  const bf16* kb = k + static_cast<size_t>(bh) * tk * d;
+  const bf16* vb = v + static_cast<size_t>(bh) * tk * d;
+  // all k-tiles, or in causal modes those with k0 <= the tile's last row
+  const int nkt = causal ? min(ceil_div(tk, kMmaKeys),
+                               (q0 + kMmaRows - 1) / kMmaKeys + 1)
+                         : ceil_div(tk, kMmaKeys);
+
+  load_tile_async<kMmaRows, DP>(Qs, qb, q0, tq, d);
+  load_tile_async<kMmaKeys, DP>(Ks, kb, 0, tk, d);
+  load_tile_async<kMmaKeys, DP>(Vs, vb, 0, tk, d);
+  hopper::cp_async_commit();
+
+  uint32_t qf[DP / 16][4];  // the warp's 16 Q rows as A fragments
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // running max (log2 domain) and this lane's share of the running sum,
+  // for the lane's rows g and g + 8
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float sl2 = scale * kLog2e;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) {  // the next tile's copy overlaps this tile's math
+      const int nb = (kt + 1) & 1;
+      load_tile_async<kMmaKeys, DP>(Ks + nb * kMmaKeys * LD, kb,
+                                    (kt + 1) * kMmaKeys, tk, d);
+      load_tile_async<kMmaKeys, DP>(Vs + nb * kMmaKeys * LD, vb,
+                                    (kt + 1) * kMmaKeys, tk, d);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();
+    } else {
+      hopper::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hopper::ldsm_x4(qf[kk], Qs + hopper::a_operand(lane, wrow, kk * 16,
+                                                       LD));
+    }
+    const bf16* Kt = Ks + (kt & 1) * kMmaKeys * LD;
+    const bf16* Vt = Vs + (kt & 1) * kMmaKeys * LD;
+
+    // S = Q.K^T for the warp's 16 rows and the tile's 64 keys
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t b[4];
+        hopper::ldsm_x4(b, Kt + hopper::b_operand(lane, j * 8, kk * 16, LD));
+        hopper::mma_bf16(s[j], qf[kk], b[0], b[1]);
+        hopper::mma_bf16(s[j + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    // scale into the log2 domain; mask only a tile that straddles the
+    // diagonal or the ragged edge
+    const int k0 = kt * kMmaKeys;
+    const bool edge =
+        k0 + kMmaKeys > tk || (causal && k0 + kMmaKeys - 1 >= q0);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] *= sl2;
+        if (edge && !kept(q0 + wrow + hopper::acc_row(lane, e),
+                          k0 + j * 8 + hopper::acc_col(lane, e), tq, tk,
+                          causal))
+          s[j][e] = kNegInf;
+      }
+
+    // online softmax: a row's max over the quad of lanes that holds it
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m[h];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float alpha = exp2f(m[h] - mx);
+      m[h] = mx;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          const float p =
+              s[j][e] <= 0.5f * kNegInf ? 0.f : exp2f(s[j][e] - mx);
+          s[j][e] = p;
+          rs += p;
+        }
+      l[h] = alpha * l[h] + rs;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        acc[n][2 * h] *= alpha;
+        acc[n][2 * h + 1] *= alpha;
+      }
+    }
+
+    // acc += P.V, P rounded to bf16 in registers as the A operand
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t a[4];
+      hopper::frag_a_from_acc(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < DT; n += 2) {
+        uint32_t b[4];
+        hopper::ldsm_x4_trans(b, Vt + hopper::b_trans(lane, kk * 16, n * 8,
+                                                      LD));
+        hopper::mma_bf16(acc[n], a, b[0], b[1]);
+        hopper::mma_bf16(acc[n + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this tile's buffers are free for tile kt + 2
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = l[h];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int row = q0 + wrow + (lane >> 2) + 8 * h;
+    if (row >= tq) continue;
+    const float safe_l = fmaxf(sum, 1e-30f);
+    bf16* orow = o + (static_cast<size_t>(bh) * tq + row) * d;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      const int col = n * 8 + 2 * (lane & 3);
+      if (col < d)
+        *reinterpret_cast<uint32_t*>(orow + col) = hopper::pack_bf16(
+            acc[n][2 * h] / safe_l, acc[n][2 * h + 1] / safe_l);
+    }
+    if ((lane & 3) == 0)
+      lse[static_cast<size_t>(bh) * tq + row] =
+          fmaxf(m[h] * kLn2, -1e29f) + logf(safe_l);
+  }
+}
+
+// the Q and dO rows of dk/dv's q-tile qt, with their lse and delta
+// (4-byte copies: a row of lse need not be 16-byte aligned), into buffer
+// buf
+template <int DP>
+__device__ __forceinline__ void load_q_tile_async(
+    bf16* Qs, bf16* dOs, float* Ls, float* Ds, const bf16* __restrict__ q,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, int qt, int buf, int tq, int d) {
+  constexpr int BQ = dkv_q_rows<DP>();
+  static_assert(2 * BQ <= kMmaThreads, "one row value a thread");
+  const int q0 = qt * BQ;
+  load_tile_async<BQ, DP>(Qs + buf * BQ * (DP + 8), q, q0, tq, d);
+  load_tile_async<BQ, DP>(dOs + buf * BQ * (DP + 8), dout, q0, tq, d);
+  const int e = threadIdx.x;
+  if (e < 2 * BQ) {
+    const int r = e % BQ;
+    const bool in = q0 + r < tq;
+    const float* src = e < BQ ? lse : delta;
+    hopper::cp_async4((e < BQ ? Ls : Ds) + buf * BQ + r,
+                      in ? src + q0 + r : src, in ? 4 : 0);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int tq, int tk, int d,
+                      float scale, int causal) {
+  constexpr int LD = DP + 8;
+  constexpr int BQ = dkv_q_rows<DP>();
+  constexpr int NT = BQ / 8;  // n8 tiles of a warp's score rows (q columns)
+  constexpr int DT = DP / 8;  // n8 tiles of a warp's dK/dV rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kMmaRows][LD]
+  bf16* Vs = Ks + kMmaRows * LD;                 // [kMmaRows][LD]
+  bf16* Qs = Vs + kMmaRows * LD;                 // [2][BQ][LD]
+  bf16* dOs = Qs + 2 * BQ * LD;                  // [2][BQ][LD]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * LD);  // [2][BQ]
+  float* Ds = Ls + 2 * BQ;                                  // [2][BQ]
+
+  const int lane = threadIdx.x & 31;
+  const int wrow = (threadIdx.x >> 5) * 16;  // the warp's keys in the tile
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kMmaRows;  // heaviest causal k-tiles first
+  const size_t qoff = static_cast<size_t>(bh) * tq * d;
+  const size_t koff = static_cast<size_t>(bh) * tk * d;
+  const float* lse_b = lse + static_cast<size_t>(bh) * tq;
+  const float* delta_b = delta + static_cast<size_t>(bh) * tq;
+  const int nqt = ceil_div(tq, BQ);
+  // causal: q-tiles whose last row lies above k0 see only masked cells
+  const int qt0 = causal ? min(nqt, k0 / BQ) : 0;
+
+  load_tile_async<kMmaRows, DP>(Ks, k + koff, k0, tk, d);
+  load_tile_async<kMmaRows, DP>(Vs, v + koff, k0, tk, d);
+  if (qt0 < nqt)
+    load_q_tile_async<DP>(Qs, dOs, Ls, Ds, q + qoff, dout + qoff, lse_b,
+                          delta_b, qt0, 0, tq, d);
+  hopper::cp_async_commit();
+
+  float dka[DT][4], dva[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  for (int qt = qt0; qt < nqt; ++qt) {
+    const int buf = (qt - qt0) & 1;
+    if (qt + 1 < nqt) {  // the next tile's copy overlaps this tile's math
+      load_q_tile_async<DP>(Qs, dOs, Ls, Ds, q + qoff, dout + qoff, lse_b,
+                            delta_b, qt + 1, buf ^ 1, tq, d);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();
+    } else {
+      hopper::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Qt = Qs + buf * BQ * LD;
+    const bf16* dOt = dOs + buf * BQ * LD;
+    const float* Lt = Ls + buf * BQ;
+    const float* Dt = Ds + buf * BQ;
+
+    // S^T = K.Q^T and dP^T = V.dO^T: the warp's 16 keys by BQ q rows
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      hopper::ldsm_x4(ka, Ks + hopper::a_operand(lane, wrow, kk * 16, LD));
+      hopper::ldsm_x4(va, Vs + hopper::a_operand(lane, wrow, kk * 16, LD));
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t b[4];
+        hopper::ldsm_x4(b, Qt + hopper::b_operand(lane, j * 8, kk * 16, LD));
+        hopper::mma_bf16(s[j], ka, b[0], b[1]);
+        hopper::mma_bf16(s[j + 1], ka, b[2], b[3]);
+        hopper::ldsm_x4(b, dOt + hopper::b_operand(lane, j * 8, kk * 16, LD));
+        hopper::mma_bf16(dp[j], va, b[0], b[1]);
+        hopper::mma_bf16(dp[j + 1], va, b[2], b[3]);
+      }
+    }
+
+    // P^T and dS^T in place; lse and delta are indexed by the q column
+    const int q0 = qt * BQ;
+    const bool edge = q0 + BQ > tq || k0 + kMmaRows > tk ||
+                      (causal && q0 <= k0 + kMmaRows - 1);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + hopper::acc_col(lane, e);
+        float p = exp2f(fminf(fmaf(s[j][e], sl2, -Lt[c] * kLog2e), 0.f));
+        if (edge && !kept(q0 + c, k0 + wrow + hopper::acc_row(lane, e), tq,
+                          tk, causal))
+          p = 0.f;
+        dp[j][e] = p * (dp[j][e] - Dt[c]) * scale;
+        s[j][e] = p;
+      }
+
+    // dV += P^T.dO and dK += dS^T.Q, P^T and dS^T rounded to bf16 in
+    // registers as the A operands
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t pa[4], da[4];
+      hopper::frag_a_from_acc(pa, s[2 * kk], s[2 * kk + 1]);
+      hopper::frag_a_from_acc(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < DT; n += 2) {
+        uint32_t b[4];
+        hopper::ldsm_x4_trans(b, dOt + hopper::b_trans(lane, kk * 16, n * 8,
+                                                       LD));
+        hopper::mma_bf16(dva[n], pa, b[0], b[1]);
+        hopper::mma_bf16(dva[n + 1], pa, b[2], b[3]);
+        hopper::ldsm_x4_trans(b, Qt + hopper::b_trans(lane, kk * 16, n * 8,
+                                                      LD));
+        hopper::mma_bf16(dka[n], da, b[0], b[1]);
+        hopper::mma_bf16(dka[n + 1], da, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this tile's buffers are free for tile qt + 2
+  }
+  hopper::cp_async_wait<0>();  // K/V copies of a block with no q-tile
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + wrow + (lane >> 2) + 8 * h;
+    if (row >= tk) continue;
+    bf16* dkr = dk + koff + static_cast<size_t>(row) * d;
+    bf16* dvr = dv + koff + static_cast<size_t>(row) * d;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      const int col = n * 8 + 2 * (lane & 3);
+      if (col < d) {
+        *reinterpret_cast<uint32_t*>(dkr + col) =
+            hopper::pack_bf16(dka[n][2 * h], dka[n][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(dvr + col) =
+            hopper::pack_bf16(dva[n][2 * h], dva[n][2 * h + 1]);
+      }
+    }
+  }
+}
+
 bool bad_shape(int bh, int tq, int tk, int d, int causal, int dtype) {
   return bh < 0 || bh > 65535 || tq < 0 || tk < 0 || d < 16 || d > 128 ||
          d % 16 != 0 || causal < 0 || causal > 2 || dtype < 0 || dtype > 1;
@@ -552,10 +972,81 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DP>
+int fwd_mma(const void* q, const void* k, const void* v, void* o, void* lse,
+            int bh, int tq, int tk, int d, float scale, int causal,
+            cudaStream_t s) {
+  const size_t smem =
+      sizeof(bf16) * (kMmaRows + 4 * kMmaKeys) * static_cast<size_t>(DP + 8);
+  cudaError_t err = prepare(flash_fwd_mma<DP>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(ceil_div(tq, kMmaRows), bh);
+  flash_fwd_mma<DP><<<grid, kMmaThreads, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), tq, tk, d, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int bwd_dkv_mma(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                void* dk, void* dv, int bh, int tq, int tk, int d,
+                float scale, int causal, cudaStream_t s) {
+  constexpr int BQ = dkv_q_rows<DP>();
+  const size_t smem =
+      sizeof(bf16) * (2 * kMmaRows + 4 * BQ) * static_cast<size_t>(DP + 8) +
+      sizeof(float) * 4 * BQ;
+  cudaError_t err = prepare(flash_bwd_dkv_mma<DP>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(ceil_div(tk, kMmaRows), bh);
+  flash_bwd_dkv_mma<DP><<<grid, kMmaThreads, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), tq, tk, d, scale,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the tensor-core kernels copy their inputs 16 bytes at a time
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+int fwd_bf16(const void* q, const void* k, const void* v, void* o,
+             void* lse, int bh, int tq, int tk, int d, float scale,
+             int causal, cudaStream_t s) {
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (d <= 32) return fwd_mma<32>(q, k, v, o, lse, bh, tq, tk, d, scale,
+                                  causal, s);
+  if (d <= 64) return fwd_mma<64>(q, k, v, o, lse, bh, tq, tk, d, scale,
+                                  causal, s);
+  return fwd_mma<128>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, s);
+}
+
+int bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dk, void* dv, int bh, int tq, int tk, int d,
+                 float scale, int causal, cudaStream_t s) {
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (d <= 32) return bwd_dkv_mma<32>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                      tq, tk, d, scale, causal, s);
+  if (d <= 64) return bwd_dkv_mma<64>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                      tq, tk, d, scale, causal, s);
+  return bwd_dkv_mma<128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d,
+                          scale, causal, s);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; causal: 0 none, 1 causal, 2 strict.
-// Each returns cudaGetLastError() after its launch (0: queued).
+// dtype: 0 = float32 (SIMT kernels), 1 = bfloat16 (the tensor-core
+// forward and dk/dv, which take 16-byte aligned q/k/v/do, and SIMT dq);
+// causal: 0 none, 1 causal, 2 strict.  Each returns cudaGetLastError()
+// after its launch (0: queued), or cudaErrorInvalidValue for what it
+// does not take.
 extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int bh, int tq, int tk, int d,
@@ -567,8 +1058,7 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0
              ? fwd<float>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, s)
-             : fwd<__nv_bfloat16>(q, k, v, o, lse, bh, tq, tk, d, scale,
-                                  causal, s);
+             : fwd_bf16(q, k, v, o, lse, bh, tq, tk, d, scale, causal, s);
 }
 
 extern "C" int ptt_flash_attention_bwd_dq(
@@ -596,8 +1086,8 @@ extern "C" int ptt_flash_attention_bwd_dkv(
   return dtype == 0
              ? bwd_dkv<float>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk,
                               d, scale, causal, s)
-             : bwd_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, bh,
-                                      tq, tk, d, scale, causal, s);
+             : bwd_dkv_bf16(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk,
+                            d, scale, causal, s);
 }
 
 extern "C" const char* ptt_cuda_error_string(int err) {

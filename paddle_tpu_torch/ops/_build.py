@@ -9,7 +9,8 @@ Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, compiled at first use by
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC`` into ``build/paddle_tpu_torch/`` at the repository
-root, under a name keyed by a hash of the source and the flags, and
+root, under a name keyed by a hash of the source, every header under
+``csrc/`` (``*.cuh``, which a source may include) and the flags, and
 loaded with ``ctypes``.  ``build()`` starts one nvcc per source, all at
 once, and waits for every one of them.  A failed build raises with
 nvcc's stderr; there is no fallback.
@@ -57,11 +58,18 @@ def _nvcc():
 
 
 def _target(name):
+    """(source path, library path): the library's name carries a hash of
+    the source, of every header under ``csrc/`` and of the flags, so an
+    edit to any of them builds anew."""
     src = os.path.join(CSRC_DIR, name + '.cu')
-    with open(src, 'rb') as f:
-        blob = f.read()
-    key = hashlib.sha256(blob + ' '.join(NVCC_FLAGS).encode()) \
-        .hexdigest()[:16]
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith('.cuh'))
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, 'rb') as f:
+            digest.update(os.path.basename(path).encode() + b'\0'
+                          + f.read())
+    digest.update(' '.join(NVCC_FLAGS).encode())
+    key = digest.hexdigest()[:16]
     return src, os.path.join(BUILD_DIR, f'{name}-{key}.so')
 
 

@@ -5,7 +5,11 @@ kernels (``_fwd_kernel``, ``_bwd_dq_kernel``, ``_bwd_dkv_kernel``)
 become ``csrc/flash_attention.cu`` (CUDA C++ for sm_90a; its header
 states the bound and the design).  Layout ``[B*H, T, D]``, f32
 accumulation for f32 and bf16 inputs, outputs in the inputs' dtype,
-``lse`` flat ``[B*H, T]`` f32.
+``lse`` flat ``[B*H, T]`` f32.  bf16 inputs run the forward and dk/dv
+on the tensor cores (``mma.sync`` tiles, P and dS rounded to bf16 for
+the second product, as the TPU's matrix unit rounds the operands of an
+f32 ``dot_general`` at default precision); f32 inputs, and dq for both
+dtypes, run SIMT f32 FMAs.
 
 Plain twins, in this module: ``_reference_lse`` (the reference's
 forward twin, in torch) and ``_bwd_dq_reference``/``_bwd_dkv_reference``
@@ -22,8 +26,8 @@ keeps the lse gradient exact (d lse / d s = p).
 The TPU gates (the ``_tuned_blocks`` table, ``DEFAULT_BLOCK_Q/K`` and
 ``shapes_tile``'s ``T % block``, blocks >= 128, ``d % 64``) do not
 carry over: the kernels take any ``T >= 1`` (the ragged last tile is
-masked inside) and ``D`` a multiple of 16 up to 128, with fixed 64-row
-tiles.  ``block_q``/``block_k`` are validated and otherwise ignored.
+masked inside) and ``D`` a multiple of 16 up to 128, with fixed tiles.
+``block_q``/``block_k`` are validated and otherwise ignored.
 """
 import ctypes
 import math
@@ -176,10 +180,21 @@ def _dims(q, k, v):
     return bh, tq, tk, d
 
 
+def _aligned(code, *tensors):
+    """The tensor-core kernels (bf16) copy 16 bytes at a time: a tensor
+    whose data does not start on 16 bytes (a view at an odd offset) is
+    copied, since a fresh allocation does."""
+    if code != _DTYPE_CODE[torch.bfloat16]:
+        return tensors
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in tensors)
+
+
 def _fwd_cuda(q, k, v, causal, scale):
     """Launch the forward kernel: ``(o, lse)``."""
     device, code = _check('flash_attention_fwd', (q, k, v))
     bh, tq, tk, d = _dims(q, k, v)
+    q, k, v = _aligned(code, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=device)
     FWD_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -207,6 +222,7 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
     _check('flash_attention_bwd_dkv', (lse[..., None], delta[..., None]),
            torch.float32)
     bh, tq, tk, d = _dims(q, k, v)
+    q, k, v, do = _aligned(code, q, k, v, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     DKV_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),

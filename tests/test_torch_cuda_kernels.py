@@ -17,7 +17,13 @@ Tolerances, flash attention (each kernel against its own plain twin on
 the same inputs): f32 1e-5 on o and lse and 1e-4 on dq/dk/dv (the
 kernel's online softmax and tile sums run in another order than the
 twin's matmuls over whole rows); bf16 2e-2 on o/dq/dk/dv (both round
-the f32 result to bf16) and 1e-4 on the f32 lse.
+the f32 result to bf16, and the tensor-core forward and dk/dv also
+round P and dS to bf16 before their second products; on the CPU,
+``tests/test_torch_flash_attention.py`` replays that rounding and holds
+it within half this bound at T 200) and 1e-4 on the f32 lse.  The bf16 shapes straddle the tensor-core kernels' tiles (64
+q rows and 64-key K/V tiles in the forward; 64 keys and 64- or, above
+D = 64, 32-row Q/dO tiles in dk/dv) and their D instantiations (32, 64,
+128).
 
 Tolerances, softmax (plain and masked): f32 1e-6 on y (one exp and one
 division per element; the row's sums in another order); bf16 2^-8 (both
@@ -114,12 +120,19 @@ _FLASH_TOL = {torch.float32: (1e-5, 1e-5, 1e-4),      # o, lse, grads
               torch.bfloat16: (2e-2, 1e-4, 2e-2)}
 
 
+_FLASH_SHAPES = (
+    [(bh, t, d, dtype) for bh, t, d in ((4, 256, 64), (2, 200, 64),
+                                        (3, 77, 128), (2, 64, 16),
+                                        (1, 1, 32))
+     for dtype in (torch.float32, torch.bfloat16)]
+    + [(2, t, d, torch.bfloat16) for t in (1, 63, 64, 65, 127, 129, 200)
+       for d in (16, 32, 64, 96, 128)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('bh,t,d', [(4, 256, 64), (2, 200, 64),
-                                    (3, 77, 128), (2, 64, 16), (1, 1, 32)])
+@pytest.mark.parametrize('bh,t,d,dtype', _FLASH_SHAPES)
 @pytest.mark.parametrize('causal', [False, True, 'strict'])
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_flash_kernels_match_plain_twins(bh, t, d, causal, dtype):
+def test_flash_kernels_match_plain_twins(bh, t, d, dtype, causal):
     _cuda()
     q, k, v, do, g_lse = _attn_inputs(bh, t, d, dtype)
     scale = 1.0 / np.sqrt(d)
@@ -147,6 +160,67 @@ def test_flash_kernels_match_plain_twins(bh, t, d, causal, dtype):
     after = [kn.launches for kn in (fa.FWD_KERNEL, fa.DQ_KERNEL,
                                     fa.DKV_KERNEL)]
     assert after == [b + 1 for b in before]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bh,t,d,causal', [(16, 512, 64, True),
+                                           (4, 300, 128, 'strict'),
+                                           (6, 129, 32, False)])
+def test_bf16_tensor_core_kernels_repeat_bit_for_bit(bh, t, d, causal):
+    """No atomics: two launches on the same inputs give the same bits."""
+    _cuda()
+    q, k, v, do, g_lse = _attn_inputs(bh, t, d, torch.bfloat16, seed=6)
+    scale = 1.0 / np.sqrt(d)
+    runs = []
+    for _ in range(2):
+        o, lse = fa._fwd_cuda(q, k, v, causal, scale)
+        delta = (do.float() * o.float()).sum(-1) - g_lse
+        runs.append((o, lse, *fa._bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                causal, scale)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_flash_strict_row_zero_is_zero_with_the_twins_lse(dtype):
+    """Strict mode's row 0 sees no column: o = 0 exactly and lse the
+    twin's -1e29 + log(1e-30), in every head."""
+    _cuda()
+    q, k, v, _, _ = _attn_inputs(5, 130, 64, dtype, seed=7)
+    o, lse = fa._fwd_cuda(q, k, v, 'strict', 0.125)
+    _, rlse = fa._reference_lse(q, k, v, 'strict', 0.125)
+    torch.cuda.synchronize()
+    assert float(o[:, 0].float().abs().max()) == 0.0
+    assert torch.equal(lse[:, 0], rlse[:, 0])
+    assert float(rlse[0, 0]) == np.float32(-1e29) + np.log(np.float32(1e-30))
+
+
+@pytest.mark.cuda
+def test_flash_bf16_takes_inputs_off_16_byte_alignment():
+    """The tensor-core kernels copy 16 bytes at a time: a contiguous
+    view that starts 2 bytes into its storage is copied to an aligned
+    one by the wrapper, and the results match the twins."""
+    _cuda()
+    bh, t, d = 3, 70, 64
+    q, k, v, do, _ = _attn_inputs(bh, t, d, torch.bfloat16, seed=8)
+    views = []
+    for x in (q, k, v, do):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device='cuda')
+        flat[1:].copy_(x.reshape(-1))
+        views.append(flat[1:].view(bh, t, d))
+    assert all(x.is_contiguous() and x.data_ptr() % 16 for x in views)
+    o, lse = fa._fwd_cuda(*views[:3], True, 0.125)
+    ro, rlse = fa._reference_lse(q, k, v, True, 0.125)
+    delta = (do.float() * ro.to(torch.bfloat16).float()).sum(-1)
+    dk, dv = fa._bwd_dkv_cuda(*views, rlse, delta, True, 0.125)
+    rdk, rdv = fa._bwd_dkv_reference(q, k, v, do, rlse, delta, True, 0.125)
+    torch.cuda.synchronize()
+    for got, want in ((o, ro.to(torch.bfloat16)), (dk, rdk), (dv, rdv)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

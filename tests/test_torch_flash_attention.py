@@ -12,9 +12,21 @@ Strict mode's row 0 has no valid column: its lse is a sentinel (-1e30 in
 the Pallas kernel, -1e29 in the reference's plain function and in the
 port, whose CUDA kernel matches its twin), so that row's lse is checked
 to be <= -1e29 and the others are compared.
+
+The bf16 tensor-core kernels (forward and dk/dv) round P and dS to bf16
+before their second products, where the plain twins keep f32.
+``_mma_forward`` and ``_mma_bwd_dkv`` replay that arithmetic in plain
+torch (64-key tiles, online max and sum in f32, P rounded before P.V;
+P and dS rounded before P^T.dO and dS^T.Q) on bf16 inputs, and the
+tests hold them within the card's kernel-vs-twin tolerance,
+``|got - want| <= 2e-2 * (1 + |want|)`` on o, dk, dv (1e-4 on the f32
+lse), of the twins and of the Pallas kernels in interpret mode, and
+within half of it (1e-2) of the twins, the headroom the card's check
+keeps for the other rounding it sees.
 """
 import importlib
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +34,8 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+
+from paddle_tpu_torch.ops import _build
 
 jfa = importlib.import_module('paddle_tpu.ops.flash_attention')
 pfa = importlib.import_module('paddle_tpu_torch.ops.flash_attention')
@@ -198,3 +212,111 @@ def test_kernels_are_registered_with_their_tpu_counterparts():
     for kn in names.values():
         assert kn.route == 'cuda'
         assert kn.source_path == 'paddle_tpu_torch/csrc/flash_attention.cu'
+
+
+# the card's bf16 kernel-vs-twin tolerances (chip_smoke.FLASH_TOL), and
+# the half of the first that the rounding of P and dS may take
+BF16_TOL, BF16_LSE_TOL, ROUNDING_TOL = 2e-2, 1e-4, 1e-2
+MMA_KEYS = 64   # keys of a K/V tile of the tensor-core forward
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _mma_forward(q, k, v, causal, scale):
+    """The tensor-core forward's arithmetic on the CPU: ``(o bf16, lse
+    f32)`` from 64-key tiles with the online max and sum in f32 and P
+    rounded to bf16 before P.V."""
+    s_all, _ = pfa._scores(q, k, causal, scale)
+    bh, tq, tk = s_all.shape
+    m = torch.full((bh, tq, 1), pfa.NEG_INF)
+    l = torch.zeros((bh, tq, 1))
+    acc = torch.zeros((bh, tq, q.shape[-1]))
+    for k0 in range(0, tk, MMA_KEYS):
+        s = s_all[:, :, k0:k0 + MMA_KEYS]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(s <= pfa.NEG_INF / 2, torch.zeros(()),
+                        torch.exp(s - m_new))
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + _bf16(p) @ v[:, k0:k0 + MMA_KEYS].float()
+        m = m_new
+    safe = l.clamp_min(1e-30)
+    lse = (m.clamp_min(-1e29) + torch.log(safe))[..., 0]
+    return (acc / safe).to(torch.bfloat16), lse
+
+
+def _mma_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
+    """The tensor-core dk/dv's arithmetic on the CPU: the twin's P and
+    dS, rounded to bf16 before ``dV = P^T.dO`` and ``dK = dS^T.Q``."""
+    p, ds = pfa._bwd_probs(q, k, v, do, lse, delta, causal, scale)
+    dk = _bf16(ds).transpose(-1, -2) @ q.float()
+    dv = _bf16(p).transpose(-1, -2) @ do.float()
+    return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+def _within(got, want, tol):
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    assert bool((diff <= tol * (1 + want.abs())).all()), float(diff.max())
+    return float(diff.max())
+
+
+@pytest.mark.parametrize('d', [64, 128])
+@pytest.mark.parametrize('causal', MODES)
+def test_bf16_rounding_of_p_and_ds_stays_within_the_card_tolerance(d,
+                                                                   causal):
+    """bh 2, T 200 (ragged against 64-key tiles), bf16 inputs: the
+    kernels' rounding points against the plain twins and the Pallas
+    kernels (interpret mode, one 200-row block)."""
+    rs = np.random.RandomState(6)
+    q, k, v, do = (torch.from_numpy(rs.randn(2, 200, d).astype(np.float32))
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    o_emu, lse_emu = _mma_forward(q, k, v, causal, scale)
+    o_twin, lse_twin = pfa._reference_lse(q, k, v, causal, scale)
+    o_twin = o_twin.to(torch.bfloat16)
+    rounding = _within(o_emu, o_twin, ROUNDING_TOL)
+    _check_lse(lse_emu.numpy(), lse_twin.numpy(), causal)
+    _within(lse_emu, lse_twin, BF16_LSE_TOL)
+    delta = (do.float() * o_twin.float()).sum(-1)
+    args = (q, k, v, do, lse_twin, delta, causal, scale)
+    grads_emu = _mma_bwd_dkv(*args)
+    for got, want in zip(grads_emu, pfa._bwd_dkv_reference(*args)):
+        rounding = max(rounding, _within(got, want, ROUNDING_TOL))
+    assert rounding > 0   # the rounding points are exercised
+
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                       for t in (q, k, v, do))
+    with pltpu.force_tpu_interpret_mode():
+        jo, jlse = jfa._fwd_pallas(jq, jk, jv, scale, causal, 200, 200)
+        _, jdk, jdv = jfa._bwd_pallas((jq, jk, jv, jo, jlse), jdo, scale,
+                                      causal, 200, 200)
+    _within(o_emu, torch.from_numpy(np.array(jo.astype(jnp.float32))),
+            BF16_TOL)
+    for got, want in zip(grads_emu, (jdk, jdv)):
+        _within(got, torch.from_numpy(np.array(want.astype(jnp.float32))),
+                BF16_TOL)
+    if causal == 'strict':
+        assert float(o_emu[:, 0].float().abs().max()) == 0.0
+
+
+def test_build_key_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel library is named by a hash of its source, every
+    ``csrc/*.cuh`` header and the flags: editing a header builds anew."""
+    assert 'hopper_mma.cuh' in os.listdir(_build.CSRC_DIR)
+    (tmp_path / 'kern.cu').write_text('#include "shared.cuh"\n')
+    (tmp_path / 'shared.cuh').write_text('// v1\n')
+    monkeypatch.setattr(_build, 'CSRC_DIR', str(tmp_path))
+    src, first = _build._target('kern')
+    assert src == str(tmp_path / 'kern.cu') and _build._target('kern')[1] \
+        == first
+    (tmp_path / 'shared.cuh').write_text('// v2\n')
+    second = _build._target('kern')[1]
+    (tmp_path / 'kern.cu').write_text('#include "shared.cuh"\n// edit\n')
+    third = _build._target('kern')[1]
+    (tmp_path / 'other.cuh').write_text('// new\n')
+    fourth = _build._target('kern')[1]
+    assert len({first, second, third, fourth}) == 4
+    assert _build.sources() == ['kern']

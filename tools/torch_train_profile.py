@@ -1,13 +1,15 @@
 """Where the port's training time goes, on one CUDA card.
 
-    python3 tools/torch_train_profile.py [--model gpt|bert] [--steps 2] [--out build/torch_train_profile.json]
+    python3 tools/torch_train_profile.py [--model gpt|bert|bert_flash] [--steps 2] [--out build/torch_train_profile.json]
 
 Run from the repository root.  Training steps at full width with random
 seeded weights, in the configuration of one of ``chip_smoke.py``'s
 training runs: ``--model gpt`` (the default) ``gpt_small`` at B 8, T
 1024, bf16 O2, fused CE head in 8 chunks, AdamW lr 3e-4; ``--model
-bert`` ``bert_base`` at its dropout 0.1, B 64, T 128, bf16 O2, fused
-MLM head in 8 chunks, AdamW lr 1e-4, MLM labels on 15% of positions.
+bert`` ``bert_base`` at its dropout 0.1 (the softmax branch), B 64, T
+128, bf16 O2, fused MLM head in 8 chunks, AdamW lr 1e-4, MLM labels on
+15% of positions; ``--model bert_flash`` the same at the benchmark's
+dropout 0 (the flash kernels).
 After 2 warm-up steps, ``--steps`` steps run under ``torch.profiler``
 (CUPTI device timestamps): wall time per step, the device's
 busy and idle share (the union of kernel intervals over the wall
@@ -78,9 +80,10 @@ def _busy_us(events):
 
 def _setup(model_name):
     """(trainer, batch, tokens per step) of the named configuration."""
-    if model_name == 'bert':
+    if model_name in ('bert', 'bert_flash'):
         from paddle_tpu_torch.models.bert import bert_base
-        _, dropout, _, _, _ = chip_smoke.BERT_RUNS[0]
+        run = 1 if model_name == 'bert_flash' else 0
+        _, dropout, _, _, _ = chip_smoke.BERT_RUNS[run]
         model = bert_base(device='cuda', seed=0, dropout=dropout,
                           **chip_smoke.BERT_MODEL_KW)
         trainer = chip_smoke._trainer(model, amp_o2=True,
@@ -179,7 +182,8 @@ def training_breakdown(model_name='gpt', steps=2, top=20):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--model', choices=('gpt', 'bert'), default='gpt')
+    ap.add_argument('--model', choices=('gpt', 'bert', 'bert_flash'),
+                    default='gpt')
     ap.add_argument('--steps', type=int, default=2)
     ap.add_argument('--out', default='build/torch_train_profile.json')
     args = ap.parse_args()
