@@ -8,8 +8,8 @@ From the repository root, with one CUDA card.  It
    TF32 off for matmuls and cuDNN, so f32 means f32;
 2. builds every kernel under ``paddle_tpu_torch/csrc/`` with nvcc (one
    process per source, all at once), prints the build seconds and each
-   flash kernel's registers, stack and local (spill) bytes from
-   ``cuobjdump --dump-resource-usage``;
+   flash and GEMM+GELU kernel's registers, stack and local (spill) bytes
+   from ``cuobjdump --dump-resource-usage``;
 3. holds each kernel to its plain PyTorch twin at the shapes its
    paths give it, with the tolerance stated, and times the kernel, the
    twin and one PyTorch library call computing the same function beside
@@ -29,8 +29,11 @@ From the repository root, with one CUDA card.  It
    through the public ``ops.fused_softmax(x, mask)`` at BERT's shape
    with a seeded padding mask, at the ragged shape and with a full bf16
    mask; the GEMM+GELU forward and backward kernels at BERT-base's fc
-   (8192 x 768 x 3072, bf16 and f32) and at a ragged 1000 x 700 x 3001
-   with the erf GELU;
+   (8192 x 768 x 3072, bf16 on the tensor-core design and f32 on the
+   SIMT one), at a ragged 1000 x 700 x 3001 f32 with the erf GELU, at an
+   aligned ragged 1000 x 776 x 3000 bf16 (tensor cores) and at an
+   unaligned 300 x 129 x 257 bf16 (SIMT), each checked to take its
+   design, repeated bit for bit and timed in TFLOP/s;
 4. serves 32 seeded Poisson requests with ``gpt_small`` at full width
    (random seeded weights) through ``ServingEngine`` with the
    benchmark's serving config, and checks the outcome: every request
@@ -56,13 +59,15 @@ From the repository root, with one CUDA card.  It
    steps: the softmax kernel in every layer), at the benchmark's dropout
    0 (1 + 3 steps: non-causal flash) and at dropout 0.1 with
    ``USE_PALLAS_MLP`` (1 + 3 steps: the GEMM+GELU kernels in every
-   MLP), each with finite, falling losses and exact launch counts per
-   step; then one f32 step at B 2 with ``USE_PALLAS_MLP`` and dropout
-   1e-9 (every element kept at scale 1, the softmax branch taken) on
-   the card against the same weights on the CPU;
+   MLP, every launch on the tensor-core design), each with finite,
+   falling losses and exact launch counts per step; then one f32 step
+   at B 2 with ``USE_PALLAS_MLP`` and dropout 1e-9 (every element kept
+   at scale 1, the softmax branch taken; the SIMT design) on the card
+   against the same weights on the CPU;
 8. prints one JSON line with the training results, one listing every
    kernel (its launches on each path, each path's counts set to 0 just
-   before it and read just after), then as its last line
+   before it and read just after, and per design where a kernel has
+   two), then as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  Without a
@@ -148,12 +153,16 @@ SOFTMAX_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8}
 SOFTMAX_KERNELS = ('fused_softmax', 'fused_softmax_masked')
 
 # GEMM+GELU cases: (case, M, K, N, dtype, approximate); the first is
-# BERT-base's fc at B 64 x T 128 under bf16 O2.  Tolerances (kernel vs
+# BERT-base's fc at B 64 x T 128 under bf16 O2 (the tensor-core design),
+# then f32 and unaligned bf16 (the SIMT design) and an aligned ragged
+# bf16 shape that straddles the tensor-core tiles.  Tolerances (kernel vs
 # twin, relative as above): f32 1e-4 (K-term sums in another order than
 # cuBLAS's), bf16 2e-2 (both round the f32 result to bf16)
 GELU_CASES = [('bert_fc', 8192, 768, 3072, torch.bfloat16, True),
               ('bert_fc_f32', 8192, 768, 3072, torch.float32, True),
-              ('ragged_erf', 1000, 700, 3001, torch.float32, False)]
+              ('ragged_erf', 1000, 700, 3001, torch.float32, False),
+              ('ragged_bf16', 1000, 776, 3000, torch.bfloat16, True),
+              ('unaligned_bf16', 300, 129, 257, torch.bfloat16, True)]
 GELU_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 GELU_KERNELS = ('fused_linear_gelu_fwd', 'fused_linear_gelu_bwd')
 
@@ -280,6 +289,7 @@ def build_phase():
     log(f'build: {len(paths)} kernel source(s) in {secs:.2f} s '
         f'({", ".join(_build.sources())})')
     log_resources(_build, 'flash_attention')
+    log_resources(_build, 'fused_gelu_linear')
     return secs
 
 
@@ -313,6 +323,19 @@ def log_resources(_build, source):
             f'registers {fields.get("REG")}, stack {fields.get("STACK")} '
             f'B, static shared {fields.get("SHARED")} B, local (spill) '
             f'{fields.get("LOCAL")} B')
+
+
+def launch_counts():
+    """Every kernel's launches since the counts were last set to 0, and
+    for a kernel with more than one design each design's, under
+    ``'<kernel>:<design>'``."""
+    from paddle_tpu_torch.ops import _build
+    counts = {}
+    for k in _build.KERNELS:
+        counts[k.name] = k.launches
+        for variant, n in k.variant_launches.items():
+            counts[f'{k.name}:{variant}'] = n
+    return counts
 
 
 def kernel_phase():
@@ -581,9 +604,11 @@ def gelu_bounds(M, K, N, dtype):
 
 def gelu_kernel_phase():
     """The GEMM+GELU forward and backward kernels against their plain
-    twins on the card, timed beside the twin, one library call and the
-    bound."""
+    twins on the card, in the design the wrapper routes each case to
+    (checked by the kernels' per-design counts), repeated bit for bit,
+    timed beside the twin, one library call and the bound."""
     import torch.nn.functional as TF
+    from paddle_tpu_torch.ops import _build
     fgl = _ops_module('fused_gelu_linear')
     rows = {k: [] for k in GELU_KERNELS}
     gen = torch.Generator().manual_seed(3)
@@ -593,11 +618,19 @@ def gelu_kernel_phase():
         w = (0.05 * torch.randn((K, N), generator=gen)).to('cuda', dtype)
         b = torch.randn((N,), generator=gen).cuda()
         dy = torch.randn((M, N), generator=gen).to('cuda', dtype)
+        design = fgl.VARIANTS[0 if fgl.tensor_core_route(x, w) else 1]
+        _build.reset_launches()
         y = fgl._fwd_cuda(x, w, b, approx)
         dz = fgl._bwd_cuda(x, w, b, dy, approx)
         ry = fgl._reference(x, w, b, approx)
         rdz = fgl._dz_reference(x, w, b, dy, approx)
         torch.cuda.synchronize()
+        counts = launch_counts()
+        for kname in GELU_KERNELS:
+            if counts[f'{kname}:{design}'] != 1:
+                raise AssertionError(f'{kname} {case}: expected one launch '
+                                     f'of the {design} design, counts '
+                                     f'{counts}')
         tol = GELU_TOL[dtype]
         errs = {}
         for kname, got, want in ((GELU_KERNELS[0], y, ry),
@@ -608,6 +641,15 @@ def gelu_kernel_phase():
                     f'{kname} {case} {M}x{K}x{N} {dtype}: max |out - '
                     f'plain| {errs[kname]:.3e} beyond tol {tol} * (1 + '
                     '|plain|)')
+        # neither design uses atomics: a second launch on the same inputs
+        # repeats the first bit for bit
+        again = (fgl._fwd_cuda(x, w, b, approx),
+                 fgl._bwd_cuda(x, w, b, dy, approx))
+        torch.cuda.synchronize()
+        for what, first, second in zip(('y', 'dz'), (y, dz), again):
+            if not torch.equal(first, second):
+                raise AssertionError(f'gelu {case}: a second launch changed '
+                                     f'{what}')
         bl = b.to(dtype)
         form = 'tanh' if approx else 'none'
         if approx and fused_act:
@@ -636,14 +678,16 @@ def gelu_kernel_phase():
         for kname in GELU_KERNELS:
             row = {'case': case, 'shape': [M, K, N],
                    'dtype': str(dtype).replace('torch.', ''),
-                   'approximate': approx, 'tol': tol,
-                   'max_abs_err': errs[kname], 'library': libs[kname]}
+                   'approximate': approx, 'design': design, 'tol': tol,
+                   'max_abs_err': errs[kname], 'library': libs[kname],
+                   'repeats_bit_for_bit': True}
             time_row(row, fns[kname], iters=10, warmup=2, prof_iters=5)
             (row['bound_ms'], row['bound_by'], row['flops'],
              row['bytes']) = bounds[kname]
             row['tflops'] = row['flops'] / (row['ms'] / 1e3) / 1e12
             log(f'kernel {kname} {case} {M}x{K}x{N} {row["dtype"]} '
-                f'gelu={form}: max_abs_err {errs[kname]:.3e} | device: '
+                f'gelu={form} [{design}, repeats bit for bit]: max_abs_err '
+                f'{errs[kname]:.3e} | device: '
                 f'kernel {row["ms"] * 1e3:.1f} us '
                 f'({row["tflops"]:.2f} TFLOP/s), plain '
                 f'{row["plain_ms"] * 1e3:.1f} us, {libs[kname]} '
@@ -680,7 +724,7 @@ def serving_phase():
     torch.cuda.synchronize()
     rep = eng.run(reqs)
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in _build.KERNELS}
+    launches = launch_counts()
     prefills = eng.prefill_dispatches - p0
     steps = eng.decode_steps - d0
 
@@ -778,7 +822,7 @@ def _run_steps(trainer, batch, warmup, steps):
     losses += [trainer.step(*batch) for _ in range(steps)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
-    launches = {k.name: k.launches for k in _build.KERNELS}
+    launches = launch_counts()
     return ([trainer.loss_float(x) for x in losses], launches, warm_s, dt,
             torch.cuda.max_memory_allocated())
 
@@ -798,12 +842,16 @@ def _check_run(what, losses, launches, per_step, steps):
                                  f'expected {n} x {steps}')
 
 
-def _per_step(L, ln, softmax=0, flash=0, gelu=0):
-    """Launches per training step of every kernel."""
+def _per_step(L, ln, softmax=0, flash=0, gelu=0, gelu_design='tensor_core'):
+    """Launches per training step of every kernel, and of each design of
+    the GEMM+GELU kernels (all ``gelu`` launches on ``gelu_design``)."""
+    fgl = _ops_module('fused_gelu_linear')
     return {'fused_layer_norm': ln, 'fused_softmax': softmax * L,
             'fused_softmax_masked': 0,
             **{k: flash * L for k in FLASH_KERNELS},
-            **{k: gelu * L for k in GELU_KERNELS}}
+            **{k: gelu * L for k in GELU_KERNELS},
+            **{f'{k}:{v}': gelu * L if v == gelu_design else 0
+               for k in GELU_KERNELS for v in fgl.VARIANTS}}
 
 
 def _launch_summary(launches, per_step, steps):
@@ -882,7 +930,7 @@ def _card_vs_cpu(what, make_model, make_batch, per_step):
         got[dev] = (loss, {n: p.grad.detach().cpu()
                            for n, p in model.named_parameters()
                            if p.grad is not None},
-                    {k.name: k.launches for k in _build.KERNELS})
+                    launch_counts())
         del model, trainer
     (l_card, g_card, launches), (l_cpu, g_cpu, _) = got['cuda'], got['cpu']
     for name, n in per_step.items():
@@ -988,7 +1036,7 @@ def bert_phase():
                                   **BERT_MODEL_KW),
             lambda cfg: bert_batch(cfg.vocab_size, BERT_PARITY_BATCH,
                                    BERT_SEQ, seed=1),
-            _per_step(L, 2 * L + 2, softmax=1, gelu=1))
+            _per_step(L, 2 * L + 2, softmax=1, gelu=1, gelu_design='simt'))
     finally:
         fgl.USE_PALLAS_MLP = False
     return out
@@ -1053,10 +1101,14 @@ def main():
         # GEMM+GELU BERT-base training
         head = rows[0]
         by_path = {p: launches[k.name] for p, launches in paths.items()}
+        by_design = {v: sum(launches[f'{k.name}:{v}']
+                            for launches in paths.values())
+                     for v in k.variant_launches}
         kernels.append({
             'name': k.name, 'route': k.route, 'source': k.source_path,
             'replaces': k.replaces, 'launches': sum(by_path.values()),
             'launches_by_path': by_path,
+            **({'launches_by_design': by_design} if by_design else {}),
             'max_abs_err': max(r['max_abs_err'] for r in rows),
             'ms': head['ms'], 'kernel_ms': head['ms'],
             'plain_ms': head['plain_ms'], 'bound_ms': head['bound_ms'],

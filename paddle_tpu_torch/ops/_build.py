@@ -24,7 +24,7 @@ import threading
 
 import torch
 
-__all__ = ['Kernel', 'KERNELS', 'build', 'load', 'sources',
+__all__ = ['Kernel', 'KERNELS', 'aligned16', 'build', 'load', 'sources',
            'reset_launches', 'stream']
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -137,10 +137,16 @@ class Kernel:
     ``launch(*args)`` calls the entry point (which queues the kernel on
     the stream it is given and returns ``cudaGetLastError()``), raises
     if that is not 0, and adds one to ``launches``.  Nothing else
-    touches the count."""
+    touches the count.
+
+    Where one entry point holds more than one design and the wrapper
+    picks one per launch (by dtype and shape, before the launch),
+    ``variants`` names them: ``launch(*args, variant=v)`` then also adds
+    one to ``variant_launches[v]``, so a run can show which design its
+    launches took."""
 
     def __init__(self, name, source, symbol, argtypes, replaces,
-                 route='cuda'):
+                 route='cuda', variants=()):
         self.name = name
         self.source = source
         self.symbol = symbol
@@ -148,6 +154,7 @@ class Kernel:
         self.replaces = replaces
         self.route = route
         self.launches = 0
+        self.variant_launches = {v: 0 for v in variants}
         self._fn = None
         self._lib = None
         KERNELS.append(self)
@@ -165,7 +172,12 @@ class Kernel:
         self._lib, self._fn = lib, fn
         return fn
 
-    def launch(self, *args):
+    def launch(self, *args, variant=None):
+        known = (variant in self.variant_launches if self.variant_launches
+                 else variant is None)
+        if not known:
+            raise ValueError(f'{self.name}: variant {variant!r}, expected '
+                             f'one of {tuple(self.variant_launches)}')
         fn = self._fn or self._bind()
         err = fn(*args)
         if err != 0:
@@ -173,6 +185,8 @@ class Kernel:
             raise RuntimeError(f'{self.name}: CUDA launch failed '
                                f'({err}: {msg})')
         self.launches += 1
+        if variant is not None:
+            self.variant_launches[variant] += 1
 
 
 KERNELS = []
@@ -187,7 +201,17 @@ def stream(device):
     return torch.cuda.current_stream().cuda_stream
 
 
+def aligned16(*tensors):
+    """The tensors, each copied if its data does not start on 16 bytes
+    (a view at an odd offset; a fresh allocation does): for kernels that
+    move 16 bytes at a time or through TMA."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in tensors)
+
+
 def reset_launches():
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch counts to 0."""
     for k in KERNELS:
         k.launches = 0
+        for v in k.variant_launches:
+            k.variant_launches[v] = 0

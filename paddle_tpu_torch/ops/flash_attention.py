@@ -34,7 +34,7 @@ import math
 
 import torch
 
-from ._build import Kernel, stream
+from ._build import Kernel, aligned16, stream
 
 __all__ = ['flash_attention', 'flash_attention_lse', 'can_use_pallas']
 
@@ -181,13 +181,10 @@ def _dims(q, k, v):
 
 
 def _aligned(code, *tensors):
-    """The tensor-core kernels (bf16) copy 16 bytes at a time: a tensor
-    whose data does not start on 16 bytes (a view at an odd offset) is
-    copied, since a fresh allocation does."""
+    """The tensor-core kernels (bf16) copy 16 bytes at a time."""
     if code != _DTYPE_CODE[torch.bfloat16]:
         return tensors
-    return tuple(t if t.data_ptr() % 16 == 0 else t.clone()
-                 for t in tensors)
+    return aligned16(*tensors)
 
 
 def _fwd_cuda(q, k, v, causal, scale):

@@ -20,6 +20,16 @@ pair), any ``M``, ``N``, ``K`` and an optional bias; the reference's
 block-divisibility gate (``_pick_blocks``) and its bias requirement are
 TPU rules and do not carry over.
 
+Each entry point holds two designs, and the wrapper picks one per
+launch by dtype and shape (``tensor_core_route``), before the launch:
+bf16 with ``K % 8 == 0`` and ``N % 8 == 0`` takes the tensor-core
+kernel (``wgmma`` fed by TMA, which needs every row on 16 bytes; a view
+whose data starts off 16 bytes is copied first); f32
+(TF32 would change its numbers) and bf16 with other ``K``/``N`` take
+the SIMT kernel.  It is a choice, not a fallback: a failed launch
+raises.  Each kernel counts its launches by design in
+``variant_launches`` (``'tensor_core'``, ``'simt'``).
+
 Plain twins: ``_reference`` (the kernels' arithmetic: the product of
 the operands widened to f32, not rounded to x's dtype before the bias
 as the reference's jnp ``_reference`` does for bf16) and ``_dz_reference``
@@ -38,9 +48,10 @@ import torch
 
 from ..amp import amp_cast
 from ..nn import functional as F
-from ._build import Kernel, stream
+from ._build import Kernel, aligned16, stream
 
-__all__ = ['fused_linear_gelu', 'mlp_gelu', 'USE_PALLAS_MLP']
+__all__ = ['fused_linear_gelu', 'mlp_gelu', 'tensor_core_route',
+           'USE_PALLAS_MLP']
 
 # the reference's default: the models' MLPs take fc + GELU unless this
 # is switched on (or fused_linear_gelu is called directly)
@@ -49,18 +60,21 @@ USE_PALLAS_MLP = False
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# the kernels' two designs, by the route tensor_core_route picks
+VARIANTS = ('tensor_core', 'simt')
+
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
 FWD_KERNEL = Kernel(
     'fused_linear_gelu_fwd', source='fused_gelu_linear',
     symbol='ptt_linear_gelu_fwd',
-    argtypes=[_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _ptr],
-    replaces='paddle_tpu/ops/fused_gelu_linear.py:72')
+    argtypes=[_ptr] * 4 + [_int] * 6 + [_ptr],
+    replaces='paddle_tpu/ops/fused_gelu_linear.py:72', variants=VARIANTS)
 BWD_KERNEL = Kernel(
     'fused_linear_gelu_bwd', source='fused_gelu_linear',
     symbol='ptt_linear_gelu_bwd',
-    argtypes=[_ptr] * 5 + [_int, _int, _int, _int, _int, _ptr],
-    replaces='paddle_tpu/ops/fused_gelu_linear.py:84')
+    argtypes=[_ptr] * 5 + [_int] * 6 + [_ptr],
+    replaces='paddle_tpu/ops/fused_gelu_linear.py:84', variants=VARIANTS)
 
 
 def _gelu_f32(z, approximate):
@@ -138,27 +152,42 @@ def _checked(x2d, w, b, dy=None):
     return M, N, K, code, b
 
 
+def tensor_core_route(x2d, w):
+    """Whether the kernels take their tensor-core design for ``x2d [M,
+    K]`` and ``w [K, N]``: bf16 with ``K`` and ``N`` multiples of 8, so
+    that every row of x, w and the output starts on 16 bytes, as TMA
+    requires.  f32 (TF32 would change its numbers) and bf16 with other
+    ``K`` or ``N`` take the SIMT design."""
+    return (x2d.dtype == torch.bfloat16 and x2d.shape[-1] % 8 == 0
+            and w.shape[-1] % 8 == 0)
+
+
+def _launch(kernel, x2d, w, b, dy, approximate):
+    """Check, pick the design, and launch ``kernel`` into a new output
+    of x's dtype."""
+    M, N, K, code, bf = _checked(x2d, w, b, dy)
+    tc = tensor_core_route(x2d, w)
+    if tc:  # TMA reads and writes from 16-byte-aligned bases
+        x2d, w = aligned16(x2d, w)
+        dy = None if dy is None else aligned16(dy)[0]
+    out = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
+    ptrs = [x2d.data_ptr(), w.data_ptr(), None if bf is None else
+            bf.data_ptr()] + ([] if dy is None else [dy.data_ptr()])
+    kernel.launch(*ptrs, out.data_ptr(), M, N, K, int(bool(approximate)),
+                  code, int(tc), stream(x2d.device),
+                  variant=VARIANTS[0 if tc else 1])
+    return out
+
+
 def _fwd_cuda(x2d, w, b, approximate):
     """Launch the forward kernel: ``gelu(x @ w + b)`` in x's dtype."""
-    M, N, K, code, bf = _checked(x2d, w, b)
-    y = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
-    FWD_KERNEL.launch(x2d.data_ptr(), w.data_ptr(),
-                      None if bf is None else bf.data_ptr(), y.data_ptr(),
-                      M, N, K, int(bool(approximate)), code,
-                      stream(x2d.device))
-    return y
+    return _launch(FWD_KERNEL, x2d, w, b, None, approximate)
 
 
 def _bwd_cuda(x2d, w, b, dy, approximate):
     """Launch the backward kernel: ``dy * gelu'(x @ w + b)`` in x's
     dtype."""
-    M, N, K, code, bf = _checked(x2d, w, b, dy)
-    dz = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
-    BWD_KERNEL.launch(x2d.data_ptr(), w.data_ptr(),
-                      None if bf is None else bf.data_ptr(), dy.data_ptr(),
-                      dz.data_ptr(), M, N, K, int(bool(approximate)), code,
-                      stream(x2d.device))
-    return dz
+    return _launch(BWD_KERNEL, x2d, w, b, dy, approximate)
 
 
 def _on_cpu(t, name):

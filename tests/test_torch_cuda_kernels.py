@@ -31,7 +31,9 @@ round an f32 value below 1 to bf16).
 
 Tolerances, GEMM+GELU forward and backward: f32 1e-4 * (1 + |twin|)
 (K-term products accumulated in another order than cuBLAS's); bf16 2e-2
-* (1 + |twin|) (both round the f32 result to bf16).
+* (1 + |twin|) (both round the f32 result to bf16).  The bf16 shapes of
+the tensor-core design straddle its 128 x 256 output tiles (M 129 and
+8191, N 136 and 3000) and its 64-deep K slices (K 8, 64, 72, 776).
 """
 import importlib
 
@@ -376,3 +378,89 @@ def test_new_kernels_refuse_what_they_do_not_take():
         fgl._fwd_cuda(xf, w.to(torch.bfloat16), b, True)
     with pytest.raises(ValueError, match='contiguous'):
         fgl._fwd_cuda(xf, w.t().contiguous().t(), b, True)
+
+
+# (M, K, N) of the tensor-core design's edge cases: M 129 and 8191 (one
+# row past a 128-row tile, one short of 64 tiles), N 136 and 3000 (past
+# 128, short of 12 x 256), K 8, 64, 72 and 776 (below, at and past a
+# 64-deep slice; past 12 slices)
+_TC_SHAPES = [(129, 64, 136), (129, 72, 3000), (8191, 776, 136),
+              (8191, 8, 3000), (129, 776, 3000), (8191, 64, 136),
+              (129, 8, 136), (8191, 72, 3000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m,k,n', _TC_SHAPES)
+@pytest.mark.parametrize('approximate', [True, False])
+def test_tensor_core_linear_gelu_matches_twins_and_repeats(m, k, n,
+                                                           approximate):
+    _cuda()
+    x, w, b, dy = _gemm_inputs(m, k, n, torch.bfloat16, seed=16)
+    assert fgl.tensor_core_route(x, w)
+    before = [dict(kn.variant_launches)
+              for kn in (fgl.FWD_KERNEL, fgl.BWD_KERNEL)]
+    for bias in (b, None):
+        y = fgl._fwd_cuda(x, w, bias, approximate)
+        dz = fgl._bwd_cuda(x, w, bias, dy, approximate)
+        ry = fgl._reference(x, w, bias, approximate)
+        rdz = fgl._dz_reference(x, w, bias, dy, approximate)
+        torch.cuda.synchronize()
+        for got, want in ((y, ry), (dz, rdz)):
+            assert got.dtype == torch.bfloat16
+            diff = (got.float() - want.float()).abs()
+            assert bool((diff <= 2e-2 * (1 + want.float().abs())).all()), \
+                float(diff.max())
+        # no atomics: a second launch repeats the first bit for bit
+        assert torch.equal(fgl._fwd_cuda(x, w, bias, approximate), y)
+        assert torch.equal(fgl._bwd_cuda(x, w, bias, dy, approximate), dz)
+    for kn, was in zip((fgl.FWD_KERNEL, fgl.BWD_KERNEL), before):
+        assert kn.variant_launches == {'tensor_core': was['tensor_core'] + 4,
+                                       'simt': was['simt']}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m,k,n,dtype,design', [
+    (1024, 768, 3072, torch.bfloat16, 'tensor_core'),
+    (37, 53, 29, torch.bfloat16, 'simt'), (300, 129, 256, torch.bfloat16,
+                                            'simt'),
+    (64, 64, 257, torch.bfloat16, 'simt'),
+    (1024, 768, 3072, torch.float32, 'simt')])
+def test_linear_gelu_takes_the_design_its_route_names(m, k, n, dtype, design):
+    """bf16 with K and N multiples of 8 launches the tensor-core kernels;
+    unaligned bf16 (K 53 or 129, N 29 or 257) and f32 the SIMT ones."""
+    _cuda()
+    x, w, b, dy = _gemm_inputs(m, k, n, dtype, seed=17)
+    before = [dict(kn.variant_launches)
+              for kn in (fgl.FWD_KERNEL, fgl.BWD_KERNEL)]
+    fgl._fwd_cuda(x, w, b, True)
+    fgl._bwd_cuda(x, w, b, dy, True)
+    torch.cuda.synchronize()
+    for kn, was in zip((fgl.FWD_KERNEL, fgl.BWD_KERNEL), before):
+        want = dict(was)
+        want[design] += 1
+        assert kn.variant_launches == want
+
+
+@pytest.mark.cuda
+def test_tensor_core_linear_gelu_takes_views_off_16_bytes():
+    """TMA needs 16-byte-aligned bases: contiguous views that start 2
+    bytes into their storage are copied by the wrapper, and the results
+    match the twins."""
+    _cuda()
+    x, w, b, dy = _gemm_inputs(200, 72, 136, torch.bfloat16, seed=18)
+    views = []
+    for t in (x, w, dy):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device='cuda')
+        flat[1:].copy_(t.reshape(-1))
+        views.append(flat[1:].view(t.shape))
+    assert all(v.is_contiguous() and v.data_ptr() % 16 for v in views)
+    vx, vw, vdy = views
+    before = fgl.FWD_KERNEL.variant_launches['tensor_core']
+    y = fgl._fwd_cuda(vx, vw, b, True)
+    dz = fgl._bwd_cuda(vx, vw, b, vdy, True)
+    torch.cuda.synchronize()
+    assert fgl.FWD_KERNEL.variant_launches['tensor_core'] == before + 1
+    for got, want in ((y, fgl._reference(x, w, b, True)),
+                      (dz, fgl._dz_reference(x, w, b, dy, True))):
+        diff = (got.float() - want.float()).abs()
+        assert bool((diff <= 2e-2 * (1 + want.float().abs())).all())

@@ -204,3 +204,87 @@ def test_kernels_are_registered_with_their_tpu_counterparts():
         assert kn.route == 'cuda'
         assert kn.source_path == 'paddle_tpu_torch/csrc/fused_gelu_linear.cu'
     assert pfg.USE_PALLAS_MLP is False and jfg.USE_PALLAS_MLP is False
+
+
+@pytest.mark.parametrize('dtype,k,n,want', [
+    (torch.bfloat16, 768, 3072, True), (torch.bfloat16, 8, 136, True),
+    (torch.bfloat16, 776, 3000, True), (torch.bfloat16, 53, 29, False),
+    (torch.bfloat16, 129, 256, False), (torch.bfloat16, 64, 257, False),
+    (torch.float32, 768, 3072, False)])
+def test_tensor_core_route_by_dtype_and_shape(dtype, k, n, want):
+    """bf16 with K and N multiples of 8 (16-byte rows for TMA) takes the
+    tensor-core design; f32 and other bf16 shapes take the SIMT one."""
+    x = torch.zeros((3, k), dtype=dtype)
+    w = torch.zeros((k, n), dtype=dtype)
+    assert pfg.tensor_core_route(x, w) is want
+
+
+def test_alignment_copy_only_for_views_off_16_bytes():
+    flat = torch.arange(1 + 4 * 64, dtype=torch.float32).to(torch.bfloat16)
+    aligned = flat[:-1].view(4, 64)
+    off = flat[1:].view(4, 64)
+    assert aligned.data_ptr() % 16 == 0 and off.data_ptr() % 16 == 2
+    a, b = pfg.aligned16(aligned, off)
+    assert a is aligned                          # no copy where none needed
+    assert b is not off and b.data_ptr() % 16 == 0 and b.is_contiguous()
+    assert torch.equal(b, off)
+
+
+@pytest.mark.parametrize('m,k,n,dtype,design', [
+    (16, 64, 32, torch.bfloat16, 'tensor_core'),
+    (5, 53, 29, torch.bfloat16, 'simt'),
+    (16, 64, 32, torch.float32, 'simt')])
+@pytest.mark.parametrize('backward', [False, True])
+def test_wrapper_routes_each_launch_and_counts_its_design(
+        monkeypatch, m, k, n, dtype, design, backward):
+    """The launch the wrapper makes, with the kernel's entry point
+    stubbed: the design flag, the pointers (an off-16-byte bf16 view is
+    copied before a tensor-core launch) and the per-design count."""
+    rs = np.random.RandomState(6)
+    flat = torch.from_numpy(rs.randn(1 + m * k).astype(np.float32)).to(dtype)
+    x = flat[1:].view(m, k)                      # off 16 bytes
+    w = torch.from_numpy(rs.randn(k, n).astype(np.float32)).to(dtype)
+    dy = torch.from_numpy(rs.randn(m, n).astype(np.float32)).to(dtype)
+    kernel = pfg.BWD_KERNEL if backward else pfg.FWD_KERNEL
+    seen = []
+    monkeypatch.setattr(kernel, '_fn', lambda *a: seen.append(a) or 0)
+    monkeypatch.setattr(pfg, 'stream', lambda device: 7)
+    before = dict(kernel.variant_launches), kernel.launches
+    if backward:
+        out = pfg._bwd_cuda(x, w, None, dy, True)
+    else:
+        out = pfg._fwd_cuda(x, w, None, True)
+    args, = seen
+    n_ptr = 5 if backward else 4
+    assert out.shape == (m, n) and out.dtype == dtype
+    assert args[n_ptr:n_ptr + 5] == (m, n, k, 1, pfg._DTYPE_CODE[dtype])
+    assert args[n_ptr + 5] == int(design == 'tensor_core')
+    assert args[2] is None and args[-1] == 7
+    x_ptr = args[0]
+    assert (x_ptr != x.data_ptr()) is (design == 'tensor_core')
+    if design == 'tensor_core':
+        assert x_ptr % 16 == 0
+    want = dict(before[0])
+    want[design] += 1
+    assert kernel.variant_launches == want
+    assert kernel.launches == before[1] + 1
+
+
+def test_launch_counts_by_design_and_their_reset(monkeypatch):
+    from paddle_tpu_torch.ops import _build
+    kernel = pfg.FWD_KERNEL
+    assert tuple(kernel.variant_launches) == pfg.VARIANTS == (
+        'tensor_core', 'simt')
+    monkeypatch.setattr(kernel, '_fn', lambda *a: 0)
+    with pytest.raises(ValueError, match='variant'):
+        kernel.launch(0, variant='mma_sync')
+    with pytest.raises(ValueError, match='variant'):
+        kernel.launch(0)                         # a design must be named
+    kernel.launch(0, variant='simt')
+    assert kernel.variant_launches['simt'] >= 1
+    _build.reset_launches()
+    assert kernel.launches == 0 and set(kernel.variant_launches.values()) \
+        == {0}
+    # kernels of one design take no variant
+    from paddle_tpu_torch.ops import fused_norm
+    assert fused_norm.KERNEL.variant_launches == {}

@@ -1,6 +1,6 @@
 """Where the port's training time goes, on one CUDA card.
 
-    python3 tools/torch_train_profile.py [--model gpt|bert|bert_flash] [--steps 2] [--out build/torch_train_profile.json]
+    python3 tools/torch_train_profile.py [--model gpt|bert|bert_flash|bert_gemm_gelu] [--steps 2] [--out build/torch_train_profile.json]
 
 Run from the repository root.  Training steps at full width with random
 seeded weights, in the configuration of one of ``chip_smoke.py``'s
@@ -9,7 +9,8 @@ training runs: ``--model gpt`` (the default) ``gpt_small`` at B 8, T
 bert`` ``bert_base`` at its dropout 0.1 (the softmax branch), B 64, T
 128, bf16 O2, fused MLM head in 8 chunks, AdamW lr 1e-4, MLM labels on
 15% of positions; ``--model bert_flash`` the same at the benchmark's
-dropout 0 (the flash kernels).
+dropout 0 (the flash kernels); ``--model bert_gemm_gelu`` the same at
+dropout 0.1 with ``USE_PALLAS_MLP`` on (the GEMM+GELU kernels).
 After 2 warm-up steps, ``--steps`` steps run under ``torch.profiler``
 (CUPTI device timestamps): wall time per step, the device's
 busy and idle share (the union of kernel intervals over the wall
@@ -42,7 +43,8 @@ KINDS = [('flash_attention_fwd', ('flash_fwd',)),
          ('fused_layer_norm', ('layer_norm_fwd',)),
          # PyTorch's own are softmax_warp_forward/backward
          ('fused_softmax', ('softmax_warp<', 'softmax_block<')),
-         ('fused_linear_gelu', ('linear_gelu<',)),
+         # the tensor-core and the SIMT design
+         ('fused_linear_gelu', ('linear_gelu_wgmma<', 'linear_gelu<')),
          ('matmul (cuBLAS/CUTLASS)', ('gemm', 'cutlass', 'sm90_xmma',
                                       'nvjet', 'cublas', 'splitk')),
          ('reduction', ('reduce',)),
@@ -78,12 +80,16 @@ def _busy_us(events):
     return busy, len(spans)
 
 
+BERT_RUN = {'bert': 0, 'bert_flash': 1, 'bert_gemm_gelu': 2}
+
+
 def _setup(model_name):
-    """(trainer, batch, tokens per step) of the named configuration."""
-    if model_name in ('bert', 'bert_flash'):
+    """(trainer, batch, tokens per step, USE_PALLAS_MLP) of the named
+    configuration."""
+    if model_name in BERT_RUN:
         from paddle_tpu_torch.models.bert import bert_base
-        run = 1 if model_name == 'bert_flash' else 0
-        _, dropout, _, _, _ = chip_smoke.BERT_RUNS[run]
+        _, dropout, pallas_mlp, _, _ = chip_smoke.BERT_RUNS[
+            BERT_RUN[model_name]]
         model = bert_base(device='cuda', seed=0, dropout=dropout,
                           **chip_smoke.BERT_MODEL_KW)
         trainer = chip_smoke._trainer(model, amp_o2=True,
@@ -91,28 +97,35 @@ def _setup(model_name):
         batch = chip_smoke.bert_batch(model.config.vocab_size,
                                       chip_smoke.BERT_BATCH,
                                       chip_smoke.BERT_SEQ)
-        return trainer, batch, chip_smoke.BERT_BATCH * chip_smoke.BERT_SEQ
+        return (trainer, batch, chip_smoke.BERT_BATCH * chip_smoke.BERT_SEQ,
+                pallas_mlp)
     from paddle_tpu_torch.models.gpt import gpt_small
     model = gpt_small(device='cuda', seed=0, **chip_smoke.TRAIN_MODEL_KW)
     trainer = chip_smoke._trainer(model, amp_o2=True)
     ids = np.random.RandomState(0).randint(
         0, model.config.vocab_size,
         (chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ)).astype(np.int64)
-    return trainer, (ids, ids), chip_smoke.TRAIN_BATCH * chip_smoke.TRAIN_SEQ
+    return (trainer, (ids, ids),
+            chip_smoke.TRAIN_BATCH * chip_smoke.TRAIN_SEQ, False)
 
 
 def training_breakdown(model_name='gpt', steps=2, top=20):
-    trainer, batch, tokens = _setup(model_name)
-    for _ in range(chip_smoke.TRAIN_WARMUP):
-        trainer.step(*batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            loss = trainer.step(*batch)
+    trainer, batch, tokens, pallas_mlp = _setup(model_name)
+    fgl = chip_smoke._ops_module('fused_gelu_linear')
+    fgl.USE_PALLAS_MLP = pallas_mlp
+    try:
+        for _ in range(chip_smoke.TRAIN_WARMUP):
+            trainer.step(*batch)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                loss = trainer.step(*batch)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        fgl.USE_PALLAS_MLP = False
     # the trainer's record_function ranges also appear on the device's
     # timeline as annotations; they are spans, not kernels
     device = [e for e in prof.events() if chip_smoke.is_device_event(e)]
@@ -182,8 +195,7 @@ def training_breakdown(model_name='gpt', steps=2, top=20):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--model', choices=('gpt', 'bert', 'bert_flash'),
-                    default='gpt')
+    ap.add_argument('--model', choices=('gpt', *BERT_RUN), default='gpt')
     ap.add_argument('--steps', type=int, default=2)
     ap.add_argument('--out', default='build/torch_train_profile.json')
     args = ap.parse_args()
