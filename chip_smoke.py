@@ -16,24 +16,28 @@ From the repository root, with one CUDA card.  It
    the least time the card could take: device time per call from
    ``torch.profiler`` (``ms``), and time per call of a back-to-back
    loop between CUDA events (``call_ms``, which includes the host's
-   launch work).  LayerNorm at the serving and training shapes; the
-   three flash attention kernels (forward, dq, dk/dv) at the training
-   shape (96 x 1024 x 64 bf16 causal), in f32, in ``'strict'`` mode
-   with an lse cotangent, at a ragged T of 200 (f32 and bf16), at D 128
-   (32 x 512 x 128 bf16 causal) and at BERT-base's 768 x 128 x 64 bf16
-   non-causal, each with its achieved TFLOP/s, and for bf16 a second
-   launch of the tensor-core forward and dk/dv that must repeat the
-   first bit for bit; the softmax kernel
-   at BERT-base's attention scores (64 x 12 x 128 x 128, f32 and bf16),
-   at GPT's row of 1024 and at a ragged row of 200; the masked softmax
-   through the public ``ops.fused_softmax(x, mask)`` at BERT's shape
-   with a seeded padding mask, at the ragged shape and with a full bf16
-   mask; the GEMM+GELU forward and backward kernels at BERT-base's fc
-   (8192 x 768 x 3072, bf16 on the tensor-core design and f32 on the
-   SIMT one), at a ragged 1000 x 700 x 3001 f32 with the erf GELU, at an
-   aligned ragged 1000 x 776 x 3000 bf16 (tensor cores) and at an
-   unaligned 300 x 129 x 257 bf16 (SIMT), each checked to take its
-   design, repeated bit for bit and timed in TFLOP/s;
+   launch work).  LayerNorm at the serving and training shapes (f32,
+   bf16, f16), at H 2560 (the block design) and at H 770 (scalar
+   loads); the three flash attention kernels (forward, dq, dk/dv) at the
+   training shape (96 x 1024 x 64 causal, bf16 and f16), in f32, in
+   ``'strict'`` mode with an lse cotangent, at a ragged T of 200 (f32
+   and bf16), at D 128 (32 x 512 x 128 bf16 causal), at BERT-base's 768
+   x 128 x 64 bf16 non-causal and at B*H 65600 (65600 x 16 x 32 bf16
+   causal: two chunks of heads), each with its achieved TFLOP/s, each
+   checked to take its design (``mma`` for 16-bit inputs, ``simt`` for
+   f32), and for 16-bit inputs a second launch of all three that must
+   repeat the first bit for bit; the softmax kernel at BERT-base's
+   attention scores (64 x 12 x 128 x 128, f32, bf16 and f16), at GPT's
+   row of 1024 and at a ragged row of 200; the masked softmax through
+   the public ``ops.fused_softmax(x, mask)`` at BERT's shape with a
+   seeded padding mask (f32 and f16), at the ragged shape and with a
+   full bf16 mask; the GEMM+GELU forward and backward kernels at
+   BERT-base's fc (8192 x 768 x 3072, bf16 and f16 on the tensor-core
+   design and f32 on the SIMT one), at a ragged 1000 x 700 x 3001 f32
+   with the erf GELU, at an aligned ragged 1000 x 776 x 3000 bf16
+   (tensor cores) and at an unaligned 300 x 129 x 257 bf16 and f16
+   (SIMT), each checked to take its design, repeated bit for bit and
+   timed in TFLOP/s;
 4. serves 32 seeded Poisson requests with ``gpt_small`` at full width
    (random seeded weights) through ``ServingEngine`` with the
    benchmark's serving config, and checks the outcome: every request
@@ -48,10 +52,16 @@ From the repository root, with one CUDA card.  It
    finite and the last is below the first, that each flash kernel ran
    12 times and LayerNorm 25 times per step, and that one f32 step at
    B 1, T 256 gives the card the same loss and gradients as the same
-   weights on the CPU through the plain twins; it prints ms/step,
-   tokens/s, peak device memory and an MFU share;
+   weights on the CPU through the plain twins; every flash launch of
+   the bf16 run is on the tensor-core design, every one of the f32
+   step on the SIMT design; it prints ms/step, tokens/s, peak device
+   memory and an MFU share;
 6. trains ``gpt_small`` 2 steps at its dropout 0.1 (B 2, T 1024, bf16
    O2): finite losses, the softmax kernel 12 times per step, no flash;
+   then 3 steps in float16 (B 2, T 1024, ``auto_cast(level='O2',
+   dtype='float16')`` with the ``GradScaler``): finite, falling losses,
+   LayerNorm 25 and each flash kernel 12 times per step on the
+   tensor-core design, and the scale's trajectory printed;
 7. trains ``bert_base`` at full width through ``ParallelTrainer.step``
    in the benchmark's BERT configuration (B 64, T 128, bf16 O2, fused
    MLM head in 8 chunks, AdamW lr 1e-4, MLM labels on 15% of positions)
@@ -87,12 +97,17 @@ import torch
 # bytes/bandwidth and operations/peak
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
+BF16_FLOPS_PER_S = 989e12     # bf16 and f16 alike
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 
+# LayerNorm cases: (shape, dtype, tol on y); the statistics hold 1e-5
 KERNEL_SHAPES = [((64, 768), torch.float32, 1e-5),     # decode, S=64
                  ((512, 768), torch.float32, 1e-5),    # prefill, 8 x 64
                  ((512, 768), torch.bfloat16, 2e-2),   # the AMP slices
-                 ((8192, 768), torch.bfloat16, 2e-2)]  # training, B8 T1024
+                 ((8192, 768), torch.bfloat16, 2e-2),  # training, B8 T1024
+                 ((2048, 768), torch.float16, 2e-2),   # f16 training, B2
+                 ((8192, 2560), torch.bfloat16, 2e-2),  # above 2048: block
+                 ((512, 770), torch.float32, 1e-5)]    # H % 4 != 0: scalar
 
 # flash attention cases: (case, B, H, T, D, dtype, causal, with g_lse),
 # the first being GPT training's shape, the last BERT-base's (dropout
@@ -103,16 +118,19 @@ KERNEL_SHAPES = [((64, 768), torch.float32, 1e-5),     # decode, S=64
 # round the f32 result to bf16; the tensor-core forward and dk/dv also
 # round P and dS to bf16, which the CPU replay in
 # tests/test_torch_flash_attention.py holds within half of 2e-2) and
-# 1e-4 on the f32 lse
+# 1e-4 on the f32 lse; f16 as bf16
 FLASH_CASES = [('train', 8, 12, 1024, 64, torch.bfloat16, True, False),
+               ('train_f16', 8, 12, 1024, 64, torch.float16, True, False),
                ('f32', 8, 12, 1024, 64, torch.float32, True, False),
                ('strict', 8, 12, 1024, 64, torch.bfloat16, 'strict', True),
                ('ragged', 8, 12, 200, 64, torch.float32, False, False),
                ('ragged_bf16', 8, 12, 200, 64, torch.bfloat16, True, False),
                ('d128_bf16', 4, 8, 512, 128, torch.bfloat16, True, False),
-               ('bert', 64, 12, 128, 64, torch.bfloat16, False, False)]
+               ('bert', 64, 12, 128, 64, torch.bfloat16, False, False),
+               ('wide_bh', 4100, 16, 16, 32, torch.bfloat16, True, False)]
 FLASH_TOL = {torch.float32: (1e-5, 1e-5, 1e-4),
-             torch.bfloat16: (2e-2, 1e-4, 2e-2)}
+             torch.bfloat16: (2e-2, 1e-4, 2e-2),
+             torch.float16: (2e-2, 1e-4, 2e-2)}
 FLASH_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                  'flash_attention_bwd_dkv')
 
@@ -139,17 +157,22 @@ PARITY_SEQ, PARITY_LOSS_RTOL, PARITY_GRAD_RTOL = 256, 1e-4, 1e-3
 # [B 64, H 12, T 128, T 128], f32 after AMP (softmax is black-listed).
 # Tolerances (kernel vs twin, |got - want| <= tol * (1 + |want|)): f32
 # 1e-6 (one exp and one division per element, the row's sums in another
-# order), bf16 2^-8 (both round an f32 value below 1 to bf16)
+# order), bf16 2^-8 and f16 2^-10 (both round an f32 value below 1 to the
+# 16-bit type, whose step there is at most 2^-8 and 2^-11)
 SOFTMAX_CASES = [
     ('bert', (64, 12, 128, 128), torch.float32, None),
     ('bert_bf16', (64, 12, 128, 128), torch.bfloat16, None),
+    ('bert_f16', (64, 12, 128, 128), torch.float16, None),
     ('gpt', (2, 12, 1024, 1024), torch.float32, None),
     ('ragged', (8, 12, 200, 200), torch.float32, None),
     ('bert_padding', (64, 12, 128, 128), torch.float32, (64, 1, 1, 128)),
+    ('bert_padding_f16', (64, 12, 128, 128), torch.float16,
+     (64, 1, 1, 128)),
     ('ragged_padding', (8, 12, 200, 200), torch.float32, (8, 1, 1, 200)),
     ('bf16_full_mask', (8, 12, 128, 128), torch.bfloat16, (8, 12, 128, 128)),
 ]
-SOFTMAX_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8}
+SOFTMAX_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8,
+               torch.float16: 2.0 ** -10}
 SOFTMAX_KERNELS = ('fused_softmax', 'fused_softmax_masked')
 
 # GEMM+GELU cases: (case, M, K, N, dtype, approximate); the first is
@@ -157,13 +180,16 @@ SOFTMAX_KERNELS = ('fused_softmax', 'fused_softmax_masked')
 # then f32 and unaligned bf16 (the SIMT design) and an aligned ragged
 # bf16 shape that straddles the tensor-core tiles.  Tolerances (kernel vs
 # twin, relative as above): f32 1e-4 (K-term sums in another order than
-# cuBLAS's), bf16 2e-2 (both round the f32 result to bf16)
+# cuBLAS's), bf16 and f16 2e-2 (both round the f32 result to the 16-bit
+# type)
 GELU_CASES = [('bert_fc', 8192, 768, 3072, torch.bfloat16, True),
+              ('bert_fc_f16', 8192, 768, 3072, torch.float16, True),
               ('bert_fc_f32', 8192, 768, 3072, torch.float32, True),
               ('ragged_erf', 1000, 700, 3001, torch.float32, False),
               ('ragged_bf16', 1000, 776, 3000, torch.bfloat16, True),
-              ('unaligned_bf16', 300, 129, 257, torch.bfloat16, True)]
-GELU_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+              ('unaligned_bf16', 300, 129, 257, torch.bfloat16, True),
+              ('unaligned_f16', 300, 129, 257, torch.float16, True)]
+GELU_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 GELU_KERNELS = ('fused_linear_gelu_fwd', 'fused_linear_gelu_bwd')
 
 # BERT-base pretraining, bench.py::bench_bert's configuration at the
@@ -182,6 +208,9 @@ BERT_PARITY_BATCH, BERT_PARITY_DROPOUT = 2, 1e-9
 
 # GPT-2 small with its dropout (0.1) in training: the softmax branch
 GPT_DROPOUT_BATCH, GPT_DROPOUT_STEPS = 2, 2
+
+# GPT-2 small in float16: O2 with the GradScaler's defaults
+GPT_F16_BATCH, GPT_F16_STEPS = 2, 3
 
 
 def log(*args):
@@ -250,7 +279,7 @@ def time_row(row, fns, iters=200, warmup=20, prof_iters=100):
 def bound(nbytes, flops, dtype):
     """(bound_ms, bound_by) from bytes over HBM bandwidth and flops over
     the dtype's peak."""
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    peak = BF16_FLOPS_PER_S if dtype in HALF_DTYPES else F32_FLOPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
@@ -416,8 +445,11 @@ def worst_err(got, want, tol):
 
 def flash_kernel_phase():
     """The three flash attention kernels against their plain twins on
-    the card, timed beside the twin, SDPA and the bound."""
+    the card, in the design the wrapper routes each case to (checked by
+    the kernels' per-design counts), timed beside the twin, SDPA and the
+    bound."""
     import torch.nn.functional as TF
+    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
     rows = {k: [] for k in FLASH_KERNELS}
     gen = torch.Generator().manual_seed(1)
@@ -428,6 +460,8 @@ def flash_kernel_phase():
         g_lse = torch.randn((bh, T), generator=gen).cuda() \
             if with_glse else None
         tol_o, tol_lse, tol_g = FLASH_TOL[dtype]
+        design = 'simt' if dtype == torch.float32 else 'mma'
+        _build.reset_launches()
         o, lse = fa._fwd_cuda(q, k, v, causal, scale)
         ro, rlse = fa._reference_lse(q, k, v, causal, scale)
         ro = ro.to(dtype)
@@ -440,6 +474,12 @@ def flash_kernel_phase():
         rdq = fa._bwd_dq_reference(*args)
         rdk, rdv = fa._bwd_dkv_reference(*args)
         torch.cuda.synchronize()
+        counts = launch_counts()
+        for kname in FLASH_KERNELS:
+            if counts[f'{kname}:{design}'] != 1 or counts[kname] != 1:
+                raise AssertionError(f'{kname} {case}: expected one launch '
+                                     f'of the {design} design, counts '
+                                     f'{counts}')
         checks = {'flash_attention_fwd': [('o', o, ro, tol_o),
                                           ('lse', lse, rlse, tol_lse)],
                   'flash_attention_bwd_dq': [('dq', dq, rdq, tol_g)],
@@ -456,18 +496,18 @@ def flash_kernel_phase():
                         f'- plain| {err:.3e} beyond tol {tol} * (1 + '
                         '|plain|)')
                 errs[kname] = max(errs[kname], err)
-        if dtype == torch.bfloat16:
+        if dtype in HALF_DTYPES:
             # the tensor-core kernels use no atomics: a second launch on
             # the same inputs repeats the first bit for bit
             again = (*fa._fwd_cuda(q, k, v, causal, scale),
-                     *fa._bwd_dkv_cuda(*args))
+                     fa._bwd_dq_cuda(*args), *fa._bwd_dkv_cuda(*args))
             torch.cuda.synchronize()
-            for what, a, b in zip(('o', 'lse', 'dk', 'dv'),
-                                  (o, lse, dk, dv), again):
+            for what, a, b in zip(('o', 'lse', 'dq', 'dk', 'dv'),
+                                  (o, lse, dq, dk, dv), again):
                 if not torch.equal(a, b):
                     raise AssertionError(f'flash {case}: a second launch '
                                          f'changed {what}')
-            log(f'flash {case}: forward and dk/dv repeat bit for bit')
+            log(f'flash {case}: forward, dq and dk/dv repeat bit for bit')
         # the library: SDPA on the [B, H, T, D] view, forward alone and
         # its autograd backward (dq, dk and dv together)
         q4, k4, v4 = (t.view(B, H, T, D).detach().requires_grad_()
@@ -499,7 +539,7 @@ def flash_kernel_phase():
         for kname in FLASH_KERNELS:
             row = {'case': case, 'shape': [bh, T, D],
                    'dtype': str(dtype).replace('torch.', ''),
-                   'causal': causal, 'g_lse': with_glse,
+                   'design': design, 'causal': causal, 'g_lse': with_glse,
                    'tol': FLASH_TOL[dtype], 'max_abs_err': errs[kname],
                    'library': 'F.scaled_dot_product_attention' + (
                        '' if kname == 'flash_attention_fwd'
@@ -509,7 +549,8 @@ def flash_kernel_phase():
              row['bytes']) = bounds[kname]
             row['tflops'] = row['flops'] / (row['ms'] / 1e3) / 1e12
             log(f'kernel {kname} {case} {bh}x{T}x{D} {row["dtype"]} '
-                f'causal={causal}: max_abs_err {errs[kname]:.3e} | device: '
+                f'causal={causal} [{design}]: max_abs_err '
+                f'{errs[kname]:.3e} | device: '
                 f'kernel {row["ms"] * 1e3:.1f} us '
                 f'({row["tflops"]:.1f} TFLOP/s), plain '
                 f'{row["plain_ms"] * 1e3:.1f} us, SDPA '
@@ -842,13 +883,18 @@ def _check_run(what, losses, launches, per_step, steps):
                                  f'expected {n} x {steps}')
 
 
-def _per_step(L, ln, softmax=0, flash=0, gelu=0, gelu_design='tensor_core'):
+def _per_step(L, ln, softmax=0, flash=0, gelu=0, gelu_design='tensor_core',
+              flash_design='mma'):
     """Launches per training step of every kernel, and of each design of
-    the GEMM+GELU kernels (all ``gelu`` launches on ``gelu_design``)."""
+    the flash and GEMM+GELU kernels (all ``flash`` launches on
+    ``flash_design``, all ``gelu`` launches on ``gelu_design``)."""
+    fa = _ops_module('flash_attention')
     fgl = _ops_module('fused_gelu_linear')
     return {'fused_layer_norm': ln, 'fused_softmax': softmax * L,
             'fused_softmax_masked': 0,
             **{k: flash * L for k in FLASH_KERNELS},
+            **{f'{k}:{v}': flash * L if v == flash_design else 0
+               for k in FLASH_KERNELS for v in fa.VARIANTS},
             **{k: gelu * L for k in GELU_KERNELS},
             **{f'{k}:{v}': gelu * L if v == gelu_design else 0
                for k in GELU_KERNELS for v in fgl.VARIANTS}}
@@ -910,7 +956,7 @@ def training_phase():
             TRAIN_MODEL_KW, max_seq_len=PARITY_SEQ)),
         lambda cfg: 2 * [np.random.RandomState(1).randint(
             0, cfg.vocab_size, (1, PARITY_SEQ)).astype(np.int64)],
-        _per_step(L, 2 * L + 1, flash=1))
+        _per_step(L, 2 * L + 1, flash=1, flash_design='simt'))
     return summary
 
 
@@ -1070,6 +1116,61 @@ def gpt_dropout_phase():
             'launches': launches}
 
 
+def gpt_f16_phase():
+    """gpt_small at full width in float16: ``auto_cast(level='O2',
+    dtype='float16')`` (f32 master weights, every op but the keep- and
+    black-listed ones in f16), the loss scaled by ``GradScaler`` with
+    the reference's defaults, and AdamW, as a user writes the loop.
+    Every LayerNorm and flash launch takes an f16 tensor."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import gpt_small
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.optimizer import AdamW
+    model = gpt_small(device='cuda', seed=0, **TRAIN_MODEL_KW)
+    L = model.config.num_layers
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+    opt._param_names.update({id(p): n for n, p in model.named_parameters()})
+    scaler = amp.GradScaler()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, model.config.vocab_size,
+        (GPT_F16_BATCH, TRAIN_SEQ)).astype(np.int64)).cuda()
+    model.train()
+    losses, trajectory = [], []
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GPT_F16_STEPS):
+        opt.clear_grad()
+        with amp.auto_cast(level='O2', dtype='float16'):
+            loss = model.loss(model(ids), ids).float().mean()
+        scaler.scale(loss).backward()
+        scale = scaler.get_init_loss_scaling()
+        scaler.step(opt)            # unscale, skip if not finite, update
+        state = scaler.state_dict()
+        losses.append(float(loss.detach()))
+        trajectory.append({'scale': scale, 'next_scale': state['scale'],
+                           'good_steps': state['good_steps'],
+                           'bad_steps': state['bad_steps']})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    per_step = _per_step(L, 2 * L + 1, flash=1)
+    _check_run('gpt_f16', losses, launches, per_step, GPT_F16_STEPS)
+    log(f'gpt_f16: gpt_small B {GPT_F16_BATCH} T {TRAIN_SEQ}, '
+        f'auto_cast O2 float16, GradScaler: losses '
+        f'{", ".join(f"{x:.4f}" for x in losses)} (finite, falling); '
+        f'scale per step {[t["scale"] for t in trajectory]} -> '
+        f'{trajectory[-1]["next_scale"]} (good/bad steps '
+        f'{[(t["good_steps"], t["bad_steps"]) for t in trajectory]}); '
+        f'launches {_launch_summary(launches, per_step, GPT_F16_STEPS)}; '
+        f'{dt / GPT_F16_STEPS * 1e3:.1f} ms/step (the first step '
+        'included)')
+    del model, opt
+    torch.cuda.empty_cache()
+    return {'losses': losses, 'scaler': trajectory, 'launches': launches,
+            'ms_per_step': dt / GPT_F16_STEPS * 1e3}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1087,11 +1188,13 @@ def main():
     serve_launches = serving_phase()
     train = training_phase()
     gpt_dropout = gpt_dropout_phase()
+    gpt_f16 = gpt_f16_phase()
     bert = bert_phase()
     log(json.dumps({'train': train, 'gpt_dropout': gpt_dropout,
-                    'bert': bert}))
+                    'gpt_f16': gpt_f16, 'bert': bert}))
     paths = {'serve': serve_launches, 'train': train['launches'],
              'gpt_dropout': gpt_dropout['launches'],
+             'gpt_f16': gpt_f16['launches'],
              **{run: bert[run]['launches'] for run, *_ in BERT_RUNS}}
     kernels = []
     for k in _build.KERNELS:

@@ -13,14 +13,18 @@ inputs cast by the same rule.  Parameters stay as they are (f32 master
 weights under the trainer's O2); the casts are differentiable, so
 gradients come back in the parameters' dtype.
 
-``GradScaler`` (float16 loss scaling) waits: bf16 needs none.
+``GradScaler`` is the reference's dynamic loss scaling for float16
+(bf16 needs none, but the state machine runs all the same): the same
+defaults, the same scale, good-step and bad-step trajectory, and the
+same skip of a step whose gradients are not finite.  Its non-finite
+check costs one host sync a step, not one per parameter.
 """
 import contextlib
 
 import torch
 
 __all__ = ['auto_cast', 'amp_cast', 'decorate', 'is_amp_enabled',
-           'WHITE_LIST', 'BLACK_LIST', 'KEEP_LIST']
+           'GradScaler', 'WHITE_LIST', 'BLACK_LIST', 'KEEP_LIST']
 
 # the reference's lists, unchanged (paddle_tpu/amp/__init__.py:28-65)
 WHITE_LIST = frozenset({
@@ -150,3 +154,118 @@ def decorate(models, optimizers=None, level='O1', dtype='bfloat16',
                         p.data = p.data.to(target)
     out = models if single else model_list
     return out if optimizers is None else (out, optimizers)
+
+
+class GradScaler:
+    """Dynamic loss scaling (the reference's ``GradScaler``,
+    ``paddle_tpu/amp/__init__.py``): ``scale(loss)`` multiplies the loss
+    by the scale before ``backward()``; ``step(optimizer)`` unscales the
+    gradients, skips the update if any of them is not finite, and
+    updates the scale: after ``decr_every_n_nan_or_inf`` bad steps in a
+    row it is multiplied by ``decr_ratio`` (not below 1), after
+    ``incr_every_n_steps`` good steps in a row by ``incr_ratio``.
+
+    One difference: the reference clears its per-step flags only when
+    the scale is dynamic, so with ``use_dynamic_loss_scaling=False`` its
+    ``unscale_`` runs once and never again; here ``update`` clears them
+    in either case, and each step's gradients are unscaled."""
+
+    def __init__(self, enable=True, init_loss_scaling=2.**15,
+                 incr_ratio=2.0, decr_ratio=0.5, incr_every_n_steps=1000,
+                 decr_every_n_nan_or_inf=2, use_dynamic_loss_scaling=True):
+        self._enable = enable
+        self._scale = float(init_loss_scaling)
+        self._incr_ratio = incr_ratio
+        self._decr_ratio = decr_ratio
+        self._incr_every_n_steps = incr_every_n_steps
+        self._decr_every_n = decr_every_n_nan_or_inf
+        self._dynamic = use_dynamic_loss_scaling
+        self._good_steps = 0
+        self._bad_steps = 0
+        self._found_inf = False
+        self._unscaled = False
+
+    def is_enable(self):
+        return self._enable
+
+    def is_use_dynamic_loss_scaling(self):
+        return self._dynamic
+
+    def get_init_loss_scaling(self):
+        """The current scale (the reference's name)."""
+        return self._scale
+
+    def scale(self, var):
+        if not self._enable:
+            return var
+        return var * self._scale
+
+    @torch.no_grad()
+    def unscale_(self, optimizer):
+        """Divide every gradient of ``optimizer``'s parameters by the
+        scale, in place, and note whether any of them is not finite (one
+        host sync for all of them)."""
+        if not self._enable or self._unscaled:
+            return
+        self._unscaled = True
+        grads = [p.grad for p in optimizer._params if p.grad is not None]
+        if not grads:
+            self._found_inf = False
+            return
+        torch._foreach_mul_(grads, 1.0 / self._scale)
+        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        self._found_inf = not bool(finite)
+
+    def step(self, optimizer):
+        if not self._enable:
+            optimizer.step()
+            return
+        self.unscale_(optimizer)
+        if not self._found_inf:
+            optimizer.step()
+        self.update()
+
+    def minimize(self, optimizer, scaled_loss):
+        """The reference's ``minimize(optimizer, scaled_loss)`` after
+        ``scaled_loss.backward()``: ``step(optimizer)``; the loss itself
+        is not used."""
+        del scaled_loss
+        self.step(optimizer)
+
+    def update(self):
+        found_inf = self._found_inf
+        self._found_inf = False
+        self._unscaled = False
+        if not (self._enable and self._dynamic):
+            return
+        if found_inf:
+            self._bad_steps += 1
+            self._good_steps = 0
+            if self._bad_steps >= self._decr_every_n:
+                self._scale = max(self._scale * self._decr_ratio, 1.0)
+                self._bad_steps = 0
+        else:
+            self._good_steps += 1
+            self._bad_steps = 0
+            if self._good_steps >= self._incr_every_n_steps:
+                self._scale *= self._incr_ratio
+                self._good_steps = 0
+
+    def state_dict(self):
+        return {'scale': self._scale, 'incr_ratio': self._incr_ratio,
+                'decr_ratio': self._decr_ratio,
+                'incr_every_n_steps': self._incr_every_n_steps,
+                'decr_every_n_nan_or_inf': self._decr_every_n,
+                'good_steps': self._good_steps,
+                'bad_steps': self._bad_steps,
+                'use_dynamic_loss_scaling': self._dynamic}
+
+    def load_state_dict(self, state):
+        self._scale = state['scale']
+        self._incr_ratio = state['incr_ratio']
+        self._decr_ratio = state['decr_ratio']
+        self._incr_every_n_steps = state['incr_every_n_steps']
+        self._decr_every_n = state['decr_every_n_nan_or_inf']
+        self._good_steps = state['good_steps']
+        self._bad_steps = state['bad_steps']
+        self._dynamic = state['use_dynamic_loss_scaling']

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernels of paddle_tpu/ops/flash_attention.py:
 //   flash_fwd_mma, flash_fwd         <- _fwd_kernel     (:151)
-//   flash_bwd_dq                     <- _bwd_dq_kernel  (:245)
+//   flash_bwd_dq_mma, flash_bwd_dq   <- _bwd_dq_kernel  (:245)
 //   flash_bwd_dkv_mma, flash_bwd_dkv <- _bwd_dkv_kernel (:295)
 // Same functions over [B*H, T, D] (row-major, contiguous): online-softmax
 // attention with o and the per-row logsumexp (lse) out of the forward,
@@ -21,82 +21,101 @@
 // third grid axis; blocks here run in parallel and in no order, so that
 // axis is a loop inside one block, and no kernel uses atomics: a launch
 // is deterministic.  In causal modes the tiles strictly above the
-// diagonal are skipped, and the heaviest tiles are launched first.
+// diagonal are skipped, and the heaviest tiles are launched first.  B*H
+// is the grid's y axis, which holds 65535 blocks: the entry points launch
+// larger B*H in chunks of 65535 heads, every pointer offset per chunk.
 //
 // Bound: at the training shape (B*H 96, T 1024, D 64, bf16, causal) the
 // forward moves ~50 MB and does 4*D flops per unmasked (q, k) pair
 // (~12.9 GFLOP); dq ~6*D and dk/dv ~8*D per pair.  At the bf16
 // tensor-core peak (989 TFLOP/s) the forward's flops take ~13 us against
-// ~15 us of bytes (near the ridge), dk/dv's ~26 us against ~20 us: both
-// are bound by the tensor cores and by feeding them, not by HBM.
+// ~15 us of bytes (near the ridge), dq's ~20 us and dk/dv's ~26 us
+// against ~20 us: all are bound by the tensor cores and by feeding them,
+// not by HBM.
 //
-// bf16 inputs, forward and dk/dv (flash_fwd_mma, flash_bwd_dkv_mma):
-// tensor cores.  Every product is mma.sync.m16n8k16 (bf16 operands, f32
-// accumulators in registers; hopper_mma.cuh has the fragment layouts).
-// Tiles live in shared memory as bf16, rows padded by 16 bytes (row
-// stride D + 8 elements, an odd multiple of 16 bytes modulo 128), so
-// that the 8 row addresses of each ldmatrix hit 8 distinct groups of 4
-// banks: no conflicts for any D.  Loads are cp.async (16 bytes a thread,
-// rows beyond T and columns beyond D zero-filled through the src-size
-// operand), double-buffered: the copy of tile i+1 is issued before the
-// math on tile i.  4 warps, each owning 16 rows of the block's tile.
-//   forward: one block per (bh, 64-row q-tile), heaviest causal tiles
-//     first; Q's A fragments stay in registers for the whole loop over
-//     64-key K/V tiles; S = Q.K^T lands in accumulator fragments, the
-//     online max and sum run on them (exp2 with log2(e) folded into the
-//     scale; the row's max combined by __shfl_xor_sync over the quad of
-//     lanes that shares it, the sum kept per lane until the end), and P,
-//     rounded to bf16 in registers, is the A operand of P.V (ldmatrix
-//     .trans on V).  The mask is applied only on tiles that straddle the
-//     diagonal or the ragged edge.  (128-row q-tiles, 4 warps of two m16
-//     tiles each, reuse every K/V fragment twice but need 248 registers
-//     at D = 64: 2 blocks an SM, and 28% slower on the card; over 8 warps
-//     at D = 128 the 128-register cap spills.)
-//   dk/dv: one block per (bh, 64-key k-tile); K and V stay resident in
-//     shared memory while 64-row (D <= 64) or 32-row (D > 64, to bound
-//     the registers) Q/dO tiles stream past with their lse and delta
-//     rows.  S^T = K.Q^T and dP^T = V.dO^T come out indexed by key, so
-//     P^T and dS^T = P^T o (dP^T - delta) * scale are formed in
-//     registers, rounded to bf16, and fed as A operands to dV += P^T.dO
-//     and dK += dS^T.Q (ldmatrix.trans on dO and Q).  dK and dV are
-//     written once, in bf16.
-// Rounding P and dS to bf16 for the second products is what the TPU
-// kernels do too: their f32 dot_general at default precision rounds the
-// operands to bf16 on the matrix unit.  D is a template parameter (32,
+// 16-bit inputs (bf16 or f16; the element type T is a template parameter
+// of each design): tensor cores.  Every product is mma.sync.m16n8k16
+// (T operands, f32 accumulators in registers; hopper_mma.cuh has the
+// fragment layouts, which the two types share).  Tiles live in shared
+// memory as T, rows padded by 16 bytes (row stride D + 8 elements, an odd
+// multiple of 16 bytes modulo 128), so that the 8 row addresses of each
+// ldmatrix hit 8 distinct groups of 4 banks: no conflicts for any D.
+// Loads are cp.async (16 bytes a thread, rows beyond T and columns beyond
+// D zero-filled through the src-size operand), double-buffered: the copy
+// of tile i+1 is issued before the math on tile i.  4 warps, each owning
+// 16 rows of the block's tile.
+//   forward (flash_fwd_mma): one block per (bh, 64-row q-tile), heaviest
+//     causal tiles first; Q's A fragments stay in registers for the whole
+//     loop over 64-key K/V tiles; S = Q.K^T lands in accumulator
+//     fragments, the online max and sum run on them (exp2 with log2(e)
+//     folded into the scale; the row's max combined by __shfl_xor_sync
+//     over the quad of lanes that shares it, the sum kept per lane until
+//     the end), and P, rounded to T in registers, is the A operand of P.V
+//     (ldmatrix .trans on V).  The mask is applied only on tiles that
+//     straddle the diagonal or the ragged edge.  (128-row q-tiles, 4 warps
+//     of two m16 tiles each, reuse every K/V fragment twice but need 248
+//     registers at D = 64: 2 blocks an SM, and 28% slower on the card;
+//     over 8 warps at D = 128 the 128-register cap spills.)
+//   dq (flash_bwd_dq_mma): the forward's shape.  One block per (bh,
+//     64-row q-tile), heaviest causal tiles first; the warp's Q and dO A
+//     fragments and its rows' lse and delta stay in registers for the
+//     whole loop, while 64-key (D <= 64) or 32-key (D > 64, to bound the
+//     registers) K/V tiles stream past.  S = Q.K^T and dP = dO.V^T come
+//     out in accumulator fragments (K and V as non-transposed B operands,
+//     as K is in the forward's S); P = exp2(min(S * scale * log2(e) -
+//     lse * log2(e), 0)) and dS = P o (dP - delta) * scale are formed on
+//     them, masked (columns >= T and causal cells) on every tile that
+//     straddles the diagonal or the ragged edge, and dS, rounded to T in
+//     registers, is the A operand of dQ += dS.K (ldmatrix .trans on K, as
+//     the forward reads V).  dQ is written once, in T.  Rows >= T of the
+//     last q-tile read zero-filled Q and dO and lse = delta = 0, so their
+//     dS is 0; they are not written.
+//   dk/dv (flash_bwd_dkv_mma): one block per (bh, 64-key k-tile); K and V
+//     stay resident in shared memory while 64-row (D <= 64) or 32-row
+//     (D > 64, to bound the registers) Q/dO tiles stream past with their
+//     lse and delta rows.  S^T = K.Q^T and dP^T = V.dO^T come out indexed
+//     by key, so P^T and dS^T = P^T o (dP^T - delta) * scale are formed in
+//     registers, rounded to T, and fed as A operands to dV += P^T.dO and
+//     dK += dS^T.Q (ldmatrix.trans on dO and Q).  dK and dV are written
+//     once, in T.
+// Rounding P and dS to the input type for the second products is what the
+// TPU kernels do too: their f32 dot_general at default precision rounds
+// the operands to bf16 on the matrix unit.  D is a template parameter (32,
 // 64, 128): a D of 16, 48, 80, 96 or 112 runs in the next instantiation
 // up, its extra columns zero-filled.  Shared memory per block: forward
-// (64 + 4 * 64) rows, dk/dv (2 * 64 + 4 * BQ) rows of D + 8 bf16 plus
-// 4 * BQ floats: at most ~85 KB (forward, D = 128), set with
-// cudaFuncAttributeMaxDynamicSharedMemorySize.
+// (64 + 4 * 64) rows, dq (2 * 64 + 4 * BK) rows, dk/dv (2 * 64 + 4 * BQ)
+// rows of D + 8 elements, plus 4 * BQ floats for dk/dv: at most ~85 KB
+// (forward, D = 128), set with cudaFuncAttributeMaxDynamicSharedMemorySize.
 //
-// f32 inputs, and dq for both dtypes (flash_fwd, flash_bwd_dq,
-// flash_bwd_dkv): SIMT, every product an f32 FMA (67 TFLOP/s peak), kept
-// for f32 accuracy (the f32 parity runs hold 1e-5; TF32 would not).
-// forward and dq: one block per (bh, 64-row q-tile) looping over k-tiles;
-// dk/dv: one block per (bh, 64-row k-tile) looping over q-tiles.  256
-// threads form a 16 x 16 grid; a thread owns rows ty + 16i (i < 4) and
-// columns tx + 16j of each 64 x 64 score tile, and head-dim columns
-// tx + 16j (j < D/16) of its accumulators, so a row's statistics live in
-// the same 16 lanes of one warp (shuffle reductions, no shared memory).
-// At D = 128 a thread holds at most 32 (forward, dq) or 64 (dk/dv) f32
-// accumulators: D is split across the 16 lanes of a row, never held
-// whole by one thread, which keeps the registers from spilling.  Tiles
-// are loaded from bf16 or f32 and kept as f32 in shared memory with rows
-// padded to D + 1 (and 64 + 1) floats, so that the column-strided reads
-// of the score loops hit 16 distinct banks.  Shared memory per block: 4
-// tiles of 64 x (D+1) plus one or two 64 x 65 probability tiles, at most
-// ~166 KB (dk/dv, D = 128).  These are bound by shared-memory loads and
-// FMA issue, tens of times above the bound; dq's move to the tensor
-// cores is next.
+// f32 inputs (flash_fwd, flash_bwd_dq, flash_bwd_dkv): SIMT, every
+// product an f32 FMA (67 TFLOP/s peak), kept for f32 accuracy (the f32
+// parity runs hold 1e-5; TF32 would not).  forward and dq: one block per
+// (bh, 64-row q-tile) looping over k-tiles; dk/dv: one block per (bh,
+// 64-row k-tile) looping over q-tiles.  256 threads form a 16 x 16 grid; a
+// thread owns rows ty + 16i (i < 4) and columns tx + 16j of each 64 x 64
+// score tile, and head-dim columns tx + 16j (j < D/16) of its
+// accumulators, so a row's statistics live in the same 16 lanes of one
+// warp (shuffle reductions, no shared memory).  At D = 128 a thread holds
+// at most 32 (forward, dq) or 64 (dk/dv) f32 accumulators: D is split
+// across the 16 lanes of a row, never held whole by one thread, which
+// keeps the registers from spilling.  Tiles are kept as f32 in shared
+// memory with rows padded to D + 1 (and 64 + 1) floats, so that the
+// column-strided reads of the score loops hit 16 distinct banks.  Shared
+// memory per block: 4 tiles of 64 x (D+1) plus one or two 64 x 65
+// probability tiles, at most ~166 KB (dk/dv, D = 128).  These are bound
+// by shared-memory loads and FMA issue, tens of times above the bound.
 //
 // Limits the wrapper (paddle_tpu_torch/ops/flash_attention.py) enforces:
-// contiguous q/k/v/do of one dtype (f32 or bf16), bf16 ones 16-byte
-// aligned, D % 16 == 0 and 16 <= D <= 128, any T >= 1, B*H <= 65535.
+// contiguous q/k/v/do of one dtype (f32, bf16 or f16), 16-bit ones 16-byte
+// aligned, D % 16 == 0 and 16 <= D <= 128, any T >= 1, any B*H.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper_mma.cuh"
 
@@ -109,13 +128,7 @@ constexpr int kLdT = kTile + 1;  // padded row of a 64 x 64 tile
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 __device__ __forceinline__ bool kept(int row, int col, int tq, int tk,
                                      int causal) {
@@ -527,13 +540,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- bf16 on the tensor cores: flash_fwd_mma, flash_bwd_dkv_mma ----
+// ---- 16-bit inputs on the tensor cores: flash_fwd_mma,
+// ---- flash_bwd_dq_mma, flash_bwd_dkv_mma
 
-using bf16 = __nv_bfloat16;
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = 32 * kMmaWarps;
-// rows of a block's own tile, 16 per warp: the forward's q-tile, dk/dv's
-// k-tile
+// rows of a block's own tile, 16 per warp: the forward's and dq's q-tile,
+// dk/dv's k-tile
 constexpr int kMmaRows = 16 * kMmaWarps;
 constexpr int kMmaKeys = 64;  // keys of a forward K/V tile
 constexpr float kLog2e = 1.4426950408889634f;
@@ -550,12 +563,20 @@ __host__ __device__ constexpr int dkv_q_rows() {
   return DP <= 64 ? 64 : 32;
 }
 
-// rows [row0, row0 + ROWS) of a [n, d] bf16 matrix into a shared tile of
-// DP + 8 bf16 a row, asynchronously; rows >= n and columns >= d are
-// zero-filled (src-size 0), nothing past them is read
-template <int ROWS, int DP>
-__device__ __forceinline__ void load_tile_async(bf16* dst,
-                                                const bf16* __restrict__ src,
+// keys of a dq K/V tile: above D = 64, 32 keys keep S and dP (BK / 2
+// floats a lane each) in registers beside the resident Q and dO fragments
+// (D / 4 each) and the dQ accumulators (D / 2)
+template <int DP>
+__host__ __device__ constexpr int dq_k_keys() {
+  return DP <= 64 ? 64 : 32;
+}
+
+// rows [row0, row0 + ROWS) of a [n, d] 16-bit matrix into a shared tile
+// of DP + 8 elements a row, asynchronously; rows >= n and columns >= d
+// are zero-filled (src-size 0), nothing past them is read
+template <int ROWS, int DP, typename T>
+__device__ __forceinline__ void load_tile_async(T* dst,
+                                                const T* __restrict__ src,
                                                 int row0, int n, int d) {
   constexpr int kChunks = DP / 8;  // 16-byte chunks of a row
   static_assert(ROWS * kChunks % kMmaThreads == 0, "whole chunks a thread");
@@ -571,28 +592,28 @@ __device__ __forceinline__ void load_tile_async(bf16* dst,
   }
 }
 
-template <int DP>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kMmaThreads)
-    flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o,
+    flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o,
                   float* __restrict__ lse, int tq, int tk, int d, float scale,
                   int causal) {
   constexpr int LD = DP + 8;
   constexpr int NT = kMmaKeys / 8;  // n8 tiles of a warp's score rows
   constexpr int DT = DP / 8;        // n8 tiles of a warp's output rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kMmaRows][LD]
-  bf16* Ks = Qs + kMmaRows * LD;                 // [2][kMmaKeys][LD]
-  bf16* Vs = Ks + 2 * kMmaKeys * LD;             // [2][kMmaKeys][LD]
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [kMmaRows][LD]
+  T* Ks = Qs + kMmaRows * LD;              // [2][kMmaKeys][LD]
+  T* Vs = Ks + 2 * kMmaKeys * LD;          // [2][kMmaKeys][LD]
 
   const int lane = threadIdx.x & 31;
   const int wrow = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
   const int bh = blockIdx.y;
   // heaviest causal q-tiles (most k-tiles) first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaRows;
-  const bf16* qb = q + static_cast<size_t>(bh) * tq * d;
-  const bf16* kb = k + static_cast<size_t>(bh) * tk * d;
-  const bf16* vb = v + static_cast<size_t>(bh) * tk * d;
+  const T* qb = q + static_cast<size_t>(bh) * tq * d;
+  const T* kb = k + static_cast<size_t>(bh) * tk * d;
+  const T* vb = v + static_cast<size_t>(bh) * tk * d;
   // all k-tiles, or in causal modes those with k0 <= the tile's last row
   const int nkt = causal ? min(ceil_div(tk, kMmaKeys),
                                (q0 + kMmaRows - 1) / kMmaKeys + 1)
@@ -633,8 +654,8 @@ __global__ void __launch_bounds__(kMmaThreads)
         hopper::ldsm_x4(qf[kk], Qs + hopper::a_operand(lane, wrow, kk * 16,
                                                        LD));
     }
-    const bf16* Kt = Ks + (kt & 1) * kMmaKeys * LD;
-    const bf16* Vt = Vs + (kt & 1) * kMmaKeys * LD;
+    const T* Kt = Ks + (kt & 1) * kMmaKeys * LD;
+    const T* Vt = Vs + (kt & 1) * kMmaKeys * LD;
 
     // S = Q.K^T for the warp's 16 rows and the tile's 64 keys
     float s[NT][4];
@@ -648,8 +669,8 @@ __global__ void __launch_bounds__(kMmaThreads)
       for (int j = 0; j < NT; j += 2) {
         uint32_t b[4];
         hopper::ldsm_x4(b, Kt + hopper::b_operand(lane, j * 8, kk * 16, LD));
-        hopper::mma_bf16(s[j], qf[kk], b[0], b[1]);
-        hopper::mma_bf16(s[j + 1], qf[kk], b[2], b[3]);
+        hopper::mma<T>(s[j], qf[kk], b[0], b[1]);
+        hopper::mma<T>(s[j + 1], qf[kk], b[2], b[3]);
       }
     }
 
@@ -698,18 +719,18 @@ __global__ void __launch_bounds__(kMmaThreads)
       }
     }
 
-    // acc += P.V, P rounded to bf16 in registers as the A operand
+    // acc += P.V, P rounded to T in registers as the A operand
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk) {
       uint32_t a[4];
-      hopper::frag_a_from_acc(a, s[2 * kk], s[2 * kk + 1]);
+      hopper::frag_a_from_acc<T>(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int n = 0; n < DT; n += 2) {
         uint32_t b[4];
         hopper::ldsm_x4_trans(b, Vt + hopper::b_trans(lane, kk * 16, n * 8,
                                                       LD));
-        hopper::mma_bf16(acc[n], a, b[0], b[1]);
-        hopper::mma_bf16(acc[n + 1], a, b[2], b[3]);
+        hopper::mma<T>(acc[n], a, b[0], b[1]);
+        hopper::mma<T>(acc[n + 1], a, b[2], b[3]);
       }
     }
     __syncthreads();  // this tile's buffers are free for tile kt + 2
@@ -723,12 +744,12 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int row = q0 + wrow + (lane >> 2) + 8 * h;
     if (row >= tq) continue;
     const float safe_l = fmaxf(sum, 1e-30f);
-    bf16* orow = o + (static_cast<size_t>(bh) * tq + row) * d;
+    T* orow = o + (static_cast<size_t>(bh) * tq + row) * d;
 #pragma unroll
     for (int n = 0; n < DT; ++n) {
       const int col = n * 8 + 2 * (lane & 3);
       if (col < d)
-        *reinterpret_cast<uint32_t*>(orow + col) = hopper::pack_bf16(
+        *reinterpret_cast<uint32_t*>(orow + col) = hopper::pack2<T>(
             acc[n][2 * h] / safe_l, acc[n][2 * h + 1] / safe_l);
     }
     if ((lane & 3) == 0)
@@ -737,13 +758,159 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
+template <typename T, int DP>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dq,
+                     int tq, int tk, int d, float scale, int causal) {
+  constexpr int LD = DP + 8;
+  constexpr int BK = dq_k_keys<DP>();
+  constexpr int NT = BK / 8;  // n8 tiles of a warp's score rows
+  constexpr int DT = DP / 8;  // n8 tiles of a warp's dQ rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [kMmaRows][LD]
+  T* dOs = Qs + kMmaRows * LD;             // [kMmaRows][LD]
+  T* Ks = dOs + kMmaRows * LD;             // [2][BK][LD]
+  T* Vs = Ks + 2 * BK * LD;                // [2][BK][LD]
+
+  const int lane = threadIdx.x & 31;
+  const int wrow = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
+  const int bh = blockIdx.y;
+  // heaviest causal q-tiles (most k-tiles) first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaRows;
+  const size_t qoff = static_cast<size_t>(bh) * tq * d;
+  const T* kb = k + static_cast<size_t>(bh) * tk * d;
+  const T* vb = v + static_cast<size_t>(bh) * tk * d;
+  // all k-tiles, or in causal modes those with k0 <= the tile's last row
+  const int nkt = causal ? min(ceil_div(tk, BK), (q0 + kMmaRows - 1) / BK + 1)
+                         : ceil_div(tk, BK);
+
+  load_tile_async<kMmaRows, DP>(Qs, q + qoff, q0, tq, d);
+  load_tile_async<kMmaRows, DP>(dOs, dout + qoff, q0, tq, d);
+  load_tile_async<BK, DP>(Ks, kb, 0, tk, d);
+  load_tile_async<BK, DP>(Vs, vb, 0, tk, d);
+  hopper::cp_async_commit();
+
+  // the lane's rows g and g + 8: -lse in the log2 domain, and delta;
+  // rows past tq read 0 (their Q and dO rows are zero-filled, so dS = 0)
+  float nl2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wrow + (lane >> 2) + 8 * h;
+    const size_t at = static_cast<size_t>(bh) * tq + row;
+    nl2[h] = row < tq ? -lse[at] * kLog2e : 0.f;
+    dl[h] = row < tq ? delta[at] : 0.f;
+  }
+  uint32_t qf[DP / 16][4], of[DP / 16][4];  // the warp's Q and dO rows
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) {  // the next tile's copy overlaps this tile's math
+      const int nb = (kt + 1) & 1;
+      load_tile_async<BK, DP>(Ks + nb * BK * LD, kb, (kt + 1) * BK, tk, d);
+      load_tile_async<BK, DP>(Vs + nb * BK * LD, vb, (kt + 1) * BK, tk, d);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();
+    } else {
+      hopper::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        hopper::ldsm_x4(qf[kk], Qs + hopper::a_operand(lane, wrow, kk * 16,
+                                                       LD));
+        hopper::ldsm_x4(of[kk], dOs + hopper::a_operand(lane, wrow, kk * 16,
+                                                        LD));
+      }
+    }
+    const T* Kt = Ks + (kt & 1) * BK * LD;
+    const T* Vt = Vs + (kt & 1) * BK * LD;
+
+    // S = Q.K^T and dP = dO.V^T for the warp's 16 rows and the tile's keys
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t b[4];
+        hopper::ldsm_x4(b, Kt + hopper::b_operand(lane, j * 8, kk * 16, LD));
+        hopper::mma<T>(s[j], qf[kk], b[0], b[1]);
+        hopper::mma<T>(s[j + 1], qf[kk], b[2], b[3]);
+        hopper::ldsm_x4(b, Vt + hopper::b_operand(lane, j * 8, kk * 16, LD));
+        hopper::mma<T>(dp[j], of[kk], b[0], b[1]);
+        hopper::mma<T>(dp[j + 1], of[kk], b[2], b[3]);
+      }
+    }
+
+    // P and dS in place of dP; the mask only on a tile that straddles the
+    // diagonal or the ragged edge (zero-filled keys past tk would give
+    // p = exp(-lse) otherwise)
+    const int k0 = kt * BK;
+    const bool edge = k0 + BK > tk || (causal && k0 + BK - 1 >= q0);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float p = exp2f(fminf(fmaf(s[j][e], sl2, nl2[h]), 0.f));
+        if (edge && !kept(q0 + wrow + hopper::acc_row(lane, e),
+                          k0 + j * 8 + hopper::acc_col(lane, e), tq, tk,
+                          causal))
+          p = 0.f;
+        dp[j][e] = p * (dp[j][e] - dl[h]) * scale;
+      }
+
+    // dQ += dS.K, dS rounded to T in registers as the A operand
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t a[4];
+      hopper::frag_a_from_acc<T>(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < DT; n += 2) {
+        uint32_t b[4];
+        hopper::ldsm_x4_trans(b, Kt + hopper::b_trans(lane, kk * 16, n * 8,
+                                                      LD));
+        hopper::mma<T>(acc[n], a, b[0], b[1]);
+        hopper::mma<T>(acc[n + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this tile's buffers are free for tile kt + 2
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wrow + (lane >> 2) + 8 * h;
+    if (row >= tq) continue;
+    T* out = dq + qoff + static_cast<size_t>(row) * d;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      const int col = n * 8 + 2 * (lane & 3);
+      if (col < d)
+        *reinterpret_cast<uint32_t*>(out + col) =
+            hopper::pack2<T>(acc[n][2 * h], acc[n][2 * h + 1]);
+    }
+  }
+}
+
 // the Q and dO rows of dk/dv's q-tile qt, with their lse and delta
 // (4-byte copies: a row of lse need not be 16-byte aligned), into buffer
 // buf
-template <int DP>
+template <int DP, typename T>
 __device__ __forceinline__ void load_q_tile_async(
-    bf16* Qs, bf16* dOs, float* Ls, float* Ds, const bf16* __restrict__ q,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    T* Qs, T* dOs, float* Ls, float* Ds, const T* __restrict__ q,
+    const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, int qt, int buf, int tq, int d) {
   constexpr int BQ = dkv_q_rows<DP>();
   static_assert(2 * BQ <= kMmaThreads, "one row value a thread");
@@ -760,24 +927,23 @@ __device__ __forceinline__ void load_q_tile_async(
   }
 }
 
-template <int DP>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
+    flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int tq, int tk, int d,
-                      float scale, int causal) {
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int tq, int tk, int d, float scale,
+                      int causal) {
   constexpr int LD = DP + 8;
   constexpr int BQ = dkv_q_rows<DP>();
   constexpr int NT = BQ / 8;  // n8 tiles of a warp's score rows (q columns)
   constexpr int DT = DP / 8;  // n8 tiles of a warp's dK/dV rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kMmaRows][LD]
-  bf16* Vs = Ks + kMmaRows * LD;                 // [kMmaRows][LD]
-  bf16* Qs = Vs + kMmaRows * LD;                 // [2][BQ][LD]
-  bf16* dOs = Qs + 2 * BQ * LD;                  // [2][BQ][LD]
+  T* Ks = reinterpret_cast<T*>(smem_raw);  // [kMmaRows][LD]
+  T* Vs = Ks + kMmaRows * LD;              // [kMmaRows][LD]
+  T* Qs = Vs + kMmaRows * LD;              // [2][BQ][LD]
+  T* dOs = Qs + 2 * BQ * LD;               // [2][BQ][LD]
   float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * LD);  // [2][BQ]
   float* Ds = Ls + 2 * BQ;                                  // [2][BQ]
 
@@ -818,8 +984,8 @@ __global__ void __launch_bounds__(kMmaThreads)
       hopper::cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Qt = Qs + buf * BQ * LD;
-    const bf16* dOt = dOs + buf * BQ * LD;
+    const T* Qt = Qs + buf * BQ * LD;
+    const T* dOt = dOs + buf * BQ * LD;
     const float* Lt = Ls + buf * BQ;
     const float* Dt = Ds + buf * BQ;
 
@@ -838,11 +1004,11 @@ __global__ void __launch_bounds__(kMmaThreads)
       for (int j = 0; j < NT; j += 2) {
         uint32_t b[4];
         hopper::ldsm_x4(b, Qt + hopper::b_operand(lane, j * 8, kk * 16, LD));
-        hopper::mma_bf16(s[j], ka, b[0], b[1]);
-        hopper::mma_bf16(s[j + 1], ka, b[2], b[3]);
+        hopper::mma<T>(s[j], ka, b[0], b[1]);
+        hopper::mma<T>(s[j + 1], ka, b[2], b[3]);
         hopper::ldsm_x4(b, dOt + hopper::b_operand(lane, j * 8, kk * 16, LD));
-        hopper::mma_bf16(dp[j], va, b[0], b[1]);
-        hopper::mma_bf16(dp[j + 1], va, b[2], b[3]);
+        hopper::mma<T>(dp[j], va, b[0], b[1]);
+        hopper::mma<T>(dp[j + 1], va, b[2], b[3]);
       }
     }
 
@@ -863,24 +1029,24 @@ __global__ void __launch_bounds__(kMmaThreads)
         s[j][e] = p;
       }
 
-    // dV += P^T.dO and dK += dS^T.Q, P^T and dS^T rounded to bf16 in
+    // dV += P^T.dO and dK += dS^T.Q, P^T and dS^T rounded to T in
     // registers as the A operands
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk) {
       uint32_t pa[4], da[4];
-      hopper::frag_a_from_acc(pa, s[2 * kk], s[2 * kk + 1]);
-      hopper::frag_a_from_acc(da, dp[2 * kk], dp[2 * kk + 1]);
+      hopper::frag_a_from_acc<T>(pa, s[2 * kk], s[2 * kk + 1]);
+      hopper::frag_a_from_acc<T>(da, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
       for (int n = 0; n < DT; n += 2) {
         uint32_t b[4];
         hopper::ldsm_x4_trans(b, dOt + hopper::b_trans(lane, kk * 16, n * 8,
                                                        LD));
-        hopper::mma_bf16(dva[n], pa, b[0], b[1]);
-        hopper::mma_bf16(dva[n + 1], pa, b[2], b[3]);
+        hopper::mma<T>(dva[n], pa, b[0], b[1]);
+        hopper::mma<T>(dva[n + 1], pa, b[2], b[3]);
         hopper::ldsm_x4_trans(b, Qt + hopper::b_trans(lane, kk * 16, n * 8,
                                                       LD));
-        hopper::mma_bf16(dka[n], da, b[0], b[1]);
-        hopper::mma_bf16(dka[n + 1], da, b[2], b[3]);
+        hopper::mma<T>(dka[n], da, b[0], b[1]);
+        hopper::mma<T>(dka[n + 1], da, b[2], b[3]);
       }
     }
     __syncthreads();  // this tile's buffers are free for tile qt + 2
@@ -891,24 +1057,24 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int h = 0; h < 2; ++h) {
     const int row = k0 + wrow + (lane >> 2) + 8 * h;
     if (row >= tk) continue;
-    bf16* dkr = dk + koff + static_cast<size_t>(row) * d;
-    bf16* dvr = dv + koff + static_cast<size_t>(row) * d;
+    T* dkr = dk + koff + static_cast<size_t>(row) * d;
+    T* dvr = dv + koff + static_cast<size_t>(row) * d;
 #pragma unroll
     for (int n = 0; n < DT; ++n) {
       const int col = n * 8 + 2 * (lane & 3);
       if (col < d) {
         *reinterpret_cast<uint32_t*>(dkr + col) =
-            hopper::pack_bf16(dka[n][2 * h], dka[n][2 * h + 1]);
+            hopper::pack2<T>(dka[n][2 * h], dka[n][2 * h + 1]);
         *reinterpret_cast<uint32_t*>(dvr + col) =
-            hopper::pack_bf16(dva[n][2 * h], dva[n][2 * h + 1]);
+            hopper::pack2<T>(dva[n][2 * h], dva[n][2 * h + 1]);
       }
     }
   }
 }
 
 bool bad_shape(int bh, int tq, int tk, int d, int causal, int dtype) {
-  return bh < 0 || bh > 65535 || tq < 0 || tk < 0 || d < 16 || d > 128 ||
-         d % 16 != 0 || causal < 0 || causal > 2 || dtype < 0 || dtype > 1;
+  return bh < 0 || tq < 0 || tk < 0 || d < 16 || d > 128 || d % 16 != 0 ||
+         causal < 0 || causal > 2 || dtype < 0 || dtype > 2;
 }
 
 size_t tiles_bytes(int d, int n_tiles, int n_prob) {
@@ -972,40 +1138,56 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
+template <typename T, int DP>
 int fwd_mma(const void* q, const void* k, const void* v, void* o, void* lse,
             int bh, int tq, int tk, int d, float scale, int causal,
             cudaStream_t s) {
   const size_t smem =
-      sizeof(bf16) * (kMmaRows + 4 * kMmaKeys) * static_cast<size_t>(DP + 8);
-  cudaError_t err = prepare(flash_fwd_mma<DP>, smem);
+      sizeof(T) * (kMmaRows + 4 * kMmaKeys) * static_cast<size_t>(DP + 8);
+  cudaError_t err = prepare(flash_fwd_mma<T, DP>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(ceil_div(tq, kMmaRows), bh);
-  flash_fwd_mma<DP><<<grid, kMmaThreads, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), tq, tk, d, scale, causal);
+  flash_fwd_mma<T, DP><<<grid, kMmaThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      tq, tk, d, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
+template <typename T, int DP>
+int bwd_dq_mma(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dq, int bh, int tq,
+               int tk, int d, float scale, int causal, cudaStream_t s) {
+  const size_t smem = sizeof(T) * (2 * kMmaRows + 4 * dq_k_keys<DP>()) *
+                      static_cast<size_t>(DP + 8);
+  cudaError_t err = prepare(flash_bwd_dq_mma<T, DP>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(ceil_div(tq, kMmaRows), bh);
+  flash_bwd_dq_mma<T, DP><<<grid, kMmaThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), tq, tk, d, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DP>
 int bwd_dkv_mma(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 void* dk, void* dv, int bh, int tq, int tk, int d,
                 float scale, int causal, cudaStream_t s) {
   constexpr int BQ = dkv_q_rows<DP>();
   const size_t smem =
-      sizeof(bf16) * (2 * kMmaRows + 4 * BQ) * static_cast<size_t>(DP + 8) +
+      sizeof(T) * (2 * kMmaRows + 4 * BQ) * static_cast<size_t>(DP + 8) +
       sizeof(float) * 4 * BQ;
-  cudaError_t err = prepare(flash_bwd_dkv_mma<DP>, smem);
+  cudaError_t err = prepare(flash_bwd_dkv_mma<T, DP>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(ceil_div(tk, kMmaRows), bh);
-  flash_bwd_dkv_mma<DP><<<grid, kMmaThreads, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+  flash_bwd_dkv_mma<T, DP><<<grid, kMmaThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), tq, tk, d, scale,
-      causal);
+      static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, d, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1014,39 +1196,82 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-int fwd_bf16(const void* q, const void* k, const void* v, void* o,
-             void* lse, int bh, int tq, int tk, int d, float scale,
-             int causal, cudaStream_t s) {
+// the instantiation of D: 32, 64 or 128 (D itself rounded up)
+#define PTT_BY_HEAD_DIM(FN, T, ...)                               \
+  (d <= 32 ? FN<T, 32>(__VA_ARGS__)                               \
+           : d <= 64 ? FN<T, 64>(__VA_ARGS__) : FN<T, 128>(__VA_ARGS__))
+
+// One launch of a chunk of at most 65535 heads, by dtype: f32 on the SIMT
+// kernels, bf16 and f16 on the tensor-core ones.
+int fwd_chunk(const void* q, const void* k, const void* v, void* o,
+              void* lse, int bh, int tq, int tk, int d, float scale,
+              int causal, int dtype, cudaStream_t s) {
+  if (dtype == 0)
+    return fwd<float>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, s);
   if (!aligned16(q) || !aligned16(k) || !aligned16(v))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (d <= 32) return fwd_mma<32>(q, k, v, o, lse, bh, tq, tk, d, scale,
-                                  causal, s);
-  if (d <= 64) return fwd_mma<64>(q, k, v, o, lse, bh, tq, tk, d, scale,
-                                  causal, s);
-  return fwd_mma<128>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, s);
+  return dtype == 1 ? PTT_BY_HEAD_DIM(fwd_mma, __nv_bfloat16, q, k, v, o, lse,
+                                      bh, tq, tk, d, scale, causal, s)
+                    : PTT_BY_HEAD_DIM(fwd_mma, __half, q, k, v, o, lse, bh,
+                                      tq, tk, d, scale, causal, s);
 }
 
-int bwd_dkv_bf16(const void* q, const void* k, const void* v,
+int bwd_dq_chunk(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
-                 void* dk, void* dv, int bh, int tq, int tk, int d,
-                 float scale, int causal, cudaStream_t s) {
+                 void* dq, int bh, int tq, int tk, int d, float scale,
+                 int causal, int dtype, cudaStream_t s) {
+  if (dtype == 0)
+    return bwd_dq<float>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale,
+                         causal, s);
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (d <= 32) return bwd_dkv_mma<32>(q, k, v, dout, lse, delta, dk, dv, bh,
-                                      tq, tk, d, scale, causal, s);
-  if (d <= 64) return bwd_dkv_mma<64>(q, k, v, dout, lse, delta, dk, dv, bh,
-                                      tq, tk, d, scale, causal, s);
-  return bwd_dkv_mma<128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d,
-                          scale, causal, s);
+  return dtype == 1
+             ? PTT_BY_HEAD_DIM(bwd_dq_mma, __nv_bfloat16, q, k, v, dout, lse,
+                               delta, dq, bh, tq, tk, d, scale, causal, s)
+             : PTT_BY_HEAD_DIM(bwd_dq_mma, __half, q, k, v, dout, lse, delta,
+                               dq, bh, tq, tk, d, scale, causal, s);
 }
+
+int bwd_dkv_chunk(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk, void* dv, int bh, int tq, int tk, int d,
+                  float scale, int causal, int dtype, cudaStream_t s) {
+  if (dtype == 0)
+    return bwd_dkv<float>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d,
+                          scale, causal, s);
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dtype == 1
+             ? PTT_BY_HEAD_DIM(bwd_dkv_mma, __nv_bfloat16, q, k, v, dout, lse,
+                               delta, dk, dv, bh, tq, tk, d, scale, causal, s)
+             : PTT_BY_HEAD_DIM(bwd_dkv_mma, __half, q, k, v, dout, lse,
+                               delta, dk, dv, bh, tq, tk, d, scale, causal,
+                               s);
+}
+
+#undef PTT_BY_HEAD_DIM
+
+// heads of one launch: the grid's y axis holds 65535 blocks
+constexpr int kChunkHeads = 65535;
+
+// p advanced by `heads` heads of `per_head` elements of `esize` bytes
+template <typename P>
+P* at_head(P* p, long long heads, long long per_head, size_t esize) {
+  using Byte = typename std::conditional<std::is_const<P>::value,
+                                         const char, char>::type;
+  return static_cast<P*>(static_cast<Byte*>(p) +
+                              static_cast<size_t>(heads) * per_head * esize);
+}
+
+size_t elem_size(int dtype) { return dtype == 0 ? 4 : 2; }
 
 }  // namespace
 
-// dtype: 0 = float32 (SIMT kernels), 1 = bfloat16 (the tensor-core
-// forward and dk/dv, which take 16-byte aligned q/k/v/do, and SIMT dq);
-// causal: 0 none, 1 causal, 2 strict.  Each returns cudaGetLastError()
-// after its launch (0: queued), or cudaErrorInvalidValue for what it
-// does not take.
+// dtype: 0 = float32 (SIMT kernels), 1 = bfloat16, 2 = float16 (the
+// tensor-core kernels, which take 16-byte aligned q/k/v/do); causal: 0
+// none, 1 causal, 2 strict.  Any B*H: chunks of 65535 heads, one launch
+// each.  Each returns cudaGetLastError() after its launches (0: queued),
+// or cudaErrorInvalidValue for what it does not take.
 extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int bh, int tq, int tk, int d,
@@ -1054,11 +1279,19 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
                                        void* stream) {
   if (bad_shape(bh, tq, tk, d, causal, dtype) || tk == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (bh == 0 || tq == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0
-             ? fwd<float>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, s)
-             : fwd_bf16(q, k, v, o, lse, bh, tq, tk, d, scale, causal, s);
+  const size_t es = elem_size(dtype);
+  const long long qh = 1LL * tq * d, kh = 1LL * tk * d;  // elements a head
+  for (long long h0 = 0; h0 < bh && tq > 0; h0 += kChunkHeads) {
+    const int n = static_cast<int>(bh - h0 < kChunkHeads ? bh - h0
+                                                         : kChunkHeads);
+    const int err = fwd_chunk(at_head(q, h0, qh, es), at_head(k, h0, kh, es),
+                              at_head(v, h0, kh, es), at_head(o, h0, qh, es),
+                              at_head(lse, h0, tq, 4), n, tq, tk, d, scale,
+                              causal, dtype, s);
+    if (err != 0) return err;
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 extern "C" int ptt_flash_attention_bwd_dq(
@@ -1067,12 +1300,21 @@ extern "C" int ptt_flash_attention_bwd_dq(
     int d, float scale, int causal, int dtype, void* stream) {
   if (bad_shape(bh, tq, tk, d, causal, dtype) || tk == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (bh == 0 || tq == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? bwd_dq<float>(q, k, v, dout, lse, delta, dq, bh, tq,
-                                    tk, d, scale, causal, s)
-                    : bwd_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq,
-                                            bh, tq, tk, d, scale, causal, s);
+  const size_t es = elem_size(dtype);
+  const long long qh = 1LL * tq * d, kh = 1LL * tk * d;  // elements a head
+  for (long long h0 = 0; h0 < bh && tq > 0; h0 += kChunkHeads) {
+    const int n = static_cast<int>(bh - h0 < kChunkHeads ? bh - h0
+                                                         : kChunkHeads);
+    const int err = bwd_dq_chunk(
+        at_head(q, h0, qh, es), at_head(k, h0, kh, es),
+        at_head(v, h0, kh, es), at_head(dout, h0, qh, es),
+        at_head(lse, h0, tq, 4), at_head(delta, h0, tq, 4),
+        at_head(dq, h0, qh, es), n, tq, tk, d, scale, causal, dtype,
+        s);
+    if (err != 0) return err;
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 extern "C" int ptt_flash_attention_bwd_dkv(
@@ -1081,13 +1323,21 @@ extern "C" int ptt_flash_attention_bwd_dkv(
     int tk, int d, float scale, int causal, int dtype, void* stream) {
   if (bad_shape(bh, tq, tk, d, causal, dtype) || tq == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (bh == 0 || tk == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0
-             ? bwd_dkv<float>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk,
-                              d, scale, causal, s)
-             : bwd_dkv_bf16(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk,
-                            d, scale, causal, s);
+  const size_t es = elem_size(dtype);
+  const long long qh = 1LL * tq * d, kh = 1LL * tk * d;  // elements a head
+  for (long long h0 = 0; h0 < bh && tk > 0; h0 += kChunkHeads) {
+    const int n = static_cast<int>(bh - h0 < kChunkHeads ? bh - h0
+                                                         : kChunkHeads);
+    const int err = bwd_dkv_chunk(
+        at_head(q, h0, qh, es), at_head(k, h0, kh, es),
+        at_head(v, h0, kh, es), at_head(dout, h0, qh, es),
+        at_head(lse, h0, tq, 4), at_head(delta, h0, tq, 4),
+        at_head(dk, h0, kh, es), at_head(dv, h0, kh, es), n, tq, tk, d,
+        scale, causal, dtype, s);
+    if (err != 0) return err;
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 extern "C" const char* ptt_cuda_error_string(int err) {

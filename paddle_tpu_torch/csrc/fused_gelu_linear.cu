@@ -11,8 +11,8 @@
 //   backward: dz = dy * gelu'(x @ w + b)
 // with x @ w accumulated in f32 inside the kernel, bias and GELU (tanh
 // form, or erf form with approximate = 0) applied to the f32
-// accumulator in the epilogue, and the output in x's dtype (f32 or
-// bf16).  The backward recomputes z = x @ w + b rather than reading a
+// accumulator in the epilogue, and the output in x's dtype (f32, bf16
+// or f16).  The backward recomputes z = x @ w + b rather than reading a
 // saved [M, N] pre-activation: the reference's design point, kept.  The
 // other backward products (dx = dz @ w^T, dw = x^T @ dz, db = sum dz)
 // stay outside, as the reference leaves them to XLA.
@@ -25,13 +25,14 @@
 //
 // Routing, decided by the caller before the launch (the `tensor_cores`
 // argument; the Python wrapper's tensor_core_route) and checked here:
-//   * bf16 with K % 8 == 0, N % 8 == 0 and 16-byte-aligned x, w and y
-//     (every row then starts on 16 bytes, as TMA requires) takes the
-//     tensor-core kernel, linear_gelu_wgmma;
+//   * bf16 or f16 with K % 8 == 0, N % 8 == 0 and 16-byte-aligned x, w
+//     and y (every row then starts on 16 bytes, as TMA requires) takes
+//     the tensor-core kernel, linear_gelu_wgmma (the wgmma and the TMA
+//     maps take the input type: .bf16 or .f16);
 //   * f32 takes the SIMT kernel, linear_gelu: TF32 would change f32's
 //     numbers, and the port keeps TF32 off;
-//   * bf16 whose rows are not 16-byte aligned (K or N not a multiple of
-//     8) takes the SIMT kernel too.
+//   * bf16 or f16 whose rows are not 16-byte aligned (K or N not a
+//     multiple of 8) takes the SIMT kernel too.
 // This is a choice by dtype and shape, not a fallback: a launch that
 // fails, or arguments the chosen kernel does not take, return an error.
 //
@@ -62,8 +63,8 @@
 //     the products), keeps one wgmma group in flight and frees the
 //     previous slice's stage.
 //   * Epilogue: bias and GELU, or dy * GELU' (dy read from the tile
-//     buffer at the fragment's positions as bf16 pairs), on the
-//     accumulator fragment; the bf16 result goes to the tile buffer in
+//     buffer at the fragment's positions as 16-bit pairs), on the
+//     accumulator fragment; the 16-bit result goes to the tile buffer in
 //     the same 128-byte swizzle (over dy, element for element) and out
 //     by TMA stores, which clip rows past M and columns past N.  The
 //     GELU form is a template argument, so the epilogue carries one of
@@ -72,7 +73,7 @@
 //     sigmoid(2u) (gelu_tc below).
 // No atomics: a second launch repeats the first bit for bit.
 //
-// SIMT design (linear_gelu), f32 and unaligned bf16: the classic shared-
+// SIMT design (linear_gelu), f32 and unaligned 16-bit: the classic shared-
 // memory SGEMM.  One 256-thread block per 128 x 128 output tile; the K
 // axis, which the TPU kernel walked as a sequential grid axis with an
 // f32 VMEM accumulator, is a loop in the block over 16-deep slices: x's
@@ -86,10 +87,13 @@
 // masked in the kernel; the TPU's block-divisibility gate (_pick_blocks)
 // and its required bias do not apply.  Each 16-deep slice is loaded,
 // synchronised and consumed.  Shared memory 16.6 KB per block; at most
-// 128 registers a thread, so two blocks fit on an SM.
+// 128 registers a thread, so two blocks fit on an SM.  The grid's y axis
+// (M / 128 blocks) holds at most 65535: a larger M is launched in chunks
+// of 65535 * 128 rows, x, dy and the output offset per chunk.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -113,9 +117,13 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 // the reference's _gelu_f32 and _gelu_grad_f32, term for term
@@ -264,40 +272,60 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// rows of one SIMT launch: the grid's y axis holds 65535 blocks
+constexpr int kSimtChunkRows = 65535 * kBM;
+
+template <typename T, bool BWD>
+int launch_simt(const void* x, const void* w, const void* b, const void* dy,
+                void* out, int M, int N, int K, int approximate,
+                cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  T* ot = static_cast<T*>(out);
+  for (long long m0 = 0; m0 < M; m0 += kSimtChunkRows) {
+    const int rows = static_cast<int>(
+        M - m0 < kSimtChunkRows ? M - m0 : kSimtChunkRows);
+    const dim3 grid((N - 1) / kBN + 1, (rows - 1) / kBM + 1);
+    linear_gelu<T, BWD><<<grid, kThreads, 0, s>>>(
+        xt + static_cast<size_t>(m0) * K, static_cast<const T*>(w),
+        static_cast<const float*>(b),
+        BWD ? dyt + static_cast<size_t>(m0) * N : nullptr,
+        ot + static_cast<size_t>(m0) * N, rows, N, K, approximate);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
 template <bool BWD>
 int run_simt(const void* x, const void* w, const void* b, const void* dy,
              void* out, int M, int N, int K, int approximate, int dtype,
              cudaStream_t s) {
-  if (M < 0 || N < 0 || K < 1 || M > 65535 * kBM) {
+  if (M < 0 || N < 0 || K < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (M == 0 || N == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((N - 1) / kBN + 1, (M - 1) / kBM + 1);
-  const float* bf = static_cast<const float*>(b);
   if (dtype == 0) {
-    linear_gelu<float, BWD><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), bf,
-        static_cast<const float*>(dy), static_cast<float*>(out), M, N, K,
-        approximate);
-  } else if (dtype == 1) {
-    linear_gelu<__nv_bfloat16, BWD><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), bf,
-        static_cast<const __nv_bfloat16*>(dy),
-        static_cast<__nv_bfloat16*>(out), M, N, K, approximate);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_simt<float, BWD>(x, w, b, dy, out, M, N, K, approximate, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) {
+    return launch_simt<__nv_bfloat16, BWD>(x, w, b, dy, out, M, N, K,
+                                           approximate, s);
+  }
+  if (dtype == 2) {
+    return launch_simt<__half, BWD>(x, w, b, dy, out, M, N, K, approximate,
+                                    s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------
-// Tensor-core kernel (bf16): wgmma fed by TMA
+// Tensor-core kernel (bf16 or f16): wgmma fed by TMA
 // ---------------------------------------------------------------------
 
 constexpr int kTcBM = 128;            // two consumer warpgroups of 64 rows
 constexpr int kTcBN = 256;            // one wgmma m64n256k16 wide
-constexpr int kTcBK = 64;             // 128 bytes of bf16: one swizzle row
+constexpr int kTcBK = 64;             // 128 bytes of 16-bit: one swizzle row
 constexpr int kTcStages = 3;
 constexpr int kTcThreads = 384;       // producer + two consumer warpgroups
 constexpr int kBox = 64;              // TMA box side for w, dy and y
@@ -313,8 +341,8 @@ constexpr int kTcSmem =
 constexpr int kAcc = kTcBN / 2;       // f32 accumulators a consumer thread
 
 // APPROX: the tanh form (true) or the erf form, fixed at compile time so
-// the epilogue carries one of them
-template <bool BWD, bool APPROX>
+// the epilogue carries one of them; T: the 16-bit type of x, w, dy, y
+template <bool BWD, bool APPROX, typename T>
 __global__ void __launch_bounds__(kTcThreads, 1)
     linear_gelu_wgmma(const __grid_constant__ CUtensorMap map_x,
                       const __grid_constant__ CUtensorMap map_w,
@@ -414,7 +442,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         const uint64_t da = hopper::wgmma_desc(a + kk * 32, 16, 1024);
         const uint64_t db =
             hopper::wgmma_desc(bt + kk * 16 * 128, kBoxBytes, 1024);
-        hopper::wgmma_m64n256k16<1>(acc, da, db, kt > 0 || kk > 0);
+        hopper::wgmma_m64n256k16<1, T>(acc, da, db, kt > 0 || kk > 0);
       }
       hopper::wgmma_commit();
       // the previous slice's products are done: free its stage
@@ -427,7 +455,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     hopper::fence_regs(acc);
     if (t == 0) hopper::mbar_arrive(&empty[(it - 1) % kTcStages]);
 
-    // epilogue: the bf16 result goes to this consumer's half of tile_y,
+    // epilogue: the T result goes to this consumer's half of tile_y,
     // in the 128-byte swizzle of the store map, over dy where the
     // backward read it from the same place.  The previous tile's stores
     // have read tile_y (thread 0 waited for them before this barrier)
@@ -455,15 +483,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
             (((j % 8) ^ (row % 8)) * 16) + (lane % 4) * 4);
         float v0, v1;
         if (BWD) {
-          const float2 d = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(at));
+          const float2 d = hopper::unpack2<T>(*at);
           v0 = d.x * gelu_grad_tc<APPROX>(z0);
           v1 = d.y * gelu_grad_tc<APPROX>(z1);
         } else {
           v0 = gelu_tc<APPROX>(z0);
           v1 = gelu_tc<APPROX>(z1);
         }
-        *at = hopper::pack_bf16(v0, v1);
+        *at = hopper::pack2<T>(v0, v1);
       }
     }
     hopper::fence_async_shared();
@@ -504,10 +531,10 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a row-major bf16 [rows, cols] matrix, read or written in boxes of
-// box_rows x 64 columns with the 128-byte swizzle
-bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols,
-              int box_rows) {
+// a row-major 16-bit [rows, cols] matrix (dtype 1 bf16, 2 f16), read or
+// written in boxes of box_rows x 64 columns with the 128-byte swizzle
+bool tile_map(CUtensorMap* map, const void* base, int rows, int cols,
+              int box_rows, int dtype) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
@@ -515,7 +542,10 @@ bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols,
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
   const cuuint32_t box[2] = {kBox, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  return encode(map,
+                dtype == 2 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                2,
                 const_cast<void*>(base), dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -532,16 +562,18 @@ int run_wgmma(const void* x, const void* w, const void* b, const void* dy,
               cudaStream_t s) {
   const long long tiles = ((static_cast<long long>(N) + kTcBN - 1) / kTcBN) *
                           ((static_cast<long long>(M) + kTcBM - 1) / kTcBM);
-  if (dtype != 1 || M < 0 || N < 0 || K < 8 || K % 8 != 0 || N % 8 != 0 ||
+  if ((dtype != 1 && dtype != 2) || M < 0 || N < 0 || K < 8 || K % 8 != 0 ||
+      N % 8 != 0 ||
       tiles > 0x7fffffff || !aligned16(x) || !aligned16(w) ||
       !aligned16(out) || (BWD && !aligned16(dy))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (M == 0 || N == 0) return static_cast<int>(cudaSuccess);
   CUtensorMap map_x, map_w, map_dy, map_y;
-  if (!bf16_map(&map_x, x, M, K, kTcBM) || !bf16_map(&map_w, w, K, N, kBox) ||
-      !bf16_map(&map_y, out, M, N, kBox) ||
-      !bf16_map(&map_dy, BWD ? dy : out, M, N, kBox)) {
+  if (!tile_map(&map_x, x, M, K, kTcBM, dtype) ||
+      !tile_map(&map_w, w, K, N, kBox, dtype) ||
+      !tile_map(&map_y, out, M, N, kBox, dtype) ||
+      !tile_map(&map_dy, BWD ? dy : out, M, N, kBox, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // persistent: one block an SM walks tiles blockIdx.x, + gridDim.x, ...
@@ -553,8 +585,12 @@ int run_wgmma(const void* x, const void* w, const void* b, const void* dy,
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  auto kernel = approximate ? linear_gelu_wgmma<BWD, true>
-                            : linear_gelu_wgmma<BWD, false>;
+  auto kernel =
+      dtype == 2
+          ? (approximate ? linear_gelu_wgmma<BWD, true, __half>
+                         : linear_gelu_wgmma<BWD, false, __half>)
+          : (approximate ? linear_gelu_wgmma<BWD, true, __nv_bfloat16>
+                         : linear_gelu_wgmma<BWD, false, __nv_bfloat16>);
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -577,9 +613,9 @@ int run(const void* x, const void* w, const void* b, const void* dy,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w, y); b is f32 or null.
-// tensor_cores: 1 takes linear_gelu_wgmma (bf16, K % 8 == 0, N % 8 == 0,
-// x, w, y on 16 bytes), 0 the SIMT kernel.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, w, y); b is f32 or
+// null.  tensor_cores: 1 takes linear_gelu_wgmma (bf16 or f16, K % 8 ==
+// 0, N % 8 == 0, x, w, y on 16 bytes), 0 the SIMT kernel.
 // Returns cudaGetLastError() after the launch; 0 means it was queued.
 extern "C" int ptt_linear_gelu_fwd(const void* x, const void* w,
                                    const void* b, void* y, int M, int N,

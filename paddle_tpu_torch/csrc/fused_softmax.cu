@@ -6,7 +6,7 @@
 // Same function: for each row of x [n, h] (row-major, contiguous),
 // y = exp(t - max(t)) / sum(exp(t - max(t))) in f32, where t = x, or
 // t = x + mask in the masked variant (mask read as f32); y in x's dtype
-// (f32 or bf16).
+// (f32, bf16 or f16).
 //
 // The mask is not materialised.  The TPU wrapper broadcast it to x's
 // shape in HBM (fused_softmax.py:99); here the kernel indexes the
@@ -34,6 +34,7 @@
 // the TPU's h % 128 and row-block gates do not apply.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -57,9 +58,13 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 __device__ __forceinline__ const float* mask_row(const float* mask,
@@ -224,6 +229,8 @@ int run(const void* x, const float* mask, void* y, int n, int h,
     launch<float, MASKED>(x, mask, y, n, h, mi, s);
   } else if (dtype == 1) {
     launch<__nv_bfloat16, MASKED>(x, mask, y, n, h, mi, s);
+  } else if (dtype == 2) {
+    launch<__half, MASKED>(x, mask, y, n, h, mi, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -232,7 +239,7 @@ int run(const void* x, const float* mask, void* y, int n, int h,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and y).  Returns
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x and y).  Returns
 // cudaGetLastError() after the launch; 0 means it was queued.
 extern "C" int ptt_softmax_fwd(const void* x, void* y, int n, int h,
                                int dtype, void* stream) {

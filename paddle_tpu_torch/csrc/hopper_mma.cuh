@@ -1,22 +1,29 @@
 // Warp-level tensor-core building blocks for sm_90a, as inline PTX:
-// bf16 mma.sync tiles, ldmatrix, and cp.async copies into shared memory.
+// bf16 and f16 mma.sync tiles, ldmatrix, and cp.async copies into shared
+// memory.
 //
-// Fragment layouts of mma.sync.m16n8k16 (row.col, bf16 in, f32 out), for
-// lane l of the warp, g = l / 4 and t = l % 4:
-//   A (16 x 16, 4 regs of 2 bf16): a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..),
+// Fragment layouts of mma.sync.m16n8k16 (row.col, bf16 or f16 in, f32
+// out; the two input types share them), for lane l of the warp, g = l / 4
+// and t = l % 4:
+//   A (16 x 16, 4 regs of 2 halves): a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..),
 //       a2 = (g, 2t + 8..), a3 = (g + 8, 2t + 8..);
 //   B (16 x 8, 2 regs): b0 = (k 2t..2t+1, n g), b1 = (k 2t + 8.., n g);
 //   C (16 x 8, 4 f32): c0, c1 = (g, 2t..2t+1), c2, c3 = (g + 8, 2t..).
 // The C layout of two n-adjacent 16 x 8 tiles is the A layout of one
 // 16 x 16 tile, so a product's result can feed the next product from
-// registers (frag_a_from_acc).  ldmatrix.x4 loads four 8 x 8 bf16
+// registers (frag_a_from_acc).  ldmatrix.x4 loads four 8 x 8 16-bit
 // matrices: lanes 8i..8i+7 give the row addresses of matrix i, and
 // register i of lane l holds row g, columns 2t..2t+1 of matrix i (with
 // .trans: rows 2t..2t+1, column g, i.e. the matrix read transposed).
+// ldmatrix moves 16-bit elements whatever their type.  The templates over
+// T (__nv_bfloat16 or __half) pick the input type's pack and product.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -40,15 +47,50 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// the same for f16
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <typename T>
+__host__ __device__ constexpr bool is_f16() {
+  static_assert(std::is_same<T, __nv_bfloat16>::value ||
+                    std::is_same<T, __half>::value,
+                "16-bit inputs: __nv_bfloat16 or __half");
+  return std::is_same<T, __half>::value;
+}
+
+// two f32 -> one register of two T, rounded to nearest even
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (is_f16<T>()) {
+    return pack_f16(lo, hi);
+  } else {
+    return pack_bf16(lo, hi);
+  }
+}
+
+// one register of two T -> two f32 (lo in .x)
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t r) {
+  if constexpr (is_f16<T>()) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&r));
+  } else {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
+  }
+}
+
 // the A fragment (16 x 16) made of two n-adjacent accumulator tiles
-// c0 (columns 0-7) and c1 (columns 8-15), rounded to bf16
+// c0 (columns 0-7) and c1 (columns 8-15), rounded to T
+template <typename T>
 __device__ __forceinline__ void frag_a_from_acc(uint32_t (&a)[4],
                                                 const float (&c0)[4],
                                                 const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
+  a[0] = pack2<T>(c0[0], c0[1]);
+  a[1] = pack2<T>(c0[2], c0[3]);
+  a[2] = pack2<T>(c1[0], c1[1]);
+  a[3] = pack2<T>(c1[2], c1[3]);
 }
 
 // d += a . b on the tensor cores, f32 accumulation
@@ -59,6 +101,25 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <typename T>
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  if constexpr (is_f16<T>()) {
+    mma_f16(d, a, b0, b1);
+  } else {
+    mma_bf16(d, a, b0, b1);
+  }
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -77,7 +138,7 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       : "r"(smem_addr(p)));
 }
 
-// Address that `lane` gives ldmatrix.x4 for a 16 x 16 bf16 block at
+// Address that `lane` gives ldmatrix.x4 for a 16 x 16 16-bit block at
 // (row0, col0) of a row-major tile with row stride ld (elements), such
 // that the four registers come out as:
 //   a_operand: the A fragment of the block (a0..a3);

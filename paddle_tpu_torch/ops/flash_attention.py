@@ -3,13 +3,15 @@
 Counterpart of ``paddle_tpu/ops/flash_attention.py``.  Its three TPU
 kernels (``_fwd_kernel``, ``_bwd_dq_kernel``, ``_bwd_dkv_kernel``)
 become ``csrc/flash_attention.cu`` (CUDA C++ for sm_90a; its header
-states the bound and the design).  Layout ``[B*H, T, D]``, f32
-accumulation for f32 and bf16 inputs, outputs in the inputs' dtype,
-``lse`` flat ``[B*H, T]`` f32.  bf16 inputs run the forward and dk/dv
-on the tensor cores (``mma.sync`` tiles, P and dS rounded to bf16 for
-the second product, as the TPU's matrix unit rounds the operands of an
-f32 ``dot_general`` at default precision); f32 inputs, and dq for both
-dtypes, run SIMT f32 FMAs.
+states the bound and the design).  Layout ``[B*H, T, D]``, any ``B*H``
+(the kernels launch in chunks of 65535 heads), f32 accumulation for
+f32, bf16 and f16 inputs, outputs in the inputs' dtype, ``lse`` flat
+``[B*H, T]`` f32.  Each kernel has two designs, picked by dtype before
+the launch and counted per design in ``variant_launches``: bf16 and f16
+inputs run all three on the tensor cores (``'mma'``: ``mma.sync``
+tiles, P and dS rounded to the input type for the second product, as
+the TPU's matrix unit rounds the operands of an f32 ``dot_general`` at
+default precision); f32 inputs run SIMT f32 FMAs (``'simt'``).
 
 Plain twins, in this module: ``_reference_lse`` (the reference's
 forward twin, in torch) and ``_bwd_dq_reference``/``_bwd_dkv_reference``
@@ -41,7 +43,10 @@ __all__ = ['flash_attention', 'flash_attention_lse', 'can_use_pallas']
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+# the kernels' two designs: tensor cores for 16-bit inputs, SIMT for f32
+VARIANTS = ('mma', 'simt')
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
@@ -49,15 +54,15 @@ _TAIL = [_int, _int, _int, _int, ctypes.c_float, _int, _int, _ptr]
 FWD_KERNEL = Kernel(
     'flash_attention_fwd', source='flash_attention',
     symbol='ptt_flash_attention_fwd', argtypes=[_ptr] * 5 + _TAIL,
-    replaces='paddle_tpu/ops/flash_attention.py:151')
+    replaces='paddle_tpu/ops/flash_attention.py:151', variants=VARIANTS)
 DQ_KERNEL = Kernel(
     'flash_attention_bwd_dq', source='flash_attention',
     symbol='ptt_flash_attention_bwd_dq', argtypes=[_ptr] * 7 + _TAIL,
-    replaces='paddle_tpu/ops/flash_attention.py:245')
+    replaces='paddle_tpu/ops/flash_attention.py:245', variants=VARIANTS)
 DKV_KERNEL = Kernel(
     'flash_attention_bwd_dkv', source='flash_attention',
     symbol='ptt_flash_attention_bwd_dkv', argtypes=[_ptr] * 8 + _TAIL,
-    replaces='paddle_tpu/ops/flash_attention.py:295')
+    replaces='paddle_tpu/ops/flash_attention.py:295', variants=VARIANTS)
 
 
 def _causal_code(causal):
@@ -130,9 +135,9 @@ def _bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale):
 
 def can_use_pallas(tq, tk, d, block_q=None, block_k=None):
     """True iff the CUDA kernels take these shapes: any ``tq, tk >=
-    1`` and ``d`` a multiple of 16 up to 128.  (The name is the
-    reference's; ``block_q``/``block_k`` are validated, the kernels use
-    fixed 64-row tiles.)"""
+    1`` and ``d`` a multiple of 16 up to 128 (and any ``B*H``).  (The
+    name is the reference's; ``block_q``/``block_k`` are validated, the
+    kernels use fixed 64-row tiles.)"""
     _check_blocks(block_q, block_k)
     return (int(tq) >= 1 and int(tk) >= 1 and int(d) % 16 == 0
             and 16 <= int(d) <= MAX_HEAD_DIM)
@@ -150,8 +155,8 @@ def _check(name, tensors, dtype=None):
     device = tensors[0].device
     dtype = dtype or tensors[0].dtype
     if dtype not in _DTYPE_CODE:
-        raise TypeError(f'{name} kernel takes float32 or bfloat16, got '
-                        f'{dtype}')
+        raise TypeError(f'{name} kernel takes float32, bfloat16 or '
+                        f'float16, got {dtype}')
     for t in tensors:
         if t.device != device:
             raise ValueError(f'{name}: every input must lie on {device}')
@@ -174,15 +179,17 @@ def _dims(q, k, v):
         raise ValueError(f'flash_attention kernels need T >= 1 and D % 16 '
                          f'== 0, D <= {MAX_HEAD_DIM}; got tq={tq}, '
                          f'tk={tk}, D={d}')
-    if bh > 65535:
-        raise ValueError(f'flash_attention kernels take B*H <= 65535, got '
-                         f'{bh}')
     return bh, tq, tk, d
 
 
+def _variant(code):
+    """The design a launch takes: tensor cores for 16-bit inputs."""
+    return VARIANTS[code == _DTYPE_CODE[torch.float32]]
+
+
 def _aligned(code, *tensors):
-    """The tensor-core kernels (bf16) copy 16 bytes at a time."""
-    if code != _DTYPE_CODE[torch.bfloat16]:
+    """The tensor-core kernels (bf16, f16) copy 16 bytes at a time."""
+    if code == _DTYPE_CODE[torch.float32]:
         return tensors
     return aligned16(*tensors)
 
@@ -197,7 +204,7 @@ def _fwd_cuda(q, k, v, causal, scale):
     FWD_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       o.data_ptr(), lse.data_ptr(), bh, tq, tk, d,
                       float(scale), _causal_code(causal), code,
-                      stream(device))
+                      stream(device), variant=_variant(code))
     return o, lse
 
 
@@ -206,11 +213,13 @@ def _bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
     _check('flash_attention_bwd_dq', (lse[..., None], delta[..., None]),
            torch.float32)
     bh, tq, tk, d = _dims(q, k, v)
+    q, k, v, do = _aligned(code, q, k, v, do)
     dq = torch.empty_like(q)
     DQ_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                      dq.data_ptr(), bh, tq, tk, d, float(scale),
-                     _causal_code(causal), code, stream(device))
+                     _causal_code(causal), code, stream(device),
+                     variant=_variant(code))
     return dq
 
 
@@ -226,7 +235,7 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
                       do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                       dk.data_ptr(), dv.data_ptr(), bh, tq, tk, d,
                       float(scale), _causal_code(causal), code,
-                      stream(device))
+                      stream(device), variant=_variant(code))
     return dk, dv
 
 

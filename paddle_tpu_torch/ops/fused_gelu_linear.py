@@ -14,26 +14,27 @@ Both kernels compute ``x @ w`` themselves, with an f32 accumulator; the
 autograd function saves ``(x, w, b)`` and not the ``[M, N]``
 pre-activation, the reference's design point.  ``dx``, ``dw`` and
 ``db`` (f32 sum) are plain ``torch.matmul``/``sum`` outside the
-kernels, as the reference leaves them to XLA.  The kernels take f32 or
-bf16 ``x``/``w`` (one dtype; ``fused_linear_gelu`` promotes a mixed
-pair), any ``M``, ``N``, ``K`` and an optional bias; the reference's
+kernels, as the reference leaves them to XLA.  The kernels take f32,
+bf16 or f16 ``x``/``w`` (one dtype; ``fused_linear_gelu`` promotes a
+mixed pair), any ``M``, ``N``, ``K`` and an optional bias; the reference's
 block-divisibility gate (``_pick_blocks``) and its bias requirement are
 TPU rules and do not carry over.
 
 Each entry point holds two designs, and the wrapper picks one per
 launch by dtype and shape (``tensor_core_route``), before the launch:
-bf16 with ``K % 8 == 0`` and ``N % 8 == 0`` takes the tensor-core
-kernel (``wgmma`` fed by TMA, which needs every row on 16 bytes; a view
-whose data starts off 16 bytes is copied first); f32
-(TF32 would change its numbers) and bf16 with other ``K``/``N`` take
-the SIMT kernel.  It is a choice, not a fallback: a failed launch
+bf16 or f16 with ``K % 8 == 0`` and ``N % 8 == 0`` takes the
+tensor-core kernel (``wgmma`` fed by TMA, which needs every row on 16
+bytes; a view whose data starts off 16 bytes is copied first); f32
+(TF32 would change its numbers) and 16-bit inputs with other
+``K``/``N`` take the SIMT kernel, which launches an ``M`` above 65535 *
+128 rows in chunks.  It is a choice, not a fallback: a failed launch
 raises.  Each kernel counts its launches by design in
 ``variant_launches`` (``'tensor_core'``, ``'simt'``).
 
 Plain twins: ``_reference`` (the kernels' arithmetic: the product of
 the operands widened to f32, not rounded to x's dtype before the bias
-as the reference's jnp ``_reference`` does for bf16) and ``_dz_reference``
-(the backward kernel's ``dz``).  A wrapper runs a twin only for a
+as the reference's jnp ``_reference`` does for 16-bit inputs) and
+``_dz_reference`` (the backward kernel's ``dz``).  A wrapper runs a twin only for a
 tensor on the CPU; on a CUDA tensor it launches its kernel or raises.
 
 ``mlp_gelu`` is the models' dispatch: ``fc`` then the tanh-form GELU by
@@ -58,7 +59,7 @@ __all__ = ['fused_linear_gelu', 'mlp_gelu', 'tensor_core_route',
 USE_PALLAS_MLP = False
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # the kernels' two designs, by the route tensor_core_route picks
 VARIANTS = ('tensor_core', 'simt')
@@ -120,9 +121,10 @@ def _checked(x2d, w, b, dy=None):
     code = _DTYPE_CODE.get(x2d.dtype)
     if code is None or w.dtype != x2d.dtype or (
             dy is not None and dy.dtype != x2d.dtype):
-        raise TypeError(f'fused_linear_gelu kernels take one dtype, float32 '
-                        f'or bfloat16, for x, w (and dy); got {x2d.dtype}, '
-                        f'{w.dtype}' + ('' if dy is None else f', {dy.dtype}'))
+        raise TypeError(f'fused_linear_gelu kernels take one dtype, float32, '
+                        f'bfloat16 or float16, for x, w (and dy); got '
+                        f'{x2d.dtype}, {w.dtype}'
+                        + ('' if dy is None else f', {dy.dtype}'))
     M, K = x2d.shape
     if w.dim() != 2 or w.shape[0] != K:
         raise ValueError(f'fused_linear_gelu: x [M, K] and w [K, N], got '
@@ -145,21 +147,20 @@ def _checked(x2d, w, b, dy=None):
         if not t.is_contiguous():
             raise ValueError('fused_linear_gelu kernels need contiguous '
                              'inputs')
-    if K < 1 or M > 65535 * 128 or max(M, N, K) >= 2 ** 31:
-        raise ValueError(f'fused_linear_gelu kernels take K >= 1, M <= '
-                         f'{65535 * 128} and dims below 2^31; got M={M}, '
-                         f'N={N}, K={K}')
+    if K < 1 or max(M, N, K) >= 2 ** 31:
+        raise ValueError(f'fused_linear_gelu kernels take K >= 1 and dims '
+                         f'below 2^31; got M={M}, N={N}, K={K}')
     return M, N, K, code, b
 
 
 def tensor_core_route(x2d, w):
     """Whether the kernels take their tensor-core design for ``x2d [M,
-    K]`` and ``w [K, N]``: bf16 with ``K`` and ``N`` multiples of 8, so
-    that every row of x, w and the output starts on 16 bytes, as TMA
-    requires.  f32 (TF32 would change its numbers) and bf16 with other
-    ``K`` or ``N`` take the SIMT design."""
-    return (x2d.dtype == torch.bfloat16 and x2d.shape[-1] % 8 == 0
-            and w.shape[-1] % 8 == 0)
+    K]`` and ``w [K, N]``: bf16 or f16 with ``K`` and ``N`` multiples of
+    8, so that every row of x, w and the output starts on 16 bytes, as
+    TMA requires.  f32 (TF32 would change its numbers) and 16-bit inputs
+    with other ``K`` or ``N`` take the SIMT design."""
+    return (x2d.dtype in (torch.bfloat16, torch.float16)
+            and x2d.shape[-1] % 8 == 0 and w.shape[-1] % 8 == 0)
 
 
 def _launch(kernel, x2d, w, b, dy, approximate):

@@ -2,7 +2,10 @@
 
 Counterpart of ``paddle_tpu/ops/fused_norm.py``.  The TPU kernel
 ``_fwd_kernel`` there becomes ``csrc/fused_norm.cu`` (CUDA C++ for
-sm_90a, one warp per row; its header states the bound and design).
+sm_90a; its header states the bound and design): one warp per row up
+to H 2048 (vector loads where H % 4 == 0 and the data starts on 16
+bytes, scalar loads otherwise), one block per row above, for f32, bf16
+and f16 x and any H.
 ``_reference`` is the plain PyTorch twin: the wrapper runs it only for
 a tensor on the CPU, and ``chip_smoke.py`` holds the kernel to it on
 the card.  The backward ``_ln_bwd`` is plain PyTorch, as the
@@ -14,13 +17,9 @@ import torch
 
 from ._build import Kernel, stream
 
-__all__ = ['fused_layer_norm', 'MAX_HIDDEN']
+__all__ = ['fused_layer_norm']
 
-# the kernel keeps a row in one warp's registers: 16 four-element
-# vectors per lane (covers gpt_1p3b's 2048)
-MAX_HIDDEN = 2048
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _ptr = ctypes.c_void_p
 KERNEL = Kernel(
@@ -46,7 +45,9 @@ def _reference(x2d, gamma, beta, eps):
 
 
 def _checked_ptr(t, device, h=None):
-    """``t``'s data pointer after the kernel's checks (None -> null)."""
+    """``t``'s data pointer after the kernel's checks (None -> null).
+    Any alignment: the kernel takes its vector loads only where every
+    pointer starts on 16 bytes and H % 4 == 0, scalar loads otherwise."""
     if t is None:
         return None
     if t.device != device:
@@ -55,11 +56,9 @@ def _checked_ptr(t, device, h=None):
     if h is not None and t.numel() != h:
         raise ValueError('fused_layer_norm: gamma/beta must have H '
                          'elements')
-    ptr = t.data_ptr()
-    if ptr % 16 or not t.is_contiguous():
-        raise ValueError('fused_layer_norm kernel needs contiguous, '
-                         '16-byte aligned inputs')
-    return ptr
+    if not t.is_contiguous():
+        raise ValueError('fused_layer_norm kernel needs contiguous inputs')
+    return t.data_ptr()
 
 
 def _fwd_cuda(x2d, gamma, beta, eps):
@@ -70,11 +69,8 @@ def _fwd_cuda(x2d, gamma, beta, eps):
     n, h = x2d.shape
     code = _DTYPE_CODE.get(x2d.dtype)
     if code is None:
-        raise TypeError(f'fused_layer_norm kernel takes float32 or '
-                        f'bfloat16, got {x2d.dtype}')
-    if h % 4 or h > MAX_HIDDEN:
-        raise ValueError(f'fused_layer_norm kernel needs H % 4 == 0 and '
-                         f'H <= {MAX_HIDDEN}, got H={h}')
+        raise TypeError(f'fused_layer_norm kernel takes float32, bfloat16 '
+                        f'or float16, got {x2d.dtype}')
     if gamma is not None and gamma.dtype != torch.float32:
         gamma = gamma.float()
     if beta is not None and beta.dtype != torch.float32:

@@ -5,8 +5,8 @@ Counterpart of ``paddle_tpu/ops/fused_softmax.py``.  Its two TPU kernels
 (``_kernel`` and ``_masked_kernel``) become ``csrc/fused_softmax.cu``
 (CUDA C++ for sm_90a; its header states the bound and the design):
 softmax over the last axis in f32, of ``x + mask`` in the masked
-variant, the output in x's dtype (f32 or bf16), any row length and any
-number of rows.
+variant, the output in x's dtype (f32, bf16 or f16), any row length and
+any number of rows.
 
 The mask is indexed by strides, not materialised: the reference
 broadcasts it to x's shape in HBM before its kernel (``:97-99``); here
@@ -38,7 +38,7 @@ __all__ = ['fused_softmax']
 _BLOCK_ROWS = 256
 _MASK_DIMS = 4          # leading dims the kernel's mask index takes
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
@@ -94,8 +94,8 @@ def _fwd_cuda(x, mask):
     contiguous ``x``; raises on what it does not take."""
     code = _DTYPE_CODE.get(x.dtype)
     if code is None:
-        raise TypeError(f'fused_softmax kernel takes float32 or bfloat16, '
-                        f'got {x.dtype}')
+        raise TypeError(f'fused_softmax kernel takes float32, bfloat16 or '
+                        f'float16, got {x.dtype}')
     if not x.is_contiguous():
         raise ValueError('fused_softmax kernel needs a contiguous x')
     h = x.shape[-1]

@@ -9,31 +9,37 @@ root:
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
 Tolerances, LayerNorm: f32 1e-5 (the kernel sums a row in another
-order than PyTorch's reductions); bf16 2e-2 on y (both round y to bf16,
-from f32 values that differ in the last bits), 1e-5 on the f32
-statistics.
+order than PyTorch's reductions); bf16 and f16 2e-2 on y (both round y
+to the 16-bit type, from f32 values that differ in the last bits), 1e-5
+on the f32 statistics.  The widths cover the warp design with vector
+loads (768, 2048), with scalar loads (130, 770: H % 4 != 0) and the
+block design above 2048 (2560, 4096).
 
 Tolerances, flash attention (each kernel against its own plain twin on
 the same inputs): f32 1e-5 on o and lse and 1e-4 on dq/dk/dv (the
 kernel's online softmax and tile sums run in another order than the
-twin's matmuls over whole rows); bf16 2e-2 on o/dq/dk/dv (both round
-the f32 result to bf16, and the tensor-core forward and dk/dv also
-round P and dS to bf16 before their second products; on the CPU,
+twin's matmuls over whole rows); bf16 and f16 2e-2 on o/dq/dk/dv (both
+round the f32 result to the 16-bit type, and the tensor-core kernels
+also round P and dS to it before their second products; on the CPU,
 ``tests/test_torch_flash_attention.py`` replays that rounding and holds
-it within half this bound at T 200) and 1e-4 on the f32 lse.  The bf16 shapes straddle the tensor-core kernels' tiles (64
-q rows and 64-key K/V tiles in the forward; 64 keys and 64- or, above
-D = 64, 32-row Q/dO tiles in dk/dv) and their D instantiations (32, 64,
-128).
+it within half this bound at T 200) and 1e-4 on the f32 lse.  The
+16-bit shapes straddle the tensor-core kernels' tiles (64 q rows and
+64-key K/V tiles in the forward; 64 q rows and 64- or, above D = 64,
+32-key K/V tiles in dq; 64 keys and 64- or 32-row Q/dO tiles in dk/dv)
+and their D instantiations (32, 64, 128).
 
 Tolerances, softmax (plain and masked): f32 1e-6 on y (one exp and one
-division per element; the row's sums in another order); bf16 2^-8 (both
-round an f32 value below 1 to bf16).
+division per element; the row's sums in another order); bf16 2^-8 and
+f16 2^-10 (both round an f32 value below 1 to the 16-bit type, whose
+step there is at most 2^-8 and 2^-11).
 
 Tolerances, GEMM+GELU forward and backward: f32 1e-4 * (1 + |twin|)
 (K-term products accumulated in another order than cuBLAS's); bf16 2e-2
-* (1 + |twin|) (both round the f32 result to bf16).  The bf16 shapes of
-the tensor-core design straddle its 128 x 256 output tiles (M 129 and
-8191, N 136 and 3000) and its 64-deep K slices (K 8, 64, 72, 776).
+* (1 + |twin|), f16 the same (both round the f32 result to the 16-bit
+type).  The 16-bit shapes of the tensor-core design straddle its 128 x
+256 output tiles (M 129 and 8191, N 136 and 3000) and its 64-deep K
+slices (K 8, 64, 72, 776); an M of 65535 * 128 + 1000 makes the SIMT
+design launch in two chunks.
 """
 import importlib
 
@@ -64,9 +70,11 @@ def _inputs(n, h, dtype, seed=9):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('n,h', [(64, 768), (512, 768), (7, 2048),
-                                 (3, 132)])
+                                 (3, 132), (9, 130), (33, 770), (5, 2560),
+                                 (3, 4096), (2, 4099)])
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)])
 def test_layer_norm_kernel_matches_plain_twin(n, h, dtype, tol):
     _cuda()
     x, g, b = _inputs(n, h, dtype)
@@ -99,15 +107,35 @@ def test_layer_norm_kernel_without_affine_and_through_autograd():
 @pytest.mark.cuda
 def test_layer_norm_kernel_refuses_what_it_does_not_take():
     _cuda()
-    x, g, b = _inputs(4, 2056, torch.float32)
-    with pytest.raises(ValueError, match='H <= 2048'):
-        fused_norm._fwd_cuda(x, g[:2056], b[:2056], 1e-5)
     x, g, b = _inputs(4, 130, torch.float32)
-    with pytest.raises(ValueError, match='H % 4'):
-        fused_norm._fwd_cuda(x, g, b, 1e-5)
-    x, g, b = _inputs(4, 128, torch.float16)
+    with pytest.raises(ValueError, match='H elements'):
+        fused_norm._fwd_cuda(x, g[:128], b[:128], 1e-5)
+    with pytest.raises(ValueError, match='contiguous'):
+        fused_norm._fwd_cuda(x.t().contiguous().t(), g, b, 1e-5)
+    x, g, b = _inputs(4, 128, torch.float64)
     with pytest.raises(TypeError):
         fused_norm._fwd_cuda(x, g, b, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h', [768, 2560])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float16])
+def test_layer_norm_kernel_takes_views_off_16_bytes(h, dtype):
+    """A contiguous view whose data starts off 16 bytes takes the scalar
+    loads; the result matches the twin."""
+    _cuda()
+    x, g, b = _inputs(6, h, dtype, seed=10)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device='cuda')
+    flat[1:].copy_(x.reshape(-1))
+    view = flat[1:].view(x.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    y, mean, rstd = fused_norm._fwd_cuda(view, g, b, 1e-5)
+    ry, rmean, rrstd = fused_norm._reference(x, g, b, 1e-5)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), ry.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, rtol=1e-5, atol=1e-5)
 
 
 def _attn_inputs(bh, t, d, dtype, seed=3):
@@ -119,16 +147,19 @@ def _attn_inputs(bh, t, d, dtype, seed=3):
 
 
 _FLASH_TOL = {torch.float32: (1e-5, 1e-5, 1e-4),      # o, lse, grads
-              torch.bfloat16: (2e-2, 1e-4, 2e-2)}
+              torch.bfloat16: (2e-2, 1e-4, 2e-2),
+              torch.float16: (2e-2, 1e-4, 2e-2)}
 
 
 _FLASH_SHAPES = (
     [(bh, t, d, dtype) for bh, t, d in ((4, 256, 64), (2, 200, 64),
                                         (3, 77, 128), (2, 64, 16),
                                         (1, 1, 32))
-     for dtype in (torch.float32, torch.bfloat16)]
+     for dtype in (torch.float32, torch.bfloat16, torch.float16)]
     + [(2, t, d, torch.bfloat16) for t in (1, 63, 64, 65, 127, 129, 200)
-       for d in (16, 32, 64, 96, 128)])
+       for d in (16, 32, 64, 96, 128)]
+    + [(2, t, d, torch.float16) for t in (1, 63, 64, 65, 200)
+       for d in (16, 32, 64, 128)])
 
 
 @pytest.mark.cuda
@@ -162,6 +193,24 @@ def test_flash_kernels_match_plain_twins(bh, t, d, dtype, causal):
     after = [kn.launches for kn in (fa.FWD_KERNEL, fa.DQ_KERNEL,
                                     fa.DKV_KERNEL)]
     assert after == [b + 1 for b in before]
+    design = 'simt' if dtype == torch.float32 else 'mma'
+    for kn in (fa.FWD_KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL):
+        assert kn.variant_launches[design] >= 1
+
+
+def _repeat_bit_for_bit(bh, t, d, causal, dtype):
+    q, k, v, do, g_lse = _attn_inputs(bh, t, d, dtype, seed=6)
+    scale = 1.0 / np.sqrt(d)
+    runs = []
+    for _ in range(2):
+        o, lse = fa._fwd_cuda(q, k, v, causal, scale)
+        delta = (do.float() * o.float()).sum(-1) - g_lse
+        args = (q, k, v, do, lse, delta, causal, scale)
+        runs.append((o, lse, fa._bwd_dq_cuda(*args),
+                     *fa._bwd_dkv_cuda(*args)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -169,23 +218,48 @@ def test_flash_kernels_match_plain_twins(bh, t, d, dtype, causal):
                                            (4, 300, 128, 'strict'),
                                            (6, 129, 32, False)])
 def test_bf16_tensor_core_kernels_repeat_bit_for_bit(bh, t, d, causal):
-    """No atomics: two launches on the same inputs give the same bits."""
+    """No atomics: two launches of the forward, dq and dk/dv on the same
+    inputs give the same bits."""
     _cuda()
-    q, k, v, do, g_lse = _attn_inputs(bh, t, d, torch.bfloat16, seed=6)
-    scale = 1.0 / np.sqrt(d)
-    runs = []
-    for _ in range(2):
-        o, lse = fa._fwd_cuda(q, k, v, causal, scale)
-        delta = (do.float() * o.float()).sum(-1) - g_lse
-        runs.append((o, lse, *fa._bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                                causal, scale)))
-    torch.cuda.synchronize()
-    for a, b in zip(*runs):
-        assert torch.equal(a, b)
+    _repeat_bit_for_bit(bh, t, d, causal, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bh,t,d,causal', [(16, 512, 64, True),
+                                           (4, 300, 128, 'strict'),
+                                           (6, 129, 32, False)])
+def test_f16_tensor_core_kernels_repeat_bit_for_bit(bh, t, d, causal):
+    _cuda()
+    _repeat_bit_for_bit(bh, t, d, causal, torch.float16)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_flash_kernels_take_more_heads_than_one_grid_holds(dtype):
+    """B*H 65600 > 65535: the entry points launch two chunks of heads;
+    every head, the last chunk's too, matches the twins."""
+    _cuda()
+    bh, t, d = 65600, 16, 32
+    q, k, v, do, g_lse = _attn_inputs(bh, t, d, dtype, seed=19)
+    scale = 1.0 / np.sqrt(d)
+    tol_o, tol_lse, tol_g = _FLASH_TOL[dtype]
+    o, lse = fa._fwd_cuda(q, k, v, True, scale)
+    ro, rlse = fa._reference_lse(q, k, v, True, scale)
+    delta = (do.float() * ro.to(dtype).float()).sum(-1) - g_lse
+    args = (q, k, v, do, rlse, delta, True, scale)
+    got = (o, fa._bwd_dq_cuda(*args), *fa._bwd_dkv_cuda(*args))
+    want = (ro.to(dtype), fa._bwd_dq_reference(*args),
+            *fa._bwd_dkv_reference(*args))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, rlse, rtol=tol_lse, atol=tol_lse)
+    for a, b, tol in zip(got, want, (tol_o, tol_g, tol_g, tol_g)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+        assert float(a[-1].float().abs().max()) > 0   # the last chunk ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_flash_strict_row_zero_is_zero_with_the_twins_lse(dtype):
     """Strict mode's row 0 sees no column: o = 0 exactly and lse the
     twin's -1e29 + log(1e-30), in every head."""
@@ -218,8 +292,11 @@ def test_flash_bf16_takes_inputs_off_16_byte_alignment():
     delta = (do.float() * ro.to(torch.bfloat16).float()).sum(-1)
     dk, dv = fa._bwd_dkv_cuda(*views, rlse, delta, True, 0.125)
     rdk, rdv = fa._bwd_dkv_reference(q, k, v, do, rlse, delta, True, 0.125)
+    dq = fa._bwd_dq_cuda(*views, rlse, delta, True, 0.125)
+    rdq = fa._bwd_dq_reference(q, k, v, do, rlse, delta, True, 0.125)
     torch.cuda.synchronize()
-    for got, want in ((o, ro.to(torch.bfloat16)), (dk, rdk), (dv, rdv)):
+    for got, want in ((o, ro.to(torch.bfloat16)), (dq, rdq), (dk, rdk),
+                      (dv, rdv)):
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                    atol=2e-2)
     torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
@@ -246,7 +323,7 @@ def test_flash_kernels_refuse_what_they_do_not_take():
     q, k, v, _, _ = _attn_inputs(2, 64, 8, torch.float32)
     with pytest.raises(ValueError, match='D % 16'):
         fa._fwd_cuda(q, k, v, True, 1.0)
-    q, k, v, _, _ = _attn_inputs(2, 64, 64, torch.float16)
+    q, k, v, _, _ = _attn_inputs(2, 64, 64, torch.float64)
     with pytest.raises(TypeError):
         fa._fwd_cuda(q, k, v, True, 1.0)
     q, k, v, _, _ = _attn_inputs(2, 64, 64, torch.float32)
@@ -255,13 +332,15 @@ def test_flash_kernels_refuse_what_they_do_not_take():
                      v.transpose(0, 1), True, 1.0)
 
 
-_SM_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8}
+_SM_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8,
+           torch.float16: 2.0 ** -10}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('shape', [(64, 12, 128, 128), (4, 1024), (3, 200),
                                    (5, 1), (2, 3, 77), (2, 3000)])
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_softmax_kernel_matches_plain_twin(shape, dtype):
     _cuda()
     rs = np.random.RandomState(11)
@@ -281,7 +360,8 @@ def test_softmax_kernel_matches_plain_twin(shape, dtype):
     ((8, 12, 128, 128), (8, 1, 1, 128)), ((2, 3, 5, 200), (5, 200)),
     ((2, 3, 5, 7), (2, 3, 5, 1)), ((2, 3, 5, 7), (2, 3, 5, 7)),
     ((2, 2, 2, 2, 2, 3), (2, 1, 2, 1, 2, 3)), ((2, 1500), (1, 1500))])
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_masked_softmax_kernel_matches_plain_twin(x_shape, m_shape, dtype):
     _cuda()
     rs = np.random.RandomState(12)
@@ -324,13 +404,14 @@ def _gemm_inputs(m, k, n, dtype, seed=14):
     return x, w, b, dy
 
 
-_GEMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+_GEMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('m,k,n', [(1024, 768, 3072), (37, 53, 29),
                                    (128, 1, 130), (300, 129, 257)])
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize('approximate', [True, False])
 def test_linear_gelu_kernels_match_plain_twins(m, k, n, dtype, approximate):
     _cuda()
@@ -368,7 +449,7 @@ def test_linear_gelu_autograd_on_the_card_matches_the_cpu():
 @pytest.mark.cuda
 def test_new_kernels_refuse_what_they_do_not_take():
     _cuda()
-    x = torch.zeros((4, 8), dtype=torch.float16, device='cuda')
+    x = torch.zeros((4, 8), dtype=torch.float64, device='cuda')
     with pytest.raises(TypeError):
         fsm._fwd_cuda(x, None)
     with pytest.raises(ValueError, match='contiguous'):
@@ -389,13 +470,8 @@ _TC_SHAPES = [(129, 64, 136), (129, 72, 3000), (8191, 776, 136),
               (129, 8, 136), (8191, 72, 3000)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('m,k,n', _TC_SHAPES)
-@pytest.mark.parametrize('approximate', [True, False])
-def test_tensor_core_linear_gelu_matches_twins_and_repeats(m, k, n,
-                                                           approximate):
-    _cuda()
-    x, w, b, dy = _gemm_inputs(m, k, n, torch.bfloat16, seed=16)
+def _tensor_core_matches_twins_and_repeats(m, k, n, approximate, dtype):
+    x, w, b, dy = _gemm_inputs(m, k, n, dtype, seed=16)
     assert fgl.tensor_core_route(x, w)
     before = [dict(kn.variant_launches)
               for kn in (fgl.FWD_KERNEL, fgl.BWD_KERNEL)]
@@ -406,7 +482,7 @@ def test_tensor_core_linear_gelu_matches_twins_and_repeats(m, k, n,
         rdz = fgl._dz_reference(x, w, bias, dy, approximate)
         torch.cuda.synchronize()
         for got, want in ((y, ry), (dz, rdz)):
-            assert got.dtype == torch.bfloat16
+            assert got.dtype == dtype
             diff = (got.float() - want.float()).abs()
             assert bool((diff <= 2e-2 * (1 + want.float().abs())).all()), \
                 float(diff.max())
@@ -419,12 +495,59 @@ def test_tensor_core_linear_gelu_matches_twins_and_repeats(m, k, n,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('m,k,n', _TC_SHAPES)
+@pytest.mark.parametrize('approximate', [True, False])
+def test_tensor_core_linear_gelu_matches_twins_and_repeats(m, k, n,
+                                                           approximate):
+    _cuda()
+    _tensor_core_matches_twins_and_repeats(m, k, n, approximate,
+                                           torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m,k,n', _TC_SHAPES[:4])
+@pytest.mark.parametrize('approximate', [True, False])
+def test_f16_tensor_core_linear_gelu_matches_twins_and_repeats(
+        m, k, n, approximate):
+    """The .f16 form of the wgmma, fed by FLOAT16 tensor maps."""
+    _cuda()
+    _tensor_core_matches_twins_and_repeats(m, k, n, approximate,
+                                           torch.float16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,k,n', [(torch.float32, 16, 8),
+                                       (torch.bfloat16, 12, 20)])
+def test_simt_linear_gelu_launches_rows_past_one_grid_in_chunks(dtype, k,
+                                                                 n):
+    """M = 65535 * 128 + 1000 rows is more than one SIMT grid holds: the
+    entry point launches two chunks, and the rows of both match the
+    twins."""
+    _cuda()
+    m = 65535 * 128 + 1000
+    x, w, b, dy = _gemm_inputs(m, k, n, dtype, seed=20)
+    assert not fgl.tensor_core_route(x, w)
+    tol = _GEMM_TOL[dtype]
+    for got, want in ((fgl._fwd_cuda(x, w, b, True),
+                       fgl._reference(x, w, b, True)),
+                      (fgl._bwd_cuda(x, w, b, dy, True),
+                       fgl._dz_reference(x, w, b, dy, True))):
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        assert bool((diff <= tol * (1 + want.float().abs())).all()), \
+            float(diff.max())
+        assert float(got[-1000:].float().abs().max()) > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('m,k,n,dtype,design', [
     (1024, 768, 3072, torch.bfloat16, 'tensor_core'),
     (37, 53, 29, torch.bfloat16, 'simt'), (300, 129, 256, torch.bfloat16,
                                             'simt'),
     (64, 64, 257, torch.bfloat16, 'simt'),
-    (1024, 768, 3072, torch.float32, 'simt')])
+    (1024, 768, 3072, torch.float32, 'simt'),
+    (1024, 768, 3072, torch.float16, 'tensor_core'),
+    (37, 53, 29, torch.float16, 'simt')])
 def test_linear_gelu_takes_the_design_its_route_names(m, k, n, dtype, design):
     """bf16 with K and N multiples of 8 launches the tensor-core kernels;
     unaligned bf16 (K 53 or 129, N 29 or 257) and f32 the SIMT ones."""

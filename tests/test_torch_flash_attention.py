@@ -320,3 +320,115 @@ def test_build_key_covers_the_shared_headers(tmp_path, monkeypatch):
     fourth = _build._target('kern')[1]
     assert len({first, second, third, fourth}) == 4
     assert _build.sources() == ['kern']
+
+
+def _stub_launches(monkeypatch):
+    """The three kernels' entry points replaced by recorders (no card
+    here): what the wrappers hand a launch on CUDA tensors."""
+    seen = {}
+    for kn in (pfa.FWD_KERNEL, pfa.DQ_KERNEL, pfa.DKV_KERNEL):
+        monkeypatch.setattr(kn, '_fn', lambda *a, _n=kn.name:
+                            seen.setdefault(_n, []).append(a) or 0)
+    monkeypatch.setattr(pfa, 'stream', lambda device: 7)
+    return seen
+
+
+@pytest.mark.parametrize('dtype,code,design', [
+    (torch.float16, 2, 'mma'), (torch.bfloat16, 1, 'mma'),
+    (torch.float32, 0, 'simt')])
+def test_each_dtype_reaches_every_kernel_launch_with_its_code(
+        monkeypatch, dtype, code, design):
+    """float16 reaches the forward, dq and dk/dv launches with code 2 (and
+    the tensor-core design); 16-bit views off 16 bytes are copied to
+    aligned ones first, dq's too; each launch counts on its design."""
+    seen = _stub_launches(monkeypatch)
+    bh, t, d = 2, 40, 32
+    q, k, v, do = (torch.zeros(1 + bh * t * d, dtype=dtype)[1:]
+                   .view(bh, t, d) for _ in range(4))
+    lse, delta = torch.zeros(bh, t), torch.zeros(bh, t)
+    before = {kn.name: dict(kn.variant_launches)
+              for kn in (pfa.FWD_KERNEL, pfa.DQ_KERNEL, pfa.DKV_KERNEL)}
+    o, lse_out = pfa._fwd_cuda(q, k, v, True, 0.125)
+    dq = pfa._bwd_dq_cuda(q, k, v, do, lse, delta, True, 0.125)
+    dk, dv = pfa._bwd_dkv_cuda(q, k, v, do, lse, delta, True, 0.125)
+    assert all(t_.dtype == dtype for t_ in (o, dq, dk, dv))
+    assert lse_out.dtype == torch.float32
+    n_ptr = {'flash_attention_fwd': 5, 'flash_attention_bwd_dq': 7,
+             'flash_attention_bwd_dkv': 8}
+    for kn in (pfa.FWD_KERNEL, pfa.DQ_KERNEL, pfa.DKV_KERNEL):
+        args, = seen[kn.name]
+        ptrs, tail = args[:n_ptr[kn.name]], args[n_ptr[kn.name]:]
+        assert tail[:4] == (bh, t, t, d) and tail[5:] == (1, code, 7)
+        # q (and k, v, do) copied to 16 bytes for the tensor cores only
+        assert (ptrs[0] != q.data_ptr()) is (design == 'mma')
+        if design == 'mma':
+            assert all(p % 16 == 0 for p in ptrs[:3])
+        want = dict(before[kn.name])
+        want[design] += 1
+        assert kn.variant_launches == want
+
+
+def test_dims_take_more_heads_than_one_grid_holds(monkeypatch):
+    """B*H past 65535 (the grid's y limit) is taken: the entry points
+    launch it in chunks of heads."""
+    q = torch.zeros((65536, 2, 16))
+    assert pfa._dims(q, q, q) == (65536, 2, 2, 16)
+    seen = _stub_launches(monkeypatch)
+    pfa._fwd_cuda(q, q, q, True, 0.25)
+    args, = seen['flash_attention_fwd']
+    assert args[5] == 65536
+    assert pfa.can_use_pallas(2, 2, 16)
+
+
+def _half(x, dtype):
+    return x.to(dtype).float()
+
+
+def _mma_bwd_dq(q, k, v, do, lse, delta, causal, scale):
+    """The tensor-core dq's arithmetic on the CPU: S and dP in f32, P in
+    the exp2 form with log2(e) folded into the scale (``exp2(min(s *
+    scale * log2e - lse * log2e, 0))``), dS = P (dP - delta) scale,
+    rounded to the input type before dQ = dS.K, dQ rounded to it."""
+    log2e = 1.4426950408889634
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    arg = s * (scale * log2e) - (lse * log2e)[..., None]
+    p = torch.exp2(torch.clamp_max(arg, 0.0))
+    keep = pfa._keep_mask(q.shape[1], k.shape[1], causal, q.device)
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros(()))
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    return (_half(ds, q.dtype) @ k.float()).to(q.dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('d', [64, 128])
+@pytest.mark.parametrize('causal', MODES)
+def test_dq_rounding_replay_stays_within_half_the_card_tolerance(
+        dtype, d, causal):
+    """bh 2, T 200 (ragged against the 64- and 32-key tiles): the
+    tensor-core dq's rounding points against its plain twin and against
+    the Pallas dq in interpret mode (one 200-row block), both within
+    half of the card's 2e-2 * (1 + |want|)."""
+    rs = np.random.RandomState(7)
+    q, k, v, do = (torch.from_numpy(rs.randn(2, 200, d).astype(np.float32))
+                   .to(dtype) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = pfa._reference_lse(q, k, v, causal, scale)
+    delta = (do.float() * o.to(dtype).float()).sum(-1)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    emu = _mma_bwd_dq(*args)
+    rounding = _within(emu, pfa._bwd_dq_reference(*args), ROUNDING_TOL)
+    assert rounding > 0   # the rounding points are exercised
+
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float16
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()).astype(jdt)
+                       for t in (q, k, v, do))
+    with pltpu.force_tpu_interpret_mode():
+        jo, jlse = jfa._fwd_pallas(jq, jk, jv, scale, causal, 200, 200)
+        jdq, _, _ = jfa._bwd_pallas((jq, jk, jv, jo, jlse), jdo, scale,
+                                    causal, 200, 200)
+    _within(emu, torch.from_numpy(np.array(jdq.astype(jnp.float32))),
+            ROUNDING_TOL)
+    if causal == 'strict':
+        assert float(emu[:, 0].float().abs().max()) == 0.0

@@ -210,7 +210,8 @@ def test_kernels_are_registered_with_their_tpu_counterparts():
     (torch.bfloat16, 768, 3072, True), (torch.bfloat16, 8, 136, True),
     (torch.bfloat16, 776, 3000, True), (torch.bfloat16, 53, 29, False),
     (torch.bfloat16, 129, 256, False), (torch.bfloat16, 64, 257, False),
-    (torch.float32, 768, 3072, False)])
+    (torch.float32, 768, 3072, False), (torch.float16, 768, 3072, True),
+    (torch.float16, 53, 29, False)])
 def test_tensor_core_route_by_dtype_and_shape(dtype, k, n, want):
     """bf16 with K and N multiples of 8 (16-byte rows for TMA) takes the
     tensor-core design; f32 and other bf16 shapes take the SIMT one."""
@@ -233,7 +234,9 @@ def test_alignment_copy_only_for_views_off_16_bytes():
 @pytest.mark.parametrize('m,k,n,dtype,design', [
     (16, 64, 32, torch.bfloat16, 'tensor_core'),
     (5, 53, 29, torch.bfloat16, 'simt'),
-    (16, 64, 32, torch.float32, 'simt')])
+    (16, 64, 32, torch.float32, 'simt'),
+    (16, 64, 32, torch.float16, 'tensor_core'),
+    (5, 53, 29, torch.float16, 'simt')])
 @pytest.mark.parametrize('backward', [False, True])
 def test_wrapper_routes_each_launch_and_counts_its_design(
         monkeypatch, m, k, n, dtype, design, backward):
@@ -288,3 +291,31 @@ def test_launch_counts_by_design_and_their_reset(monkeypatch):
     # kernels of one design take no variant
     from paddle_tpu_torch.ops import fused_norm
     assert fused_norm.KERNEL.variant_launches == {}
+
+
+def test_float16_reaches_the_launch_with_code_2(monkeypatch):
+    """float16 x and w reach the forward and backward launches with
+    dtype code 2 (the entry points stubbed: no card here)."""
+    x, w, b = (torch.from_numpy(a) for a in _inputs(16, 64, 32))
+    x, w = x.half(), w.half()
+    dy = torch.zeros((16, 32), dtype=torch.float16)
+    for kernel, run in ((pfg.FWD_KERNEL, lambda: pfg._fwd_cuda(x, w, b,
+                                                                False)),
+                        (pfg.BWD_KERNEL, lambda: pfg._bwd_cuda(x, w, b, dy,
+                                                                False))):
+        seen = []
+        monkeypatch.setattr(kernel, '_fn', lambda *a: seen.append(a) or 0)
+        monkeypatch.setattr(pfg, 'stream', lambda device: 7)
+        out = run()
+        args, = seen
+        assert out.dtype == torch.float16
+        assert 2 in args[-4:-1] and args[-4:] == (0, 2, 1, 7)
+
+
+def test_rows_past_one_grid_are_taken():
+    """M above 65535 * 128 rows, which one SIMT grid does not hold: the
+    checks take it (the entry point launches it in chunks)."""
+    m = 65535 * 128 + 1
+    x = torch.zeros((m, 1))
+    w = torch.zeros((1, 3))
+    assert pfg._checked(x, w, None)[:3] == (m, 3, 1)

@@ -111,3 +111,92 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build, 'BUILD_DIR', '/nonexistent-build-dir')
     with pytest.raises(RuntimeError, match='nvcc'):
         _build.build(['fused_norm'])
+
+
+# widths past the warp design (2560: the block design) and off the
+# vector loads (770: H % 4 != 0, rows off 16 bytes)
+WIDE_SHAPES = [(6, 2560), (10, 770)]
+
+
+@pytest.mark.parametrize('shape', WIDE_SHAPES)
+def test_any_width_matches_the_reference(shape):
+    """The reference computes any H (its Pallas gate sends these to its
+    plain path); the port's twin matches it, forward and gradients."""
+    n, h = shape
+    x, g, b = _inputs(n, h, seed=h)
+    w = np.random.RandomState(2).randn(n, h).astype(np.float32)
+    want = jax_ln.fused_layer_norm(jnp.asarray(x), jnp.asarray(g),
+                                   jnp.asarray(b), 1e-5)
+    jg = jax.grad(lambda xv, gv, bv: jnp.sum(
+        jax_ln.fused_layer_norm(xv, gv, bv, 1e-5) * w), argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+    tx, tg, tb = (torch.from_numpy(a).requires_grad_() for a in (x, g, b))
+    got = port_ln.fused_layer_norm(tx, tg, tb, eps=1e-5)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=FWD_TOL, atol=FWD_TOL)
+    (got * torch.from_numpy(w)).sum().backward()
+    for want_g, got_g in zip(jg, (tx.grad, tg.grad, tb.grad)):
+        np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def _stub_launch(monkeypatch):
+    """The kernel's entry point replaced by a recorder (no card here):
+    what the wrapper hands a launch on a CUDA tensor."""
+    seen = []
+    monkeypatch.setattr(port_ln.KERNEL, '_fn',
+                        lambda *a: seen.append(a) or 0)
+    monkeypatch.setattr(port_ln, 'stream', lambda device: 7)
+    return seen
+
+
+@pytest.mark.parametrize('h', [2560, 770, 4099])
+@pytest.mark.parametrize('dtype,code', [(torch.float32, 0),
+                                        (torch.bfloat16, 1),
+                                        (torch.float16, 2)])
+def test_any_width_and_float16_reach_the_kernel_launch(monkeypatch, h,
+                                                        dtype, code):
+    """Every width and float16 reach the launch, with the dtype's code;
+    a view off 16 bytes is passed as it is (the kernel then takes its
+    scalar loads)."""
+    seen = _stub_launch(monkeypatch)
+    flat = torch.zeros(1 + 3 * h, dtype=dtype)
+    x = flat[1:].view(3, h)
+    g, b = torch.ones(h), torch.zeros(h)
+    before = port_ln.KERNEL.launches
+    y, mean, rstd = port_ln._fwd_cuda(x, g, b, 1e-5)
+    args, = seen
+    assert args[0] == x.data_ptr() and args[6:8] == (3, h)
+    assert args[9] == code and args[10] == 7
+    assert y.dtype == dtype and y.shape == (3, h)
+    assert mean.shape == rstd.shape == (3,)
+    assert port_ln.KERNEL.launches == before + 1
+    with pytest.raises(TypeError, match='float16'):
+        port_ln._fwd_cuda(x.double(), g, b, 1e-5)
+
+
+def test_without_affine_the_port_keeps_f32_two_pass_statistics():
+    """A documented difference.  Without weight and bias the reference's
+    ``layer_norm`` takes its plain path, which for bf16 computes in x's
+    dtype with a one-pass variance (the square in bf16); the port's
+    kernel, and its twin, keep f32 two-pass statistics for every call.
+    On rows whose mean is large against their spread the reference's
+    variance is off by far more than bf16's rounding of y, the port's
+    is not."""
+    import paddle_tpu as paddle
+    from paddle_tpu.nn import functional as JF
+    rs = np.random.RandomState(4)
+    x = (8.0 + 0.5 * rs.randn(16, 256)).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    xf = xb.float().numpy()                       # the bf16 values, exact
+    exact = (xf - xf.mean(-1, keepdims=True)) / np.sqrt(
+        xf.var(-1, keepdims=True) + 1e-5)
+    got = PF.layer_norm(xb, 256).float().numpy()
+    ref = port_ln._reference(xb.reshape(16, 256), None, None, 1e-5)[0]
+    assert np.array_equal(got, ref.float().numpy())
+    port_err = np.abs(got - exact).max()
+    jx = paddle.to_tensor(np.asarray(jnp.asarray(x).astype(jnp.bfloat16)))
+    want = np.asarray(JF.layer_norm(jx, 256).value.astype(jnp.float32))
+    jax_err = np.abs(want - exact).max()
+    assert port_err <= 2e-2 * (1 + np.abs(exact).max())
+    assert jax_err > 10 * port_err, (jax_err, port_err)

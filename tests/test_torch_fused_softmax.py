@@ -225,3 +225,39 @@ def test_kernels_are_registered_with_their_tpu_counterparts():
     for kn in (psm.KERNEL, psm.MASKED_KERNEL):
         assert kn.route == 'cuda'
         assert kn.source_path == 'paddle_tpu_torch/csrc/fused_softmax.cu'
+
+
+@pytest.mark.parametrize('masked', [False, True])
+@pytest.mark.parametrize('dtype,code', [(torch.float32, 0),
+                                        (torch.bfloat16, 1),
+                                        (torch.float16, 2)])
+def test_each_dtype_reaches_the_kernel_launch_with_its_code(
+        monkeypatch, masked, dtype, code):
+    """float16 reaches both kernels' launches with code 2 (the entry
+    points stubbed: no card here)."""
+    kernel = psm.MASKED_KERNEL if masked else psm.KERNEL
+    seen = []
+    monkeypatch.setattr(kernel, '_fn', lambda *a: seen.append(a) or 0)
+    monkeypatch.setattr(psm, 'stream', lambda device: 7)
+    x = torch.zeros((2, 3, 5, 40), dtype=dtype)
+    mask = torch.from_numpy(_padding_mask(2, 40)) if masked else None
+    before = kernel.launches
+    y = psm._fwd_cuda(x, mask)
+    args, = seen
+    assert y.dtype == dtype and y.shape == x.shape
+    assert args[-2:] == (code, 7)
+    assert args[(3 if masked else 2):(5 if masked else 4)] == (30, 40)
+    assert kernel.launches == before + 1
+
+
+def test_f16_matches_the_pallas_kernel():
+    """The twin in float16 against the Pallas kernel in interpret mode
+    on the same f16 inputs: both compute in f32 and round to f16 (one
+    f16 step below 1 is at most 2^-11; the bound is twice that)."""
+    x = _rand(8, 128, seed=6).astype(np.float16)
+    with pltpu.force_tpu_interpret_mode():
+        want = jsm._sm(jnp.asarray(x), None, 8)
+    got = fused_softmax(torch.from_numpy(x))
+    assert got.dtype == torch.float16
+    _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+           2.0 ** -10)

@@ -389,6 +389,55 @@ def test_what_is_not_ported_raises(weights, ids):
             AdamW(parameters=pm.parameters(), **bad)
 
 
+# float16 O1: head_dim 64 and T 128 put the JAX model on its Pallas flash
+# and LayerNorm kernels (interpret mode); its einsum branch is no oracle
+# in f16 (it subtracts (1 - mask) * 1e9, and 1e9 overflows f16 into
+# 0 * inf = NaN on every row)
+F16_MODEL_KW = dict(num_layers=2, hidden_size=128, num_heads=2,
+                    vocab_size=256, max_seq_len=128, dropout=0.0)
+# logits of magnitude ~3.5: both frameworks round to f16 after every
+# white-listed op, at other places (matmul epilogues, GELU, the flash
+# kernels' P), so they differ by a few f16 steps (2^-11 relative each)
+F16_TOL = 5e-3
+
+
+def test_f16_o1_forward_matches_jax(monkeypatch):
+    """An ``auto_cast(dtype='float16')`` O1 GPT forward on the CPU: the
+    port's (LayerNorm and flash twins on f16 tensors) against the JAX
+    model's under its own ``auto_cast(dtype='float16')``."""
+    from jax.experimental.pallas import tpu as pltpu
+    from paddle_tpu.ops import _gating
+    import paddle_tpu_torch.ops.fused_norm as pln
+    monkeypatch.setattr(_gating, 'INTERPRET', True)
+    paddle.seed(7)
+    jm = jax_gpt_tiny(**F16_MODEL_KW)
+    params, buffers = jm.functional_state()
+    rs = np.random.RandomState(11)
+    host = {k: np.asarray(v) + (0.1 * rs.randn(*v.shape)).astype(np.float32)
+            if k.endswith('bias') or '.ln' in k else np.asarray(v)
+            for k, v in params.items()}
+    jm.load_functional_state({k: jnp.asarray(v) for k, v in host.items()})
+    params, buffers = jm.functional_state()
+    ids = np.random.RandomState(0).randint(0, 256, (2, 128)).astype(np.int64)
+    with pltpu.force_tpu_interpret_mode(), \
+            paddle.amp.auto_cast(dtype='float16'):
+        want, _ = functional_call(jm, params, buffers, (jnp.asarray(ids),),
+                                  training=True)
+    ln_dtypes = []
+    fwd = pln._fwd
+    monkeypatch.setattr(pln, '_fwd', lambda x, *a: ln_dtypes.append(x.dtype)
+                        or fwd(x, *a))
+    pm = gpt_tiny(device='cpu', **F16_MODEL_KW).load_numpy_state(host).train()
+    with amp.auto_cast(dtype='float16'):
+        got = pm(torch.from_numpy(ids))
+    assert want.dtype == jnp.float16 and got.dtype == torch.float16
+    assert ln_dtypes[1:] and set(ln_dtypes[1:]) == {torch.float16}
+    want = np.asarray(want.astype(jnp.float32))
+    diff = np.abs(got.detach().float().numpy() - want)
+    assert np.isfinite(want).all()
+    assert (diff <= F16_TOL * (1 + np.abs(want))).all(), diff.max()
+
+
 def test_amp_policy_follows_the_reference_lists():
     f32 = torch.ones(2, dtype=torch.float32)
     b16 = torch.ones(2, dtype=torch.bfloat16)

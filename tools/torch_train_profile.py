@@ -40,7 +40,7 @@ import chip_smoke  # noqa: E402  (the smoke's model, config and helpers)
 KINDS = [('flash_attention_fwd', ('flash_fwd',)),
          ('flash_attention_bwd_dq', ('flash_bwd_dq',)),
          ('flash_attention_bwd_dkv', ('flash_bwd_dkv',)),
-         ('fused_layer_norm', ('layer_norm_fwd',)),
+         ('fused_layer_norm', ('layer_norm_warp<', 'layer_norm_block<')),
          # PyTorch's own are softmax_warp_forward/backward
          ('fused_softmax', ('softmax_warp<', 'softmax_block<')),
          # the tensor-core and the SIMT design
