@@ -7,16 +7,28 @@ From the repository root, with one CUDA card.  It
 1. prints the card (``nvidia-smi`` name and power limit) and turns
    TF32 off for matmuls and cuDNN, so f32 means f32;
 2. builds every kernel under ``paddle_tpu_torch/csrc/`` with nvcc (one
-   process per source, all at once), prints the build seconds and each
-   flash and GEMM+GELU kernel's registers, stack and local (spill) bytes
-   from ``cuobjdump --dump-resource-usage``;
+   process per source, all at once), prints the build seconds and every
+   kernel's registers, stack and local (spill) bytes from ``cuobjdump
+   --dump-resource-usage``, and fails if a softmax or LayerNorm kernel
+   spills (a stack frame or local memory);
 3. holds each kernel to its plain PyTorch twin at the shapes its
-   paths give it, with the tolerance stated, and times the kernel, the
-   twin and one PyTorch library call computing the same function beside
-   the least time the card could take: device time per call from
-   ``torch.profiler`` (``ms``), and time per call of a back-to-back
-   loop between CUDA events (``call_ms``, which includes the host's
-   launch work).  LayerNorm at the serving and training shapes (f32,
+   paths give it, with the tolerance stated, checks that the wrapper
+   took the design it names for the case (per-design launch counts) and
+   that a second launch repeats the first bit for bit, and times the
+   kernel, the twin and one PyTorch library call computing the same
+   function beside the least time the card could take: device time per
+   call from ``torch.profiler`` warm (``ms``: back-to-back launches, so
+   inputs that fit the 50 MB L2 stay there, as for a caller that just
+   wrote them) and cold (``cold_ms``: the L2 flushed by a 128 MB write
+   before each launch, the flush's kernels left out of the sum), and
+   time per call of a back-to-back loop between CUDA events
+   (``call_ms``, which includes the host's launch work).  The LayerNorm
+   and softmax rows take the median and range of 5 rounds in turns
+   (kernel, twin, library), their share of the bound comes from the cold
+   reading, and a cold reading under its bound fails the run (the
+   bound's byte count would be wrong); the decode LayerNorm row stands
+   beside the launch floor, the device time of a one-element
+   ``t[:1].zero_()``.  LayerNorm at the serving and training shapes (f32,
    bf16, f16), at H 2560 (the block design) and at H 770 (scalar
    loads); the three flash attention kernels (forward, dq, dk/dv) at the
    training shape (96 x 1024 x 64 causal, bf16 and f16), in f32, in
@@ -28,10 +40,11 @@ From the repository root, with one CUDA card.  It
    f32), and for 16-bit inputs a second launch of all three that must
    repeat the first bit for bit; the softmax kernel at BERT-base's
    attention scores (64 x 12 x 128 x 128, f32, bf16 and f16), at GPT's
-   row of 1024 and at a ragged row of 200; the masked softmax through
-   the public ``ops.fused_softmax(x, mask)`` at BERT's shape with a
-   seeded padding mask (f32 and f16), at the ragged shape and with a
-   full bf16 mask; the GEMM+GELU forward and backward kernels at
+   row of 1024 and at a ragged row of 200 (the ``vec`` design), at rows
+   of 199 (``scalar``) and of 4096 (``block``); the masked softmax
+   through the public ``ops.fused_softmax(x, mask)`` at BERT's shape
+   with a seeded padding mask (f32 and f16), at the ragged shape and with
+   a full bf16 mask; the GEMM+GELU forward and backward kernels at
    BERT-base's fc (8192 x 768 x 3072, bf16 and f16 on the tensor-core
    design and f32 on the SIMT one), at a ragged 1000 x 700 x 3001 f32
    with the erf GELU, at an aligned ragged 1000 x 776 x 3000 bf16
@@ -42,22 +55,24 @@ From the repository root, with one CUDA card.  It
    (random seeded weights) through ``ServingEngine`` with the
    benchmark's serving config, and checks the outcome: every request
    done, allocator audit clean, every block back, the kernels'
-   launch counts match the dispatches, greedy streams equal batch-1
-   ``generate``, and the card's prefill logits agree with the same
-   weights run on the CPU through the plain twins;
+   launch counts match the dispatches (LayerNorm on its warp design),
+   greedy streams equal batch-1 ``generate``, and the card's prefill
+   logits agree with the same weights run on the CPU through the plain
+   twins;
 5. trains ``gpt_small`` at full width (random seeded weights) through
    ``ParallelTrainer.step`` in the benchmark's configuration (B 8, T
    1024, bf16 O2, fused CE head in 8 chunks, AdamW lr 3e-4): 2 warm-up
    and 5 timed steps on one seeded batch.  It checks that every loss is
    finite and the last is below the first, that each flash kernel ran
-   12 times and LayerNorm 25 times per step, and that one f32 step at
-   B 1, T 256 gives the card the same loss and gradients as the same
-   weights on the CPU through the plain twins; every flash launch of
-   the bf16 run is on the tensor-core design, every one of the f32
-   step on the SIMT design; it prints ms/step, tokens/s, peak device
-   memory and an MFU share;
+   12 times and LayerNorm 25 times per step (on the warp design), and
+   that one f32 step at B 1, T 256 gives the card the same loss and
+   gradients as the same weights on the CPU through the plain twins;
+   every flash launch of the bf16 run is on the tensor-core design,
+   every one of the f32 step on the SIMT design; it prints ms/step,
+   tokens/s, peak device memory and an MFU share;
 6. trains ``gpt_small`` 2 steps at its dropout 0.1 (B 2, T 1024, bf16
-   O2): finite losses, the softmax kernel 12 times per step, no flash;
+   O2): finite losses, the softmax kernel 12 times per step on its vec
+   design, no flash;
    then 3 steps in float16 (B 2, T 1024, ``auto_cast(level='O2',
    dtype='float16')`` with the ``GradScaler``): finite, falling losses,
    LayerNorm 25 and each flash kernel 12 times per step on the
@@ -85,6 +100,7 @@ CUDA device it exits non-zero before printing any result.
 """
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -152,28 +168,42 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 # max |diff| relative to its max |value| (12 layers, sums reordered)
 PARITY_SEQ, PARITY_LOSS_RTOL, PARITY_GRAD_RTOL = 256, 1e-4, 1e-3
 
-# softmax cases: (case, x shape, dtype, mask shape or None); the first
-# of each kernel is its main-path shape: BERT-base's attention scores
-# [B 64, H 12, T 128, T 128], f32 after AMP (softmax is black-listed).
+# softmax cases: (case, x shape, dtype, mask shape or None, the design
+# the wrapper must pick); the first of each kernel is its main-path
+# shape: BERT-base's attention scores [B 64, H 12, T 128, T 128], f32
+# after AMP (softmax is black-listed); 'gpt' is GPT-2 small's with
+# dropout, 'odd' (796-byte rows) takes the scalar design, 'long' the
+# block design.
 # Tolerances (kernel vs twin, |got - want| <= tol * (1 + |want|)): f32
-# 1e-6 (one exp and one division per element, the row's sums in another
-# order), bf16 2^-8 and f16 2^-10 (both round an f32 value below 1 to the
-# 16-bit type, whose step there is at most 2^-8 and 2^-11)
+# 1e-6 (one exp2 and one multiply by the row's reciprocal per element,
+# the row's sums in another order), bf16 2^-8 and f16 2^-10 (both round
+# an f32 value below 1 to the 16-bit type, whose step there is at most
+# 2^-8 and 2^-11)
 SOFTMAX_CASES = [
-    ('bert', (64, 12, 128, 128), torch.float32, None),
-    ('bert_bf16', (64, 12, 128, 128), torch.bfloat16, None),
-    ('bert_f16', (64, 12, 128, 128), torch.float16, None),
-    ('gpt', (2, 12, 1024, 1024), torch.float32, None),
-    ('ragged', (8, 12, 200, 200), torch.float32, None),
-    ('bert_padding', (64, 12, 128, 128), torch.float32, (64, 1, 1, 128)),
+    ('bert', (64, 12, 128, 128), torch.float32, None, 'vec'),
+    ('bert_bf16', (64, 12, 128, 128), torch.bfloat16, None, 'vec'),
+    ('bert_f16', (64, 12, 128, 128), torch.float16, None, 'vec'),
+    ('gpt', (2, 12, 1024, 1024), torch.float32, None, 'vec'),
+    ('ragged', (8, 12, 200, 200), torch.float32, None, 'vec'),
+    ('odd', (8, 12, 200, 199), torch.float32, None, 'scalar'),
+    ('long', (1, 12, 512, 4096), torch.float32, None, 'block'),
+    ('bert_padding', (64, 12, 128, 128), torch.float32, (64, 1, 1, 128),
+     'vec'),
     ('bert_padding_f16', (64, 12, 128, 128), torch.float16,
-     (64, 1, 1, 128)),
-    ('ragged_padding', (8, 12, 200, 200), torch.float32, (8, 1, 1, 200)),
-    ('bf16_full_mask', (8, 12, 128, 128), torch.bfloat16, (8, 12, 128, 128)),
+     (64, 1, 1, 128), 'vec'),
+    ('ragged_padding', (8, 12, 200, 200), torch.float32, (8, 1, 1, 200),
+     'vec'),
+    ('bf16_full_mask', (8, 12, 128, 128), torch.bfloat16, (8, 12, 128, 128),
+     'vec'),
 ]
 SOFTMAX_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8,
                torch.float16: 2.0 ** -10}
 SOFTMAX_KERNELS = ('fused_softmax', 'fused_softmax_masked')
+# turns of (kernel, twin, library) behind each LayerNorm and softmax
+# row's medians
+LN_ROUNDS = SOFTMAX_ROUNDS = 5
+# sources whose kernels must show no local-memory spill
+NO_SPILL_SOURCES = ('fused_norm', 'fused_softmax')
 
 # GEMM+GELU cases: (case, M, K, N, dtype, approximate); the first is
 # BERT-base's fc at B 64 x T 128 under bf16 O2 (the tensor-core design),
@@ -246,34 +276,154 @@ def self_device_us(evt):
     return 0.0
 
 
-def device_ms(fn, iters=100):
-    """Mean device time per call of ``fn``: the summed durations of the
-    device kernels it ran (CUPTI timestamps, ``torch.profiler``) over
-    ``iters`` calls.  None when the profiler saw no device kernel."""
+# sessions of torch.profiler to take before settling for one that missed
+# kernel records (device_ms)
+PROFILE_ATTEMPTS = 4
+
+
+class L2Flush:
+    """Evicts the 50 MB L2 by writing a 128 MB scratch buffer (a
+    ``bitwise_not_`` over it: every line dirty, so whatever the next
+    kernel allocates in L2 costs a write-back too).  ``names`` are the
+    device kernels one flush runs, as the profiler keys them, learnt
+    from a profiled flush: a cold reading leaves them out."""
+    BYTES = 128 << 20
+
+    def __init__(self):
+        from torch.profiler import ProfilerActivity, profile
+        self.buf = torch.zeros(self.BYTES, dtype=torch.uint8, device='cuda')
+        self()
+        torch.cuda.synchronize()
+        self.names = set()
+        for _ in range(2 * PROFILE_ATTEMPTS):  # the profiler misses records
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    self()
+                torch.cuda.synchronize()
+            self.names = {e.key for e in prof.key_averages()
+                          if is_device_event(e) and e.count}
+            if self.names:
+                break
+        if not self.names:
+            raise AssertionError('L2 flush: the profiler saw no device '
+                                 'kernel')
+
+    def __call__(self):
+        self.buf.bitwise_not_()
+
+
+_FLUSH = []
+
+
+def l2_flush():
+    """The one ``L2Flush`` of the run, made at first use."""
+    if not _FLUSH:
+        _FLUSH.append(L2Flush())
+    return _FLUSH[0]
+
+
+def device_ms(fn, iters=100, cold=False):
+    """Mean device time per call of ``fn`` over ``iters`` calls under
+    ``torch.profiler`` (CUPTI timestamps): each device kernel's mean
+    duration times its launches a call, summed; and those launches a
+    call.  Warm: the calls back to back, so inputs that fit the 50 MB L2
+    stay in it, as for a caller that just wrote them.  Cold: the L2
+    flushed before each call, the flush's kernels (by name) left out.
+    The profiler can miss kernel records (a session on an H100 has shown
+    6 of 20 flushes), so a session whose counts are not whole multiples
+    of ``iters`` (or, cold, of one flush a call), or that saw none, is
+    taken again, up to PROFILE_ATTEMPTS times; the means hold either
+    way, and a kernel's launches a call are then rounded from what was
+    seen.  (None, 0) when the profiler saw no device kernel."""
     from torch.profiler import ProfilerActivity, profile
+    flush = l2_flush() if cold else None
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(self_device_us(e) for e in prof.key_averages()
-                if is_device_event(e))
-    return total / iters / 1e3 if total > 0 else None
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if is_device_event(e) and e.count]
+        flushes = 0
+        if flush is not None:
+            flushes = sum(e.count for e in events if e.key in flush.names)
+            events = [e for e in events if e.key not in flush.names]
+        whole = bool(events) and all(
+            e.count % iters == 0 for e in events) and (
+            flush is None or flushes == iters)
+        if whole:
+            break
+    launches = {e.key: max(1, round(e.count / iters)) for e in events}
+    total = sum(self_device_us(e) / e.count * launches[e.key]
+                for e in events)
+    return (total / 1e3 if total > 0 else None), sum(launches.values())
 
 
-def time_row(row, fns, iters=200, warmup=20, prof_iters=100):
-    """Fill ``row`` with ``<key>ms``/``<key>call_ms``/``<key>ms_from``
-    for each ``{key: fn}``: device time per call from the profiler
-    where it sees the kernels, else the per-call time of a
-    back-to-back loop."""
-    for key, fn in fns.items():
-        call = time_ms(fn, iters=iters, warmup=warmup)
-        dev = device_ms(fn, iters=prof_iters)
-        row[f'{key}call_ms'] = call
-        row[f'{key}ms'] = call if dev is None else dev
-        row[f'{key}ms_from'] = 'events' if dev is None else 'profiler'
+def _spread(values):
+    """(median, [min, max]) of a list of readings."""
+    return statistics.median(values), [min(values), max(values)]
+
+
+def time_row(row, fns, iters=200, warmup=20, prof_iters=100, rounds=1,
+             cold_iters=20):
+    """Fill ``row`` for each ``{key: fn}`` (the kernel ``''``, its plain
+    twin ``'plain_'``, the library call ``'library_'``), ``rounds``
+    times in turns (kernel, twin, library, kernel, ...): ``<key>ms``, the
+    median warm device time per call from the profiler over the rounds
+    it saw (the per-call time of a back-to-back loop where it saw none,
+    and ``<key>ms_from`` says which); ``<key>cold_ms``, the median device
+    time with the L2 flushed before each call; ``<key>call_ms``, the
+    median time per call of a back-to-back loop between CUDA events (the
+    host's launch work included); each with ``<key>..._range``, the min
+    and max over the rounds, and ``<key>kernels_per_call``, the device
+    kernels a call ran."""
+    got = {key: {'call': [], 'warm': [], 'cold': []} for key in fns}
+    per_call = {}
+    for _ in range(rounds):
+        for key, fn in fns.items():
+            got[key]['call'].append(time_ms(fn, iters=iters, warmup=warmup))
+            warm, per_call[key] = device_ms(fn, iters=prof_iters)
+            cold, _ = device_ms(fn, iters=min(cold_iters, prof_iters),
+                                cold=True)
+            got[key]['warm'].append(warm)
+            got[key]['cold'].append(cold)
+    for key, g in got.items():
+        row[f'{key}call_ms'], row[f'{key}call_ms_range'] = _spread(g['call'])
+        # the rounds the profiler saw; the events' time where it saw none
+        warm = [v for v in g['warm'] if v is not None]
+        cold = [v for v in g['cold'] if v is not None]
+        from_profiler = bool(warm and cold)
+        if not from_profiler:
+            warm = cold = g['call']
+        row[f'{key}ms'], row[f'{key}ms_range'] = _spread(warm)
+        row[f'{key}cold_ms'], row[f'{key}cold_ms_range'] = _spread(cold)
+        row[f'{key}ms_from'] = 'profiler' if from_profiler else 'events'
+        row[f'{key}kernels_per_call'] = per_call[key]
+    row['rounds'] = rounds
     return row
+
+
+def check_cold_bound(kname, row):
+    """The kernel's cold reading cannot beat the least time the card
+    could take: a reading under the bound means the bound's byte count
+    is wrong (a fault of the count, not of the timing)."""
+    row['bound_share_cold'] = row['bound_ms'] / row['cold_ms']
+    if row['cold_ms'] < row['bound_ms']:
+        raise AssertionError(
+            f'{kname} {row.get("case", row["shape"])}: cold reading '
+            f'{row["cold_ms"] * 1e3:.3f} us under its bound '
+            f'{row["bound_ms"] * 1e3:.3f} us: the bound\'s byte count is '
+            'wrong')
+
+
+def fmt_us(row, key):
+    """``median [min-max] us`` of a reading in ``row``."""
+    lo, hi = row[f'{key}_range']
+    return f'{row[key] * 1e3:.2f} [{lo * 1e3:.2f}-{hi * 1e3:.2f}] us'
 
 
 def bound(nbytes, flops, dtype):
@@ -311,22 +461,33 @@ def device_phase():
 
 
 def build_phase():
+    """Builds every kernel source, then prints each kernel's registers
+    and spills; the softmax and LayerNorm kernels must not spill.
+    Returns (build seconds, {source: {kernel: fields}})."""
     from paddle_tpu_torch.ops import _build
     t0 = time.perf_counter()
     paths = _build.build()
     secs = time.perf_counter() - t0
     log(f'build: {len(paths)} kernel source(s) in {secs:.2f} s '
         f'({", ".join(_build.sources())})')
-    log_resources(_build, 'flash_attention')
-    log_resources(_build, 'fused_gelu_linear')
-    return secs
+    resources = {src: log_resources(_build, src) for src in _build.sources()}
+    for src in NO_SPILL_SOURCES:
+        # spills go to the stack frame (or local memory): both must be 0
+        spills = {k: (f.get('STACK'), f.get('LOCAL'))
+                  for k, f in resources[src].items()
+                  if {f.get('STACK'), f.get('LOCAL')} - {None, '0'}}
+        if spills:
+            raise AssertionError(f'{src}: kernels spill to the stack or '
+                                 f'local memory (bytes): {spills}')
+    return secs, resources
 
 
 def log_resources(_build, source):
     """Registers, stack and local (spill) bytes a thread of each kernel
     in ``csrc/<source>.cu`` uses, as ``cuobjdump --dump-resource-usage``
     reads them from the built library (dynamic shared memory is set per
-    launch and not listed)."""
+    launch and not listed); returns ``{kernel: {'REG': .., 'STACK': ..,
+    'SHARED': .., 'LOCAL': ..}}``, empty where cuobjdump is missing."""
     import os
     import re
     import shutil
@@ -334,7 +495,7 @@ def log_resources(_build, source):
     tool = os.path.join(os.path.dirname(_build._nvcc()), 'cuobjdump')
     if not os.path.exists(tool):
         log(f'resources {source}: not measured (no {tool})')
-        return
+        return {}
     out = subprocess.run([tool, '--dump-resource-usage', lib],
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout
@@ -344,14 +505,18 @@ def log_resources(_build, source):
         plain = subprocess.run(['c++filt'], input='\n'.join(names),
                                capture_output=True, text=True, timeout=60,
                                check=True).stdout.split('\n')
+    found = {}
     for mangled, name in zip(names, plain):
         usage = re.search(re.escape(mangled) + r':\s*(.*)', out).group(1)
         fields = dict(re.findall(r'(REG|STACK|SHARED|LOCAL):(\d+)', usage))
-        short = re.search(r'(\w+<[^<>]*>)\(', name)
-        log(f'resources {source}: {short.group(1) if short else name} '
+        short = re.search(r'(\w+<[^()]*>)\(', name)
+        kernel = short.group(1) if short else name
+        found[kernel] = fields
+        log(f'resources {source}: {kernel} '
             f'registers {fields.get("REG")}, stack {fields.get("STACK")} '
             f'B, static shared {fields.get("SHARED")} B, local (spill) '
             f'{fields.get("LOCAL")} B')
+    return found
 
 
 def launch_counts():
@@ -367,44 +532,101 @@ def launch_counts():
     return counts
 
 
+def launch_floor_ms(rounds):
+    """(median, [min, max]) device ms of a one-element PyTorch kernel
+    (``t[:1].zero_()``): the floor under any launch; (None, None) where
+    the profiler saw none of its launches."""
+    t = torch.zeros(1024, device='cuda')
+    seen = [v for v in (device_ms(lambda: t[:1].zero_(), iters=100)[0]
+                        for _ in range(rounds)) if v is not None]
+    return _spread(seen) if seen else (None, None)
+
+
+def check_design(kernel, design, what):
+    """Exactly one launch since the counts were set to 0, on ``design``."""
+    want = {v: int(v == design) for v in kernel.variant_launches}
+    if kernel.launches != 1 or kernel.variant_launches != want:
+        raise AssertionError(f'{kernel.name} {what}: expected one launch of '
+                             f'the {design} design, counts '
+                             f'{kernel.variant_launches}')
+
+
 def kernel_phase():
-    """fused_layer_norm against its plain twin on the card."""
+    """fused_layer_norm against its plain twin on the card, in the design
+    the wrapper names for each shape, repeated bit for bit, timed warm
+    and cold in LN_ROUNDS turns beside the twin and F.layer_norm, the
+    decode row beside the launch floor."""
     import torch.nn.functional as TF
-    from paddle_tpu_torch.ops import fused_norm
+    from paddle_tpu_torch.ops import _build, fused_norm
     rows = []
+    floor, floor_range = launch_floor_ms(LN_ROUNDS)
+    log('launch floor: t[:1].zero_() device ' + (
+        'not measured (the profiler saw no launch)' if floor is None else
+        f'{floor * 1e3:.2f} [{floor_range[0] * 1e3:.2f}-'
+        f'{floor_range[1] * 1e3:.2f}] us (median [min-max] of {LN_ROUNDS} '
+        'rounds)'))
     gen = torch.Generator().manual_seed(0)
     for (n, h), dtype, tol in KERNEL_SHAPES:
         x = (torch.randn((n, h), generator=gen) * 2 + 0.5) \
             .to('cuda', dtype)
         g = (1 + 0.1 * torch.randn((h,), generator=gen)).cuda()
         b = (0.1 * torch.randn((h,), generator=gen)).cuda()
+        design = fused_norm.VARIANTS[h > fused_norm._WARP_MAX_H]
+        what = f'{n}x{h} {dtype}'
+        _build.reset_launches()
         y, mean, rstd = fused_norm._fwd_cuda(x, g, b, 1e-5)
         ry, rmean, rrstd = fused_norm._reference(x, g, b, 1e-5)
         torch.cuda.synchronize()
+        check_design(fused_norm.KERNEL, design, what)
         err = float((y.float() - ry.float()).abs().max())
         stat_err = max(float((mean - rmean).abs().max()),
                        float((rstd - rrstd).abs().max()))
         if not (err <= tol and stat_err <= 1e-5):
             raise AssertionError(
-                f'fused_layer_norm {n}x{h} {dtype}: max |y - plain| '
+                f'fused_layer_norm {what}: max |y - plain| '
                 f'{err:.3e} (tol {tol}), stats {stat_err:.3e} (tol 1e-5)')
+        # no atomics: a second launch repeats the first bit for bit
+        again = fused_norm._fwd_cuda(x, g, b, 1e-5)
+        torch.cuda.synchronize()
+        if not all(torch.equal(p, q) for p, q in zip((y, mean, rstd), again)):
+            raise AssertionError(f'fused_layer_norm {what}: a second launch '
+                                 'changed the result')
         gl, bl = g.to(dtype), b.to(dtype)
         fns = {'': lambda: fused_norm._fwd_cuda(x, g, b, 1e-5),
                'plain_': lambda: fused_norm._reference(x, g, b, 1e-5),
                'library_': lambda: TF.layer_norm(x, (h,), gl, bl, 1e-5)}
         row = {'shape': [n, h], 'dtype': str(dtype).replace('torch.', ''),
-               'tol': tol, 'max_abs_err': err}
-        time_row(row, fns)
+               'design': design, 'tol': tol, 'max_abs_err': err,
+               'repeats_bit_for_bit': True, 'library': 'F.layer_norm'}
+        time_row(row, fns, rounds=LN_ROUNDS)
+        with torch.no_grad():
+            # serving's call: the public function, nothing to differentiate
+            row['public_call_ms'] = time_ms(
+                lambda: fused_norm.fused_layer_norm(x, g, b, 1e-5))
         row['bound_ms'], row['bound_by'] = layer_norm_bound(n, h, dtype)
-        log(f'kernel fused_layer_norm {n}x{h} {row["dtype"]}: '
-            f'max_abs_err {err:.3e} (tol {tol}) | device: kernel '
-            f'{row["ms"] * 1e3:.2f} us, plain {row["plain_ms"] * 1e3:.2f} '
-            f'us, F.layer_norm {row["library_ms"] * 1e3:.2f} us '
-            f'({row["ms_from"]}) | per call: kernel '
-            f'{row["call_ms"] * 1e3:.2f} us, plain '
+        check_cold_bound('fused_layer_norm', row)
+        floor_note = ''
+        if len(rows) == 0 and floor is not None:  # decode: latency
+            row['launch_floor_ms'] = floor
+            row['launch_floor_ms_range'] = floor_range
+            floor_note = (f' | launch floor {floor * 1e3:.2f} us: kernel '
+                          f'{row["ms"] / floor:.2f}x, F.layer_norm '
+                          f'{row["library_ms"] / floor:.2f}x')
+        log(f'kernel fused_layer_norm {what.replace("torch.", "")} '
+            f'[{design}, repeats bit for bit]: max_abs_err {err:.3e} (tol '
+            f'{tol}) | warm device: kernel {fmt_us(row, "ms")}, plain '
+            f'{fmt_us(row, "plain_ms")}, F.layer_norm '
+            f'{fmt_us(row, "library_ms")} ({row["ms_from"]}; kernels a call '
+            f'{row["kernels_per_call"]:g}, {row["library_kernels_per_call"]:g}'
+            f') | cold device: kernel {fmt_us(row, "cold_ms")}, F.layer_norm '
+            f'{fmt_us(row, "library_cold_ms")} | per call: kernel '
+            f'{fmt_us(row, "call_ms")} (public, no grad '
+            f'{row["public_call_ms"] * 1e3:.2f} us), plain '
             f'{row["plain_call_ms"] * 1e3:.2f} us, F.layer_norm '
-            f'{row["library_call_ms"] * 1e3:.2f} us | bound '
-            f'{row["bound_ms"] * 1e3:.3f} us ({row["bound_by"]})')
+            f'{fmt_us(row, "library_call_ms")} | bound '
+            f'{row["bound_ms"] * 1e3:.3f} us ({row["bound_by"]}), '
+            f'{row["bound_share_cold"] * 100:.1f}% of it cold'
+            + floor_note)
         rows.append(row)
     return {'fused_layer_norm': rows}
 
@@ -551,7 +773,8 @@ def flash_kernel_phase():
             log(f'kernel {kname} {case} {bh}x{T}x{D} {row["dtype"]} '
                 f'causal={causal} [{design}]: max_abs_err '
                 f'{errs[kname]:.3e} | device: '
-                f'kernel {row["ms"] * 1e3:.1f} us '
+                f'kernel {row["ms"] * 1e3:.1f} us, cold '
+                f'{row["cold_ms"] * 1e3:.1f} us '
                 f'({row["tflops"]:.1f} TFLOP/s), plain '
                 f'{row["plain_ms"] * 1e3:.1f} us, SDPA '
                 f'{row["library_ms"] * 1e3:.1f} us ({row["ms_from"]}) | '
@@ -570,14 +793,17 @@ def _ops_module(name):
 
 
 def softmax_kernel_phase():
-    """Both softmax kernels against their plain twin on the card, the
-    masked one launched through the public ``ops.fused_softmax(x,
-    mask)`` (no model path reaches it, as in the reference)."""
-    from paddle_tpu_torch.ops import fused_softmax
+    """Both softmax kernels against their plain twin on the card, in the
+    design the wrapper names for each case, repeated bit for bit, timed
+    warm and cold in SOFTMAX_ROUNDS turns beside the twin and the library
+    call, the masked one launched through the public
+    ``ops.fused_softmax(x, mask)`` (no model path reaches it, as in the
+    reference)."""
+    from paddle_tpu_torch.ops import _build, fused_softmax
     fsm = _ops_module('fused_softmax')
     rows = {k: [] for k in SOFTMAX_KERNELS}
     gen = torch.Generator().manual_seed(2)
-    for case, shape, dtype, mshape in SOFTMAX_CASES:
+    for case, shape, dtype, mshape, design in SOFTMAX_CASES:
         x = (3 * torch.randn(shape, generator=gen)).to('cuda', dtype)
         mask = None
         if mshape is not None:
@@ -589,14 +815,23 @@ def softmax_kernel_phase():
                 keep = torch.arange(shape[-1]) < lens
             mask = torch.where(keep, 0.0, -1e9).cuda()
         kname = SOFTMAX_KERNELS[mask is not None]
+        kernel = (fsm.KERNEL, fsm.MASKED_KERNEL)[mask is not None]
+        _build.reset_launches()
         y = fused_softmax(x, mask)
         want = fsm._reference(x, mask)
         torch.cuda.synchronize()
+        check_design(kernel, design, case)
         tol = SOFTMAX_TOL[dtype]
         err, ok = worst_err(y, want, tol)
         if not ok:
             raise AssertionError(f'{kname} {case} {shape} {dtype}: max '
                                  f'|y - plain| {err:.3e} beyond tol {tol}')
+        # no atomics: a second launch repeats the first bit for bit
+        again = fused_softmax(x, mask)
+        torch.cuda.synchronize()
+        if not torch.equal(y, again):
+            raise AssertionError(f'{kname} {case}: a second launch changed '
+                                 'the result')
         if mask is None:
             lib = lambda: torch.softmax(x, dim=-1)  # noqa: E731
             library = 'torch.softmax'
@@ -610,22 +845,27 @@ def softmax_kernel_phase():
             0 if mask is None else mask.numel() * 4)
         row = {'case': case, 'shape': list(shape),
                'mask_shape': None if mask is None else list(mshape),
-               'dtype': str(dtype).replace('torch.', ''), 'tol': tol,
-               'max_abs_err': err, 'library': library,
-               'bytes': nbytes, 'flops': 4 * n * h}
-        time_row(row, fns, iters=50, warmup=5, prof_iters=20)
+               'dtype': str(dtype).replace('torch.', ''), 'design': design,
+               'tol': tol, 'max_abs_err': err, 'repeats_bit_for_bit': True,
+               'library': library, 'bytes': nbytes, 'flops': 4 * n * h}
+        time_row(row, fns, iters=50, warmup=5, prof_iters=20,
+                 rounds=SOFTMAX_ROUNDS, cold_iters=10)
         # bytes bound; ~4 f32 operations per element (max, subtract,
-        # exp, divide) are far below the f32 peak
+        # exp, scale) are far below the f32 peak
         row['bound_ms'], row['bound_by'] = bound(nbytes, 4 * n * h,
                                                  torch.float32)
+        check_cold_bound(kname, row)
         log(f'kernel {kname} {case} {list(shape)} {row["dtype"]}'
             + ('' if mask is None else f' mask {list(mshape)}')
-            + f': max_abs_err {err:.3e} (tol {tol:.3g}) | device: kernel '
-            f'{row["ms"] * 1e3:.2f} us, plain {row["plain_ms"] * 1e3:.2f} '
-            f'us, {library} {row["library_ms"] * 1e3:.2f} us '
-            f'({row["ms_from"]}) | per call: kernel '
-            f'{row["call_ms"] * 1e3:.2f} us | bound '
-            f'{row["bound_ms"] * 1e3:.2f} us ({row["bound_by"]})')
+            + f' [{design}, repeats bit for bit]: max_abs_err {err:.3e} '
+            f'(tol {tol:.3g}) | warm device: kernel {fmt_us(row, "ms")}, '
+            f'plain {fmt_us(row, "plain_ms")}, {library} '
+            f'{fmt_us(row, "library_ms")} ({row["ms_from"]}) | cold device: '
+            f'kernel {fmt_us(row, "cold_ms")}, {library} '
+            f'{fmt_us(row, "library_cold_ms")} | per call: kernel '
+            f'{fmt_us(row, "call_ms")} | bound {row["bound_ms"] * 1e3:.2f} '
+            f'us ({row["bound_by"]}), {row["bound_share_cold"] * 100:.1f}% '
+            'of it cold')
         rows[kname].append(row)
     return rows
 
@@ -729,7 +969,8 @@ def gelu_kernel_phase():
             log(f'kernel {kname} {case} {M}x{K}x{N} {row["dtype"]} '
                 f'gelu={form} [{design}, repeats bit for bit]: max_abs_err '
                 f'{errs[kname]:.3e} | device: '
-                f'kernel {row["ms"] * 1e3:.1f} us '
+                f'kernel {row["ms"] * 1e3:.1f} us, cold '
+                f'{row["cold_ms"] * 1e3:.1f} us '
                 f'({row["tflops"]:.2f} TFLOP/s), plain '
                 f'{row["plain_ms"] * 1e3:.1f} us, {libs[kname]} '
                 f'{row["library_ms"] * 1e3:.1f} us ({row["ms_from"]}) | '
@@ -782,17 +1023,18 @@ def serving_phase():
                              f'{eng.cache.num_blocks - 1}')
     per_forward = 2 * cfg.num_layers + 1
     want = per_forward * (prefills + steps)
-    if launches['fused_layer_norm'] != want:
-        raise AssertionError(
-            f'fused_layer_norm launched {launches["fused_layer_norm"]} '
-            f'times, expected {per_forward} x ({prefills} prefill '
-            f'dispatches + {steps} decode steps) = {want}')
+    for key in ('fused_layer_norm', 'fused_layer_norm:warp'):
+        if launches[key] != want:
+            raise AssertionError(
+                f'{key} launched {launches[key]} times, expected '
+                f'{per_forward} x ({prefills} prefill dispatches + {steps} '
+                f'decode steps) = {want}')
     log(f'serve: {NUM_REQUESTS} requests DONE, audit clean, '
         f'{eng.cache.free_blocks} blocks free; {prefills} prefill '
         f'dispatches + {steps} decode steps ({rep["interventions"]} '
         f'interventions); fused_layer_norm launches '
         f'{launches["fused_layer_norm"]} = {per_forward} x '
-        f'{prefills + steps}')
+        f'{prefills + steps}, all on the warp design')
     log(f'serve: {rep["decoded_tokens"]} tokens in {rep["wall_s"]:.3f} s '
         f'= {rep["tokens_per_s"]:.1f} tokens/s; TTFT p50 '
         f'{rep["ttft_p50_s"] * 1e3:.1f} ms, p99 '
@@ -885,13 +1127,23 @@ def _check_run(what, losses, launches, per_step, steps):
 
 def _per_step(L, ln, softmax=0, flash=0, gelu=0, gelu_design='tensor_core',
               flash_design='mma'):
-    """Launches per training step of every kernel, and of each design of
-    the flash and GEMM+GELU kernels (all ``flash`` launches on
-    ``flash_design``, all ``gelu`` launches on ``gelu_design``)."""
+    """Launches per training step of every kernel, and of each design:
+    every LayerNorm launch on ``'warp'`` (the models' widths are at most
+    2048), every softmax launch on ``'vec'`` (fresh, aligned scores of
+    128 or 1024 columns), all ``flash`` launches on ``flash_design``, all
+    ``gelu`` launches on ``gelu_design``."""
     fa = _ops_module('flash_attention')
     fgl = _ops_module('fused_gelu_linear')
-    return {'fused_layer_norm': ln, 'fused_softmax': softmax * L,
+    fn = _ops_module('fused_norm')
+    fsm = _ops_module('fused_softmax')
+    return {'fused_layer_norm': ln,
+            **{f'fused_layer_norm:{v}': ln if v == 'warp' else 0
+               for v in fn.VARIANTS},
+            'fused_softmax': softmax * L,
+            **{f'fused_softmax:{v}': softmax * L if v == 'vec' else 0
+               for v in fsm.VARIANTS},
             'fused_softmax_masked': 0,
+            **{f'fused_softmax_masked:{v}': 0 for v in fsm.VARIANTS},
             **{k: flash * L for k in FLASH_KERNELS},
             **{f'{k}:{v}': flash * L if v == flash_design else 0
                for k in FLASH_KERNELS for v in fa.VARIANTS},
@@ -1180,7 +1432,7 @@ def main():
     for mod in ('flash_attention', 'fused_softmax', 'fused_gelu_linear'):
         _ops_module(mod)                                # registers
     name = device_phase()
-    build_phase()
+    _, resources = build_phase()
     timings = kernel_phase()
     timings.update(flash_kernel_phase())
     timings.update(softmax_kernel_phase())
@@ -1214,10 +1466,13 @@ def main():
             **({'launches_by_design': by_design} if by_design else {}),
             'max_abs_err': max(r['max_abs_err'] for r in rows),
             'ms': head['ms'], 'kernel_ms': head['ms'],
-            'plain_ms': head['plain_ms'], 'bound_ms': head['bound_ms'],
-            'bound_by': head['bound_by'],
+            'cold_ms': head['cold_ms'], 'plain_ms': head['plain_ms'],
+            'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],
+            'bound_share_cold': head['bound_ms'] / head['cold_ms'],
             'library_ms': head['library_ms'],
+            'library_ms_range': head['library_ms_range'],
             'ms_from': head['ms_from'], 'call_ms': head['call_ms'],
+            'resources': resources.get(k.source, {}),
             'shapes': rows})
         if k.name == 'fused_softmax_masked':
             kernels[-1]['launched_in'] = (

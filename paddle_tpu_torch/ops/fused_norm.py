@@ -2,10 +2,13 @@
 
 Counterpart of ``paddle_tpu/ops/fused_norm.py``.  The TPU kernel
 ``_fwd_kernel`` there becomes ``csrc/fused_norm.cu`` (CUDA C++ for
-sm_90a; its header states the bound and design): one warp per row up
-to H 2048 (vector loads where H % 4 == 0 and the data starts on 16
-bytes, scalar loads otherwise), one block per row above, for f32, bf16
-and f16 x and any H.
+sm_90a; its header states the bound and the designs) for f32, bf16 and
+f16 x and any H.  The wrapper names the design of each launch, before
+it, in ``variant_launches``: ``'warp'`` up to H 2048 (one row a
+32-thread block, gamma/beta loaded with x up to H 1024), ``'block'``
+above (one block a row, the row read once into registers).  Both take
+vector loads where H % 4 == 0 and the data starts on 16 bytes, scalar
+loads otherwise.
 ``_reference`` is the plain PyTorch twin: the wrapper runs it only for
 a tensor on the CPU, and ``chip_smoke.py`` holds the kernel to it on
 the card.  The backward ``_ln_bwd`` is plain PyTorch, as the
@@ -20,13 +23,15 @@ from ._build import Kernel, stream
 __all__ = ['fused_layer_norm']
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_WARP_MAX_H = 2048                   # the widest row of the 'warp' design
+VARIANTS = ('warp', 'block')         # the C entry point's design codes
 
 _ptr = ctypes.c_void_p
 KERNEL = Kernel(
     'fused_layer_norm', source='fused_norm', symbol='ptt_layer_norm_fwd',
     argtypes=[_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, ctypes.c_int,
-              ctypes.c_int, ctypes.c_float, ctypes.c_int, _ptr],
-    replaces='paddle_tpu/ops/fused_norm.py:34')
+              ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, _ptr],
+    replaces='paddle_tpu/ops/fused_norm.py:34', variants=VARIANTS)
 
 
 def _reference(x2d, gamma, beta, eps):
@@ -44,46 +49,50 @@ def _reference(x2d, gamma, beta, eps):
     return y.to(x2d.dtype), mean[:, 0], rstd[:, 0]
 
 
-def _checked_ptr(t, device, h=None):
-    """``t``'s data pointer after the kernel's checks (None -> null).
-    Any alignment: the kernel takes its vector loads only where every
+def _affine(t, device, h):
+    """gamma or beta (or None) in f32, after the kernel's checks.  Any
+    alignment: the kernel takes its vector loads only where every
     pointer starts on 16 bytes and H % 4 == 0, scalar loads otherwise."""
     if t is None:
         return None
+    if t.dtype != torch.float32:
+        t = t.float()
     if t.device != device:
         raise ValueError('fused_layer_norm: x, gamma and beta must lie '
                          'on one device')
-    if h is not None and t.numel() != h:
+    if t.numel() != h:
         raise ValueError('fused_layer_norm: gamma/beta must have H '
                          'elements')
     if not t.is_contiguous():
         raise ValueError('fused_layer_norm kernel needs contiguous inputs')
-    return t.data_ptr()
+    return t
 
 
 def _fwd_cuda(x2d, gamma, beta, eps):
     """Launch the kernel; raises on what it does not take.  Host work
     per call is kept small: at the serving decode shape the kernel
-    runs for about 3 us, so the wrapper's own time is the larger
-    part of a call."""
+    runs for about 2 us, so the wrapper's own time is the larger part
+    of a call."""
     n, h = x2d.shape
     code = _DTYPE_CODE.get(x2d.dtype)
     if code is None:
         raise TypeError(f'fused_layer_norm kernel takes float32, bfloat16 '
                         f'or float16, got {x2d.dtype}')
-    if gamma is not None and gamma.dtype != torch.float32:
-        gamma = gamma.float()
-    if beta is not None and beta.dtype != torch.float32:
-        beta = beta.float()
+    if not x2d.is_contiguous():
+        raise ValueError('fused_layer_norm kernel needs contiguous inputs')
     device = x2d.device
-    px = _checked_ptr(x2d, device)
-    pg = _checked_ptr(gamma, device, h)
-    pb = _checked_ptr(beta, device, h)
+    # kept alive through the launch: a cast copy's memory must not go to y
+    gamma = _affine(gamma, device, h)
+    beta = _affine(beta, device, h)
     y = torch.empty_like(x2d)
     stats = torch.empty((2, n), dtype=torch.float32, device=device)
     ps = stats.data_ptr()
-    KERNEL.launch(px, pg, pb, y.data_ptr(), ps, ps + 4 * n, n, h,
-                  float(eps), code, stream(device))
+    block = h > _WARP_MAX_H
+    KERNEL.launch(x2d.data_ptr(),
+                  None if gamma is None else gamma.data_ptr(),
+                  None if beta is None else beta.data_ptr(), y.data_ptr(),
+                  ps, ps + 4 * n, n, h, float(eps), code, block,
+                  stream(device), variant=VARIANTS[block])
     return y, stats[0], stats[1]
 
 

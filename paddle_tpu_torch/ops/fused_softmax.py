@@ -3,10 +3,18 @@ backward.
 
 Counterpart of ``paddle_tpu/ops/fused_softmax.py``.  Its two TPU kernels
 (``_kernel`` and ``_masked_kernel``) become ``csrc/fused_softmax.cu``
-(CUDA C++ for sm_90a; its header states the bound and the design):
+(CUDA C++ for sm_90a; its header states the bound and the designs):
 softmax over the last axis in f32, of ``x + mask`` in the masked
 variant, the output in x's dtype (f32, bf16 or f16), any row length and
 any number of rows.
+
+Both kernels hold three designs, and ``design`` picks one per launch,
+before it, from the row and the pointers: ``'vec'`` (rows up to 1024
+columns whose bytes are a multiple of 16, x and y on 16 bytes: 16-byte
+loads and stores, a power-of-two group of lanes a row), ``'scalar'``
+(the other rows up to 512: one warp a row, one element a load) and
+``'block'`` (the rest: one block a row, two passes).  Each launch
+counts under its design in ``variant_launches``.
 
 The mask is indexed by strides, not materialised: the reference
 broadcasts it to x's shape in HBM before its kernel (``:97-99``); here
@@ -24,8 +32,9 @@ the reference's ``_sm_bwd`` in plain PyTorch, as the reference's is jnp:
 gradient is ``dx`` summed to the mask's shape.
 
 ``block_rows`` is the reference's TPU row-block size: it is validated
-and ignored (the kernel takes one warp, or one block, per row), and
-neither its ``h % 128`` nor its row-block gate (``:95``) carries over.
+and ignored (the kernels take a group of lanes, a warp or a block per
+row), and neither its ``h % 128`` nor its row-block gate (``:95``)
+carries over.
 """
 import ctypes
 
@@ -37,6 +46,9 @@ __all__ = ['fused_softmax']
 
 _BLOCK_ROWS = 256
 _MASK_DIMS = 4          # leading dims the kernel's mask index takes
+_MAX_VEC_ROW = 1024     # the longest row of the 'vec' design
+_MAX_SCALAR_ROW = 512   # of the 'scalar' design
+VARIANTS = ('vec', 'scalar', 'block')     # the C entry points' design codes
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -44,14 +56,14 @@ _ptr = ctypes.c_void_p
 _int = ctypes.c_int
 KERNEL = Kernel(
     'fused_softmax', source='fused_softmax', symbol='ptt_softmax_fwd',
-    argtypes=[_ptr, _ptr, _int, _int, _int, _ptr],
-    replaces='paddle_tpu/ops/fused_softmax.py:26')
+    argtypes=[_ptr, _ptr, _int, _int, _int, _int, _ptr],
+    replaces='paddle_tpu/ops/fused_softmax.py:26', variants=VARIANTS)
 MASKED_KERNEL = Kernel(
     'fused_softmax_masked', source='fused_softmax',
     symbol='ptt_softmax_masked_fwd',
     argtypes=[_ptr, _ptr, _ptr, _int, _int,
-              ctypes.POINTER(ctypes.c_longlong), _int, _ptr],
-    replaces='paddle_tpu/ops/fused_softmax.py:33')
+              ctypes.POINTER(ctypes.c_longlong), _int, _int, _ptr],
+    replaces='paddle_tpu/ops/fused_softmax.py:33', variants=VARIANTS)
 
 
 def _reference(x, mask):
@@ -89,6 +101,18 @@ def _mask_meta(mask, shape):
     return m, meta
 
 
+def design(x, y):
+    """The design a launch on ``x`` (``y`` its output) takes: ``'vec'``
+    for rows up to 1024 columns whose bytes are a multiple of 16 with x
+    and y on 16 bytes, ``'scalar'`` for other rows up to 512 columns,
+    ``'block'`` for the rest."""
+    h = x.shape[-1]
+    if (h <= _MAX_VEC_ROW and h * x.element_size() % 16 == 0
+            and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0):
+        return 'vec'
+    return 'scalar' if h <= _MAX_SCALAR_ROW else 'block'
+
+
 def _fwd_cuda(x, mask):
     """Launch the kernel (the masked one when ``mask`` is given) on a
     contiguous ``x``; raises on what it does not take."""
@@ -106,16 +130,19 @@ def _fwd_cuda(x, mask):
     y = torch.empty_like(x)
     if n == 0:
         return y
+    variant = design(x, y)
     if mask is None:
         KERNEL.launch(x.data_ptr(), y.data_ptr(), n, h, code,
-                      stream(x.device))
+                      VARIANTS.index(variant), stream(x.device),
+                      variant=variant)
         return y
     if mask.device != x.device:
         raise ValueError(f'fused_softmax: mask on {mask.device}, x on '
                          f'{x.device}')
     m, meta = _mask_meta(mask, x.shape)
     MASKED_KERNEL.launch(x.data_ptr(), m.data_ptr(), y.data_ptr(), n, h,
-                         meta, code, stream(x.device))
+                         meta, code, VARIANTS.index(variant),
+                         stream(x.device), variant=variant)
     return y
 
 

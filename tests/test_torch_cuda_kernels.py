@@ -394,6 +394,93 @@ def test_softmax_autograd_on_the_card_matches_the_cpu():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
+def _expected_softmax_design(h, dtype, offset):
+    esize = torch.empty((), dtype=dtype).element_size()
+    if h <= 1024 and h * esize % 16 == 0 and offset == 0:
+        return 'vec'
+    return 'scalar' if h <= 512 else 'block'
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('masked', [False, True])
+@pytest.mark.parametrize('offset', [0, 1])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize('h', [1, 31, 128, 200, 512, 1000, 1024, 1025,
+                               4097])
+def test_softmax_designs_match_twin_and_repeat(h, dtype, offset, masked):
+    """Each design (vec, scalar, block) against the twin on 37 rows (not
+    a whole number of a block's rows), x a view ``offset`` elements past
+    16 bytes, with and without a padding-like mask; the wrapper names
+    the design, and a second launch repeats the first bit for bit."""
+    _cuda()
+    rs = np.random.RandomState(h + offset)
+    flat = torch.from_numpy((3 * rs.randn(offset + 2 * 37 * h))
+                            .astype(np.float32)).cuda().to(dtype)
+    x = flat[offset:].view(2, 37, h)
+    mask = None
+    if masked:
+        mask = torch.from_numpy(np.where(rs.rand(2, 1, h) < 0.3, -1e9, 0.0)
+                                .astype(np.float32)).cuda()
+    kernel = fsm.MASKED_KERNEL if masked else fsm.KERNEL
+    design = _expected_softmax_design(h, dtype, offset)
+    before = dict(kernel.variant_launches)
+    y = fsm._fwd_cuda(x, mask)
+    want = fsm._reference(x, mask)
+    torch.cuda.synchronize()
+    assert kernel.variant_launches == {
+        v: before[v] + (v == design) for v in fsm.VARIANTS}
+    torch.testing.assert_close(y.float(), want.float(), rtol=_SM_TOL[dtype],
+                               atol=_SM_TOL[dtype])
+    assert torch.equal(fsm._fwd_cuda(x, mask), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('affine', [True, False])
+@pytest.mark.parametrize('n', [1, 64, 8192])
+@pytest.mark.parametrize('h', [1, 768, 770, 2048, 2049, 2560, 3001, 4097,
+                               8192, 8193, 24577])
+def test_layer_norm_designs_match_twin_and_repeat(h, n, affine):
+    """Each design against the twin: warp up to H 2048 (one row a
+    32-thread block), block above (128 threads to H 4096, 256 to 8192,
+    1024 to 24576, the loop beyond; 3001 takes 8 groups a thread for its
+    6), with and without gamma/beta, f32
+    and bf16; a second launch repeats the first bit for bit."""
+    _cuda()
+    design = 'warp' if h <= 2048 else 'block'
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        x, g, b = _inputs(n, h, dtype, seed=h % 97)
+        if not affine:
+            g = b = None
+        before = dict(fused_norm.KERNEL.variant_launches)
+        y, mean, rstd = fused_norm._fwd_cuda(x, g, b, 1e-5)
+        ry, rmean, rrstd = fused_norm._reference(x, g, b, 1e-5)
+        torch.cuda.synchronize()
+        assert fused_norm.KERNEL.variant_launches == {
+            v: before[v] + (v == design) for v in fused_norm.VARIANTS}
+        torch.testing.assert_close(y.float(), ry.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(rstd, rrstd, rtol=1e-5, atol=1e-5)
+        again = fused_norm._fwd_cuda(x, g, b, 1e-5)
+        assert all(torch.equal(p, q) for p, q in zip((y, mean, rstd), again))
+
+
+@pytest.mark.cuda
+def test_layer_norm_without_grad_takes_the_kernel_alone():
+    """Under no_grad the public function launches the kernel once and
+    returns its y, in x's shape."""
+    _cuda()
+    x, g, b = _inputs(64, 768, torch.float32)
+    before = fused_norm.KERNEL.variant_launches['warp']
+    with torch.no_grad():
+        y = fused_norm.fused_layer_norm(x.view(8, 8, 768), g, b)
+    assert fused_norm.KERNEL.variant_launches['warp'] == before + 1
+    assert y.shape == (8, 8, 768)
+    torch.testing.assert_close(y.view(64, 768),
+                               fused_norm._reference(x, g, b, 1e-5)[0],
+                               rtol=1e-5, atol=1e-5)
+
+
 def _gemm_inputs(m, k, n, dtype, seed=14):
     rs = np.random.RandomState(seed)
     x, dy = (torch.from_numpy(rs.randn(*s).astype(np.float32)).cuda()

@@ -288,9 +288,21 @@ def test_launch_counts_by_design_and_their_reset(monkeypatch):
     _build.reset_launches()
     assert kernel.launches == 0 and set(kernel.variant_launches.values()) \
         == {0}
-    # kernels of one design take no variant
+    # LayerNorm names its two designs as well, and a kernel of one design
+    # (made here, then taken off the registry) takes no variant
     from paddle_tpu_torch.ops import fused_norm
-    assert fused_norm.KERNEL.variant_launches == {}
+    assert fused_norm.KERNEL.variant_launches == {'warp': 0, 'block': 0}
+    single = _build.Kernel('single_design', source='fused_norm', symbol='x',
+                           argtypes=[], replaces='-')
+    try:
+        monkeypatch.setattr(single, '_fn', lambda *a: 0)
+        assert single.variant_launches == {}
+        with pytest.raises(ValueError, match='variant'):
+            single.launch(variant='simt')
+        single.launch()
+        assert single.launches == 1
+    finally:
+        _build.KERNELS.remove(single)
 
 
 def test_float16_reaches_the_launch_with_code_2(monkeypatch):

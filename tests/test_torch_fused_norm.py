@@ -167,7 +167,8 @@ def test_any_width_and_float16_reach_the_kernel_launch(monkeypatch, h,
     y, mean, rstd = port_ln._fwd_cuda(x, g, b, 1e-5)
     args, = seen
     assert args[0] == x.data_ptr() and args[6:8] == (3, h)
-    assert args[9] == code and args[10] == 7
+    assert args[9] == code and args[11] == 7
+    assert args[10] == (h > 2048)           # the design: 0 warp, 1 block
     assert y.dtype == dtype and y.shape == (3, h)
     assert mean.shape == rstd.shape == (3,)
     assert port_ln.KERNEL.launches == before + 1
@@ -200,3 +201,55 @@ def test_without_affine_the_port_keeps_f32_two_pass_statistics():
     jax_err = np.abs(want - exact).max()
     assert port_err <= 2e-2 * (1 + np.abs(exact).max())
     assert jax_err > 10 * port_err, (jax_err, port_err)
+
+
+# (n, h, dtype, offset in elements of x's view, design): 'warp' up to H
+# 2048 and 'block' above, whatever the alignment (which only picks the
+# load width inside the design)
+_DESIGN_CASES = [(64, 768, torch.float32, 0, 'warp'),
+                 (3, 768, torch.float32, 1, 'warp'),
+                 (3, 770, torch.float32, 0, 'warp'),
+                 (3, 1, torch.float16, 0, 'warp'),
+                 (3, 2048, torch.bfloat16, 0, 'warp'),
+                 (3, 2049, torch.float32, 0, 'block'),
+                 (3, 2560, torch.bfloat16, 1, 'block'),
+                 (2, 8193, torch.float32, 0, 'block'),
+                 (2, 40000, torch.float16, 0, 'block')]
+
+
+@pytest.mark.parametrize('n,h,dtype,offset,design', _DESIGN_CASES)
+def test_wrapper_names_the_design_for_the_width(monkeypatch, n, h, dtype,
+                                                offset, design):
+    """The wrapper names the design before the launch and passes its code
+    (the entry point stubbed: no card here)."""
+    seen = []
+    monkeypatch.setattr(port_ln.KERNEL, 'launch',
+                        lambda *a, variant=None: seen.append((a, variant)))
+    monkeypatch.setattr(port_ln, 'stream', lambda device: 7)
+    flat = torch.zeros(offset + n * h, dtype=dtype)
+    x = flat[offset:].view(n, h)
+    y, mean, rstd = port_ln._fwd_cuda(x, torch.ones(h), None, 1e-5)
+    (args, variant), = seen
+    assert variant == design
+    assert args[10] == port_ln.VARIANTS.index(design)
+    assert args[2] is None                  # no beta: a null pointer
+    assert y.shape == (n, h) and mean.shape == rstd.shape == (n,)
+
+
+def test_gamma_of_another_dtype_is_cast_and_kept_through_the_launch(
+        monkeypatch):
+    """A bf16 gamma reaches the kernel as an f32 copy whose memory stays
+    alive through the launch (not handed back for y or the statistics)."""
+    seen = []
+
+    def launch(*args, variant=None):
+        seen.append(args)
+        gamma_ptr, y_ptr = args[1], args[3]
+        assert gamma_ptr != y_ptr
+
+    monkeypatch.setattr(port_ln.KERNEL, 'launch', launch)
+    monkeypatch.setattr(port_ln, 'stream', lambda device: 7)
+    x = torch.zeros(4, 128)
+    port_ln._fwd_cuda(x, torch.ones(128, dtype=torch.bfloat16), None, 1e-5)
+    assert len(seen) == 1
+

@@ -245,7 +245,8 @@ def test_each_dtype_reaches_the_kernel_launch_with_its_code(
     y = psm._fwd_cuda(x, mask)
     args, = seen
     assert y.dtype == dtype and y.shape == x.shape
-    assert args[-2:] == (code, 7)
+    # code, then the design (40 columns: 'vec' for 2- and 4-byte types)
+    assert args[-3:] == (code, psm.VARIANTS.index('vec'), 7)
     assert args[(3 if masked else 2):(5 if masked else 4)] == (30, 40)
     assert kernel.launches == before + 1
 
@@ -261,3 +262,124 @@ def test_f16_matches_the_pallas_kernel():
     assert got.dtype == torch.float16
     _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
            2.0 ** -10)
+
+
+# The CUDA kernels' arithmetic (csrc/fused_softmax.cu): e = exp2((t - max)
+# * log2(e)) with the constant rounded to f32, each lane's sum over its
+# elements in the order it holds them, the lanes' sums combined by an xor
+# butterfly, one reciprocal of the row's sum, y = e * r.  The vec design:
+# LANES lanes a row (the next power of two to the row's 16-byte vectors,
+# at most 32), lane l holding vectors j * LANES + l of 16 / itemsize
+# elements; the scalar design: 32 lanes, lane l holding columns 32 i + l.
+LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+
+
+def _lanes_of(design, h, itemsize):
+    """(lanes a row, [per lane: its columns in the order it sums them])."""
+    if design == 'scalar':
+        return 32, [list(range(lane, h, 32)) for lane in range(32)]
+    vw = 16 // itemsize
+    nvec = h // vw
+    lanes = 1
+    while lanes < 32 and lanes < nvec:
+        lanes *= 2
+    return lanes, [[q * vw + k for q in range(lane, nvec, lanes)
+                    for k in range(vw)] for lane in range(lanes)]
+
+
+def _replay(x2d, design):
+    """The kernel's forward for ``design`` ('vec' or 'scalar') on the
+    CPU, in f32, rounded to x's dtype at the end."""
+    t = x2d.float()
+    e = torch.exp2((t - t.max(dim=-1, keepdim=True).values) * LOG2E)
+    lanes, cols = _lanes_of(design, t.shape[-1], x2d.element_size())
+    part = torch.zeros((t.shape[0], lanes), dtype=torch.float32)
+    for lane, order in enumerate(cols):
+        for c in order:                 # s += e, one f32 add at a time
+            part[:, lane] = part[:, lane] + e[:, c]
+    idx = torch.arange(lanes)
+    o = lanes // 2
+    while o:                            # __shfl_xor_sync butterfly
+        part = part + part[:, idx ^ o]
+        o //= 2
+    r = torch.ones(()) / part[:, :1]
+    return (e * r).to(x2d.dtype)
+
+
+@pytest.mark.parametrize('h', [128, 1000, 1024])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16', 'float16'])
+def test_kernel_arithmetic_replayed_matches_twin_and_pallas(h, dtype):
+    """The designs' arithmetic, replayed, within half the card's
+    tolerance (f32 1e-6, bf16 2^-8, f16 2^-10, each times 1 + |want|) of
+    the plain twin and of the Pallas kernel in interpret mode."""
+    tdt = getattr(torch, dtype)
+    tx = torch.from_numpy(_rand(16, h, seed=h)).to(tdt)
+    xs = tx.float().numpy()             # the rounded values, exactly
+    tol = {'float32': TOL, 'bfloat16': BF16_TOL,
+           'float16': 2.0 ** -10}[dtype] / 2
+    with pltpu.force_tpu_interpret_mode():
+        pallas = jsm._sm(jnp.asarray(xs).astype(dtype), None, 8)
+    wants = {'twin': psm._reference(tx, None).float(),
+             'pallas': torch.from_numpy(
+                 np.array(pallas.astype(jnp.float32)))}
+    # the scalar design takes rows up to 512 columns
+    for design in ('vec', 'scalar') if h <= 512 else ('vec',):
+        got = _replay(tx, design)
+        assert got.dtype == tdt
+        for name, want in wants.items():
+            diff = (got.float() - want).abs()
+            assert bool((diff <= tol * (1 + want.abs())).all()), \
+                (design, name, float(diff.max()))
+
+
+def test_replayed_lanes_cover_each_column_once():
+    """The replay's lane map holds every column exactly once, in the
+    order the kernel's loops visit it."""
+    for design, h, size in (('vec', 1024, 4), ('vec', 128, 2),
+                            ('vec', 40, 4), ('vec', 8, 2),
+                            ('scalar', 500, 4), ('scalar', 7, 2)):
+        lanes, cols = _lanes_of(design, h, size)
+        flat = sorted(c for order in cols for c in order)
+        assert flat == list(range(h)), (design, h, size)
+        assert lanes == len(cols) and lanes & (lanes - 1) == 0
+    assert _lanes_of('vec', 128, 2)[0] == 16     # 16 vectors of 8 bf16
+    assert _lanes_of('vec', 1024, 4)[1][1][:5] == [4, 5, 6, 7, 132]
+
+
+# (h, dtype, offset in elements of x's view, design): rows up to 1024
+# columns whose bytes are a multiple of 16 on 16-byte pointers take 'vec',
+# other rows up to 512 'scalar', the rest 'block'
+_DESIGN_CASES = [
+    (128, torch.float32, 0, 'vec'), (1024, torch.float32, 0, 'vec'),
+    (200, torch.float32, 0, 'vec'), (4, torch.float32, 0, 'vec'),
+    (1000, torch.bfloat16, 0, 'vec'), (128, torch.float16, 0, 'vec'),
+    (8, torch.bfloat16, 0, 'vec'),
+    (199, torch.float32, 0, 'scalar'), (510, torch.float32, 0, 'scalar'),
+    (4, torch.bfloat16, 0, 'scalar'), (1, torch.float32, 0, 'scalar'),
+    (128, torch.float32, 1, 'scalar'), (512, torch.float16, 1, 'scalar'),
+    (1022, torch.float32, 0, 'block'), (1020, torch.bfloat16, 0, 'block'),
+    (1024, torch.float16, 1, 'block'), (513, torch.float32, 0, 'block'),
+    (1025, torch.float32, 0, 'block'), (4096, torch.float32, 0, 'block'),
+    (4096, torch.float32, 1, 'block'), (4097, torch.bfloat16, 0, 'block')]
+
+
+@pytest.mark.parametrize('masked', [False, True])
+@pytest.mark.parametrize('h,dtype,offset,design', _DESIGN_CASES)
+def test_wrapper_picks_the_design_for_the_row(monkeypatch, masked, h, dtype,
+                                              offset, design):
+    """The wrapper names the design before the launch and passes its code
+    (the entry points stubbed: no card here)."""
+    kernel = psm.MASKED_KERNEL if masked else psm.KERNEL
+    seen = []
+    monkeypatch.setattr(kernel, 'launch',
+                        lambda *a, variant=None: seen.append((a, variant)))
+    monkeypatch.setattr(psm, 'stream', lambda device: 7)
+    flat = torch.zeros(offset + 3 * h, dtype=dtype)
+    x = flat[offset:].view(3, h)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    mask = torch.zeros(h) if masked else None
+    psm._fwd_cuda(x, mask)
+    (args, variant), = seen
+    assert variant == design
+    assert args[-2] == psm.VARIANTS.index(design)
+    assert psm.design(x, torch.empty_like(x)) == design
