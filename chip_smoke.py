@@ -53,12 +53,19 @@ From the repository root, with one CUDA card.  It
    timed in TFLOP/s;
 4. serves 32 seeded Poisson requests with ``gpt_small`` at full width
    (random seeded weights) through ``ServingEngine`` with the
-   benchmark's serving config, and checks the outcome: every request
-   done, allocator audit clean, every block back, the kernels'
-   launch counts match the dispatches (LayerNorm on its warp design),
-   greedy streams equal batch-1 ``generate``, and the card's prefill
-   logits agree with the same weights run on the CPU through the plain
-   twins;
+   benchmark's serving config, its decode spans as CUDA graphs: after
+   ``warmup()`` the captured (batch bucket, span) set must be the
+   declared one, and it logs each graph's capture time and launches a
+   replay.  It checks the outcome: every request done, allocator audit
+   clean, every block back, every decode step a step of a replayed
+   graph, the kernels' launch counts match the dispatches (eager
+   prefill launches plus captured launches times replays; LayerNorm on
+   its warp design); it logs tokens/s, TTFT p50/p99, TPOT and peak
+   memory.  The same 32 requests run again with every span through the
+   graph and through the eager span body on the same plan, whose
+   outputs must be equal; greedy streams equal batch-1 ``generate``,
+   and the card's prefill logits agree with the same weights run on the
+   CPU through the plain twins;
 5. trains ``gpt_small`` at full width (random seeded weights) through
    ``ParallelTrainer.step`` in the benchmark's configuration (B 8, T
    1024, bf16 O2, fused CE head in 8 chunks, AdamW lr 3e-4): 2 warm-up
@@ -70,6 +77,14 @@ From the repository root, with one CUDA card.  It
    every flash launch of the bf16 run is on the tensor-core design,
    every one of the f32 step on the SIMT design; it prints ms/step,
    tokens/s, peak device memory and an MFU share;
+   then the same configuration through ``step_fused`` with K 5 (one
+   captured forward + backward + AdamW step, replayed), 2 chunks,
+   against two eager trainers from the same seed: eager equal to eager,
+   and the graph's losses and every parameter equal to eager bit for bit
+   (or, where two eager trainers differ, within their difference);
+   exact launch counts under replay; ms/step, tokens/s, MFU, the capture
+   time, peak memory, and the idle share of a third chunk under the
+   profiler;
 6. trains ``gpt_small`` 2 steps at its dropout 0.1 (B 2, T 1024, bf16
    O2): finite losses, the softmax kernel 12 times per step on its vec
    design, no flash;
@@ -88,11 +103,14 @@ From the repository root, with one CUDA card.  It
    falling losses and exact launch counts per step; then one f32 step
    at B 2 with ``USE_PALLAS_MLP`` and dropout 1e-9 (every element kept
    at scale 1, the softmax branch taken; the SIMT design) on the card
-   against the same weights on the CPU;
-8. prints one JSON line with the training results, one listing every
-   kernel (its launches on each path, each path's counts set to 0 just
-   before it and read just after, and per design where a kernel has
-   two), then as its last line
+   against the same weights on the CPU; then the dropout-0.1
+   configuration through ``step_fused`` as in 5 (dropout drawn from the
+   device's generator, registered with the graph);
+8. prints one JSON line with the serving and training results, one
+   listing every kernel (its launches on each path, each path's counts
+   set to 0 just before it and read just after, and per design where a
+   kernel has two; the paths ``serve``, ``gpt_fused`` and
+   ``bert_dropout_fused`` replay graphs), then as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  Without a
@@ -980,8 +998,46 @@ def gelu_kernel_phase():
     return rows
 
 
+def _decode_graphs(eng):
+    """The engine's decode modules (CUDA graphs), by (S, K)."""
+    from paddle_tpu_torch.core.compile_cache import GraphModule
+    mods = dict(eng._modules.modules)
+    if not mods or not all(isinstance(m, GraphModule) and m.graph is not None
+                           for m in mods.values()):
+        raise AssertionError(f'serving decode modules are not captured '
+                             f'graphs: {mods}')
+    return mods
+
+
+def _check_spans_against_eager(eng):
+    """Makes every span of ``eng`` run the eager span body on the same
+    plan first (writing the same KV positions), then the graph, and
+    fail unless the two outputs are equal.  Returns the list of
+    checked (S, K) spans."""
+    make = eng._decode_module
+    checked = []
+
+    def module(S, K):
+        graph = make(S, K)
+
+        def both(plan):
+            want = eng._span_body(plan.to(eng.device), K).clone()
+            got = graph(plan)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f'decode span (S {S}, K {K}): the replayed graph '
+                    'differs from the eager span body on the same plan')
+            checked.append((S, K))
+            return got
+        return both
+
+    eng._decode_module = module
+    return checked
+
+
 def serving_phase():
-    """gpt_small at full width through the continuous-batching engine."""
+    """gpt_small at full width through the continuous-batching engine,
+    its decode spans as replayed CUDA graphs."""
     from paddle_tpu_torch.models.gpt import gpt_small
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.serving import (Request, ServeConfig,
@@ -995,20 +1051,35 @@ def serving_phase():
     t0 = time.perf_counter()
     eng.warmup()
     torch.cuda.synchronize()
-    log(f'warmup: {time.perf_counter() - t0:.2f} s')
+    graphs = _decode_graphs(eng)
+    K = eng.config.decode_span
+    declared = {(S, K) for S in eng.config.batch_buckets}
+    if set(graphs) != declared:
+        raise AssertionError(f'warmup captured {sorted(graphs)}, declared '
+                             f'{sorted(declared)}')
+    capture_s = sum(g.capture_s for g in graphs.values())
+    log(f'warmup: {time.perf_counter() - t0:.2f} s; decode graphs (S, K) '
+        f'{sorted(graphs)} captured in {capture_s:.3f} s ('
+        + ', '.join(f'{sig}: {g.capture_s:.3f} s, launches a replay '
+                    f'{g.launches.counts()}'
+                    for sig, g in sorted(graphs.items())) + ')')
     reqs = poisson_requests(NUM_REQUESTS, vocab_size=cfg.vocab_size,
                             **SERVE_LOAD_KW)
     prompts = {r.rid: r.prompt.copy() for r in reqs}
 
     # the main path: counts at 0 just before, read just after
     p0, d0 = eng.prefill_dispatches, eng.decode_steps
+    replays0 = {sig: g.replays for sig, g in graphs.items()}
     _build.reset_launches()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     rep = eng.run(reqs)
     torch.cuda.synchronize()
     launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     prefills = eng.prefill_dispatches - p0
     steps = eng.decode_steps - d0
+    replays = {sig: g.replays - replays0[sig] for sig, g in graphs.items()}
 
     done = [r for r in eng.scheduler.finished if r.rid in prompts]
     if len(done) != NUM_REQUESTS or any(r.state != Request.DONE
@@ -1021,7 +1092,18 @@ def serving_phase():
     if eng.cache.free_blocks != eng.cache.num_blocks - 1:
         raise AssertionError(f'free blocks {eng.cache.free_blocks} != '
                              f'{eng.cache.num_blocks - 1}')
+    if set(_decode_graphs(eng)) != declared:
+        raise AssertionError('traffic captured a bucket warmup did not')
+    # every decode step was a step of a replayed graph
+    if steps != K * sum(replays.values()):
+        raise AssertionError(f'{steps} decode steps, but {replays} graph '
+                             f'replays of {K} steps')
     per_forward = 2 * cfg.num_layers + 1
+    captured = sum(graphs[sig].launches.counts()['fused_layer_norm'] * n
+                   for sig, n in replays.items())
+    if captured != per_forward * steps:
+        raise AssertionError(f'captured LayerNorm launches x replays '
+                             f'{captured} != {per_forward} x {steps}')
     want = per_forward * (prefills + steps)
     for key in ('fused_layer_norm', 'fused_layer_norm:warp'):
         if launches[key] != want:
@@ -1031,15 +1113,38 @@ def serving_phase():
                 f'decode steps) = {want}')
     log(f'serve: {NUM_REQUESTS} requests DONE, audit clean, '
         f'{eng.cache.free_blocks} blocks free; {prefills} prefill '
-        f'dispatches + {steps} decode steps ({rep["interventions"]} '
+        f'dispatches (eager) + {steps} decode steps in graph replays '
+        f'{dict(sorted(replays.items()))} ({rep["interventions"]} '
         f'interventions); fused_layer_norm launches '
-        f'{launches["fused_layer_norm"]} = {per_forward} x '
-        f'{prefills + steps}, all on the warp design')
+        f'{launches["fused_layer_norm"]} = {per_forward} x {prefills} '
+        f'eager + {captured} captured x replays, all on the warp design')
     log(f'serve: {rep["decoded_tokens"]} tokens in {rep["wall_s"]:.3f} s '
         f'= {rep["tokens_per_s"]:.1f} tokens/s; TTFT p50 '
         f'{rep["ttft_p50_s"] * 1e3:.1f} ms, p99 '
         f'{rep["ttft_p99_s"] * 1e3:.1f} ms; TPOT mean '
-        f'{rep["tpot_mean_s"] * 1e3:.2f} ms')
+        f'{rep["tpot_mean_s"] * 1e3:.2f} ms; peak max_memory_allocated '
+        f'{peak / 2**30:.2f} GiB')
+    summary = {'tokens_per_s': rep['tokens_per_s'], 'wall_s': rep['wall_s'],
+               'ttft_p50_s': rep['ttft_p50_s'],
+               'ttft_p99_s': rep['ttft_p99_s'],
+               'tpot_mean_s': rep['tpot_mean_s'], 'peak_bytes': peak,
+               'graphs': [list(sig) for sig in sorted(graphs)],
+               'capture_s': capture_s, 'decode_steps': steps,
+               'replays': {f'{S}x{k}': n for (S, k), n in replays.items()},
+               'prefill_dispatches': prefills}
+
+    # the same requests again: every span through the graph and through
+    # the eager span body on the same plan, equal outputs
+    checked = _check_spans_against_eager(eng)
+    again = poisson_requests(NUM_REQUESTS, vocab_size=cfg.vocab_size,
+                             **SERVE_LOAD_KW)
+    eng.run(again)
+    if any(r.state != Request.DONE for r in again) or \
+            eng.scheduler.audit():
+        raise AssertionError('checked serving run: not every request DONE')
+    log(f'parity: {len(checked)} decode spans of {NUM_REQUESTS} requests '
+        f'(buckets {sorted(set(S for S, _ in checked))}): replayed graph '
+        '== eager span body on the same plan, every token of every stream')
 
     # greedy streams of two requests equal batch-1 generate
     by_len = sorted(done, key=lambda r: (r.prompt.size, r.rid))
@@ -1073,10 +1178,20 @@ def serving_phase():
                              f'{diff:.3e} > {LOGIT_TOL}')
     log(f'parity: card prefill logits [1, {T}, {cfg.vocab_size}] vs CPU '
         f'plain twins max |diff| {diff:.3e} (tol {LOGIT_TOL})')
-    return launches
+    del eng, graphs, model
+    _free()
+    return launches, summary
 
 
-def _trainer(model, amp_o2, lr=TRAIN_LR):
+def _free():
+    """Drop what the last phase left (graphs hold their pools until
+    collected) and give its memory back."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _trainer(model, amp_o2, lr=TRAIN_LR, fused_steps=None):
     from paddle_tpu_torch.distributed.fleet import DistributedStrategy
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import ParallelTrainer
@@ -1086,7 +1201,7 @@ def _trainer(model, amp_o2, lr=TRAIN_LR):
         strategy.amp_configs['use_pure_fp16'] = True
     opt = AdamW(learning_rate=lr, parameters=model.parameters())
     return ParallelTrainer(model, opt, lambda out, y: model.loss(out, y),
-                           strategy=strategy)
+                           strategy=strategy, fused_steps=fused_steps)
 
 
 def _run_steps(trainer, batch, warmup, steps):
@@ -1158,6 +1273,27 @@ def _launch_summary(launches, per_step, steps):
         + f' per step (x {steps} steps, exact)'
 
 
+def gpt_step_flops(cfg, n_params, batch, seq):
+    """(model flops of one GPT training step, its attention part): 6 *
+    parameters * tokens (wte counted once, for the tied head's matmul)
+    plus causal attention, 12 * D per unmasked pair per layer and head
+    (4*D forward, 8*D backward)."""
+    hd = cfg.hidden_size // cfg.num_heads
+    attn = 12 * hd * attention_pairs(seq, seq, True) * batch \
+        * cfg.num_heads * cfg.num_layers
+    return 6 * n_params * batch * seq + attn, attn
+
+
+def bert_step_flops(cfg, n_params, batch, seq):
+    """(model flops of one BERT training step, its attention part): 6 *
+    parameters * tokens (word_emb counted once, for the tied decoder's
+    matmul) plus non-causal attention, 12 * D per (q, k) pair per layer
+    and head."""
+    hd = cfg.hidden_size // cfg.num_heads
+    attn = 12 * hd * seq * seq * batch * cfg.num_heads * cfg.num_layers
+    return 6 * n_params * batch * seq + attn, attn
+
+
 def training_phase():
     """gpt_small at full width through ParallelTrainer.step, the
     benchmark's configuration."""
@@ -1181,13 +1317,7 @@ def training_phase():
     _check_run('train', losses, launches, per_step, steps)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     ms_step = dt / TRAIN_STEPS * 1e3
-    # model flops per step: 6 * parameters * tokens (wte counted once,
-    # for the tied head's matmul) plus causal attention, 12 * D per
-    # unmasked pair per layer and head (4*D forward, 8*D backward)
-    hd = cfg.hidden_size // cfg.num_heads
-    attn = 12 * hd * attention_pairs(TRAIN_SEQ, TRAIN_SEQ, True) \
-        * TRAIN_BATCH * cfg.num_heads * L
-    flops = 6 * n_params * tokens + attn
+    flops, attn = gpt_step_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
     mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
     log(f'train: losses {", ".join(f"{x:.4f}" for x in losses)} (finite, '
         f'falling); launches {_launch_summary(launches, per_step, steps)}')
@@ -1293,12 +1423,7 @@ def bert_phase():
         _check_run(run, losses, launches, per_step, total)
         tokens = BERT_BATCH * BERT_SEQ
         ms_step = dt / steps * 1e3
-        # model flops per step: 6 * parameters * tokens (word_emb counted
-        # once, for the tied decoder's matmul) plus non-causal attention,
-        # 12 * D per (q, k) pair per layer and head
-        hd = cfg.hidden_size // cfg.num_heads
-        attn = 12 * hd * BERT_SEQ * BERT_SEQ * BERT_BATCH * cfg.num_heads * L
-        flops = 6 * n_params * tokens + attn
+        flops, attn = bert_step_flops(cfg, n_params, BERT_BATCH, BERT_SEQ)
         mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
         if run == BERT_RUNS[0][0]:
             log(f'bert model: bert_base vocab {cfg.vocab_size}, hidden '
@@ -1338,6 +1463,179 @@ def bert_phase():
     finally:
         fgl.USE_PALLAS_MLP = False
     return out
+
+
+def idle_share(fn):
+    """(device idle share, wall s) of ``fn()`` under ``torch.profiler``:
+    1 - the union of device-kernel intervals over the wall window (the
+    profiler can miss kernel records on the chip machine, which reads
+    high)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if is_device_event(e)
+                   and not e.name.startswith('ParallelTrainer.'))
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return 1.0 - busy / wall_us, wall_us / 1e6
+
+
+def _fused_vs_eager(what, make_model, batch, lr, per_step, tokens,
+                    step_flops):
+    """``ParallelTrainer(fused_steps=K).step_fused`` (K = TRAIN_STEPS, one
+    captured step replayed) against eager ``step`` calls, from the same
+    seed (weights and dropout's generator) on the same batch, 2 K steps:
+    first two eager trainers (whose difference, if any, is the spread
+    the graph is held to; none means bit for bit), then the fused one,
+    whose first chunk is the warm-up step, the capture and K - 1
+    replays, and whose second chunk (K replays) is timed and has its
+    launches counted with the first's; a third chunk under the profiler
+    reads the idle share.  Returns the summary."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.ops import _build
+    k = TRAIN_STEPS
+    chunk = tuple(np.stack([b] * k) for b in batch)
+
+    def eager():
+        paddle_tpu_torch.seed(0)
+        tr = _trainer(make_model(), amp_o2=True, lr=lr)
+        losses = [tr.step(*batch) for _ in range(k)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [tr.step(*batch) for _ in range(k)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out = (torch.stack(losses),
+               {n: p.detach().clone() for n, p in tr.model.named_parameters()},
+               dt)
+        del tr
+        _free()
+        return out
+
+    def worst(a, b):
+        return max(float((a[n] - b[n]).abs().max()) for n in a)
+
+    want_l, want_p, eager_dt = eager()
+    again_l, again_p, _ = eager()
+    loss_spread = float((want_l - again_l).abs().max())
+    param_spread = worst(want_p, again_p)
+    del again_p
+
+    paddle_tpu_torch.seed(0)
+    model = make_model()
+    n_params = sum(p.numel() for p in model.parameters())
+    tr = _trainer(model, amp_o2=True, lr=lr, fused_steps=k)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = tr.step_fused(*chunk)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    second = tr.step_fused(*chunk)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    (graph,) = tr._fused_cache.modules.values()
+    got_l = torch.cat([first, second])
+    loss_diff = float((got_l - want_l).abs().max())
+    got_p = {n: p.detach() for n, p in tr.model.named_parameters()}
+    param_diff = worst(got_p, want_p)
+    exact = torch.equal(got_l, want_l) and all(
+        torch.equal(got_p[n], want_p[n]) for n in want_p)
+    if not (exact if loss_spread == param_spread == 0 else
+            loss_diff <= loss_spread and param_diff <= param_spread):
+        raise AssertionError(
+            f'{what}: step_fused vs eager steps: losses differ by '
+            f'{loss_diff:.3e}, parameters by {param_diff:.3e}; eager vs '
+            f'eager {loss_spread:.3e} and {param_spread:.3e}')
+    if graph.replays != 2 * k - 1 or tr._step_no != 2 * k:
+        raise AssertionError(f'{what}: {graph.replays} replays, step '
+                             f'{tr._step_no}, expected {2 * k - 1}, {2 * k}')
+    losses = [float(x) for x in got_l]
+    _check_run(what, losses, launches, per_step, 2 * k)
+    idle, prof_s = idle_share(lambda: tr.step_fused(*chunk))
+    ms_step = dt / k * 1e3
+    flops, attn = step_flops(model.config, n_params)
+    mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
+    eager_ms = eager_dt / k * 1e3
+    log(f'{what}: step_fused K {k} == {2 * k} eager steps '
+        + ('bit for bit (losses and every parameter; eager vs eager equal '
+           'too)' if exact else
+           f'within the eager-vs-eager spread (losses {loss_diff:.3e} <= '
+           f'{loss_spread:.3e}, parameters {param_diff:.3e} <= '
+           f'{param_spread:.3e})')
+        + f'; losses {", ".join(f"{x:.4f}" for x in losses)}; launches '
+        f'{_launch_summary(launches, per_step, 2 * k)}, a replay '
+        f'{graph.launches.counts()}')
+    log(f'{what}: first chunk (warm-up step + capture {graph.capture_s:.3f}'
+        f' s + {k - 1} replays) {first_s:.2f} s; {k} replayed steps in '
+        f'{dt:.3f} s = {ms_step:.1f} ms/step (eager {eager_ms:.1f} in this '
+        f'call), {tokens * k / dt:.0f} tokens/s; idle share {idle:.4f} '
+        f'under the profiler ({prof_s / k * 1e3:.1f} ms/step there); peak '
+        f'max_memory_allocated {peak / 2**30:.2f} GiB; MFU {mfu:.4f} = '
+        f'(6 * {n_params} params * {tokens} tokens + {attn:.4g} attention '
+        f'flops) / (step time * 989e12)')
+    out = {'k': k, 'ms_per_step': ms_step, 'eager_ms_per_step': eager_ms,
+           'tokens_per_s': tokens * k / dt, 'idle_share': idle,
+           'profiled_ms_per_step': prof_s / k * 1e3, 'peak_bytes': peak,
+           'mfu': mfu, 'capture_s': graph.capture_s,
+           'first_chunk_s': first_s, 'losses': losses,
+           'bit_for_bit': exact, 'loss_spread': loss_spread,
+           'param_spread': param_spread, 'launches': launches,
+           'launches_a_replay': graph.launches.counts()}
+    del tr, model, graph, got_p, want_p
+    _free()
+    return out
+
+
+def gpt_fused_phase():
+    """gpt_small at full width, the benchmark's configuration, through
+    ``step_fused``: one captured step, replayed."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_small
+    cfg = GPTConfig(**TRAIN_MODEL_KW)       # gpt_small's widths
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)
+    L = cfg.num_layers
+    return _fused_vs_eager(
+        f'gpt_fused (gpt_small B {TRAIN_BATCH} T {TRAIN_SEQ}, bf16 O2)',
+        lambda: gpt_small(device='cuda', seed=0, **TRAIN_MODEL_KW),
+        (ids, ids), TRAIN_LR, _per_step(L, 2 * L + 1, flash=1),
+        TRAIN_BATCH * TRAIN_SEQ,
+        lambda cfg, n: gpt_step_flops(cfg, n, TRAIN_BATCH, TRAIN_SEQ))
+
+
+def bert_fused_phase():
+    """bert_base at its dropout 0.1 (BERT run (a)) through
+    ``step_fused``: the softmax kernel and dropout's draws in a graph."""
+    from paddle_tpu_torch.models.bert import BertConfig, bert_base
+    run, dropout, _, _, _ = BERT_RUNS[0]
+    cfg = BertConfig(dropout=dropout, **BERT_MODEL_KW)   # bert_base's
+    L = cfg.num_layers
+    return _fused_vs_eager(
+        f'{run}_fused (bert_base B {BERT_BATCH} T {BERT_SEQ}, dropout '
+        f'{dropout}, bf16 O2)',
+        lambda: bert_base(device='cuda', seed=0, dropout=dropout,
+                          **BERT_MODEL_KW),
+        bert_batch(cfg.vocab_size, BERT_BATCH, BERT_SEQ), BERT_LR,
+        _per_step(L, 2 * L + 2, softmax=1), BERT_BATCH * BERT_SEQ,
+        lambda cfg, n: bert_step_flops(cfg, n, BERT_BATCH, BERT_SEQ))
 
 
 def gpt_dropout_phase():
@@ -1437,17 +1735,23 @@ def main():
     timings.update(flash_kernel_phase())
     timings.update(softmax_kernel_phase())
     timings.update(gelu_kernel_phase())
-    serve_launches = serving_phase()
+    serve_launches, serve = serving_phase()
     train = training_phase()
+    gpt_fused = gpt_fused_phase()
     gpt_dropout = gpt_dropout_phase()
     gpt_f16 = gpt_f16_phase()
     bert = bert_phase()
-    log(json.dumps({'train': train, 'gpt_dropout': gpt_dropout,
-                    'gpt_f16': gpt_f16, 'bert': bert}))
+    bert_fused = bert_fused_phase()
+    log(json.dumps({'serve': serve, 'train': train, 'gpt_fused': gpt_fused,
+                    'gpt_dropout': gpt_dropout, 'gpt_f16': gpt_f16,
+                    'bert': bert, 'bert_dropout_fused': bert_fused}))
+    # 'serve', 'gpt_fused' and 'bert_dropout_fused' replay CUDA graphs
     paths = {'serve': serve_launches, 'train': train['launches'],
+             'gpt_fused': gpt_fused['launches'],
              'gpt_dropout': gpt_dropout['launches'],
              'gpt_f16': gpt_f16['launches'],
-             **{run: bert[run]['launches'] for run, *_ in BERT_RUNS}}
+             **{run: bert[run]['launches'] for run, *_ in BERT_RUNS},
+             'bert_dropout_fused': bert_fused['launches']}
     kernels = []
     for k in _build.KERNELS:
         rows = timings[k.name]

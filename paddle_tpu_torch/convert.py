@@ -83,6 +83,13 @@ def load_train_state(trainer, params, opt_state, step):
             if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
                 raise ValueError(f'{name}.{slot}: {tuple(t.shape)} '
                                  f'{t.dtype} != {tuple(p.shape)} {p.dtype}')
+        live = opt._accumulators.get(id(p))
+        if live is not None and set(live) == set(state):
+            # into the live slots: a captured step goes on reading them
+            with torch.no_grad():
+                for slot, t in state.items():
+                    live[slot].copy_(t)
+            state = live
         accumulators[id(p)] = state
     opt._accumulators = accumulators
     opt._global_step = trainer._step_no = int(step)

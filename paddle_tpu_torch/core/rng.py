@@ -10,26 +10,31 @@ all to ``s`` and, as the reference's does, seeds ``random`` and numpy.
 The bits cannot match ``jax.random``'s: the same seed gives other
 draws in the two packages, so tests compare distributions or cases
 with no draw (ROADMAP Queue 3).  The reference's functional key scope
-serves its ``jit`` tracing, which the eager port has no counterpart
-of.
+serves its ``jit`` tracing; the port's compiled modules are CUDA
+graphs (``core.compile_cache``), and ``register_generators`` hands a
+graph the generator of its device, so each replay draws fresh
+numbers and moves the generator on as the same calls run eagerly
+would.  A generator keeps its identity across ``seed``, so a graph
+that holds it stays valid.
 """
 import random
 
 import numpy as np
 import torch
 
-__all__ = ['seed', 'get_seed', 'generator']
+__all__ = ['seed', 'get_seed', 'generator', 'register_generators']
 
 _seed = 0
 _generators = {}
 
 
 def seed(s):
-    """Reseed every device's generator (at its next use), ``random``
-    and numpy with ``s``."""
+    """Reseed every device's generator, ``random`` and numpy with
+    ``s``."""
     global _seed
     _seed = int(s)
-    _generators.clear()
+    for gen in _generators.values():
+        gen.manual_seed(_seed)
     random.seed(_seed)
     np.random.seed(_seed % (2 ** 32))
 
@@ -38,14 +43,39 @@ def get_seed():
     return _seed
 
 
-def generator(device):
-    """The ``torch.Generator`` that draws for ``device``."""
+def _key(device):
     device = torch.device(device)
     if device.type == 'cuda' and device.index is None:
         device = torch.device('cuda', torch.cuda.current_device())
+    return device
+
+
+def generator(device):
+    """The ``torch.Generator`` that draws for ``device``."""
+    device = _key(device)
     gen = _generators.get(device)
     if gen is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(_seed)
         _generators[device] = gen
     return gen
+
+
+def register_generators(graph, device):
+    """Register the generator of ``device``, if one was handed out, with
+    the CUDA graph ``graph`` before its capture begins (PyTorch
+    registers its own default generator; ``core.compile_cache.
+    GraphModule`` calls this).  A replay then advances the generator by
+    what the captured calls drew, from where it stands, so the replays
+    draw what the same calls made eagerly would.  Raises where this
+    PyTorch cannot (no ``CUDAGraph.register_generator_state``)."""
+    gen = _generators.get(_key(device))
+    if gen is None:
+        return
+    if not hasattr(graph, 'register_generator_state'):
+        raise RuntimeError(
+            f'this PyTorch ({torch.__version__}) cannot register a '
+            'torch.Generator with a CUDA graph '
+            '(CUDAGraph.register_generator_state): a graph of a step '
+            'that draws from core.rng cannot be captured')
+    graph.register_generator_state(gen)

@@ -1,0 +1,106 @@
+"""K optimizer steps in one call (counterpart of
+``paddle_tpu/core/scan_loop.py``).
+
+The reference fuses K train steps into one XLA module (a ``lax.scan``)
+so the loop pays one dispatch per chunk instead of one per step.  The
+port's counterpart replays one CUDA graph of a whole step (forward,
+backward, the optimizer's update), captured once per batch signature
+(``core.compile_cache``), K times: one host call a step in place of
+thousands of launches, and no host sync in the chunk.  The stacked
+batches arrive with a leading K dimension, the per-step losses go back
+as one device tensor, and the step counter advances by K, as in the
+reference.
+
+``fused_steps`` is off by default; ``PADDLE_TPU_FUSED_STEPS`` supplies
+a default K for runs that cannot change code.  The watchdog is not
+ported, so ``ParallelTrainer`` passes no budget and ``clamp_chunk``
+passes K through; the function keeps the reference's contract for
+when it is.  The reference's in-scan NaN rollback (``cond_carry``) and
+its chunk prefetcher wait for later slices.
+"""
+import os
+
+import numpy as np
+import torch
+
+__all__ = ['ENV_VAR', 'resolve_fused_steps', 'clamp_chunk',
+           'stack_batches', 'fused_trainer_step']
+
+ENV_VAR = 'PADDLE_TPU_FUSED_STEPS'
+
+_OFF = ('', '0', 'off', 'false', 'none', 'no')
+
+
+def resolve_fused_steps(arg=None):
+    """The chunk length a loop should fuse: an explicit ``fused_steps=``
+    value wins (``False``/``0`` force off); ``None`` defers to the
+    ``PADDLE_TPU_FUSED_STEPS`` env var.  Returns an int K >= 1, or 0
+    (off)."""
+    if arg is None:
+        arg = os.environ.get(ENV_VAR)
+        if arg is None:
+            return 0
+    if arg is False:
+        return 0
+    if isinstance(arg, str):
+        if arg.strip().lower() in _OFF:
+            return 0
+        arg = int(arg)
+    k = int(arg)
+    if k < 0:
+        raise ValueError(f'fused_steps must be >= 0, got {k}')
+    return k
+
+
+def clamp_chunk(k, budget=None, est_step_s=None):
+    """K clamped so that K steps of ``est_step_s`` fit the watchdog's
+    per-step deadline ``budget.step_s``; K itself (at least 1) without a
+    budget or an estimate."""
+    k = max(1, int(k))
+    if budget is None or not est_step_s or est_step_s <= 0:
+        return k
+    step_s = getattr(budget, 'step_s', None)
+    if not step_s:
+        return k
+    return max(1, min(k, int(step_s // float(est_step_s))))
+
+
+def stack_batches(batches):
+    """A list of K per-step batches (each a tuple or list of arrays) ->
+    one tuple of tensors with a leading K dim.  Host (numpy) fields
+    stack on the host (``step_fused`` uploads each in one transfer);
+    tensor fields stack where they are, with no read back to the
+    host."""
+    if not batches:
+        raise ValueError('stack_batches needs at least one batch')
+    out = []
+    for j in range(len(batches[0])):
+        col = [b[j] for b in batches]
+        if all(isinstance(x, (np.ndarray, np.generic)) for x in col):
+            out.append(torch.from_numpy(np.stack(col)))
+        else:
+            out.append(torch.stack([torch.as_tensor(x) for x in col]))
+    return tuple(out)
+
+
+def fused_trainer_step(step_fn, load_step):
+    """Fuse ``ParallelTrainer``'s per-step ``step_fn(*row) -> loss`` into
+    ``fused(*stacked) -> losses``: for each of the K rows,
+    ``load_step(i)`` puts step i's per-step values in place (the
+    optimizer's scalars, on the device's stream), ``step_fn`` runs on
+    row i of every stacked tensor, and its loss is copied into row i of
+    the result, ``[K]`` f32 on the device, with no host sync.  On the
+    card ``step_fn`` is a ``compile_cache.GraphModule`` of one step, so
+    each step is one replay and its loss a static output that the next
+    replay overwrites; on the CPU it is the eager step."""
+
+    def fused(*stacked):
+        k = int(stacked[0].shape[0])
+        losses = torch.empty(k, dtype=torch.float32,
+                             device=stacked[0].device)
+        for i in range(k):
+            load_step(i)
+            losses[i].copy_(step_fn(*(v[i] for v in stacked)))
+        return losses
+
+    return fused

@@ -14,7 +14,14 @@ root, under a name keyed by a hash of the source, every header under
 loaded with ``ctypes``.  ``build()`` starts one nvcc per source, all at
 once, and waits for every one of them.  A failed build raises with
 nvcc's stderr; there is no fallback.
+
+Each ``Kernel`` counts its launches.  Under a CUDA-graph capture a
+wrapper's launch is recorded, not run: ``capture_launches()`` takes
+the capture's counts back out and keeps them, and the graph adds them
+again on every replay (``CapturedLaunches.replayed``), so the counts
+stay what the card ran.
 """
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,7 +32,8 @@ import threading
 import torch
 
 __all__ = ['Kernel', 'KERNELS', 'aligned16', 'build', 'load', 'sources',
-           'reset_launches', 'stream']
+           'reset_launches', 'capture_launches', 'CapturedLaunches',
+           'stream']
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
@@ -215,3 +223,40 @@ def reset_launches():
         k.launches = 0
         for v in k.variant_launches:
             k.variant_launches[v] = 0
+
+
+class CapturedLaunches:
+    """The launches one CUDA-graph capture recorded, per kernel and per
+    design: ``replayed(n)`` adds them ``n`` times, once per replay."""
+
+    def __init__(self):
+        self.delta = []         # [(kernel, launches, {design: launches})]
+
+    def replayed(self, times=1):
+        for k, n, variants in self.delta:
+            k.launches += n * times
+            for v, m in variants.items():
+                k.variant_launches[v] += m * times
+
+    def counts(self):
+        """``{kernel name: launches}`` of one replay."""
+        return {k.name: n for k, n, _ in self.delta}
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Around a capture: yields a ``CapturedLaunches`` that holds, once
+    the block ends, the launches counted inside it, which are taken back
+    out of the counts (a capture runs nothing on the card)."""
+    before = [(k, k.launches, dict(k.variant_launches)) for k in KERNELS]
+    tally = CapturedLaunches()
+    try:
+        yield tally
+    finally:
+        for k, n0, v0 in before:
+            n = k.launches - n0
+            variants = {v: k.variant_launches[v] - m for v, m in v0.items()}
+            k.launches = n0
+            k.variant_launches.update(v0)
+            if n or any(variants.values()):
+                tally.delta.append((k, n, variants))

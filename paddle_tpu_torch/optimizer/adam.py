@@ -4,7 +4,10 @@ The reference's formula and rounding, not ``torch.optim``'s: AdamW's
 decoupled decay ``p * (1 - lr * wd)`` comes before the Adam step, the
 bias corrections ``1 - beta ** t`` are taken in f32, and ``eps`` is
 added outside the square root.  Python-float constants act in the
-parameters' dtype, as the reference's weakly typed scalars do.
+parameters' dtype, as the reference's weakly typed scalars do; the
+per-step ones (the learning rate, the decay factor, the corrections)
+are 0-d f32 tensors on the device (``optimizer.py``) and act the same
+way.
 """
 import numpy as np
 import torch
@@ -14,9 +17,17 @@ from .optimizer import Optimizer
 __all__ = ['Adam', 'AdamW']
 
 
+def _by(op, x, s):
+    """``op(x, s)`` for a 0-d f32 tensor ``s``, as a Python float acts:
+    a 16-bit ``x`` computes in f32 and rounds back to its dtype."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return op(x.float(), s).to(x.dtype)
+    return op(x, s)
+
+
 def _f32_correction(beta, t):
-    """``1 - beta ** t`` computed in f32, returned as a float."""
-    return float(np.float32(1.0) - np.float32(beta) ** np.float32(t))
+    """``1 - beta ** t`` computed in f32."""
+    return np.float32(1.0) - np.float32(beta) ** np.float32(t)
 
 
 class Adam(Optimizer):
@@ -33,14 +44,20 @@ class Adam(Optimizer):
         return {'moment1': torch.zeros_like(p),
                 'moment2': torch.zeros_like(p)}
 
-    def _rule(self, p, g, state, lr, t):
+    def _step_scalars(self, t):
+        return {**super()._step_scalars(t),
+                'c1': _f32_correction(self._beta1, t),
+                'c2': _f32_correction(self._beta2, t)}
+
+    def _rule(self, p, g, state, s):
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
-        m = b1 * state['moment1'] + (1 - b1) * g
-        v = b2 * state['moment2'] + (1 - b2) * g.square()
-        mhat = m / _f32_correction(b1, t)
-        vhat = v / _f32_correction(b2, t)
-        new_p = p - (lr * mhat / (torch.sqrt(vhat) + eps)).to(p.dtype)
-        return new_p, {'moment1': m, 'moment2': v}
+        m, v = state['moment1'], state['moment2']
+        m.copy_(b1 * m + (1 - b1) * g)
+        v.copy_(b2 * v + (1 - b2) * g.square())
+        mhat = _by(torch.div, m, s['c1'])
+        vhat = _by(torch.div, v, s['c2'])
+        step = _by(torch.mul, mhat, s['lr']) / (torch.sqrt(vhat) + eps)
+        return p - step.to(p.dtype)
 
 
 class AdamW(Adam):
@@ -55,10 +72,14 @@ class AdamW(Adam):
         self._wd = weight_decay
         self._apply_decay_param_fun = apply_decay_param_fun
 
-    def _rule(self, p, g, state, lr, t):
+    def _step_scalars(self, t):
+        return {**super()._step_scalars(t),
+                'decay': np.float32(1 - self.get_lr() * self._wd)}
+
+    def _rule(self, p, g, state, s):
         # decoupled decay before the Adam step; apply_decay_param_fun
         # (name) == False exempts a parameter
         fn = self._apply_decay_param_fun
         if fn is None or fn(self._ctx_param_name):
-            p = p * (1 - lr * self._wd)
-        return super()._rule(p, g, state, lr, t)
+            p = _by(torch.mul, p, s['decay'])
+        return super()._rule(p, g, state, s)

@@ -11,9 +11,15 @@ scheduling and the same shapes:
 - the same declared prompt buckets, pow2 batch buckets and pow2
   prefill chunks, so the kernels and the allocator see a finite set of
   shapes;
-- ``decode_span=K`` decode steps per intervention, as a Python loop
-  whose tokens stay on the device until the span ends (one host read
-  per intervention).
+- ``decode_span=K`` decode steps per intervention, tokens on the
+  device until the span ends (one host read per intervention): one
+  module per (batch bucket S, span K), as the reference compiles one
+  ``lax.scan`` module each.  On the card the module is a CUDA graph of
+  the span (``core.compile_cache``), captured by ``warmup()`` for every
+  declared bucket or at a bucket's first use; the plan goes in through
+  one static buffer from pinned staging.  The engine's decode graphs
+  share one memory pool.  On the CPU the module is the same span body,
+  called directly.  Prefill runs eagerly.
 
 The decode math runs through ``GPTForCausalLM.prefill``/``decode_step``,
 the same forward ``generate()`` uses, so greedy engine output equals
@@ -21,9 +27,11 @@ batch-1 ``generate``.
 
 Left for later slices of the port: the live metrics plane, the memory
 sampler, the step profiler, watchdog budgets, weight-only PTQ, AOT
-precompile, ``DecodeAuditLayer`` and the telemetry events.  A
+precompile, graphs of the prefill modules, ``DecodeAuditLayer`` and the
+telemetry events.  A
 ``ServeConfig`` that asks for one of them raises.
 """
+import functools
 import math
 import time
 import zlib
@@ -31,7 +39,7 @@ import zlib
 import numpy as np
 import torch
 
-from ..core.compile_cache import bucket_pow2
+from ..core.compile_cache import GraphCache, bucket_pow2
 from ..ops.sampling import make_row_sampler
 from .kv_cache import PagedKVCache, PagedCacheView, blocks_for
 from .scheduler import ContinuousBatchingScheduler, Request
@@ -150,6 +158,9 @@ class ServingEngine:
         self.prefill_dispatches = 0
         self.decode_steps = 0
         self._rid = 0
+        # one decode module per (S, K); the graphs share one pool
+        self._modules = GraphCache(self.device, shared_pool=True)
+        self._staging = {}          # S -> host plan buffer (pinned)
 
     # -- buckets -------------------------------------------------------------
     def prompt_bucket(self, t0):
@@ -196,16 +207,22 @@ class ServingEngine:
         self.prefill_dispatches += 1
         return tok
 
+    # the plan's columns after each row's block table
+    _PLAN_COLS = ('ctx', 'tok', 'active', 'limit', 'seed')
+
     @torch.no_grad()
-    def _decode_span(self, tables, ctx, tok, active, limit, seeds, span):
-        """``span`` single-token steps of the WHOLE live set; tokens
-        and validity stay on the device until the span ends.  Returns
-        host ``(toks, valid)``, each ``[span, S]``."""
+    def _span_body(self, plan, span):
+        """``span`` single-token steps of the WHOLE live set, on device
+        tensors only (no host read, so the card can capture it).  Row i
+        of ``plan`` ``[S, W + 5]`` int64 is request i's block table, then
+        its ctx, last token, active flag, limit and seed.  Returns
+        ``[2, span, S]`` int64: each step's tokens and their validity."""
         model = self.model
         eos = self.config.eos_id
-        tables, ctx, tok = self._dev(tables), self._dev(ctx), self._dev(tok)
-        active, limit = self._dev(active), self._dev(limit)
-        seeds = self._dev(seeds)
+        W = plan.shape[1] - len(self._PLAN_COLS)
+        tables = plan[:, :W]
+        ctx, tok, active, limit, seeds = plan[:, W:].unbind(1)
+        active = active != 0
         toks, valid = [], []
         for _ in range(span):
             views = [PagedCacheView(kp, vp, tables, ctx, ctx + 1)
@@ -222,9 +239,40 @@ class ServingEngine:
                 nactive = nactive & (ntok != eos)
             toks.append(ntok)
             tok, active = ntok, nactive
+        return torch.stack((torch.stack(toks), torch.stack(valid).long()))
+
+    def _decode_module(self, S, K):
+        """The decode module of batch bucket ``S`` and span ``K``: made at
+        first use and called once on an inert plan (every table on the
+        trash block, every lane inactive), which on the card warms the
+        span up and captures it."""
+        W = self.scheduler.table_width
+        return self._modules.module(
+            (S, K), functools.partial(self._span_body, span=K),
+            warmup_inputs=(torch.zeros((S, W + len(self._PLAN_COLS)),
+                                       dtype=torch.int64),))
+
+    def _decode_span(self, tables, ctx, tok, active, limit, seeds, span):
+        """One span of the live set through its module; returns host
+        ``(toks, valid)``, each ``[span, S]``."""
+        S, W = tables.shape
+        plan = self._staging.get(S)
+        if plan is None:
+            plan = torch.zeros((S, W + len(self._PLAN_COLS)),
+                               dtype=torch.int64,
+                               pin_memory=self.device.type == 'cuda')
+            self._staging[S] = plan
+        # the last span's read synchronised: the buffer is free again
+        host = plan.numpy()
+        host[:, :W] = tables
+        for j, col in enumerate((ctx, tok, active, limit, seeds), W):
+            host[:, j] = col
+        # the card's module copies the plan into its static buffer; the
+        # CPU's body reads it in place
+        out = self._decode_module(S, span)(plan)
         self.decode_steps += span
-        return (torch.stack(toks).cpu().numpy(),
-                torch.stack(valid).cpu().numpy())
+        out = out.cpu().numpy()
+        return out[0], out[1].astype(bool)
 
     # -- request lifecycle ---------------------------------------------------
     def submit(self, prompt, max_new_tokens=None, rid=None,
@@ -430,11 +478,12 @@ class ServingEngine:
                 'kv_frag': self.cache.frag_report()}
 
     def warmup(self):
-        """Run every declared prefill (prompt bucket x pow2 chunk) and
-        decode (batch bucket) shape once on inert inputs — every row on
-        the trash block, decode lanes inactive — so kernel builds and
-        the allocator's first allocations happen before traffic.
-        Returns stats()."""
+        """Run every declared prefill (prompt bucket x pow2 chunk) shape
+        once and make every declared decode module (batch bucket x
+        ``decode_span``; on the card, capture its graph), all on inert
+        inputs — every row on the trash block, decode lanes inactive —
+        so kernel builds, captures and the allocator's first
+        allocations happen before traffic.  Returns stats()."""
         c = self.config
         for P in c.prompt_buckets:
             nblk = blocks_for(P, c.block_size)
@@ -443,10 +492,6 @@ class ServingEngine:
                               np.full((B,), P, np.int32),
                               np.zeros((B, nblk), np.int32),
                               np.zeros((B,), np.int64)).cpu()
-        W = self.scheduler.table_width
         for S in c.batch_buckets:
-            zeros = np.zeros((S,), np.int64)
-            self._decode_span(np.zeros((S, W), np.int32), zeros, zeros,
-                              np.zeros((S,), bool), zeros, zeros,
-                              c.decode_span)
+            self._decode_module(S, c.decode_span)
         return self.stats()

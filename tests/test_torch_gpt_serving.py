@@ -260,3 +260,85 @@ def test_allocator_churn_never_leaks_never_aliases():
     assert c.free_blocks == 16 and c.audit() == []
     row = c.table_row('nobody', 3)
     assert list(row) == [TRASH_BLOCK] * 3
+
+
+def test_warmup_makes_every_declared_decode_module(models):
+    """``warmup`` makes one decode module per (declared batch bucket,
+    ``decode_span``), as the reference builds every module (on the card
+    each is a captured graph; here the span body itself), and leaves
+    the pool clean; traffic adds no module."""
+    _, pm, _ = models
+    eng = ServingEngine(pm, ServeConfig(**SERVE_KW))
+    stats = eng.warmup()
+    K = SERVE_KW['decode_span']
+    want = {(S, K) for S in SERVE_KW['batch_buckets']}
+    assert set(eng._modules.modules) == want
+    assert stats['free_blocks'] == eng.cache.num_blocks - 1
+    rs = np.random.RandomState(1)
+    for _ in range(5):
+        eng.submit(rs.randint(0, 128, (5,)).astype(np.int64), 4)
+    assert eng.run()['audit'] == []
+    assert set(eng._modules.modules) == want
+
+
+def test_span_modules_give_the_jax_streams_across_bucket_changes(models):
+    """Static-buffer spans through their (S, K) modules: the live set
+    goes through buckets 1, 4, 2, 4, 2, 1 (a lone request, three more,
+    the short ones finish, two more, all drain), and every greedy stream
+    equals the JAX engine's on the same load."""
+    jm, pm, _ = models
+    rs = np.random.RandomState(8)
+    jeng = JaxServingEngine(jm, JaxServeConfig(**SERVE_KW))
+    peng = ServingEngine(pm, ServeConfig(**SERVE_KW))
+    buckets = []
+    span = peng._decode_span
+
+    def recording(tables, *args):
+        buckets.append(tables.shape[0])
+        return span(tables, *args)
+
+    peng._decode_span = recording
+    jreqs, preqs = [], []
+
+    def submit(new_tokens):
+        for n in new_tokens:
+            p = rs.randint(0, 128, (int(rs.randint(2, 9)),)).astype(np.int64)
+            jreqs.append(jeng.submit(p, n))
+            preqs.append(peng.submit(p, n))
+
+    def step(times=1):
+        for _ in range(times):
+            jeng.step()
+            peng.step()
+
+    submit([20])
+    step()
+    submit([3, 3, 20])
+    step(2)
+    submit([3, 9])
+    step()
+    jeng.run()
+    assert peng.run()['audit'] == []
+    changes = [b for a, b in zip(buckets, buckets[1:]) if a != b]
+    assert buckets[0] == 1 and changes == [4, 2, 4, 2, 1], buckets
+    for jr, pr in zip(jreqs, preqs):
+        assert pr.state == Request.DONE, (pr.rid, pr.reason)
+        assert pr.tokens == jr.tokens, pr.rid
+
+
+def test_span_body_reads_the_plan_and_writes_only_the_pools(models):
+    """The span body is a function of its plan buffer and the pools:
+    one inert plan (every lane inactive, every table on the trash
+    block) returns invalid lanes and writes nothing but the trash
+    block."""
+    _, pm, _ = models
+    eng = ServingEngine(pm, ServeConfig(**SERVE_KW))
+    W = eng.scheduler.table_width
+    before = [(k.clone(), v.clone()) for k, v in eng.cache.pools]
+    plan = torch.zeros((4, W + 5), dtype=torch.int64)
+    out = eng._span_body(plan, 3)
+    assert out.shape == (2, 3, 4) and out.dtype == torch.int64
+    assert not out[1].any() and not out[0].any()
+    for (k0, v0), (k1, v1) in zip(before, eng.cache.pools):
+        assert torch.equal(k0[1:], k1[1:]) and torch.equal(v0[1:], v1[1:])
+    assert torch.equal(plan, torch.zeros_like(plan))

@@ -12,11 +12,12 @@ turn (default ``0110``: parent, change, change, parent).  A phase is a
 ``chip_smoke`` function that takes no argument (``gelu_kernel_phase``,
 ``flash_kernel_phase``, ...) or ``bert_gemm_gelu``: ``bert_phase``
 restricted to its ``USE_PALLAS_MLP`` run, without the f32 card-vs-CPU
-step.  A tree whose ``chip_smoke.device_ms`` has no cold reading has
-its kernel rows timed by the ``device_ms`` and ``time_row`` of the tree
-this tool is run from (``one_timer``), so that both trees are read one
-way, warm and cold.  Every turn prints its results as one JSON line;
-all of them are written to ``--out``.
+step.  A phase that a tree's ``chip_smoke`` does not have (a parent's
+tree before the phase was added) is recorded as ``null`` for that
+tree, so one call can set an old path against its new counterpart
+(``training_phase`` on the parent, ``gpt_fused_phase`` on the change).
+Every turn prints its results as one JSON line; all of them are
+written to ``--out``.
 """
 import argparse
 import json
@@ -27,33 +28,10 @@ import sys
 MARK = 'TORCH_AB_RESULT '
 
 
-def one_timer(chip_smoke):
-    """Give a tree whose ``chip_smoke`` reads no cold time the clock of
-    the tool's own tree (its ``chip_smoke.py``): ``device_ms``, and
-    ``time_row`` in ``LN_ROUNDS`` rounds, warm and with the L2 flushed.
-    The older ``device_ms`` summed the profiler's records over the calls
-    (reading low where the profiler misses records) and read warm only.
-    Every tree that has the cold reading needs none of this."""
-    import importlib.util
-    import inspect
-    if 'cold' in inspect.signature(chip_smoke.device_ms).parameters:
-        return          # the tree reads its rows with this method already
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location(
-        'torch_ab_timer', os.path.join(root, 'chip_smoke.py'))
-    timer = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(timer)
-    chip_smoke.device_ms = lambda fn, iters=100: timer.device_ms(fn,
-                                                                 iters)[0]
-    chip_smoke.time_row = lambda row, fns, **kw: timer.time_row(
-        row, fns, **{'rounds': timer.LN_ROUNDS, **kw})
-
-
 def run_child(phases):
     """In a tree's root: the card line, the build, then each phase."""
     sys.path.insert(0, os.getcwd())
     import chip_smoke
-    one_timer(chip_smoke)
     if not chip_smoke.torch.cuda.is_available():
         print('torch_ab: no CUDA device', file=sys.stderr)
         return 2
@@ -66,8 +44,10 @@ def run_child(phases):
             chip_smoke.BERT_RUNS = [r for r in chip_smoke.BERT_RUNS if r[2]]
             chip_smoke._card_vs_cpu = lambda *args, **kw: None
             out[phase] = chip_smoke.bert_phase()
-        else:
+        elif hasattr(chip_smoke, phase):
             out[phase] = getattr(chip_smoke, phase)()
+        else:
+            out[phase] = None
     print(MARK + json.dumps(out), flush=True)
     return 0
 

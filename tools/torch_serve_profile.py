@@ -4,10 +4,13 @@
 
 Run from the repository root.  One seeded serving run of ``gpt_small``
 at full width through ``ServingEngine`` — the model, config and load of
-``chip_smoke.py``, after a warmup run on another seed — under
-``torch.profiler`` (CUPTI device timestamps): wall time, the device's
-busy and idle share (the union of kernel intervals over the wall
-window), device time by kernel and host time by operator.
+``chip_smoke.py``, after ``warmup()`` (which captures the decode
+spans' CUDA graphs) and a run on another seed — under
+``torch.profiler`` (CUPTI device timestamps; the kernels inside a
+graph's replay are recorded one by one): wall time, the device's busy
+and idle share (the union of kernel intervals over the wall window),
+device time by kernel, host time by operator, and the replays of each
+decode graph.
 
 Prints a summary and writes the whole result as JSON to ``--out``.
 """
@@ -57,6 +60,8 @@ def serving_breakdown(top=15):
                             vocab_size=model.config.vocab_size,
                             **chip_smoke.SERVE_LOAD_KW)
     p0, d0 = eng.prefill_dispatches, eng.decode_steps
+    graphs = chip_smoke._decode_graphs(eng)
+    replays0 = {sig: g.replays for sig, g in graphs.items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -77,6 +82,10 @@ def serving_breakdown(top=15):
         'prefill_dispatches': eng.prefill_dispatches - p0,
         'decode_steps': eng.decode_steps - d0,
         'tokens_per_s_under_profiler': rep['tokens_per_s'],
+        'decode_graph_replays': {f'{S}x{K}': g.replays - replays0[(S, K)]
+                                 for (S, K), g in graphs.items()},
+        'decode_graph_capture_s': {f'{S}x{K}': g.capture_s
+                                   for (S, K), g in graphs.items()},
         'device_kernels': [
             {'name': e.key[:120], 'count': int(e.count),
              'device_us_total': chip_smoke.self_device_us(e)}
@@ -90,7 +99,8 @@ def serving_breakdown(top=15):
           f'busy {res["device_busy_s"]:.3f} s, idle share '
           f'{res["device_idle_share"]:.3f}, {n_kernels} kernels, '
           f'{res["prefill_dispatches"]} prefill dispatches + '
-          f'{res["decode_steps"]} decode steps', flush=True)
+          f'{res["decode_steps"]} decode steps (graph replays '
+          f'{res["decode_graph_replays"]})', flush=True)
     for k in res['device_kernels']:
         print(f'  device {k["device_us_total"] / 1e3:9.2f} ms '
               f'{k["count"]:7d}x {k["name"]}')

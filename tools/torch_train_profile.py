@@ -1,6 +1,6 @@
 """Where the port's training time goes, on one CUDA card.
 
-    python3 tools/torch_train_profile.py [--model gpt|bert|bert_flash|bert_gemm_gelu] [--steps 2] [--out build/torch_train_profile.json]
+    python3 tools/torch_train_profile.py [--model gpt|bert|bert_flash|bert_gemm_gelu] [--path fused|eager] [--steps 2] [--out build/torch_train_profile.json]
 
 Run from the repository root.  Training steps at full width with random
 seeded weights, in the configuration of one of ``chip_smoke.py``'s
@@ -11,13 +11,19 @@ bert`` ``bert_base`` at its dropout 0.1 (the softmax branch), B 64, T
 15% of positions; ``--model bert_flash`` the same at the benchmark's
 dropout 0 (the flash kernels); ``--model bert_gemm_gelu`` the same at
 dropout 0.1 with ``USE_PALLAS_MLP`` on (the GEMM+GELU kernels).
-After 2 warm-up steps, ``--steps`` steps run under ``torch.profiler``
-(CUPTI device timestamps): wall time per step, the device's
-busy and idle share (the union of kernel intervals over the wall
-window), device time by kernel and by kind of kernel, host time by
-operator, and for each of the trainer's forward, backward and optimizer
-ranges its host time and its span on the device's timeline (first to
-last kernel launched inside it, gaps included).
+``--path fused`` (the default) trains through
+``ParallelTrainer(fused_steps=--steps).step_fused``, the step as a
+replayed CUDA graph: one chunk warms up (the first step eager, the
+capture, the replays), then one chunk of ``--steps`` replays runs under
+``torch.profiler`` (CUPTI device timestamps; the kernels inside a
+replay are recorded one by one).  ``--path eager`` runs ``step``: 2
+warm-up steps, then ``--steps`` steps under the profiler, where each of
+the trainer's forward, backward and optimizer ranges also shows its
+host time and its span on the device's timeline (first to last kernel
+launched inside it, gaps included); a replayed graph has no host
+ranges.  Either way: wall time per step, the device's busy and idle
+share (the union of kernel intervals over the wall window), device
+time by kernel and by kind of kernel, host time by operator.
 
 Prints a summary and writes the whole result as JSON to ``--out``.
 """
@@ -83,7 +89,7 @@ def _busy_us(events):
 BERT_RUN = {'bert': 0, 'bert_flash': 1, 'bert_gemm_gelu': 2}
 
 
-def _setup(model_name):
+def _setup(model_name, fused_steps=None):
     """(trainer, batch, tokens per step, USE_PALLAS_MLP) of the named
     configuration."""
     if model_name in BERT_RUN:
@@ -93,7 +99,8 @@ def _setup(model_name):
         model = bert_base(device='cuda', seed=0, dropout=dropout,
                           **chip_smoke.BERT_MODEL_KW)
         trainer = chip_smoke._trainer(model, amp_o2=True,
-                                      lr=chip_smoke.BERT_LR)
+                                      lr=chip_smoke.BERT_LR,
+                                      fused_steps=fused_steps)
         batch = chip_smoke.bert_batch(model.config.vocab_size,
                                       chip_smoke.BERT_BATCH,
                                       chip_smoke.BERT_SEQ)
@@ -101,7 +108,8 @@ def _setup(model_name):
                 pallas_mlp)
     from paddle_tpu_torch.models.gpt import gpt_small
     model = gpt_small(device='cuda', seed=0, **chip_smoke.TRAIN_MODEL_KW)
-    trainer = chip_smoke._trainer(model, amp_o2=True)
+    trainer = chip_smoke._trainer(model, amp_o2=True,
+                                  fused_steps=fused_steps)
     ids = np.random.RandomState(0).randint(
         0, model.config.vocab_size,
         (chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ)).astype(np.int64)
@@ -109,19 +117,31 @@ def _setup(model_name):
             chip_smoke.TRAIN_BATCH * chip_smoke.TRAIN_SEQ, False)
 
 
-def training_breakdown(model_name='gpt', steps=2, top=20):
-    trainer, batch, tokens, pallas_mlp = _setup(model_name)
+def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
+    fused = path == 'fused'
+    trainer, batch, tokens, pallas_mlp = _setup(
+        model_name, fused_steps=steps if fused else None)
     fgl = chip_smoke._ops_module('fused_gelu_linear')
     fgl.USE_PALLAS_MLP = pallas_mlp
+    if fused:
+        chunk = tuple(np.stack([b] * steps) for b in batch)
+
+        def run():
+            return trainer.step_fused(*chunk)[-1]
+    else:
+        def run():
+            return [trainer.step(*batch) for _ in range(steps)][-1]
     try:
-        for _ in range(chip_smoke.TRAIN_WARMUP):
-            trainer.step(*batch)
+        if fused:
+            run()           # the warm-up step, the capture, the replays
+        else:
+            for _ in range(chip_smoke.TRAIN_WARMUP):
+                trainer.step(*batch)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(steps):
-                loss = trainer.step(*batch)
+            loss = run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     finally:
@@ -151,7 +171,8 @@ def training_breakdown(model_name='gpt', steps=2, top=20):
     ranges = {e.key: float(e.cpu_time_total) / steps for e in avgs
               if e.key in RANGES and not chip_smoke.is_device_event(e)}
     res = {
-        'model': model_name, 'steps': steps, 'loss': float(loss),
+        'model': model_name, 'path': path, 'steps': steps,
+        'loss': float(loss),
         'wall_ms_per_step': wall_us / steps / 1e3,
         'tokens_per_s_under_profiler': tokens * steps / (wall_us / 1e6),
         'device_busy_ms_per_step': busy_us / steps / 1e3,
@@ -173,8 +194,12 @@ def training_breakdown(model_name='gpt', steps=2, top=20):
              'self_cpu_ms_per_step': float(e.self_cpu_time_total) / steps
              / 1e3} for e in host[:top]],
     }
-    print(f'{model_name} train under the profiler: {steps} steps, wall '
-          f'{res["wall_ms_per_step"]:.2f} ms/step, device busy '
+    if fused:
+        (graph,) = trainer._fused_cache.modules.values()
+        res['capture_s'] = graph.capture_s
+        res['launches_a_replay'] = graph.launches.counts()
+    print(f'{model_name} ({path}) train under the profiler: {steps} '
+          f'steps, wall {res["wall_ms_per_step"]:.2f} ms/step, device busy '
           f'{res["device_busy_ms_per_step"]:.2f} ms/step, idle share '
           f'{res["device_idle_share"]:.4f}, '
           f'{res["kernel_launches_per_step"]:.0f} kernels/step', flush=True)
@@ -196,6 +221,7 @@ def training_breakdown(model_name='gpt', steps=2, top=20):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--model', choices=('gpt', *BERT_RUN), default='gpt')
+    ap.add_argument('--path', choices=('fused', 'eager'), default='fused')
     ap.add_argument('--steps', type=int, default=2)
     ap.add_argument('--out', default='build/torch_train_profile.json')
     args = ap.parse_args()
@@ -205,7 +231,8 @@ def main():
     name = chip_smoke.device_phase()
     chip_smoke.build_phase()
     res = {'device': name,
-           'training': training_breakdown(args.model, args.steps)}
+           'training': training_breakdown(args.model, args.steps,
+                                          path=args.path)}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, 'w') as f:
         json.dump(res, f, indent=1)
