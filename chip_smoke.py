@@ -85,6 +85,21 @@ From the repository root, with one CUDA card.  It
    exact launch counts under replay; ms/step, tokens/s, MFU, the capture
    time, peak memory, and the idle share of a third chunk under the
    profiler;
+   then the same model and batch with GPT-3 Small's optimisation recipe
+   (AdamW beta2 0.95, weight decay 0.1 with biases and LayerNorm exempt,
+   ``LinearWarmup`` into ``CosineAnnealingDecay``,
+   ``ClipGradByGlobalNorm(1.0)``) under ``nan_guard`` (``gpt_recipe``):
+   two eager guarded trainers equal over 2 K steps, then ``step_fused``
+   (K 5) over four chunks equal to them bit for bit in every loss and
+   parameter, the third chunk with a NaN loss weight at one step (its
+   loss NaN, its update dropped: ``_step_no`` advances by K - 1, the
+   sentinel counts one skip, every parameter finite) and the fourth
+   showing the LR and bias corrections resumed at the right step; the
+   guarded chunks run under ``torch.cuda.set_sync_debug_mode('error')``
+   but for their one host read (``chunk_sync``); exact launches per
+   replay, the skipped step's too; ms/step beside plain AdamW's
+   ``gpt_fused`` in the same call, tokens/s, capture time, peak memory
+   and idle share;
 6. trains ``gpt_small`` 2 steps at its dropout 0.1 (B 2, T 1024, bf16
    O2): finite losses, the softmax kernel 12 times per step on its vec
    design, no flash;
@@ -106,12 +121,22 @@ From the repository root, with one CUDA card.  It
    against the same weights on the CPU; then the dropout-0.1
    configuration through ``step_fused`` as in 5 (dropout drawn from the
    device's generator, registered with the graph);
-8. prints one JSON line with the serving and training results, one
+8. trains ``gpt_small``'s widths at 2 layers in f32 (B 1, T 256) with
+   each of the 11 optimizers (SGD, Momentum with Nesterov, Adagrad,
+   Adadelta, RMSProp centered with momentum, Lars, Adam, AdamW, Adamax,
+   Lamb, DGCMomentum with its ramp starting inside the run), a clip, a
+   regularizer and a scheduler in rotation, under ``nan_guard``
+   (``optimizers``): 4 steps on the card against the same on the CPU
+   (each loss within 1e-4, each parameter within 1e-3 of its max,
+   ``qkv.bias`` within ``2 * lr * steps``), and ``step_fused`` (K 4)
+   on the card equal to its eager steps bit for bit, with exact launch
+   counts;
+9. prints one JSON line with the serving and training results, one
    listing every kernel (its launches on each path, each path's counts
    set to 0 just before it and read just after, and per design where a
-   kernel has two; the paths ``serve``, ``gpt_fused`` and
-   ``bert_dropout_fused`` replay graphs), then as its last line
-   ``{"ok": true, "device": {...}}``.
+   kernel has two; the paths ``serve``, ``gpt_fused``, ``gpt_recipe``
+   and ``bert_dropout_fused`` replay graphs, ``optimizers`` half its
+   steps), then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  Without a
 CUDA device it exits non-zero before printing any result.
@@ -259,6 +284,52 @@ GPT_DROPOUT_BATCH, GPT_DROPOUT_STEPS = 2, 2
 
 # GPT-2 small in float16: O2 with the GradScaler's defaults
 GPT_F16_BATCH, GPT_F16_STEPS = 2, 3
+
+# GPT-3 Small's optimisation recipe (Brown et al. 2020, "Language Models
+# are Few-Shot Learners", arXiv:2005.14165, Table 2.1 and Appendix B) on
+# gpt_small, the same 125M shape, at the benchmark's B 8 x T 1024 bf16
+# O2: AdamW beta1 0.9, beta2 0.95, eps 1e-8, weight decay 0.1 (biases
+# and LayerNorm exempt), linear warmup from 0 into a cosine decay to 10%
+# of the 6e-4 peak, global-norm clipping at 1.0, the NaN guard, K 5.
+# Cut: warmup 3 and T_max 20 steps (the run crosses the warmup's end
+# into the cosine), and the bench's 8 K tokens a batch, not 0.5 M.
+RECIPE_PEAK_LR, RECIPE_WARMUP, RECIPE_T_MAX, RECIPE_K = 6e-4, 3, 20, 5
+RECIPE_POISON = 2       # the poisoned chunk's row whose loss weight is NaN
+
+# the optimizer family on gpt_small's widths at 2 layers, f32, B 1 x T
+# 256, 4 steps: (optimizer, its arguments, learning rate: the rules
+# that normalise each element's step take the size of Adam's usual
+# 3e-4, for at 1e-3 and above 4 steps move the random model far enough
+# that the card's and the CPU's round-off part by more than 1e-3 of a
+# tensor's max); each takes a
+# clip, a regularizer (where its constructor takes weight_decay) and a
+# scheduler in rotation, and DGC's ramp begins inside the run (step 1
+# dense, 2-4 sparse).  Card vs CPU, following _card_vs_cpu: each step's
+# loss within 1e-4 relative, each parameter's max |diff| after the last
+# within 1e-3 of its max |value|, except the attention's qkv.bias: the
+# key slice's true gradient is exactly 0 and the query slice's is near
+# it at a random init, so each device's is mostly round-off, which L1's
+# sign, Adam's m / sqrt(v) and Lamb's trust ratio scale up to steps of
+# up to lr; it is held to its bound, 2 * lr * steps
+OPT_MODEL_KW = dict(num_layers=2, max_seq_len=256, dropout=0.0,
+                    fused_head=True, fused_head_chunks=8)
+OPT_SEQ, OPT_STEPS = 256, 4
+OPTIMIZERS = [
+    ('SGD', {}, 1e-2),
+    ('Momentum', dict(momentum=0.9, use_nesterov=True), 1e-2),
+    ('Adagrad', dict(epsilon=1e-6), 1e-3),
+    ('Adadelta', dict(epsilon=1e-6, rho=0.95), 1.0),
+    ('RMSProp', dict(rho=0.95, epsilon=1e-6, momentum=0.9, centered=True),
+     1e-4),
+    ('Lars', dict(momentum=0.9), 0.1),
+    ('Adam', {}, 3e-4),
+    ('AdamW', dict(weight_decay=0.01), 3e-4),
+    ('Adamax', {}, 3e-4),
+    ('Lamb', dict(lamb_weight_decay=0.01), 1e-3),
+    ('DGCMomentum', dict(momentum=0.9, rampup_begin_step=1, rampup_step=2,
+                         sparsity=[0.75, 0.9]), 1e-2),
+]
+OPT_LOSS_RTOL, OPT_PARAM_RTOL = 1e-4, 1e-3
 
 
 def log(*args):
@@ -1721,6 +1792,307 @@ def gpt_f16_phase():
             'ms_per_step': dt / GPT_F16_STEPS * 1e3}
 
 
+def _decays(name):
+    """AdamW's decoupled decay: every weight but biases and LayerNorm's
+    (the recipe's exemption)."""
+    return not (name.endswith('bias') or '.ln' in name)
+
+
+def _recipe_trainer(model, fused_steps=None):
+    """GPT-3 Small's recipe on ``model``, bf16 O2, the NaN guard on; the
+    loss is multiplied by a per-step f32 weight from the batch."""
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    from paddle_tpu_torch.parallel import ParallelTrainer
+    strategy = DistributedStrategy()
+    strategy.amp = True
+    strategy.amp_configs['use_pure_fp16'] = True
+    sched = lr.LinearWarmup(
+        lr.CosineAnnealingDecay(RECIPE_PEAK_LR, RECIPE_T_MAX,
+                                eta_min=RECIPE_PEAK_LR / 10),
+        RECIPE_WARMUP, start_lr=0.0, end_lr=RECIPE_PEAK_LR)
+    opt = AdamW(learning_rate=sched, beta1=0.9, beta2=0.95, epsilon=1e-8,
+                weight_decay=0.1, apply_decay_param_fun=_decays,
+                parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    return ParallelTrainer(model, opt,
+                           lambda out, y, w: model.loss(out, y) * w,
+                           strategy=strategy, nan_guard=True,
+                           fused_steps=fused_steps)
+
+
+def _same(a, b):
+    """Bit for bit, NaN where NaN."""
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def _params_of(trainer):
+    return {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+
+
+def _equal_params(a, b):
+    return all(torch.equal(a[n], b[n]) for n in a)
+
+
+def gpt_recipe_phase(plain_ms):
+    """gpt_small at full width, the benchmark's B 8 x T 1024 bf16 O2,
+    trained with GPT-3 Small's recipe under the NaN guard through
+    ``step_fused`` (K 5): four chunks, the third with a poisoned step,
+    against eager guarded ``step`` calls.  ``plain_ms``: plain AdamW's
+    ``gpt_fused`` ms/step in this call."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_small
+    from paddle_tpu_torch.ops import _build
+    k = RECIPE_K
+    cfg = GPTConfig(**TRAIN_MODEL_KW)
+    L = cfg.num_layers
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)
+    chunk_ids = np.stack([ids] * k)
+    weights = [np.ones(k, np.float32) for _ in range(5)]
+    weights[2][RECIPE_POISON] = np.nan
+
+    def make(fused_steps=None):
+        return _recipe_trainer(gpt_small(device='cuda', seed=0,
+                                         **TRAIN_MODEL_KW), fused_steps)
+
+    def eager_chunk(tr, c):
+        out = [tr.step(ids, ids, weights[c][i]) for i in range(k)]
+        return torch.stack(out)
+
+    # two eager trainers over the first two chunks
+    a, b = make(), make()
+    want = [eager_chunk(a, 0)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want.append(eager_chunk(a, 1))
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / k * 1e3
+    again = torch.cat([eager_chunk(b, 0), eager_chunk(b, 1)])
+    if not (_same(torch.cat(want), again)
+            and _equal_params(_params_of(a), _params_of(b))):
+        raise AssertionError('gpt_recipe: two eager guarded trainers differ')
+    del b
+    _free()
+
+    # the main path: the guarded graph, four chunks
+    fused = make(fused_steps=k)
+    n_params = sum(p.numel() for p in fused.model.parameters())
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = [fused.step_fused(chunk_ids, chunk_ids, weights[0])]
+    got.append(fused.step_fused(chunk_ids, chunk_ids, weights[1]))
+    torch.cuda.synchronize()
+    if not (_same(torch.cat(got), torch.cat(want))
+            and _equal_params(_params_of(fused), _params_of(a))):
+        raise AssertionError('gpt_recipe: the guarded graph differs from '
+                             'the eager steps over the first 2 K steps')
+    syncs = fused.chunk_syncs
+    torch.cuda.set_sync_debug_mode('error')   # the chunk's read excepted
+    try:
+        got.append(fused.step_fused(chunk_ids, chunk_ids, weights[2]))
+        skipped_at = fused._step_no
+        t1 = time.perf_counter()
+        got.append(fused.step_fused(chunk_ids, chunk_ids, weights[3]))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    reads = fused.chunk_syncs - syncs
+    want += [eager_chunk(a, 2), eager_chunk(a, 3)]
+    losses = torch.cat(got)
+    if not _same(losses, torch.cat(want)):
+        raise AssertionError(f'gpt_recipe: graph losses {losses.tolist()} '
+                             f'vs eager {torch.cat(want).tolist()}')
+    params = _params_of(fused)
+    if not _equal_params(params, _params_of(a)):
+        raise AssertionError('gpt_recipe: parameters differ from eager '
+                             'after the poisoned chunk')
+    bad = [i for i, x in enumerate(losses.tolist()) if not math.isfinite(x)]
+    if bad != [2 * k + RECIPE_POISON] or skipped_at != 3 * k - 1 \
+            or not fused._step_no == a._step_no == 4 * k - 1 \
+            or fused.sentinel.total_skipped != 1 or reads != 2 \
+            or not all(torch.isfinite(p).all() for p in params.values()):
+        raise AssertionError(
+            f'gpt_recipe: non-finite losses at {bad}, step {skipped_at} '
+            f'after the poisoned chunk, {fused._step_no} / {a._step_no} '
+            f'after the next, {fused.sentinel.total_skipped} skipped, '
+            f'{reads} host reads in two guarded chunks')
+    (graph,) = fused._fused_cache.modules.values()
+    per_step = _per_step(L, 2 * L + 1, flash=1)
+    steps = 4 * k
+    for name, n in per_step.items():
+        if launches[name] != n * steps:
+            raise AssertionError(f'gpt_recipe: {name} launched '
+                                 f'{launches[name]} times in {steps} steps')
+    finite = [x for x in losses.tolist() if math.isfinite(x)]
+    if not finite[-1] < finite[0]:
+        raise AssertionError(f'gpt_recipe: loss did not fall: {finite}')
+    del a, want
+    _free()
+    idle, prof_s = idle_share(
+        lambda: fused.step_fused(chunk_ids, chunk_ids, weights[4]))
+    ms_step = dt / k * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops, _ = gpt_step_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
+    sched = fused.optimizer._learning_rate
+    lrs = [float(sched.value_at(t)) for t in range(1, steps + 1)]
+    log(f'gpt_recipe: gpt_small B {TRAIN_BATCH} T {TRAIN_SEQ} bf16 O2, '
+        f'AdamW beta2 0.95 wd 0.1 (biases and LayerNorm exempt), '
+        f'LinearWarmup({RECIPE_WARMUP}) into CosineAnnealingDecay('
+        f'{RECIPE_PEAK_LR}, T_max {RECIPE_T_MAX}, eta_min '
+        f'{RECIPE_PEAK_LR / 10}), ClipGradByGlobalNorm(1.0), nan_guard, '
+        f'step_fused K {k}: two eager trainers equal, the graph equal to '
+        f'them bit for bit in all {steps} losses and every parameter, '
+        f'through chunk 3 whose step {RECIPE_POISON} has a NaN loss '
+        f'weight (skipped: _step_no {skipped_at} after it, '
+        f'{fused._step_no} after chunk 4, sentinel skipped '
+        f'{fused.sentinel.total_skipped}, every parameter finite); chunks '
+        f'3-4 under set_sync_debug_mode("error") with {reads} host reads '
+        f'(chunk_sync); losses {", ".join(f"{x:.4f}" for x in losses)}; '
+        f'LR per step {", ".join(f"{x:.3g}" for x in lrs)}; launches '
+        f'{_launch_summary(launches, per_step, steps)}, a replay '
+        f'{graph.launches.counts()}')
+    log(f'gpt_recipe: {ms_step:.1f} ms/step (plain AdamW gpt_fused '
+        f'{plain_ms:.1f} in this call, eager guarded steps {eager_ms:.1f}),'
+        f' {tokens * k / dt:.0f} tokens/s, MFU {mfu:.4f}; capture '
+        f'{graph.capture_s:.3f} s; peak max_memory_allocated '
+        f'{peak / 2**30:.2f} GiB; idle share {idle:.4f} under the profiler '
+        f'({prof_s / k * 1e3:.1f} ms/step there)')
+    out = {'k': k, 'ms_per_step': ms_step, 'plain_ms_per_step': plain_ms,
+           'eager_ms_per_step': eager_ms, 'tokens_per_s': tokens * k / dt,
+           'mfu': mfu, 'capture_s': graph.capture_s, 'peak_bytes': peak,
+           'idle_share': idle, 'profiled_ms_per_step': prof_s / k * 1e3,
+           'losses': [float(x) for x in losses], 'lr': lrs,
+           'skipped': fused.sentinel.total_skipped, 'host_reads': reads,
+           'launches': launches, 'launches_a_replay': graph.launches.counts()}
+    del fused, graph, params
+    _free()
+    return out
+
+
+def _optimizer(i, name, kw, lr_value, params):
+    """Optimizer ``name`` with the clip, regularizer and scheduler of
+    its turn ``i`` in the rotation."""
+    import inspect
+    from paddle_tpu_torch import optimizer, regularizer
+    from paddle_tpu_torch.nn import clip
+    from paddle_tpu_torch.optimizer import lr
+    cls = getattr(optimizer, name)
+    extra = {}
+    clips = [None, clip.ClipGradByValue(0.05), clip.ClipGradByNorm(1.0),
+             clip.ClipGradByGlobalNorm(1.0)]
+    if clips[i % 4] is not None:
+        extra['grad_clip'] = clips[i % 4]
+    regs = [None, regularizer.L1Decay(1e-4), regularizer.L2Decay(1e-4)]
+    if regs[i % 3] is not None and 'weight_decay' in inspect.signature(
+            cls.__init__).parameters and 'weight_decay' not in kw:
+        extra['weight_decay'] = regs[i % 3]
+    scheds = [lr_value,
+              lr.PiecewiseDecay([2, 3], [lr_value, lr_value / 2,
+                                         lr_value / 4]),
+              lr.LinearWarmup(lr.CosineAnnealingDecay(lr_value, 8,
+                                                      lr_value / 10),
+                              2, 0.0, lr_value),
+              lr.ExponentialDecay(lr_value, 0.9)]
+    opt = cls(learning_rate=scheds[i % 4], parameters=params, **kw,
+              **extra)
+    desc = ', '.join([type(scheds[i % 4]).__name__] + [
+        type(v).__name__ for v in extra.values()])
+    return opt, desc
+
+
+def optimizers_phase():
+    """Every optimizer of the family on gpt_small's widths at 2 layers,
+    f32: 4 guarded steps on the card against the same on the CPU, and
+    ``step_fused`` (K 4) on the card against the card's eager steps."""
+    from paddle_tpu_torch.models.gpt import gpt_small
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.parallel import ParallelTrainer
+    rs = np.random.RandomState(2)
+    chunk = rs.randint(0, 50304, (OPT_STEPS, 1, OPT_SEQ)).astype(np.int64)
+
+    def run(i, name, kw, lr_value, dev, fused):
+        model = gpt_small(device=dev, seed=0, **OPT_MODEL_KW)
+        opt, desc = _optimizer(i, name, kw, lr_value, model.parameters())
+        tr = ParallelTrainer(model, opt, lambda out, y: model.loss(out, y),
+                             nan_guard=True,
+                             fused_steps=OPT_STEPS if fused else None)
+        if fused:
+            losses = tr.step_fused(chunk, chunk)
+        else:
+            losses = torch.stack([tr.step(chunk[j], chunk[j])
+                                  for j in range(OPT_STEPS)])
+        out = (losses.cpu(), {n: p.detach().cpu()
+                              for n, p in model.named_parameters()},
+               tr._step_no, desc)
+        del model, opt, tr
+        return out
+
+    rows, t0 = [], time.perf_counter()
+    _build.reset_launches()
+    cpu_runs = []
+    for i, (name, kw, lr_value) in enumerate(OPTIMIZERS):
+        card = run(i, name, kw, lr_value, 'cuda', False)
+        graph = run(i, name, kw, lr_value, 'cuda', True)
+        rows.append((name, card, graph))
+        _free()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    for i, (name, kw, lr_value) in enumerate(OPTIMIZERS):
+        cpu_runs.append(run(i, name, kw, lr_value, 'cpu', False))
+    L = OPT_MODEL_KW['num_layers']
+    per_step = _per_step(L, 2 * L + 1, flash=1, flash_design='simt')
+    steps = 2 * OPT_STEPS * len(OPTIMIZERS)
+    for n, c in per_step.items():
+        if launches[n] != c * steps:
+            raise AssertionError(f'optimizers: {n} launched {launches[n]} '
+                                 f'times in {steps} steps')
+    out = {}
+    lr_of = {name: lr_value for name, _, lr_value in OPTIMIZERS}
+    for (name, card, graph), cpu in zip(rows, cpu_runs):
+        (cl, cp, cs, desc), (gl, gp, gs, _), (pl, pp, ps, _) = \
+            card, graph, cpu
+        loss_rel = float(((cl - pl).abs() / pl.abs()).max())
+        worst, worst_name, key_diff = 0.0, None, 0.0
+        for n, want in pp.items():
+            diff = float((cp[n] - want).abs().max())
+            if n.endswith('attn.qkv.bias'):
+                key_diff = max(key_diff, diff)
+                continue
+            rel = diff / max(float(want.abs().max()), 1e-30)
+            if rel >= worst:
+                worst, worst_name = rel, n
+        key_bound = 2 * lr_of[name] * OPT_STEPS
+        exact = torch.equal(gl, cl) and all(torch.equal(gp[n], cp[n])
+                                             for n in cp)
+        ok = (bool(torch.isfinite(cl).all()) and cs == gs == ps == OPT_STEPS
+              and loss_rel <= OPT_LOSS_RTOL and worst <= OPT_PARAM_RTOL
+              and key_diff <= key_bound and exact)
+        log(f'optimizers: {name} ({desc}): losses '
+            f'{", ".join(f"{x:.5f}" for x in cl.tolist())}; card vs CPU '
+            f'loss rel {loss_rel:.2e} (tol {OPT_LOSS_RTOL}), worst '
+            f'parameter {worst_name} {worst:.2e} of its max (tol '
+            f'{OPT_PARAM_RTOL}), qkv.bias {key_diff:.2e} (bound '
+            f'{key_bound:.2e}); step_fused K {OPT_STEPS} == eager '
+            f'{"bit for bit" if exact else "DIFFERS"}')
+        if not ok:
+            raise AssertionError(f'optimizers: {name} failed its checks')
+        out[name] = {'with': desc, 'losses': cl.tolist(),
+                     'loss_rel': loss_rel, 'worst_param_rel': worst,
+                     'worst_param': worst_name, 'qkv_bias_diff': key_diff,
+                     'graph_bit_for_bit': exact}
+    log(f'optimizers: {len(OPTIMIZERS)} optimizers, launches '
+        f'{_launch_summary(launches, per_step, steps)}; '
+        f'{time.perf_counter() - t0:.1f} s')
+    return {'optimizers': out, 'launches': launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1738,20 +2110,27 @@ def main():
     serve_launches, serve = serving_phase()
     train = training_phase()
     gpt_fused = gpt_fused_phase()
+    gpt_recipe = gpt_recipe_phase(gpt_fused['ms_per_step'])
     gpt_dropout = gpt_dropout_phase()
     gpt_f16 = gpt_f16_phase()
     bert = bert_phase()
     bert_fused = bert_fused_phase()
+    optimizers = optimizers_phase()
     log(json.dumps({'serve': serve, 'train': train, 'gpt_fused': gpt_fused,
+                    'gpt_recipe': gpt_recipe,
                     'gpt_dropout': gpt_dropout, 'gpt_f16': gpt_f16,
-                    'bert': bert, 'bert_dropout_fused': bert_fused}))
-    # 'serve', 'gpt_fused' and 'bert_dropout_fused' replay CUDA graphs
+                    'bert': bert, 'bert_dropout_fused': bert_fused,
+                    'optimizers': optimizers}))
+    # 'serve', 'gpt_fused', 'gpt_recipe', 'bert_dropout_fused' and half of
+    # 'optimizers' replay CUDA graphs
     paths = {'serve': serve_launches, 'train': train['launches'],
              'gpt_fused': gpt_fused['launches'],
+             'gpt_recipe': gpt_recipe['launches'],
              'gpt_dropout': gpt_dropout['launches'],
              'gpt_f16': gpt_f16['launches'],
              **{run: bert[run]['launches'] for run, *_ in BERT_RUNS},
-             'bert_dropout_fused': bert_fused['launches']}
+             'bert_dropout_fused': bert_fused['launches'],
+             'optimizers': optimizers['launches']}
     kernels = []
     for k in _build.KERNELS:
         rows = timings[k.name]

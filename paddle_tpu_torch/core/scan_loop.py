@@ -11,12 +11,19 @@ batches arrive with a leading K dimension, the per-step losses go back
 as one device tensor, and the step counter advances by K, as in the
 reference.
 
+Under the NaN guard the step also returns its finite flag, and
+``fused_trainer_step``'s guarded form gathers the K flags as the
+chunk's mask, which ``chunk_sync`` reads back: the one host read of a
+guarded chunk.  The step itself keeps a non-finite step's update out of
+the parameters and state (``resilience.guard_update``), and the
+trainer's step counter, which lives on the device there, advances
+through ``cond_carry`` by the finite steps only.
+
 ``fused_steps`` is off by default; ``PADDLE_TPU_FUSED_STEPS`` supplies
 a default K for runs that cannot change code.  The watchdog is not
 ported, so ``ParallelTrainer`` passes no budget and ``clamp_chunk``
 passes K through; the function keeps the reference's contract for
-when it is.  The reference's in-scan NaN rollback (``cond_carry``) and
-its chunk prefetcher wait for later slices.
+when it is.  The reference's chunk prefetcher waits for a later slice.
 """
 import os
 
@@ -24,7 +31,8 @@ import numpy as np
 import torch
 
 __all__ = ['ENV_VAR', 'resolve_fused_steps', 'clamp_chunk',
-           'stack_batches', 'fused_trainer_step']
+           'cond_carry', 'stack_batches', 'chunk_sync',
+           'fused_trainer_step']
 
 ENV_VAR = 'PADDLE_TPU_FUSED_STEPS'
 
@@ -65,6 +73,13 @@ def clamp_chunk(k, budget=None, est_step_s=None):
     return max(1, min(k, int(step_s // float(est_step_s))))
 
 
+def cond_carry(ok, new_carry, old_carry):
+    """The carry of a guarded step: each tensor of ``new_carry`` where
+    ``ok`` (a 0-d bool tensor) is set, of ``old_carry`` where not, by a
+    select on the device (no host branch, so a graph can capture it)."""
+    return [torch.where(ok, a, b) for a, b in zip(new_carry, old_carry)]
+
+
 def stack_batches(batches):
     """A list of K per-step batches (each a tuple or list of arrays) ->
     one tuple of tensors with a leading K dim.  Host (numpy) fields
@@ -83,7 +98,22 @@ def stack_batches(batches):
     return tuple(out)
 
 
-def fused_trainer_step(step_fn, load_step):
+def chunk_sync(x):
+    """The one sanctioned host read of a guarded chunk: ``x`` (the K-step
+    finite mask) as numpy.  It reads with the CUDA sync debug mode off,
+    so a chunk run under ``torch.cuda.set_sync_debug_mode('error')``
+    fails on any other sync."""
+    if not x.is_cuda:
+        return x.numpy()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        return x.cpu().numpy()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def fused_trainer_step(step_fn, load_step, nan_guard=False):
     """Fuse ``ParallelTrainer``'s per-step ``step_fn(*row) -> loss`` into
     ``fused(*stacked) -> losses``: for each of the K rows,
     ``load_step(i)`` puts step i's per-step values in place (the
@@ -92,15 +122,27 @@ def fused_trainer_step(step_fn, load_step):
     the result, ``[K]`` f32 on the device, with no host sync.  On the
     card ``step_fn`` is a ``compile_cache.GraphModule`` of one step, so
     each step is one replay and its loss a static output that the next
-    replay overwrites; on the CPU it is the eager step."""
+    replay overwrites; on the CPU it is the eager step.
+
+    ``nan_guard``: ``step_fn`` returns ``(loss, ok)``, and ``fused``
+    returns ``(losses, oks)``, the K finite flags as a ``[K]`` bool
+    device tensor beside the losses.  ``load_step`` may be None (a
+    guarded step loads its own scalars)."""
 
     def fused(*stacked):
         k = int(stacked[0].shape[0])
-        losses = torch.empty(k, dtype=torch.float32,
-                             device=stacked[0].device)
+        dev = stacked[0].device
+        losses = torch.empty(k, dtype=torch.float32, device=dev)
+        oks = torch.empty(k, dtype=torch.bool, device=dev) \
+            if nan_guard else None
         for i in range(k):
-            load_step(i)
-            losses[i].copy_(step_fn(*(v[i] for v in stacked)))
-        return losses
+            if load_step is not None:
+                load_step(i)
+            out = step_fn(*(v[i] for v in stacked))
+            if nan_guard:
+                out, ok = out
+                oks[i].copy_(ok)
+            losses[i].copy_(out)
+        return (losses, oks) if nan_guard else losses
 
     return fused

@@ -1,5 +1,9 @@
-"""Layers and functionals of the port (counterpart of ``paddle_tpu/nn``)."""
-from . import functional
+"""Layers, functionals and gradient clipping of the port (counterpart
+of ``paddle_tpu/nn``)."""
+from . import clip, functional
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .layer import Dropout, Embedding, LayerNorm, Linear
 
-__all__ = ['functional', 'Dropout', 'Embedding', 'LayerNorm', 'Linear']
+__all__ = ['clip', 'functional', 'Dropout', 'Embedding', 'LayerNorm',
+           'Linear', 'ClipGradByValue', 'ClipGradByNorm',
+           'ClipGradByGlobalNorm']

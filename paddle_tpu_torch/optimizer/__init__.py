@@ -1,7 +1,10 @@
-"""Optimizers of the port (counterpart of ``paddle_tpu/optimizer``; the
-port has ``Optimizer``, ``Adam`` and ``AdamW``; the ``lr.py`` schedulers
-wait)."""
-from .adam import Adam, AdamW
+"""Optimizers of the port (counterpart of ``paddle_tpu/optimizer``)."""
+from . import lr
+from .adam import Adam, Adamax, AdamW, Lamb
+from .dgc import DGCMomentum
 from .optimizer import Optimizer
+from .sgd_family import SGD, Adadelta, Adagrad, Lars, Momentum, RMSProp
 
-__all__ = ['Optimizer', 'Adam', 'AdamW']
+__all__ = ['Optimizer', 'Adam', 'AdamW', 'Adamax', 'Lamb', 'SGD',
+           'Momentum', 'Adagrad', 'Adadelta', 'RMSProp', 'Lars',
+           'DGCMomentum', 'lr']

@@ -15,6 +15,13 @@ a machine without them.  On the card, from the repository root:
   the claim;
 - launch counts stay exact under replay: each kernel's launches are
   its launches per step times the steps;
+- under the NaN guard with GPT-3 Small's recipe (AdamW, ``LinearWarmup``
+  into ``CosineAnnealingDecay``, global-norm clipping), the guarded graph
+  equals eager guarded steps bit for bit through a chunk with a poisoned
+  step (its loss NaN, its update dropped, the counter advanced by the
+  finite steps) and the chunk after it, with the chunk's one host read
+  the only sync (``torch.cuda.set_sync_debug_mode('error')``) and exact
+  launches on the skipped step too;
 - the serving engine's decode spans, two batch buckets captured in one
   order and replayed out of it, give the same streams as the span body
   run eagerly on the same schedule, greedy and sampled (temperature
@@ -28,8 +35,9 @@ import paddle_tpu_torch
 from paddle_tpu_torch.distributed.fleet import DistributedStrategy
 from paddle_tpu_torch.models.bert import bert_tiny
 from paddle_tpu_torch.models.gpt import gpt_tiny
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.ops import _build
-from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer import AdamW, lr
 from paddle_tpu_torch.parallel import ParallelTrainer
 from paddle_tpu_torch.serving import Request, ServeConfig, ServingEngine
 
@@ -120,6 +128,62 @@ def test_launch_counts_stay_exact_under_replay():
         assert kernel.variant_launches == {'mma': L * steps, 'simt': 0}
     (mod,) = fused._fused_cache.modules.values()
     assert mod.launches.counts()['fused_layer_norm'] == 2 * L + 1
+
+
+def _recipe_trainer(fused_steps=None):
+    model = gpt_tiny(device='cuda', seed=0, **GPT_KW)
+    st = DistributedStrategy()
+    st.amp = True
+    st.amp_configs['use_pure_fp16'] = True
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(6e-4, 8, eta_min=6e-5),
+                            3, start_lr=0.0, end_lr=6e-4)
+    opt = AdamW(learning_rate=sched, beta2=0.95, weight_decay=0.1,
+                parameters=model.parameters(),
+                apply_decay_param_fun=lambda n: not (
+                    n.endswith('bias') or '.ln' in n),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    return ParallelTrainer(model, opt,
+                           lambda out, y, w: model.loss(out, y) * w,
+                           strategy=st, nan_guard=True,
+                           fused_steps=fused_steps)
+
+
+def test_guarded_recipe_graph_equals_eager_through_a_poisoned_step():
+    _cuda()
+    chunks = _gpt_batches(3)
+    weights = [np.ones(K, np.float32) for _ in chunks]
+    weights[1][2] = np.nan
+    eager = [_recipe_trainer(), _recipe_trainer()]
+    want = []
+    for tr in eager:
+        want.append(torch.stack([tr.step(ids[i], ids[i], w[i])
+                                 for ids, w in zip(chunks, weights)
+                                 for i in range(K)]))
+    assert torch.equal(want[0].nan_to_num(), want[1].nan_to_num())
+    _assert_equal(_params(eager[1]), _params(eager[0]), 'eager vs eager')
+    fused = _recipe_trainer(fused_steps=K)
+    L = GPT_KW['num_layers']
+    got = [fused.step_fused(chunks[0], chunks[0], weights[0])]
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for ids, w in zip(chunks[1:], weights[1:]):
+            got.append(fused.step_fused(ids, ids, w))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert fused.chunk_syncs == 3
+    got = torch.cat(got)
+    assert torch.equal(torch.isnan(got), torch.isnan(want[0]))
+    assert int(torch.isnan(got).sum()) == 1
+    assert torch.equal(got.nan_to_num(), want[0].nan_to_num())
+    _assert_equal(_params(fused), _params(eager[0]), 'graph vs eager')
+    assert fused._step_no == eager[0]._step_no == 3 * K - 1
+    assert fused.sentinel.total_skipped == 1
+    counts = {k.name: k.launches for k in _build.KERNELS}
+    assert counts['fused_layer_norm'] == (2 * L + 1) * 2 * K
+    assert counts['flash_attention_fwd'] == L * 2 * K
 
 
 def test_step_fused_with_dropout_draws_as_the_eager_steps():

@@ -366,14 +366,17 @@ def test_eval_step_returns_logits_and_the_jax_loss(weights, ids):
 def test_what_is_not_ported_raises(weights, ids):
     pm = _port_model(weights, fused_head=True)
     opt = AdamW(parameters=pm.parameters())
-    for kw in (dict(nan_guard=True), dict(mesh=object()),
-               dict(watchdog=True)):
+    for kw in (dict(mesh=object()), dict(watchdog=True),
+               dict(profile=True), dict(lint=True)):
         with pytest.raises(NotImplementedError):
             ParallelTrainer(pm, opt, pm.loss, **kw)
-    # fused_steps trains now (tests/test_torch_fused_steps.py); its NaN
-    # guard does not
-    with pytest.raises(NotImplementedError, match='later slice'):
-        ParallelTrainer(pm, opt, pm.loss, fused_steps=4, nan_guard=True)
+    # the NaN guard trains now, eager and fused
+    # (tests/test_torch_nan_guard.py); checkpointing does not
+    tr = ParallelTrainer(pm, opt, pm.loss, fused_steps=4, nan_guard=True)
+    for call in (lambda: tr.save_checkpoint('ckpt'),
+                 lambda: tr.restore_checkpoint('ckpt')):
+        with pytest.raises(NotImplementedError, match='checkpoint'):
+            call()
     st = DistributedStrategy()
     st.recompute = True
     with pytest.raises(NotImplementedError, match='recompute'):
@@ -387,10 +390,10 @@ def test_what_is_not_ported_raises(weights, ids):
                   aux_losses=[torch.zeros(())])
     drop.eval()
     assert drop(torch.from_numpy(ids)).shape == (2, 32, 128)
-    for bad in (dict(grad_clip=object()),
-                dict(learning_rate=lambda step: 0.1)):
-        with pytest.raises(NotImplementedError):
-            AdamW(parameters=pm.parameters(), **bad)
+    # schedulers and clipping train now (tests/test_torch_optimizers.py);
+    # a learning rate that is neither a float nor a scheduler is refused
+    with pytest.raises(TypeError, match='learning_rate'):
+        AdamW(parameters=pm.parameters(), learning_rate=lambda step: 0.1)
 
 
 # float16 O1: head_dim 64 and T 128 put the JAX model on its Pallas flash

@@ -1,11 +1,16 @@
 """Where the port's training time goes, on one CUDA card.
 
-    python3 tools/torch_train_profile.py [--model gpt|bert|bert_flash|bert_gemm_gelu] [--path fused|eager] [--steps 2] [--out build/torch_train_profile.json]
+    python3 tools/torch_train_profile.py [--model gpt|gpt_recipe|bert|bert_flash|bert_gemm_gelu] [--path fused|eager] [--steps 2] [--out build/torch_train_profile.json]
 
 Run from the repository root.  Training steps at full width with random
 seeded weights, in the configuration of one of ``chip_smoke.py``'s
 training runs: ``--model gpt`` (the default) ``gpt_small`` at B 8, T
 1024, bf16 O2, fused CE head in 8 chunks, AdamW lr 3e-4; ``--model
+gpt_recipe`` the same model and batch trained with GPT-3 Small's recipe
+under the NaN guard (``chip_smoke._recipe_trainer``: AdamW beta2 0.95,
+weight decay 0.1 with biases and LayerNorm exempt, ``LinearWarmup`` into
+``CosineAnnealingDecay``, ``ClipGradByGlobalNorm(1.0)``, a loss weight
+of 1 a step); ``--model
 bert`` ``bert_base`` at its dropout 0.1 (the softmax branch), B 64, T
 128, bf16 O2, fused MLM head in 8 chunks, AdamW lr 1e-4, MLM labels on
 15% of positions; ``--model bert_flash`` the same at the benchmark's
@@ -108,13 +113,16 @@ def _setup(model_name, fused_steps=None):
                 pallas_mlp)
     from paddle_tpu_torch.models.gpt import gpt_small
     model = gpt_small(device='cuda', seed=0, **chip_smoke.TRAIN_MODEL_KW)
-    trainer = chip_smoke._trainer(model, amp_o2=True,
-                                  fused_steps=fused_steps)
     ids = np.random.RandomState(0).randint(
         0, model.config.vocab_size,
         (chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ)).astype(np.int64)
-    return (trainer, (ids, ids),
-            chip_smoke.TRAIN_BATCH * chip_smoke.TRAIN_SEQ, False)
+    tokens = chip_smoke.TRAIN_BATCH * chip_smoke.TRAIN_SEQ
+    if model_name == 'gpt_recipe':
+        trainer = chip_smoke._recipe_trainer(model, fused_steps=fused_steps)
+        return trainer, (ids, ids, np.ones((), np.float32)), tokens, False
+    trainer = chip_smoke._trainer(model, amp_o2=True,
+                                  fused_steps=fused_steps)
+    return trainer, (ids, ids), tokens, False
 
 
 def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
@@ -220,7 +228,8 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--model', choices=('gpt', *BERT_RUN), default='gpt')
+    ap.add_argument('--model', choices=('gpt', 'gpt_recipe', *BERT_RUN),
+                    default='gpt')
     ap.add_argument('--path', choices=('fused', 'eager'), default='fused')
     ap.add_argument('--steps', type=int, default=2)
     ap.add_argument('--out', default='build/torch_train_profile.json')
