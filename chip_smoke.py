@@ -121,7 +121,22 @@ From the repository root, with one CUDA card.  It
    against the same weights on the CPU; then the dropout-0.1
    configuration through ``step_fused`` as in 5 (dropout drawn from the
    device's generator, registered with the graph);
-8. trains ``gpt_small``'s widths at 2 layers in f32 (B 1, T 256) with
+8. trains ResNet-50 at bench.py's configuration (``resnet``: NHWC, B
+   256 x 224 x 224 bf16 images, bf16 O2, Momentum lr 0.1): 5 warm-up
+   and 10 timed steps with ms/step, imgs/s, MFU, peak memory and the
+   idle share, one ``eval_step`` on the running statistics (f32
+   images: buffers unchanged, 4 images' logits against the CPU's eval
+   of the same state), then ``step_fused`` K 5 over 2 chunks against
+   two eager trainers, bit for bit in losses, parameters and all 106
+   BatchNorm buffers (under ``cudnn.deterministic`` if the two eager
+   trainers differ); one f32 step of ``resnet18`` and of ``resnet50``
+   (10 classes) at B 8 x 64 x 64 on the card against the CPU with
+   cuDNN's TF32 left on, each train-mode gradient also against a
+   float64 witness (``resnet_parity``); LeNet at B 256 f32 with Adam,
+   5 + 50 steps and the bench's loss anchor (``lenet``); none of these
+   paths may launch a hand-written kernel (the reference has no Pallas
+   kernel on them);
+9. trains ``gpt_small``'s widths at 2 layers in f32 (B 1, T 256) with
    each of the 11 optimizers (SGD, Momentum with Nesterov, Adagrad,
    Adadelta, RMSProp centered with momentum, Lars, Adam, AdamW, Adamax,
    Lamb, DGCMomentum with its ramp starting inside the run), a clip, a
@@ -131,12 +146,13 @@ From the repository root, with one CUDA card.  It
    ``qkv.bias`` within ``2 * lr * steps``), and ``step_fused`` (K 4)
    on the card equal to its eager steps bit for bit, with exact launch
    counts;
-9. prints one JSON line with the serving and training results, one
+10. prints one JSON line with the serving and training results, one
    listing every kernel (its launches on each path, each path's counts
    set to 0 just before it and read just after, and per design where a
-   kernel has two; the paths ``serve``, ``gpt_fused``, ``gpt_recipe``
-   and ``bert_dropout_fused`` replay graphs, ``optimizers`` half its
-   steps), then as its last line ``{"ok": true, "device": {...}}``.
+   kernel has two; the paths ``serve``, ``gpt_fused``, ``gpt_recipe``,
+   ``bert_dropout_fused`` and ``resnet_fused`` replay graphs,
+   ``optimizers`` half its steps; the vision paths count 0 of each),
+   then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  Without a
 CUDA device it exits non-zero before printing any result.
@@ -331,6 +347,48 @@ OPTIMIZERS = [
 ]
 OPT_LOSS_RTOL, OPT_PARAM_RTOL = 1e-4, 1e-3
 
+# ResNet-50 training, bench.py::bench_resnet's configuration: the
+# published ResNet-50 at full width and depth (He et al. 2016, "Deep
+# Residual Learning for Image Recognition", arXiv:1512.03385, Table 1),
+# ResNet(BottleneckBlock, 50, num_classes=1000, data_format='NHWC'),
+# Momentum lr 0.1 momentum 0.9, CrossEntropyLoss, bf16 O2, B 256 x 224 x
+# 224 x 3 bf16 images and int64 labels [B, 1] drawn from RandomState(0),
+# one batch repeated.  Cut: 5 warm-up and 10 timed steps (the bench 5 +
+# 30); step_fused K 5, 2 chunks against two eager trainers.
+RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES = 256, 224, 1000
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+RESNET_WARMUP, RESNET_STEPS, RESNET_K = 5, 10, 5
+RESNET_BN_BUFFERS = 106         # 53 BatchNorms, _mean and _variance each
+# eval_step on the running statistics after the timed runs, held for
+# its first RESNET_EVAL_IMAGES images against the CPU's eval of the same
+# weights and buffers (eval_step runs in f32: no AMP, as the reference's):
+# the logits within PARITY_GRAD_RTOL of their largest value
+RESNET_EVAL_IMAGES = 4
+# the f32 card-vs-CPU step, B 8 x 64 x 64 NHWC, 10 classes, each model
+# from seed 0 on the card and on the CPU: the eval-mode loss and
+# gradients, then one trainer step (Momentum).  Both models: the losses
+# within PARITY_LOSS_RTOL, every eval-mode gradient and every BatchNorm
+# buffer after the step within PARITY_GRAD_RTOL of its tensor's largest
+# value.  The train-mode gradient is held against a float64 witness
+# (_exact_grads: the CPU in float64 with float64 batch statistics).  A
+# ReLU input within f32 rounding of 0 takes one side on one device and
+# the other on another, so the gradient of the tensors before it moves
+# by a step: resnet18 is held per tensor within PARITY_GRAD_RTOL plus
+# how far the witness itself moves on images nudged by RESNET18_NUDGE
+# of their values (RESNET18_NUDGES seeded draws; seed 0 moves one layer1
+# tensor by 5e-3 of its largest value, the others 1e-5); resnet50, whose
+# gradient at this size moves by 7e-3 of its norm and up to 7e-2 of a
+# tensor's largest value already on images nudged by RESNET50_NUDGE, as
+# one vector within RESNET50_GRAD_NORM_RTOL of its norm, from the CPU's
+# and from the witness
+RESNET_PARITY_BATCH, RESNET_PARITY_IMAGE, RESNET_PARITY_CLASSES = 8, 64, 10
+RESNET18_NUDGE, RESNET18_NUDGES = 1e-6, 4
+RESNET50_NUDGE, RESNET50_GRAD_NORM_RTOL = 1e-7, 5e-2
+# LeNet, bench.py::bench_lenet: B 256 x 1 x 28 x 28 f32, Adam lr 1e-3,
+# 5 warm-up and 50 timed steps, then the bench's anchor: the loss one
+# step later finite and below 1.5 times the warm-up's last
+LENET_BATCH, LENET_LR, LENET_WARMUP, LENET_STEPS = 256, 1e-3, 5, 50
+
 
 def log(*args):
     print(*args, flush=True)
@@ -355,6 +413,12 @@ def time_ms(fn, iters=200, warmup=20):
 
 def is_device_event(evt):
     return str(getattr(evt, 'device_type', '')).endswith('CUDA')
+
+
+# the port's record_function ranges: on the device's timeline they are
+# spans around kernels, not kernels
+ANNOTATIONS = ('ParallelTrainer.forward', 'ParallelTrainer.backward',
+               'ParallelTrainer.optimizer', 'batch_norm')
 
 
 def self_device_us(evt):
@@ -1551,7 +1615,7 @@ def idle_share(fn):
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if is_device_event(e)
-                   and not e.name.startswith('ParallelTrainer.'))
+                   and e.name not in ANNOTATIONS)
     busy, cur_s, cur_e = 0.0, None, None
     for a, b in spans:
         if cur_e is None or a > cur_e:
@@ -2007,6 +2071,530 @@ def _optimizer(i, name, kw, lr_value, params):
     return opt, desc
 
 
+def _vision_trainer(model, optimizer, amp_o2, fused_steps=None):
+    """``ParallelTrainer`` with ``CrossEntropyLoss`` (labels ``[B, 1]``),
+    bf16 O2 or f32, as bench.py's vision configs build it."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.parallel import ParallelTrainer
+    strategy = DistributedStrategy()
+    if amp_o2:
+        strategy.amp = True
+        strategy.amp_configs['use_pure_fp16'] = True
+    ce = nn.CrossEntropyLoss()
+    return ParallelTrainer(model, optimizer, lambda out, y: ce(out, y),
+                           strategy=strategy, fused_steps=fused_steps)
+
+
+def _resnet_trainer(fused_steps=None):
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import BottleneckBlock, ResNet
+    model = ResNet(BottleneckBlock, 50, num_classes=RESNET_CLASSES,
+                   data_format='NHWC', device='cuda', seed=0)
+    opt = Momentum(learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM,
+                   parameters=model.parameters())
+    return _vision_trainer(model, opt, amp_o2=True, fused_steps=fused_steps)
+
+
+def resnet_batch():
+    """bench.py's images and labels: RandomState(0), images drawn in f32
+    and rounded to bf16, on the card."""
+    rs = np.random.RandomState(0)
+    x = rs.randn(RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3).astype(
+        np.float32)
+    y = rs.randint(0, RESNET_CLASSES, size=(RESNET_BATCH, 1)).astype(
+        np.int64)
+    return (torch.from_numpy(x).to('cuda', torch.bfloat16),
+            torch.from_numpy(y).to('cuda'))
+
+
+def resnet_step_flops(model, image, batch):
+    """(model flops of one training step, multiply-adds of one image's
+    forward): 2 x 3 x the multiply-adds of every conv and of the fc at
+    the shapes the code runs (forward hooks on one NHWC image in eval
+    mode): each output element of a conv takes in/groups x kh x kw
+    multiply-adds, of the fc ``in``."""
+    from paddle_tpu_torch import nn
+    macs = []
+
+    def count(mod, inputs, out):
+        if isinstance(mod, nn.Conv2D):
+            w = mod.weight
+            macs.append(out[0].numel() * math.prod(w.shape[1:]))
+        else:
+            macs.append(out[0].numel() * mod.weight.shape[0])
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (nn.Conv2D, nn.Linear))]
+    was_training = model.training
+    try:
+        with torch.no_grad():
+            model.eval()(torch.zeros(1, image, image, 3, device='cuda'))
+    finally:
+        for h in hooks:
+            h.remove()
+        model.train(was_training)
+    per_image = sum(macs)
+    return 2 * 3 * per_image * batch, per_image
+
+
+def _no_kernel_launches(what, launches):
+    """The vision paths run none of the hand-written kernels."""
+    ran = {k: n for k, n in launches.items() if n}
+    if ran:
+        raise AssertionError(f'{what}: ported kernels launched: {ran}')
+
+
+def _check_losses(what, losses):
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f'{what}: non-finite training loss: {losses}')
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f'{what}: loss did not fall on one batch: '
+                             f'{losses}')
+
+
+def resnet_phase():
+    """ResNet-50 at the bench's configuration through
+    ``ParallelTrainer.step``: timed steps, the idle share, one
+    ``eval_step`` on the running statistics, then ``step_fused``
+    (``_resnet_fused``)."""
+    x, y = resnet_batch()
+    trainer = _resnet_trainer()
+    model = trainer.model
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bufs = sum(1 for _ in model.buffers())
+    if n_bufs != RESNET_BN_BUFFERS:
+        raise AssertionError(f'resnet: {n_bufs} buffers, expected '
+                             f'{RESNET_BN_BUFFERS}')
+    flops, macs = resnet_step_flops(model, RESNET_IMAGE, RESNET_BATCH)
+    log(f'resnet model: ResNet(BottleneckBlock, 50, num_classes '
+        f'{RESNET_CLASSES}, NHWC), {n_params} parameters, {n_bufs} '
+        f'BatchNorm buffers, seed 0; B {RESNET_BATCH} x {RESNET_IMAGE} x '
+        f'{RESNET_IMAGE} x 3 bf16, bf16 O2, Momentum lr {RESNET_LR} '
+        f'momentum {RESNET_MOMENTUM}; {macs / 1e9:.4f} G multiply-adds an '
+        f'image (every conv and the fc)')
+    losses, launches, warm_s, dt, peak = _run_steps(
+        trainer, (x, y), RESNET_WARMUP, RESNET_STEPS)
+    _check_losses('resnet', losses)
+    _no_kernel_launches('resnet', launches)
+    ms_step = dt / RESNET_STEPS * 1e3
+    imgs = RESNET_BATCH * RESNET_STEPS / dt
+    mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
+    idle, prof_s = idle_share(lambda: [trainer.step(x, y) for _ in range(2)])
+    before = {n: b.clone() for n, b in model.named_buffers()}
+    out, eval_loss = trainer.eval_step(x.float(), y)
+    torch.cuda.synchronize()
+    if tuple(out.shape) != (RESNET_BATCH, RESNET_CLASSES) or \
+            out.dtype != torch.float32:
+        raise AssertionError(f'resnet eval_step: {tuple(out.shape)} '
+                             f'{out.dtype}')
+    if not all(torch.equal(b, before[n]) for n, b in model.named_buffers()):
+        raise AssertionError('resnet eval_step changed a running statistic')
+    eval_loss = float(eval_loss)
+    eval_rel, eval_scale = _resnet_eval_vs_cpu(model, x, out)
+    log(f'resnet: losses {", ".join(f"{v:.4f}" for v in losses)} (finite, '
+        f'falling); no ported kernel launched')
+    log(f'resnet: warm-up {RESNET_WARMUP} steps {warm_s:.2f} s; '
+        f'{RESNET_STEPS} steps in {dt:.3f} s = {ms_step:.1f} ms/step, '
+        f'{imgs:.0f} imgs/s; MFU {mfu:.4f} = (6 * {macs:.6g} multiply-adds '
+        f'* {RESNET_BATCH} images) / (step time * 989e12); peak '
+        f'max_memory_allocated {peak / 2**30:.2f} GiB; idle share '
+        f'{idle:.4f} under the profiler ({prof_s / 2 * 1e3:.1f} ms/step '
+        f'there); eval_step on running statistics (f32 images): logits '
+        f'{tuple(out.shape)}, loss {eval_loss:.4g}, buffers unchanged, '
+        f'the first {RESNET_EVAL_IMAGES} images\' logits (largest '
+        f'{eval_scale:.4g}) within {eval_rel:.3e} of the CPU\'s eval '
+        f'(tol {PARITY_GRAD_RTOL})')
+    summary = {'ms_per_step': ms_step, 'imgs_per_s': imgs, 'mfu': mfu,
+               'step_flops': flops, 'macs_per_image': macs,
+               'peak_bytes': peak, 'idle_share': idle,
+               'profiled_ms_per_step': prof_s / 2 * 1e3, 'losses': losses,
+               'warmup_s': warm_s, 'eval_loss': eval_loss,
+               'eval_vs_cpu_rel': eval_rel, 'eval_logit_scale': eval_scale,
+               'launches': launches}
+    del trainer, model, out
+    _free()
+    summary['fused'] = _resnet_fused(x, y, flops)
+    return summary
+
+
+def _resnet_eval_vs_cpu(model, x, out):
+    """The card's eval-mode logits ``out`` for its first
+    RESNET_EVAL_IMAGES images against the CPU's eval of the same weights
+    and buffers, in f32 as ``eval_step`` runs: (max |diff| over the
+    largest |logit|, the largest |logit|)."""
+    from paddle_tpu_torch.vision.models import BottleneckBlock, ResNet
+    cpu = ResNet(BottleneckBlock, 50, num_classes=RESNET_CLASSES,
+                 data_format='NHWC', device='cpu', seed=0)
+    cpu.load_state_dict({n: t.detach().cpu()
+                         for n, t in model.state_dict().items()})
+    with torch.no_grad():
+        want = cpu.eval()(x[:RESNET_EVAL_IMAGES].float().cpu())
+    got = out[:RESNET_EVAL_IMAGES].cpu()
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / scale
+    if not rel <= PARITY_GRAD_RTOL:
+        raise AssertionError(f'resnet eval_step vs the CPU: max |diff| '
+                             f'{rel:.3e} of the largest logit {scale:.4g}')
+    return rel, scale
+
+
+def _state_of(trainer):
+    return {n: t.detach().clone()
+            for n, t in trainer.model.state_dict().items()}
+
+
+def _resnet_fused(x, y, flops):
+    """``step_fused`` (K RESNET_K, 2 chunks) against two eager trainers
+    from the same seed on the same batch: losses, parameters and every
+    BatchNorm buffer bit for bit.  Where the two eager trainers differ
+    (cuDNN may pick algorithms that reduce with atomics), all three run
+    again under ``torch.backends.cudnn.deterministic = True``, and the
+    run says so."""
+    from paddle_tpu_torch.ops import _build
+    k = RESNET_K
+    xs, ys = torch.stack([x] * k), torch.stack([y] * k)
+
+    def eager():
+        tr = _resnet_trainer()
+        losses = [tr.step(x, y) for _ in range(k)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [tr.step(x, y) for _ in range(k)]
+        torch.cuda.synchronize()
+        out = torch.stack(losses), _state_of(tr), time.perf_counter() - t0
+        del tr
+        _free()
+        return out
+
+    def differing(a, b):
+        return [n for n in a if not _same(a[n], b[n])]
+
+    want_l, want_s, eager_dt = eager()
+    again_l, again_s, _ = eager()
+    spread = differing(want_s, again_s)
+    deterministic = bool(spread) or not _same(want_l, again_l)
+    if deterministic:
+        log(f'resnet_fused: two eager trainers differ (losses '
+            f'{float((want_l - again_l).abs().max()):.3e}, {len(spread)} '
+            f'tensors, first {spread[:3]}); again under '
+            'torch.backends.cudnn.deterministic = True')
+        torch.backends.cudnn.deterministic = True
+    try:
+        if deterministic:
+            want_l, want_s, eager_dt = eager()
+            again_l, again_s, _ = eager()
+            spread = differing(want_s, again_s)
+            if spread or not _same(want_l, again_l):
+                raise AssertionError(
+                    f'resnet_fused: eager trainers differ under '
+                    f'cudnn.deterministic: {spread[:5]}')
+        tr = _resnet_trainer(fused_steps=k)
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = tr.step_fused(xs, ys)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        second = tr.step_fused(xs, ys)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        (graph,) = tr._fused_cache.modules.values()
+        got_l = torch.cat([first, second])
+        got_s = _state_of(tr)
+        off = differing(want_s, got_s)
+        if off or not _same(got_l, want_l):
+            raise AssertionError(
+                f'resnet_fused: step_fused vs eager: losses differ by '
+                f'{float((got_l - want_l).abs().max()):.3e}; {len(off)} '
+                f'tensors differ, first {off[:5]}')
+        if graph.replays != 2 * k - 1 or tr._step_no != 2 * k:
+            raise AssertionError(f'resnet_fused: {graph.replays} replays, '
+                                 f'step {tr._step_no}')
+        losses = [float(v) for v in got_l]
+        _check_losses('resnet_fused', losses)
+        _no_kernel_launches('resnet_fused', launches)
+        idle, prof_s = idle_share(lambda: tr.step_fused(xs, ys))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    n_bufs = sum(1 for n in got_s if n.endswith(('._mean', '._variance')))
+    ms_step = dt / k * 1e3
+    mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
+    log(f'resnet_fused: step_fused K {k} == {2 * k} eager steps bit for bit'
+        f' (losses, every parameter and all {n_bufs} BatchNorm buffers; '
+        f'eager vs eager equal too'
+        + (', under cudnn.deterministic' if deterministic else '')
+        + f'); losses {", ".join(f"{v:.4f}" for v in losses)}; no ported '
+        f'kernel launched')
+    log(f'resnet_fused: first chunk (warm-up step + capture '
+        f'{graph.capture_s:.3f} s + {k - 1} replays) {first_s:.2f} s; {k} '
+        f'replayed steps in {dt:.3f} s = {ms_step:.1f} ms/step (eager '
+        f'{eager_dt / k * 1e3:.1f} in this call), '
+        f'{RESNET_BATCH * k / dt:.0f} imgs/s, MFU {mfu:.4f}; idle share '
+        f'{idle:.4f} under the profiler ({prof_s / k * 1e3:.1f} ms/step '
+        f'there); peak max_memory_allocated {peak / 2**30:.2f} GiB')
+    out = {'k': k, 'ms_per_step': ms_step,
+           'eager_ms_per_step': eager_dt / k * 1e3,
+           'imgs_per_s': RESNET_BATCH * k / dt, 'mfu': mfu,
+           'idle_share': idle, 'profiled_ms_per_step': prof_s / k * 1e3,
+           'peak_bytes': peak, 'capture_s': graph.capture_s,
+           'first_chunk_s': first_s, 'losses': losses,
+           'bit_for_bit': True, 'bn_buffers_compared': n_bufs,
+           'cudnn_deterministic': deterministic, 'launches': launches}
+    del tr, graph, got_s, want_s, again_s
+    _free()
+    return out
+
+
+def _exact_batch_norm(x, running_mean, running_var, weight=None,
+                      bias=None, training=False, momentum=0.9,
+                      epsilon=1e-5, data_format='NCHW',
+                      use_global_stats=None, name=None):
+    """The float64 witness's BatchNorm: batch statistics in the input's
+    own dtype, two-pass (the port's keeps the reference's f32 statistics
+    whatever the dtype); the running statistics stay as they are."""
+    ch = x.dim() - 1 if data_format in ('NHWC', 'NLC', 'NDHWC') else 1
+    red = tuple(i for i in range(x.dim()) if i != ch)
+    shape = [1] * x.dim()
+    shape[ch] = x.shape[ch]
+    scale = weight / torch.sqrt(x.var(dim=red, correction=0) + epsilon)
+    shift = bias - x.mean(dim=red) * scale
+    return x * scale.reshape(shape) + shift.reshape(shape)
+
+
+def _train_grads(model, x, y):
+    """One train-mode forward and backward of the cross entropy:
+    (loss, every gradient as float64 on the CPU)."""
+    from paddle_tpu_torch.nn import functional as F
+    loss = F.cross_entropy(model.train()(x), y)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().cpu().double()
+                                  for n, p in model.named_parameters()}
+
+
+def _exact_grads(build, x, y):
+    """The float64 witness of a train-mode gradient: ``build('cpu')``
+    from its seed, taken to float64, with float64 batch statistics
+    (``_exact_batch_norm``)."""
+    from paddle_tpu_torch.nn import functional as F
+    model = build('cpu').double()
+    keep = F.batch_norm
+    F.batch_norm = _exact_batch_norm
+    try:
+        return _train_grads(model, torch.from_numpy(x).double(),
+                            torch.from_numpy(y))[1]
+    finally:
+        F.batch_norm = keep
+
+
+def _nudged(x, rel, seed):
+    """``x`` (float64) moved by ``rel`` of its values, seeded."""
+    return x * (1 + rel * np.random.RandomState(seed).randn(*x.shape))
+
+
+def _rel_by_tensor(a, b):
+    """Each tensor's max |a - b| over its max |b|."""
+    return {n: float((a[n] - b[n]).abs().max()) / max(
+        float(b[n].abs().max()), 1e-30) for n in b}
+
+
+def _flat(grads):
+    return torch.cat([grads[n].flatten() for n in sorted(grads)])
+
+
+def _worst(a, b):
+    """(the largest max |a - b| over max |b| of any tensor, its name)."""
+    return max((float((a[n] - b[n]).abs().max()) / max(
+        float(b[n].abs().max()), 1e-30), n) for n in b)
+
+
+def _norm_rel(a, b):
+    return float((_flat(a) - _flat(b)).norm() / _flat(b).norm())
+
+
+def _parity_step(build, dev, x, y):
+    """From ``build(dev)``'s seeded weights: the eval-mode loss and
+    gradients, then one f32 trainer step (Momentum): (eval loss, eval
+    gradients, step loss, step gradients, buffers after the step,
+    launches), tensors as float64 on the CPU."""
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import _build
+    model = build(dev)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    _build.reset_launches()
+    eval_loss = F.cross_entropy(model.eval()(xt), yt)
+    eval_loss.backward()
+    eval_g = {n: p.grad.detach().cpu().double()
+              for n, p in model.named_parameters()}
+    model.zero_grad()
+    tr = _vision_trainer(model, Momentum(
+        learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM,
+        parameters=model.parameters()), amp_o2=False)
+    loss = float(tr.step(x, y))
+    return (float(eval_loss.detach()), eval_g, loss,
+            {n: p.grad.detach().cpu().double()
+             for n, p in model.named_parameters()},
+            {n: b.detach().cpu().double() for n, b in model.named_buffers()},
+            launch_counts())
+
+
+def _vs(got, want):
+    """(norm-wise gap, worst tensor's gap, its name) of two gradient
+    dicts, and its text."""
+    v = (_norm_rel(got, want), *_worst(got, want))
+    return v, f'{v[0]:.3e} of the norm, worst {v[2]} {v[1]:.3e}'
+
+
+def _within_envelope(got, exact, envelope):
+    """(every tensor of ``got`` within PARITY_GRAD_RTOL plus its
+    envelope of ``exact``, the tightest tensor's (gap, bound, name))."""
+    gaps = _rel_by_tensor(got, exact)
+    bounds = {n: PARITY_GRAD_RTOL + envelope[n] for n in gaps}
+    name = max(gaps, key=lambda n: gaps[n] / bounds[n])
+    return (all(gaps[n] <= bounds[n] for n in gaps),
+            (gaps[name], bounds[name], name))
+
+
+def resnet_parity_phase():
+    """f32, B 8 x 64 x 64 NHWC, 10 classes: resnet18 and resnet50 from
+    the same seed on the card and on the CPU, held as the RESNET_PARITY_*
+    notes above say, each train-mode gradient also against the float64
+    witness (``_exact_grads``).  cuDNN's TF32 is allowed for the whole
+    phase: the port's f32 conv turns it off itself."""
+    from paddle_tpu_torch.vision.models import resnet18, resnet50
+    rs = np.random.RandomState(1)
+    x = rs.randn(RESNET_PARITY_BATCH, RESNET_PARITY_IMAGE,
+                 RESNET_PARITY_IMAGE, 3).astype(np.float32)
+    y = rs.randint(0, RESNET_PARITY_CLASSES,
+                   (RESNET_PARITY_BATCH, 1)).astype(np.int64)
+    nets = {name: (lambda dev, fn=fn: fn(
+        num_classes=RESNET_PARITY_CLASSES, data_format='NHWC', device=dev,
+        seed=0)) for name, fn in (('resnet18', resnet18),
+                                  ('resnet50', resnet50))}
+    got = {}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for name, build in nets.items():
+            for dev in ('cuda', 'cpu'):
+                got[name, dev] = _parity_step(build, dev, x, y)
+                _free()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    x64 = x.astype(np.float64)
+    out, ok, msgs = {}, True, []
+    for name, build in nets.items():
+        (e, eg, loss, g, b, launches) = got[name, 'cuda']
+        (e_cpu, eg_cpu, l_cpu, g_cpu, b_cpu, _) = got[name, 'cpu']
+        _no_kernel_launches(f'resnet_parity {name}', launches)
+        exact = _exact_grads(build, x64, y)
+        r = out[name] = {'eval_loss_rel': abs(e - e_cpu) / abs(e_cpu),
+                         'loss_rel': abs(loss - l_cpu) / abs(l_cpu),
+                         'launches': launches}
+        (r['eval_worst_grad_rel'], r['eval_worst_grad']) = _worst(eg,
+                                                                  eg_cpu)
+        (r['worst_buffer_rel'], r['worst_buffer']) = _worst(b, b_cpu)
+        r['grad_vs_cpu'], vs_cpu = _vs(g, g_cpu)
+        r['grad_vs_exact'], vs_exact = _vs(g, exact)
+        r['cpu_vs_exact'], cpu_exact = _vs(g_cpu, exact)
+        ok &= (r['eval_loss_rel'] <= PARITY_LOSS_RTOL
+               and r['loss_rel'] <= PARITY_LOSS_RTOL
+               and r['eval_worst_grad_rel'] <= PARITY_GRAD_RTOL
+               and r['worst_buffer_rel'] <= PARITY_GRAD_RTOL)
+        msg = (f'resnet_parity {name} (f32 B {RESNET_PARITY_BATCH} x '
+               f'{RESNET_PARITY_IMAGE}^2 NHWC, cudnn.allow_tf32 left on), '
+               f'card vs CPU: on running statistics loss rel '
+               f'{r["eval_loss_rel"]:.3e}, worst gradient '
+               f'{r["eval_worst_grad"]} {r["eval_worst_grad_rel"]:.3e} (tol '
+               f'{PARITY_GRAD_RTOL}); a Momentum step: loss {loss:.6f} vs '
+               f'{l_cpu:.6f} (rel {r["loss_rel"]:.3e}, tol '
+               f'{PARITY_LOSS_RTOL}), worst buffer {r["worst_buffer"]} '
+               f'{r["worst_buffer_rel"]:.3e} (tol {PARITY_GRAD_RTOL}), '
+               f'gradient {vs_cpu}; from the float64 witness: card '
+               f'{vs_exact}, CPU {cpu_exact}')
+        if name == 'resnet18':
+            envelope = {n: 0.0 for n in exact}
+            for seed in range(RESNET18_NUDGES):
+                moved = _rel_by_tensor(_exact_grads(
+                    build, _nudged(x64, RESNET18_NUDGE, seed), y), exact)
+                envelope = {n: max(envelope[n], moved[n]) for n in exact}
+            widest = max(envelope, key=envelope.get)
+            r['envelope_widest'] = (envelope[widest], widest)
+            card_ok, r['card_tightest'] = _within_envelope(g, exact,
+                                                           envelope)
+            cpu_ok, r['cpu_tightest'] = _within_envelope(g_cpu, exact,
+                                                         envelope)
+            ok &= card_ok and cpu_ok
+            msg += ('; every tensor within ' + str(PARITY_GRAD_RTOL)
+                    + ' plus how far the witness moves on images nudged '
+                    f'by {RESNET18_NUDGE} ({RESNET18_NUDGES} draws; widest '
+                    f'{widest} {envelope[widest]:.3e}): tightest, card '
+                    + ', CPU '.join(
+                        f'{t[2]} {t[0]:.3e} of bound {t[1]:.3e}'
+                        for t in (r['card_tightest'], r['cpu_tightest'])))
+        else:
+            r['nudged_vs_exact'], nudged_exact = _vs(_exact_grads(
+                build, _nudged(x64, RESNET50_NUDGE, 5), y), exact)
+            ok &= (r['grad_vs_cpu'][0] <= RESNET50_GRAD_NORM_RTOL
+                   and r['grad_vs_exact'][0] <= RESNET50_GRAD_NORM_RTOL)
+            msg += (f' (card tol {RESNET50_GRAD_NORM_RTOL} of the norm from'
+                    f' each); the witness on images nudged by '
+                    f'{RESNET50_NUDGE}: {nudged_exact}')
+        msgs.append(msg)
+    if not ok:
+        raise AssertionError('\n'.join(msgs))
+    for msg in msgs:
+        log(msg + '; no ported kernel launched')
+    _free()
+    return out
+
+
+def lenet_phase():
+    """LeNet at bench.py's configuration: f32 B 256, Adam lr 1e-3, 5
+    warm-up and 50 timed steps, then the bench's anchor."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.models import LeNet
+    model = LeNet(device='cuda', seed=0)
+    tr = _vision_trainer(model, Adam(learning_rate=LENET_LR,
+                                     parameters=model.parameters()),
+                         amp_o2=False)
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(LENET_BATCH, 1, 28, 28).astype(
+        np.float32)).to('cuda')
+    y = torch.from_numpy(rs.randint(0, 10, (LENET_BATCH, 1)).astype(
+        np.int64)).to('cuda')
+    _build.reset_launches()
+    for _ in range(LENET_WARMUP):
+        loss = tr.step(x, y)
+    l0 = float(loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LENET_STEPS):
+        tr.step(x, y)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    l1 = float(tr.step(x, y))
+    launches = launch_counts()
+    _no_kernel_launches('lenet', launches)
+    if not (math.isfinite(l1) and l1 < l0 * 1.5):
+        raise AssertionError(f'lenet: bench anchor failed: {l0} -> {l1}')
+    imgs = LENET_BATCH * LENET_STEPS / dt
+    log(f'lenet: B {LENET_BATCH} f32, Adam lr {LENET_LR}: {LENET_STEPS} '
+        f'steps in {dt:.3f} s = {dt / LENET_STEPS * 1e3:.2f} ms/step, '
+        f'{imgs:.0f} imgs/s; loss {l0:.4f} -> {l1:.4f} (finite, below 1.5 '
+        f'x); no ported kernel launched')
+    del tr, model
+    _free()
+    return {'ms_per_step': dt / LENET_STEPS * 1e3, 'imgs_per_s': imgs,
+            'loss_warm': l0, 'loss_after': l1, 'launches': launches}
+
+
 def optimizers_phase():
     """Every optimizer of the family on gpt_small's widths at 2 layers,
     f32: 4 guarded steps on the card against the same on the CPU, and
@@ -2115,14 +2703,18 @@ def main():
     gpt_f16 = gpt_f16_phase()
     bert = bert_phase()
     bert_fused = bert_fused_phase()
+    resnet = resnet_phase()
+    resnet_parity = resnet_parity_phase()
+    lenet = lenet_phase()
     optimizers = optimizers_phase()
     log(json.dumps({'serve': serve, 'train': train, 'gpt_fused': gpt_fused,
                     'gpt_recipe': gpt_recipe,
                     'gpt_dropout': gpt_dropout, 'gpt_f16': gpt_f16,
                     'bert': bert, 'bert_dropout_fused': bert_fused,
-                    'optimizers': optimizers}))
-    # 'serve', 'gpt_fused', 'gpt_recipe', 'bert_dropout_fused' and half of
-    # 'optimizers' replay CUDA graphs
+                    'resnet': resnet, 'resnet_parity': resnet_parity,
+                    'lenet': lenet, 'optimizers': optimizers}))
+    # 'serve', 'gpt_fused', 'gpt_recipe', 'bert_dropout_fused',
+    # 'resnet_fused' and half of 'optimizers' replay CUDA graphs
     paths = {'serve': serve_launches, 'train': train['launches'],
              'gpt_fused': gpt_fused['launches'],
              'gpt_recipe': gpt_recipe['launches'],
@@ -2130,6 +2722,12 @@ def main():
              'gpt_f16': gpt_f16['launches'],
              **{run: bert[run]['launches'] for run, *_ in BERT_RUNS},
              'bert_dropout_fused': bert_fused['launches'],
+             # the vision paths launch none of the eight (checked there)
+             'resnet': resnet['launches'],
+             'resnet_fused': resnet['fused']['launches'],
+             **{f'resnet_parity_{name}': r['launches']
+                for name, r in resnet_parity.items()},
+             'lenet': lenet['launches'],
              'optimizers': optimizers['launches']}
     kernels = []
     for k in _build.KERNELS:

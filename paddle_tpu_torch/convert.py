@@ -2,7 +2,7 @@
 
 The two packages share state-dict keys and shapes (``Linear.weight``
 is ``[in, out]`` in both), so converting the JAX model's
-``functional_state()[0]`` — taken to numpy by the caller — is
+``functional_state()`` — taken to numpy by the caller — is
 ``torch.from_numpy`` of a copy plus checks; a JAX trainer's optimizer
 slots and step count carry over the same way (``load_train_state``).
 Each function raises on a missing or extra key and on a shape or dtype
@@ -33,9 +33,16 @@ def state_from_numpy(params, device=None):
     return out
 
 
-def load_numpy_state(module, params):
+def load_numpy_state(module, params, buffers=None):
     """Copy ``params`` (numpy, the JAX model's keys) into ``module``'s
-    parameters and buffers."""
+    parameters and buffers, written in place.  ``buffers``: the JAX
+    model's ``functional_state()[1]`` (BatchNorm's ``_mean`` and
+    ``_variance``), merged with ``params`` first."""
+    if buffers:
+        both = sorted(set(params) & set(buffers))
+        if both:
+            raise KeyError(f'names in both params and buffers: {both}')
+        params = {**params, **buffers}
     own = module.state_dict(keep_vars=True)
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))

@@ -1,14 +1,26 @@
 """Activation functionals (counterpart of
-``paddle_tpu/nn/functional/activation.py``; the port has ``gelu``,
-``softmax`` and ``tanh``).  Each casts its input through the AMP policy
-under the reference's op name."""
+``paddle_tpu/nn/functional/activation.py``; the port has ``relu``,
+``relu6``, ``gelu``, ``softmax`` and ``tanh``).  Each casts its input
+through the AMP policy under the reference's op name."""
 import torch
 import torch.nn.functional as TF
 
 from ...amp import amp_cast
 from ...ops.fused_softmax import fused_softmax
 
-__all__ = ['gelu', 'softmax', 'tanh']
+__all__ = ['relu', 'relu6', 'gelu', 'softmax', 'tanh']
+
+
+def relu(x, name=None):
+    x, = amp_cast('relu', x)
+    return torch.relu(x)
+
+
+def relu6(x, name=None):
+    """``min(max(x, 0), 6)``; its gradient is 0 at 0 and at 6, as
+    ``jax.nn.relu6``'s."""
+    x, = amp_cast('relu6', x)
+    return TF.relu6(x)
 
 
 def gelu(x, approximate=False):

@@ -1,0 +1,194 @@
+"""Convolution functionals (counterpart of
+``paddle_tpu/nn/functional/conv.py``).
+
+The reference's convolution is one ``lax.conv_general_dilated`` call,
+outside any Pallas kernel; the port's is one cuDNN convolution
+(``aten.convolution`` forward, ``aten.convolution_backward`` for both
+gradients), its counterpart as ``torch.matmul`` is a plain product's.
+Weights are OIHW (``[out, in/groups, *k]``) whatever ``data_format``
+is.  A channels-last input (``NLC``/``NHWC``/``NDHWC``) is permuted to
+an NC-first view without a copy: in PyTorch's terms a ``channels_last``
+tensor, which cuDNN takes directly; the output is permuted back.
+
+Padding takes the reference's forms: an int, one int per axis, ``2n``
+ints, ``n`` (low, high) pairs, ``'SAME'`` (XLA's split: the odd pixel
+on the high side) or ``'VALID'``.  Symmetric padding goes to the
+convolution; asymmetric padding is an explicit zero ``F.pad`` first.
+The bias is added after the convolution, as the reference adds it (a
+separate rounding in a 16-bit dtype).
+
+An f32 convolution computes in f32 on the card whatever the process's
+``torch.backends.cudnn.allow_tf32`` says: forward and backward run with
+the flag off (the rest of the port keeps TF32 off too), as XLA's f32
+convolution does.  The transposed convolutions are not ported yet.
+"""
+import contextlib
+
+import torch
+import torch.nn.functional as TF
+
+from ...amp import amp_cast
+
+__all__ = ['conv1d', 'conv2d', 'conv3d', 'conv1d_transpose',
+           'conv2d_transpose', 'conv3d_transpose']
+
+CHANNEL_LAST = ('NLC', 'NHWC', 'NDHWC')
+
+
+def _tuple(v, n):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in (v if len(v) == n else list(v) * n))
+    return (int(v),) * n
+
+
+def _padding(padding, n):
+    """The reference's padding forms: ``'SAME'``/``'VALID'`` or a list
+    of ``n`` (low, high) pairs."""
+    if isinstance(padding, str):
+        pad = padding.upper()
+        if pad not in ('SAME', 'VALID'):
+            raise ValueError(f"padding must be 'SAME' or 'VALID', got "
+                             f'{padding!r}')
+        return pad
+    if isinstance(padding, int):
+        return [(padding, padding)] * n
+    padding = list(padding)
+    if len(padding) == n and not isinstance(padding[0], (list, tuple)):
+        return [(int(p), int(p)) for p in padding]
+    if len(padding) == 2 * n:
+        return [(int(padding[2 * i]), int(padding[2 * i + 1]))
+                for i in range(n)]
+    return [tuple(int(q) for q in p) for p in padding]
+
+
+def same_pads(sizes, ksize, stride, dilation):
+    """XLA's ``'SAME'``: ``ceil(size / stride)`` outputs, the padding
+    they need split with the odd pixel on the high side."""
+    pairs = []
+    for size, k, s, d in zip(sizes, ksize, stride, dilation):
+        out = -(-size // s)
+        total = max((out - 1) * s + (k - 1) * d + 1 - size, 0)
+        pairs.append((total // 2, total - total // 2))
+    return pairs
+
+
+def pad_pairs(x, pairs, value=0.0):
+    """``F.pad`` of the trailing ``len(pairs)`` axes by (low, high)
+    pairs given in axis order."""
+    flat = []
+    for lo, hi in reversed(pairs):
+        flat += [lo, hi]
+    return TF.pad(x, flat, value=value)
+
+
+def to_channel_first(x, n):
+    """[N, *spatial, C] -> an [N, C, *spatial] view (no copy)."""
+    return x.permute(0, n + 1, *range(1, n + 1))
+
+
+def to_channel_last(x, n):
+    """[N, C, *spatial] -> an [N, *spatial, C] view (no copy)."""
+    return x.permute(0, *range(2, n + 2), 1)
+
+
+@contextlib.contextmanager
+def _ieee_f32():
+    """cuDNN with TF32 off: an f32 convolution computes in f32."""
+    prev = torch.backends.cudnn.allow_tf32
+    if prev:
+        torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        if prev:
+            torch.backends.cudnn.allow_tf32 = True
+
+
+def _convolution(x, w, stride, padding, dilation, groups):
+    n = x.dim() - 2
+    return torch.ops.aten.convolution(x, w, None, stride, padding, dilation,
+                                      False, [0] * n, groups)
+
+
+def _convolution_backward(gy, x, w, stride, padding, dilation, groups,
+                          mask):
+    n = x.dim() - 2
+    return torch.ops.aten.convolution_backward(
+        gy, x, w, None, stride, padding, dilation, False, [0] * n, groups,
+        mask)
+
+
+class _Conv(torch.autograd.Function):
+    """Convolution without bias, forward and backward under
+    ``_ieee_f32``."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, groups):
+        ctx.conf = (stride, padding, dilation, groups)
+        ctx.save_for_backward(x, w)
+        with _ieee_f32():
+            return _convolution(x, w, stride, padding, dilation, groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False]
+        with _ieee_f32():
+            gx, gw, _ = _convolution_backward(gy, x, w, *ctx.conf, mask)
+        return gx, gw, None, None, None, None
+
+
+def _conv(x, w, bias, stride, padding, dilation, groups, n, data_format):
+    if x.dim() != n + 2:
+        raise ValueError(f'conv{n}d takes a {n + 2}-D input, got shape '
+                         f'{tuple(x.shape)}')
+    channel_last = data_format in CHANNEL_LAST
+    x, w, bias = amp_cast(f'conv{n}d', x, w, bias)
+    stride = _tuple(stride, n)
+    dilation = _tuple(dilation, n)
+    pad = _padding(padding, n)
+    xf = to_channel_first(x, n) if channel_last else x
+    if pad == 'VALID':
+        pad = [(0, 0)] * n
+    elif pad == 'SAME':
+        pad = same_pads(xf.shape[2:], w.shape[2:], stride, dilation)
+    if all(lo == hi for lo, hi in pad):
+        sym = [lo for lo, _ in pad]
+    else:
+        xf, sym = pad_pairs(xf, pad), [0] * n
+    y = _Conv.apply(xf, w, list(stride), sym, list(dilation), int(groups))
+    if channel_last:
+        y = to_channel_last(y, n)
+    if bias is not None:
+        shape = [1] * y.dim()
+        shape[-1 if channel_last else 1] = bias.shape[0]
+        y = y + bias.reshape(shape)
+    return y
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format='NCL', name=None):
+    return _conv(x, weight, bias, stride, padding, dilation, groups, 1,
+                 data_format)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format='NCHW', name=None):
+    return _conv(x, weight, bias, stride, padding, dilation, groups, 2,
+                 data_format)
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format='NCDHW', name=None):
+    return _conv(x, weight, bias, stride, padding, dilation, groups, 3,
+                 data_format)
+
+
+def _transpose_not_ported(*args, **kwargs):
+    raise NotImplementedError(
+        'the transposed convolutions are not ported yet (ROADMAP Queue 1 '
+        'item 7)')
+
+
+conv1d_transpose = conv2d_transpose = conv3d_transpose = \
+    _transpose_not_ported

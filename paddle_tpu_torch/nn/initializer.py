@@ -1,0 +1,89 @@
+"""Weight initializers (counterpart of ``paddle_tpu/nn/initializer``; the
+port has ``Constant``, ``Uniform``, ``KaimingUniform`` and
+``calculate_gain``, what the conv layers and ResNet use).
+
+An initializer is called as ``init(shape, dtype, generator)`` and
+returns a CPU tensor drawn from the explicit CPU ``torch.Generator``
+(``None`` takes torch's default one), so one seed gives the same
+weights on every device; ``init.fill_(param, generator)`` copies the
+draw into a parameter in place.  The laws are the reference's; the
+draws are torch's, so parity tests carry weights across.
+"""
+import math
+
+import torch
+
+__all__ = ['Initializer', 'Constant', 'Uniform', 'KaimingUniform',
+           'calculate_gain']
+
+
+def _fans(shape):
+    """(fan_in, fan_out) as the reference counts them; conv kernels are
+    ``[out, in, *spatial]``."""
+    shape = tuple(shape)
+    if len(shape) == 0:
+        return 1, 1
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    receptive = math.prod(shape[2:])
+    return shape[1] * receptive, shape[0] * receptive
+
+
+def calculate_gain(nonlinearity, param=None):
+    gains = {'sigmoid': 1.0, 'linear': 1.0, 'conv1d': 1.0, 'conv2d': 1.0,
+             'conv3d': 1.0, 'tanh': 5.0 / 3.0, 'relu': math.sqrt(2.0),
+             'leaky_relu': math.sqrt(2.0 / (1 + (param or 0.01) ** 2)),
+             'selu': 3.0 / 4.0}
+    return gains[nonlinearity]
+
+
+class Initializer:
+    def __call__(self, shape, dtype=torch.float32, generator=None):
+        return self._generate(tuple(int(s) for s in shape), dtype,
+                              generator)
+
+    def _generate(self, shape, dtype, generator):
+        raise NotImplementedError
+
+    def fill_(self, param, generator=None):
+        """Draw for ``param``'s shape and dtype and copy it in place."""
+        with torch.no_grad():
+            param.copy_(self(param.shape, param.dtype, generator))
+        return param
+
+
+class Constant(Initializer):
+    def __init__(self, value=0.0):
+        self.value = value
+
+    def _generate(self, shape, dtype, generator):
+        return torch.full(shape, self.value, dtype=dtype)
+
+
+class Uniform(Initializer):
+    """U[low, high)."""
+
+    def __init__(self, low=-1.0, high=1.0):
+        self.low, self.high = low, high
+
+    def _generate(self, shape, dtype, generator):
+        u = torch.rand(shape, generator=generator, dtype=torch.float32)
+        return (u * (self.high - self.low) + self.low).to(dtype)
+
+
+class KaimingUniform(Initializer):
+    """U[-limit, limit) with ``limit = gain * sqrt(3 / fan_in)``."""
+
+    def __init__(self, fan_in=None, negative_slope=0.0,
+                 nonlinearity='relu'):
+        self.fan_in = fan_in
+        self.negative_slope = negative_slope
+        self.nonlinearity = nonlinearity
+
+    def _generate(self, shape, dtype, generator):
+        fi = self.fan_in if self.fan_in is not None else _fans(shape)[0]
+        gain = calculate_gain(self.nonlinearity, self.negative_slope)
+        limit = gain * math.sqrt(3.0 / fi)
+        return Uniform(-limit, limit)._generate(shape, dtype, generator)

@@ -1,4 +1,19 @@
+from .activation import ReLU, ReLU6
 from .common import Dropout, Embedding, Linear
-from .norm import LayerNorm
+from .container import Sequential
+from .conv import Conv1D, Conv2D, Conv3D
+from .loss import CrossEntropyLoss
+from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
+                   LayerNorm, SyncBatchNorm)
+from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
+                      AdaptiveAvgPool3D, AdaptiveMaxPool1D,
+                      AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
+                      AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
 
-__all__ = ['Dropout', 'Embedding', 'Linear', 'LayerNorm']
+__all__ = ['Dropout', 'Embedding', 'Linear', 'LayerNorm', 'ReLU', 'ReLU6',
+           'Sequential', 'Conv1D', 'Conv2D', 'Conv3D', 'CrossEntropyLoss',
+           'BatchNorm', 'BatchNorm1D', 'BatchNorm2D', 'BatchNorm3D',
+           'SyncBatchNorm', 'AvgPool1D', 'AvgPool2D', 'AvgPool3D',
+           'MaxPool1D', 'MaxPool2D', 'MaxPool3D', 'AdaptiveAvgPool1D',
+           'AdaptiveAvgPool2D', 'AdaptiveAvgPool3D', 'AdaptiveMaxPool1D',
+           'AdaptiveMaxPool2D', 'AdaptiveMaxPool3D']

@@ -1,0 +1,23 @@
+"""``Sequential`` (counterpart of ``paddle_tpu/nn/layer/container.py``):
+sublayers under ``'0'``, ``'1'``, ... (or the names of an
+``OrderedDict`` or of ``(name, layer)`` pairs), so its state-dict keys
+are the reference's (``0.weight``, ``1._mean``, ...)."""
+import collections
+
+from torch import nn
+
+__all__ = ['Sequential']
+
+
+class Sequential(nn.Sequential):
+    def __init__(self, *layers):
+        if len(layers) == 1 and isinstance(layers[0],
+                                           collections.OrderedDict):
+            super().__init__(layers[0])
+            return
+        super().__init__()
+        for i, item in enumerate(layers):
+            if isinstance(item, (list, tuple)):
+                self.add_module(str(item[0]), item[1])
+            else:
+                self.add_module(str(i), item)

@@ -20,6 +20,7 @@ import torch
 from paddle_tpu_torch import resolve_device
 from paddle_tpu_torch.models.gpt import gpt_tiny
 from paddle_tpu_torch.serving import PagedKVCache
+from paddle_tpu_torch.vision.models import LeNet, resnet18
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, 'paddle_tpu_torch')
@@ -69,7 +70,7 @@ def test_import_leaves_jax_unloaded():
             'paddle_tpu_torch.amp, paddle_tpu_torch.optimizer, '
             'paddle_tpu_torch.parallel, paddle_tpu_torch.distributed, '
             'paddle_tpu_torch.ops.flash_attention, '
-            'paddle_tpu_torch.ops.fused_ce; '
+            'paddle_tpu_torch.ops.fused_ce, paddle_tpu_torch.vision; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "paddle_tpu")]; print(bad); '
             'sys.exit(1 if bad else 0)')
@@ -87,4 +88,7 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
         gpt_tiny(num_layers=1)
     with pytest.raises(RuntimeError, match='CUDA'):
         PagedKVCache(1, 1, 4, block_size=4, num_blocks=4)
+    for model in (LeNet, resnet18):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            model()
     assert resolve_device('cpu') == torch.device('cpu')

@@ -1,6 +1,6 @@
 """Where the port's training time goes, on one CUDA card.
 
-    python3 tools/torch_train_profile.py [--model gpt|gpt_recipe|bert|bert_flash|bert_gemm_gelu] [--path fused|eager] [--steps 2] [--out build/torch_train_profile.json]
+    python3 tools/torch_train_profile.py [--model gpt|gpt_recipe|bert|bert_flash|bert_gemm_gelu|resnet50] [--path fused|eager] [--steps 2] [--out build/torch_train_profile.json]
 
 Run from the repository root.  Training steps at full width with random
 seeded weights, in the configuration of one of ``chip_smoke.py``'s
@@ -15,7 +15,16 @@ bert`` ``bert_base`` at its dropout 0.1 (the softmax branch), B 64, T
 128, bf16 O2, fused MLM head in 8 chunks, AdamW lr 1e-4, MLM labels on
 15% of positions; ``--model bert_flash`` the same at the benchmark's
 dropout 0 (the flash kernels); ``--model bert_gemm_gelu`` the same at
-dropout 0.1 with ``USE_PALLAS_MLP`` on (the GEMM+GELU kernels).
+dropout 0.1 with ``USE_PALLAS_MLP`` on (the GEMM+GELU kernels);
+``--model resnet50`` ResNet-50 at bench.py's configuration (NHWC, B
+256 x 224 x 224 bf16 images, bf16 O2, Momentum lr 0.1;
+``chip_smoke._resnet_trainer``), whose kernels are classed as cuDNN
+conv forward, dgrad and wgrad, layout transforms and pooling besides
+the kinds below, and which also times every BatchNorm of the step
+alone (``bn_breakdown``: each BatchNorm's input shape and dtype from
+one forward, then ``F.batch_norm`` forward and backward on such
+inputs, device time under the profiler), BatchNorm's device share, and
+lists every convolution kernel.
 ``--path fused`` (the default) trains through
 ``ParallelTrainer(fused_steps=--steps).step_fused``, the step as a
 replayed CUDA graph: one chunk warms up (the first step eager, the
@@ -48,7 +57,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke  # noqa: E402  (the smoke's model, config and helpers)
 
 # kinds of device kernels, first match wins (lower-case substrings)
-KINDS = [('flash_attention_fwd', ('flash_fwd',)),
+KINDS = [('conv forward (cuDNN)', ('fprop', 'implicit_convolve',
+                                   'conv2d_c1_k1')),
+         ('conv dgrad (cuDNN)', ('dgrad',)),
+         ('conv wgrad (cuDNN)', ('wgrad',)),
+         ('conv, other (cuDNN)', ('implicitgemmconvolution', 'cudnn')),
+         ('layout transform', ('nchwtonhwc', 'nhwctonchw')),
+         ('pooling', ('max_pool', 'avg_pool', 'maxpool', 'avgpool')),
+         ('flash_attention_fwd', ('flash_fwd',)),
          ('flash_attention_bwd_dq', ('flash_bwd_dq',)),
          ('flash_attention_bwd_dkv', ('flash_bwd_dkv',)),
          ('fused_layer_norm', ('layer_norm_warp<', 'layer_norm_block<')),
@@ -63,8 +79,8 @@ KINDS = [('flash_attention_fwd', ('flash_fwd',)),
          ('elementwise', ('elementwise', 'vectorized', 'unrolled')),
          ('index / gather / scatter', ('index', 'gather', 'scatter',
                                        'embedding'))]
-RANGES = ('ParallelTrainer.forward', 'ParallelTrainer.backward',
-          'ParallelTrainer.optimizer')
+# the trainer's ranges, and every range the port annotates
+RANGES = chip_smoke.ANNOTATIONS
 
 
 def _kind(name):
@@ -95,8 +111,11 @@ BERT_RUN = {'bert': 0, 'bert_flash': 1, 'bert_gemm_gelu': 2}
 
 
 def _setup(model_name, fused_steps=None):
-    """(trainer, batch, tokens per step, USE_PALLAS_MLP) of the named
-    configuration."""
+    """(trainer, batch, tokens (images) per step, USE_PALLAS_MLP) of the
+    named configuration."""
+    if model_name == 'resnet50':
+        return (chip_smoke._resnet_trainer(fused_steps=fused_steps),
+                chip_smoke.resnet_batch(), chip_smoke.RESNET_BATCH, False)
     if model_name in BERT_RUN:
         from paddle_tpu_torch.models.bert import bert_base
         _, dropout, pallas_mlp, _, _ = chip_smoke.BERT_RUNS[
@@ -132,7 +151,8 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
     fgl = chip_smoke._ops_module('fused_gelu_linear')
     fgl.USE_PALLAS_MLP = pallas_mlp
     if fused:
-        chunk = tuple(np.stack([b] * steps) for b in batch)
+        chunk = tuple(torch.stack([b] * steps) if torch.is_tensor(b)
+                      else np.stack([b] * steps) for b in batch)
 
         def run():
             return trainer.step_fused(*chunk)[-1]
@@ -158,6 +178,12 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
     # timeline as annotations; they are spans, not kernels
     device = [e for e in prof.events() if chip_smoke.is_device_event(e)]
     events = [e for e in device if e.name not in RANGES]
+    conv_kernels = {}
+    for e in events:
+        if _kind(e.name).startswith(('conv', 'layout')):
+            n, us = conv_kernels.get(e.name, (0, 0.0))
+            conv_kernels[e.name] = (n + 1, us + e.time_range.end
+                                    - e.time_range.start)
     spans = {}
     for e in device:
         if e.name in RANGES:
@@ -182,7 +208,8 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
         'model': model_name, 'path': path, 'steps': steps,
         'loss': float(loss),
         'wall_ms_per_step': wall_us / steps / 1e3,
-        'tokens_per_s_under_profiler': tokens * steps / (wall_us / 1e6),
+        ('imgs' if model_name == 'resnet50' else 'tokens')
+        + '_per_s_under_profiler': tokens * steps / (wall_us / 1e6),
         'device_busy_ms_per_step': busy_us / steps / 1e3,
         'device_idle_share': 1.0 - busy_us / wall_us,
         'kernel_launches_per_step': n_kernels / steps,
@@ -206,6 +233,17 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
         (graph,) = trainer._fused_cache.modules.values()
         res['capture_s'] = graph.capture_s
         res['launches_a_replay'] = graph.launches.counts()
+    if model_name == 'resnet50':
+        res['conv_and_layout_kernels'] = [
+            {'name': name[:160], 'count_per_step': n / steps,
+             'device_ms_per_step': us / steps / 1e3}
+            for name, (n, us) in sorted(conv_kernels.items(),
+                                        key=lambda kv: -kv[1][1])]
+        res['batch_norm'] = bn_breakdown(trainer, batch)
+        busy = res['device_busy_ms_per_step']
+        res['batch_norm']['share_of_device_busy'] = (
+            res['batch_norm']['fwd_bwd_ms_per_step'] / busy if busy
+            else None)
     print(f'{model_name} ({path}) train under the profiler: {steps} '
           f'steps, wall {res["wall_ms_per_step"]:.2f} ms/step, device busy '
           f'{res["device_busy_ms_per_step"]:.2f} ms/step, idle share '
@@ -223,12 +261,84 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
     for h in res['host_ops']:
         print(f'  host   {h["self_cpu_ms_per_step"]:9.3f} ms/step '
               f'{h["count"]:6d}x {h["name"]}')
+    for k in res.get('conv_and_layout_kernels', []):
+        print(f'  conv   {k["device_ms_per_step"]:9.3f} ms/step '
+              f'{k["count_per_step"]:6.1f}x {k["name"][:120]}')
+    if 'batch_norm' in res:
+        bn = res['batch_norm']
+        print(f'  batch_norm: {bn["layers"]} layers, forward + backward '
+              f'alone {bn["fwd_bwd_ms_per_step"]:.3f} ms/step (forward '
+              f'{bn["fwd_ms_per_step"]:.3f}), a share '
+              f'{bn["share_of_device_busy"]} of the device-busy time')
     return res
+
+
+def bn_breakdown(trainer, batch, iters=5):
+    """Device ms a step of every BatchNorm of the model alone: each
+    one's input shape and dtype from one training forward under the
+    trainer's AMP policy, then ``F.batch_norm`` (training, the layer's
+    format, f32 weights, copies of its buffers) forward and backward on
+    seeded inputs of those shapes, its device time under the profiler
+    over ``iters`` rounds after one warm-up."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.layer.norm import _BatchNormBase
+    model = trainer.model
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp: seen.append((mod, inp[0].shape, inp[0].dtype)))
+        for m in model.modules() if isinstance(m, _BatchNormBase)]
+    try:
+        with torch.no_grad(), trainer._autocast():
+            model.train()(batch[0])
+    finally:
+        for h in hooks:
+            h.remove()
+    gen = torch.Generator(device=trainer.device).manual_seed(0)
+    cases = []
+    for mod, shape, dtype in seen:
+        x = torch.randn(shape, generator=gen, device=trainer.device,
+                        dtype=torch.float32).to(dtype).requires_grad_(True)
+        cases.append((mod, x, torch.randn_like(x), mod.weight.detach()
+                      .clone().requires_grad_(True), mod.bias.detach()
+                      .clone().requires_grad_(True), mod._mean.clone(),
+                      mod._variance.clone()))
+
+    def run(backward):
+        for mod, x, g, w, b, rm, rv in cases:
+            with trainer._autocast():
+                out = F.batch_norm(x, rm, rv, w, b, training=True,
+                                   momentum=mod.momentum,
+                                   epsilon=mod.epsilon,
+                                   data_format=mod.data_format)
+            if backward:
+                out.backward(g)
+
+    def timed(backward):
+        """Device ms a round: the union of the kernels' intervals under
+        the profiler (a loop of single BatchNorms is host-bound, so
+        CUDA events would time the host)."""
+        run(backward)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                run(backward)
+            torch.cuda.synchronize()
+        busy, _ = _busy_us([e for e in prof.events()
+                            if chip_smoke.is_device_event(e)
+                            and e.name not in RANGES])
+        return busy / iters / 1e3
+
+    return {'layers': len(cases), 'fwd_ms_per_step': timed(False),
+            'fwd_bwd_ms_per_step': timed(True),
+            'input_bytes_per_step': sum(c[1].numel() * c[1].element_size()
+                                        for c in cases)}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--model', choices=('gpt', 'gpt_recipe', *BERT_RUN),
+    ap.add_argument('--model', choices=('gpt', 'gpt_recipe', *BERT_RUN,
+                                        'resnet50'),
                     default='gpt')
     ap.add_argument('--path', choices=('fused', 'eager'), default='fused')
     ap.add_argument('--steps', type=int, default=2)
@@ -240,8 +350,9 @@ def main():
     name = chip_smoke.device_phase()
     chip_smoke.build_phase()
     res = {'device': name,
-           'training': training_breakdown(args.model, args.steps,
-                                          path=args.path)}
+           'training': training_breakdown(
+               args.model, args.steps, path=args.path,
+               top=40 if args.model == 'resnet50' else 20)}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, 'w') as f:
         json.dump(res, f, indent=1)
