@@ -136,6 +136,29 @@ From the repository root, with one CUDA card.  It
    5 + 50 steps and the bench's loss anchor (``lenet``); none of these
    paths may launch a hand-written kernel (the reference has no Pallas
    kernel on them);
+   then the bench's last three configurations and the rest of the zoo:
+   Wide&Deep at bench.py's configuration (``widedeep``: 26 fields of
+   100 000 ids, embed 16, hidden 400-400-400, B 16384, bf16 O2, Adam):
+   2 + 10 eager steps with examples/s, peak memory and the idle share,
+   ``step_fused`` K 5 against two eager trainers bit for bit (under
+   ``torch.use_deterministic_algorithms`` if the eager pair differs),
+   one f32 step on the card against the CPU at the full configuration,
+   DeepFM 3 steps, no hand-written kernel launched; ``gpt_small`` at B
+   2 x T 4096 (``longctx``): 3 + 7 eager steps with exact flash (12 a
+   step, ``mma``) and LayerNorm (25) launches, then ``step_fused``
+   against eager as in 5; ``generate`` at B 8, prompts of 128, 128 new
+   tokens, greedy, f32 (``gptgen``): 1 + 5 calls, tokens/s, the idle
+   share, LayerNorm 25 a prefill and 25 a decode step exactly, the 8
+   streams against the ServingEngine's greedy streams of the same
+   prompts (a stream may part only where its top two logits lie within
+   1e-6); ERNIE 1.0 base at BERT run (a)'s configuration with token
+   types in 0..3 (``ernie``: softmax 12 and LayerNorm 26 a step);
+   VGG-16 at B 64, MobileNet v1 and v2 at B 256, 224 x 224 NCHW, bf16
+   O2, Momentum (``vision_zoo``): 2 + 3 steps each with ms/step,
+   imgs/s, MFU and the depthwise convolutions' device time, MobileNet
+   v2 also through ``step_fused`` against eager bit for bit, its 104
+   BatchNorm buffers included; the flash kernel row at 24 x 4096 x 64
+   bf16 causal joins the kernel comparison;
 9. trains ``gpt_small``'s widths at 2 layers in f32 (B 1, T 256) with
    each of the 11 optimizers (SGD, Momentum with Nesterov, Adagrad,
    Adadelta, RMSProp centered with momentum, Lars, Adam, AdamW, Adamax,
@@ -150,13 +173,16 @@ From the repository root, with one CUDA card.  It
    listing every kernel (its launches on each path, each path's counts
    set to 0 just before it and read just after, and per design where a
    kernel has two; the paths ``serve``, ``gpt_fused``, ``gpt_recipe``,
-   ``bert_dropout_fused`` and ``resnet_fused`` replay graphs,
-   ``optimizers`` half its steps; the vision paths count 0 of each),
+   ``bert_dropout_fused``, ``resnet_fused``, ``widedeep_fused``,
+   ``longctx_fused`` and ``mobilenet_v2_fused`` replay graphs,
+   ``optimizers`` half its steps; the vision and Wide&Deep paths count
+   0 of each),
    then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  Without a
 CUDA device it exits non-zero before printing any result.
 """
+import contextlib
 import json
 import math
 import statistics
@@ -185,8 +211,8 @@ KERNEL_SHAPES = [((64, 768), torch.float32, 1e-5),     # decode, S=64
                  ((512, 770), torch.float32, 1e-5)]    # H % 4 != 0: scalar
 
 # flash attention cases: (case, B, H, T, D, dtype, causal, with g_lse),
-# the first being GPT training's shape, the last BERT-base's (dropout
-# 0).  Tolerances (kernel vs its
+# the first being GPT training's shape, 'bert' BERT-base's (dropout 0),
+# 'longctx' GPT's at T 4096 (bench.py's longctx).  Tolerances (kernel vs its
 # own twin, |got - want| <= tol * (1 + |want|)): f32 1e-5 on o and lse
 # and 1e-4 on dq/dk/dv (online softmax and tile sums in another order
 # than the twin's whole-row matmuls); bf16 2e-2 on o/dq/dk/dv (both
@@ -202,7 +228,8 @@ FLASH_CASES = [('train', 8, 12, 1024, 64, torch.bfloat16, True, False),
                ('ragged_bf16', 8, 12, 200, 64, torch.bfloat16, True, False),
                ('d128_bf16', 4, 8, 512, 128, torch.bfloat16, True, False),
                ('bert', 64, 12, 128, 64, torch.bfloat16, False, False),
-               ('wide_bh', 4100, 16, 16, 32, torch.bfloat16, True, False)]
+               ('wide_bh', 4100, 16, 16, 32, torch.bfloat16, True, False),
+               ('longctx', 2, 12, 4096, 64, torch.bfloat16, True, False)]
 FLASH_TOL = {torch.float32: (1e-5, 1e-5, 1e-4),
              torch.bfloat16: (2e-2, 1e-4, 2e-2),
              torch.float16: (2e-2, 1e-4, 2e-2)}
@@ -388,6 +415,58 @@ RESNET50_NUDGE, RESNET50_GRAD_NORM_RTOL = 1e-7, 5e-2
 # 5 warm-up and 50 timed steps, then the bench's anchor: the loss one
 # step later finite and below 1.5 times the warm-up's last
 LENET_BATCH, LENET_LR, LENET_WARMUP, LENET_STEPS = 256, 1e-3, 5, 50
+
+# Wide&Deep, bench.py::bench_widedeep's configuration: 26 sparse fields
+# of 100 000 ids (Criteo-like), 13 dense features, embed 16, hidden
+# (400, 400, 400), BCEWithLogitsLoss, Adam lr 1e-3, n_inputs 2, bf16 O2
+# (use_pure_fp16), B 16384; ids, dense features and labels drawn from
+# RandomState(0) as bench.py draws them, one batch repeated.  Cut: 2
+# warm-up and 10 timed steps (the bench 5 + 30); step_fused K 5, 2
+# chunks, against two eager trainers; one f32 step on the card against
+# the CPU at the full configuration; DeepFM at the same configuration, 3
+# steps
+WD_FIELDS, WD_DENSE, WD_EMBED = [100_000] * 26, 13, 16
+WD_HIDDEN, WD_BATCH, WD_LR = (400, 400, 400), 16384, 1e-3
+WD_WARMUP, WD_STEPS, WD_K, DEEPFM_STEPS = 2, 10, 5, 3
+# bench.py::bench_longctx: gpt_small at T 4096 (dropout 0, fused head in
+# 8 chunks), AdamW lr 3e-4, bf16 O2, B 2.  Cut: 3 + 7 eager steps (the
+# bench 3 + 10), then step_fused K 5 against eager
+LONGCTX_MODEL_KW = dict(max_seq_len=4096, dropout=0.0, fused_head=True,
+                        fused_head_chunks=8)
+LONGCTX_BATCH, LONGCTX_SEQ, LONGCTX_WARMUP, LONGCTX_STEPS = 2, 4096, 3, 7
+# bench.py::bench_gptgen: gpt_small (max_seq_len 256, dropout 0) in eval,
+# f32, B 8, prompts of 128 ids from RandomState(0), 128 new tokens,
+# greedy, 1 + 5 calls of generate; the same prompts through the
+# ServingEngine (greedy) must give the same streams, or part only where
+# the top two logits lie within GEN_TIE_TOL (the paged-vs-dense bound
+# the tests hold, ROADMAP Queue 3)
+GEN_MODEL_KW = dict(max_seq_len=256, dropout=0.0)
+GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_CALLS = 8, 128, 128, 5
+GEN_TIE_TOL = 1e-6
+GEN_SERVE_KW = dict(block_size=16, max_slots=8, decode_span=8,
+                    prompt_buckets=(128,), batch_buckets=(8,),
+                    prefill_batch=8, max_model_len=256, temperature=0.0)
+# ERNIE 1.0 base (vocab 18000, type vocab 4, 513 positions) at BERT
+# run (a)'s configuration: B 64 x T 128, dropout 0.1, AdamW lr 1e-4,
+# bf16 O2, fused MLM head in 8 chunks, token types in 0..3, MLM labels
+# on 15% of positions; 1 + 4 steps
+ERNIE_MODEL_KW = dict(fused_head=True, fused_head_chunks=8)
+ERNIE_WARMUP, ERNIE_STEPS = 1, 4
+# the rest of the vision zoo at 224 x 224, bf16 O2, Momentum 0.9,
+# CrossEntropyLoss, 1000 classes, NCHW (the models' own layout), 2 + 3
+# steps each: (model, batch, learning rate, source of its configuration).
+# The MobileNets take ResNet's lr 0.1.  VGG-16 has no BatchNorm, and its
+# reference init gives logits of a large scale (a first loss of 12-18
+# over 1000 classes); on one repeated batch lr 0.1 takes its loss to
+# NaN within 5 steps and the paper's 0.01 up and down (12.3, 35.7,
+# 76.8, 27.6, 18.0 on the CPU at B 8 x 64 x 64), so it trains at 1e-3
+ZOO_MODELS = [('vgg16', 64, 1e-3, 'Simonyan & Zisserman 2014, '
+               'arXiv:1409.1556, config D'),
+              ('mobilenet_v1', 256, RESNET_LR, 'Howard et al. 2017, '
+               'arXiv:1704.04861, Table 1'),
+              ('mobilenet_v2', 256, RESNET_LR, 'Sandler et al. 2018, '
+               'arXiv:1801.04381, Table 2')]
+ZOO_IMAGE, ZOO_CLASSES, ZOO_WARMUP, ZOO_STEPS, ZOO_K = 224, 1000, 2, 3, 5
 
 
 def log(*args):
@@ -1326,7 +1405,7 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def _trainer(model, amp_o2, lr=TRAIN_LR, fused_steps=None):
+def _trainer(model, amp_o2, lr=TRAIN_LR, fused_steps=None, n_inputs=1):
     from paddle_tpu_torch.distributed.fleet import DistributedStrategy
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import ParallelTrainer
@@ -1336,7 +1415,8 @@ def _trainer(model, amp_o2, lr=TRAIN_LR, fused_steps=None):
         strategy.amp_configs['use_pure_fp16'] = True
     opt = AdamW(learning_rate=lr, parameters=model.parameters())
     return ParallelTrainer(model, opt, lambda out, y: model.loss(out, y),
-                           strategy=strategy, fused_steps=fused_steps)
+                           strategy=strategy, fused_steps=fused_steps,
+                           n_inputs=n_inputs)
 
 
 def _run_steps(trainer, batch, warmup, steps):
@@ -2108,12 +2188,12 @@ def resnet_batch():
             torch.from_numpy(y).to('cuda'))
 
 
-def resnet_step_flops(model, image, batch):
+def resnet_step_flops(model, image, batch, nchw=False):
     """(model flops of one training step, multiply-adds of one image's
-    forward): 2 x 3 x the multiply-adds of every conv and of the fc at
-    the shapes the code runs (forward hooks on one NHWC image in eval
-    mode): each output element of a conv takes in/groups x kh x kw
-    multiply-adds, of the fc ``in``."""
+    forward): 2 x 3 x the multiply-adds of every conv and of every
+    Linear at the shapes the code runs (forward hooks on one NHWC image,
+    NCHW with ``nchw``, in eval mode): each output element of a conv
+    takes in/groups x kh x kw multiply-adds, of a Linear ``in``."""
     from paddle_tpu_torch import nn
     macs = []
 
@@ -2129,7 +2209,8 @@ def resnet_step_flops(model, image, batch):
     was_training = model.training
     try:
         with torch.no_grad():
-            model.eval()(torch.zeros(1, image, image, 3, device='cuda'))
+            shape = (1, 3, image, image) if nchw else (1, image, image, 3)
+            model.eval()(torch.zeros(shape, device='cuda'))
     finally:
         for h in hooks:
             h.remove()
@@ -2157,7 +2238,7 @@ def resnet_phase():
     """ResNet-50 at the bench's configuration through
     ``ParallelTrainer.step``: timed steps, the idle share, one
     ``eval_step`` on the running statistics, then ``step_fused``
-    (``_resnet_fused``)."""
+    (``_graph_vs_eager``)."""
     x, y = resnet_batch()
     trainer = _resnet_trainer()
     model = trainer.model
@@ -2214,7 +2295,9 @@ def resnet_phase():
                'launches': launches}
     del trainer, model, out
     _free()
-    summary['fused'] = _resnet_fused(x, y, flops)
+    summary['fused'] = _graph_vs_eager(
+        'resnet_fused', _resnet_trainer, (x, y), RESNET_K, RESNET_BATCH,
+        'imgs', flops, 'cudnn.deterministic', _cudnn_deterministic)
     return summary
 
 
@@ -2244,23 +2327,56 @@ def _state_of(trainer):
             for n, t in trainer.model.state_dict().items()}
 
 
-def _resnet_fused(x, y, flops):
-    """``step_fused`` (K RESNET_K, 2 chunks) against two eager trainers
-    from the same seed on the same batch: losses, parameters and every
-    BatchNorm buffer bit for bit.  Where the two eager trainers differ
-    (cuDNN may pick algorithms that reduce with atomics), all three run
-    again under ``torch.backends.cudnn.deterministic = True``, and the
-    run says so."""
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+@contextlib.contextmanager
+def _deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)``; cuBLAS needs a fixed
+    workspace for it."""
+    import os
+    prev = os.environ.get('CUBLAS_WORKSPACE_CONFIG')
+    os.environ['CUBLAS_WORKSPACE_CONFIG'] = ':4096:8'
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prev is None:
+            del os.environ['CUBLAS_WORKSPACE_CONFIG']
+        else:
+            os.environ['CUBLAS_WORKSPACE_CONFIG'] = prev
+
+
+def _graph_vs_eager(what, make_trainer, batch, k, items, unit, flops,
+                    fallback_name, fallback):
+    """``step_fused`` (K ``k``, 2 chunks) of ``make_trainer(fused_steps=
+    k)`` against two eager trainers (``make_trainer()``), each built
+    after ``paddle_tpu_torch.seed(0)``, on the same batch: losses,
+    parameters and every buffer bit for bit.  Where the two eager
+    trainers differ, all three run again under the context
+    ``fallback()`` (``fallback_name`` in the log), and the run says so.
+    ``items`` of ``unit`` a step; ``flops`` a step for the MFU."""
+    import paddle_tpu_torch
     from paddle_tpu_torch.ops import _build
-    k = RESNET_K
-    xs, ys = torch.stack([x] * k), torch.stack([y] * k)
+    chunk = tuple(torch.stack([b] * k) for b in batch)
+
+    def trainer(**kw):
+        paddle_tpu_torch.seed(0)
+        return make_trainer(**kw)
 
     def eager():
-        tr = _resnet_trainer()
-        losses = [tr.step(x, y) for _ in range(k)]
+        tr = trainer()
+        losses = [tr.step(*batch) for _ in range(k)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses += [tr.step(x, y) for _ in range(k)]
+        losses += [tr.step(*batch) for _ in range(k)]
         torch.cuda.synchronize()
         out = torch.stack(losses), _state_of(tr), time.perf_counter() - t0
         del tr
@@ -2275,30 +2391,28 @@ def _resnet_fused(x, y, flops):
     spread = differing(want_s, again_s)
     deterministic = bool(spread) or not _same(want_l, again_l)
     if deterministic:
-        log(f'resnet_fused: two eager trainers differ (losses '
+        log(f'{what}: two eager trainers differ (losses '
             f'{float((want_l - again_l).abs().max()):.3e}, {len(spread)} '
-            f'tensors, first {spread[:3]}); again under '
-            'torch.backends.cudnn.deterministic = True')
-        torch.backends.cudnn.deterministic = True
-    try:
+            f'tensors, first {spread[:3]}); again under {fallback_name}')
+    with fallback() if deterministic else contextlib.nullcontext():
         if deterministic:
             want_l, want_s, eager_dt = eager()
             again_l, again_s, _ = eager()
             spread = differing(want_s, again_s)
             if spread or not _same(want_l, again_l):
                 raise AssertionError(
-                    f'resnet_fused: eager trainers differ under '
-                    f'cudnn.deterministic: {spread[:5]}')
-        tr = _resnet_trainer(fused_steps=k)
+                    f'{what}: eager trainers differ under {fallback_name}: '
+                    f'{spread[:5]}')
+        tr = trainer(fused_steps=k)
         _build.reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        first = tr.step_fused(xs, ys)
+        first = tr.step_fused(*chunk)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         t1 = time.perf_counter()
-        second = tr.step_fused(xs, ys)
+        second = tr.step_fused(*chunk)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t1
         launches = launch_counts()
@@ -2309,42 +2423,41 @@ def _resnet_fused(x, y, flops):
         off = differing(want_s, got_s)
         if off or not _same(got_l, want_l):
             raise AssertionError(
-                f'resnet_fused: step_fused vs eager: losses differ by '
+                f'{what}: step_fused vs eager: losses differ by '
                 f'{float((got_l - want_l).abs().max()):.3e}; {len(off)} '
                 f'tensors differ, first {off[:5]}')
         if graph.replays != 2 * k - 1 or tr._step_no != 2 * k:
-            raise AssertionError(f'resnet_fused: {graph.replays} replays, '
+            raise AssertionError(f'{what}: {graph.replays} replays, '
                                  f'step {tr._step_no}')
         losses = [float(v) for v in got_l]
-        _check_losses('resnet_fused', losses)
-        _no_kernel_launches('resnet_fused', launches)
-        idle, prof_s = idle_share(lambda: tr.step_fused(xs, ys))
-    finally:
-        torch.backends.cudnn.deterministic = False
-    n_bufs = sum(1 for n in got_s if n.endswith(('._mean', '._variance')))
+        _check_losses(what, losses)
+        _no_kernel_launches(what, launches)
+        idle, prof_s = idle_share(lambda: tr.step_fused(*chunk))
+    n_bufs = sum(1 for _ in tr.model.buffers() if _.is_floating_point())
     ms_step = dt / k * 1e3
     mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
-    log(f'resnet_fused: step_fused K {k} == {2 * k} eager steps bit for bit'
-        f' (losses, every parameter and all {n_bufs} BatchNorm buffers; '
+    log(f'{what}: step_fused K {k} == {2 * k} eager steps bit for bit'
+        f' (losses, every parameter and all {n_bufs} float buffers; '
         f'eager vs eager equal too'
-        + (', under cudnn.deterministic' if deterministic else '')
+        + (f', under {fallback_name}' if deterministic else '')
         + f'); losses {", ".join(f"{v:.4f}" for v in losses)}; no ported '
         f'kernel launched')
-    log(f'resnet_fused: first chunk (warm-up step + capture '
+    log(f'{what}: first chunk (warm-up step + capture '
         f'{graph.capture_s:.3f} s + {k - 1} replays) {first_s:.2f} s; {k} '
         f'replayed steps in {dt:.3f} s = {ms_step:.1f} ms/step (eager '
         f'{eager_dt / k * 1e3:.1f} in this call), '
-        f'{RESNET_BATCH * k / dt:.0f} imgs/s, MFU {mfu:.4f}; idle share '
+        f'{items * k / dt:.0f} {unit}/s, MFU {mfu:.4f}; idle share '
         f'{idle:.4f} under the profiler ({prof_s / k * 1e3:.1f} ms/step '
         f'there); peak max_memory_allocated {peak / 2**30:.2f} GiB')
     out = {'k': k, 'ms_per_step': ms_step,
            'eager_ms_per_step': eager_dt / k * 1e3,
-           'imgs_per_s': RESNET_BATCH * k / dt, 'mfu': mfu,
+           f'{unit}_per_s': items * k / dt, 'mfu': mfu,
            'idle_share': idle, 'profiled_ms_per_step': prof_s / k * 1e3,
            'peak_bytes': peak, 'capture_s': graph.capture_s,
            'first_chunk_s': first_s, 'losses': losses,
-           'bit_for_bit': True, 'bn_buffers_compared': n_bufs,
-           'cudnn_deterministic': deterministic, 'launches': launches}
+           'bit_for_bit': True, 'float_buffers_compared': n_bufs,
+           'deterministic_fallback': fallback_name if deterministic
+           else None, 'launches': launches}
     del tr, graph, got_s, want_s, again_s
     _free()
     return out
@@ -2595,6 +2708,485 @@ def lenet_phase():
             'loss_warm': l0, 'loss_after': l1, 'launches': launches}
 
 
+def widedeep_batch():
+    """bench.py's Wide&Deep batch: RandomState(0) ids (one column per
+    field), dense features and labels, on the card."""
+    rs = np.random.RandomState(0)
+    ids = np.stack([rs.randint(0, f, size=WD_BATCH) for f in WD_FIELDS],
+                   axis=1).astype(np.int64)
+    dense = rs.rand(WD_BATCH, WD_DENSE).astype(np.float32)
+    y = rs.randint(0, 2, size=(WD_BATCH, 1)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to('cuda') for a in (ids, dense, y))
+
+
+def _widedeep_model(cls, device):
+    from paddle_tpu_torch import models
+    kw = dict(dense_dim=WD_DENSE, embed_dim=WD_EMBED, hidden=WD_HIDDEN,
+              device=device, seed=0)
+    return getattr(models, cls)(WD_FIELDS, **kw)
+
+
+def _bce_adam_trainer(model, amp_o2, fused_steps=None):
+    """bench.py's Wide&Deep trainer of ``model``: Adam, BCEWithLogitsLoss,
+    n_inputs 2, bf16 O2 (``use_pure_fp16``) or f32."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import ParallelTrainer
+    strategy = DistributedStrategy()
+    if amp_o2:
+        strategy.amp = True
+        strategy.amp_configs['use_pure_fp16'] = True
+    bce = nn.BCEWithLogitsLoss()
+    return ParallelTrainer(model, Adam(learning_rate=WD_LR,
+                                       parameters=model.parameters()),
+                           lambda out, y: bce(out, y), n_inputs=2,
+                           strategy=strategy, fused_steps=fused_steps)
+
+
+def _widedeep_trainer(cls='WideDeep', fused_steps=None):
+    return _bce_adam_trainer(_widedeep_model(cls, 'cuda'), True,
+                             fused_steps)
+
+
+def widedeep_phase():
+    """Wide&Deep at bench.py's configuration through
+    ``ParallelTrainer.step`` (timed, the idle share), ``step_fused``
+    against eager, one f32 step on the card against the CPU, then
+    DeepFM at the same configuration."""
+    batch = widedeep_batch()
+    trainer = _widedeep_trainer()
+    model = trainer.model
+    n_params = sum(p.numel() for p in model.parameters())
+    rows = sum(WD_FIELDS)
+    log(f'widedeep model: WideDeep({len(WD_FIELDS)} fields x '
+        f'{WD_FIELDS[0]} ids = {rows} rows, dense {WD_DENSE}, embed '
+        f'{WD_EMBED}, hidden {WD_HIDDEN}), {n_params} parameters, seed 0; '
+        f'B {WD_BATCH}, bf16 O2, Adam lr {WD_LR}, BCEWithLogitsLoss')
+    losses, launches, warm_s, dt, peak = _run_steps(
+        trainer, batch, WD_WARMUP, WD_STEPS)
+    _check_losses('widedeep', losses)
+    _no_kernel_launches('widedeep', launches)
+    ms_step = dt / WD_STEPS * 1e3
+    examples = WD_BATCH * WD_STEPS / dt
+    # the MLPs' matmuls: 6 flops a weight and an example (the gathers and
+    # the tables' update are bytes, not operations)
+    flops = 6 * WD_BATCH * sum(p.numel() for n, p in model.named_parameters()
+                               if n.startswith(('deep.', 'dense_linear.')))
+    mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
+    idle, prof_s = idle_share(lambda: [trainer.step(*batch)
+                                       for _ in range(2)])
+    log(f'widedeep: losses {", ".join(f"{v:.4f}" for v in losses)} '
+        f'(finite, falling); no ported kernel launched')
+    log(f'widedeep: warm-up {WD_WARMUP} steps {warm_s:.2f} s; {WD_STEPS} '
+        f'steps in {dt:.3f} s = {ms_step:.2f} ms/step, {examples:.0f} '
+        f'examples/s (widedeep_sparse_train_throughput), MFU {mfu:.4f} '
+        f'(6 * the MLPs\' {flops / 6 / WD_BATCH:.0f} weights * B); peak '
+        f'max_memory_allocated {peak / 2**30:.2f} GiB; idle share '
+        f'{idle:.4f} under the profiler ({prof_s / 2 * 1e3:.2f} ms/step '
+        f'there)')
+    summary = {'ms_per_step': ms_step, 'examples_per_s': examples,
+               'n_params': n_params, 'mfu': mfu, 'peak_bytes': peak,
+               'idle_share': idle, 'profiled_ms_per_step': prof_s / 2 * 1e3,
+               'losses': losses, 'warmup_s': warm_s, 'launches': launches}
+    del trainer, model
+    _free()
+    summary['fused'] = _graph_vs_eager(
+        'widedeep_fused', _widedeep_trainer, batch, WD_K, WD_BATCH,
+        'examples', flops, 'torch.use_deterministic_algorithms',
+        _deterministic_algorithms)
+    summary['parity'] = _widedeep_parity(batch)
+    summary['deepfm'] = _deepfm_steps(batch)
+    return summary
+
+
+def _widedeep_parity(batch):
+    """One f32 Adam step of Wide&Deep at the full configuration on the
+    card and on the CPU from the same weights: the loss within
+    PARITY_LOSS_RTOL, each gradient's max |diff| within PARITY_GRAD_RTOL
+    of its max |value|, on the card's ReLU branches.  Of the MLP's
+    16384 x 1200 ReLU inputs a few lie within the two devices' rounding
+    of 0 and take one side on the card and the other on the CPU; each
+    such example's path, and so its 26 embedding rows, then gets another
+    gradient (a row's gradient comes from one or two examples).  So the
+    CPU's ReLUs take the card's masks (``x * mask``, the same forward
+    but at those few inputs, within rounding of 0), and the run reports
+    how many inputs and examples parted."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.ops import _build
+    got, masks, parted = [], [], []
+    for card, dev in ((True, 'cuda'), (False, 'cpu')):
+        model = _widedeep_model('WideDeep', dev)
+        relus = [m for m in model.deep if isinstance(m, nn.ReLU)]
+        if card:
+            hooks = [m.register_forward_hook(
+                lambda m, i, o: masks.append(o > 0)) for m in relus]
+        else:
+            def forced(m, inputs, out, k=iter(range(len(relus)))):
+                mask = masks[next(k)].cpu()
+                parted.append(mask != (inputs[0] > 0))
+                return inputs[0] * mask.to(inputs[0].dtype)
+            hooks = [m.register_forward_hook(forced) for m in relus]
+        trainer = _bce_adam_trainer(model, amp_o2=False)
+        _build.reset_launches()
+        loss = trainer.loss_float(trainer.step(*(b.to(dev) for b in batch)))
+        got.append((loss, {n: p.grad.detach().cpu()
+                           for n, p in model.named_parameters()},
+                    launch_counts()))
+        for h in hooks:
+            h.remove()
+        del model, trainer
+    (l_card, g_card, launches), (l_cpu, g_cpu, _) = got
+    _no_kernel_launches('widedeep parity', launches)
+    flips = torch.cat(parted, dim=1)
+    n_inputs, n_examples = int(flips.sum()), int(flips.any(1).sum())
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    worst, worst_name = 0.0, None
+    for name, want in g_cpu.items():
+        rel = float((g_card[name] - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f'parity: f32 step WideDeep full configuration B {WD_BATCH}, card '
+        f'vs CPU on the card\'s ReLU branches ({n_inputs} of '
+        f'{flips.numel()} ReLU inputs, in {n_examples} examples, took the '
+        f'other side on the CPU): loss {l_card:.6f} vs {l_cpu:.6f} (rel '
+        f'{loss_rel:.3e}, tol {PARITY_LOSS_RTOL}); worst gradient '
+        f'{worst_name} max |diff| / max |grad| {worst:.3e} (tol '
+        f'{PARITY_GRAD_RTOL}); no ported kernel launched')
+    if not (loss_rel <= PARITY_LOSS_RTOL and worst <= PARITY_GRAD_RTOL):
+        raise AssertionError(
+            f'widedeep f32 step, card vs CPU: loss rel {loss_rel:.3e}, '
+            f'worst gradient {worst_name} rel {worst:.3e}')
+    return {'loss_rel': loss_rel, 'worst_grad_rel': worst,
+            'worst_grad': worst_name, 'relu_inputs_parted': n_inputs,
+            'examples_parted': n_examples}
+
+
+def _deepfm_steps(batch):
+    tr = _widedeep_trainer('DeepFM')
+    losses, launches, warm_s, dt, peak = _run_steps(tr, batch, 1,
+                                                    DEEPFM_STEPS - 1)
+    _check_losses('deepfm', losses)
+    _no_kernel_launches('deepfm', launches)
+    ms_step = dt / (DEEPFM_STEPS - 1) * 1e3
+    idle, _ = idle_share(lambda: tr.step(*batch))
+    log(f'deepfm: same configuration, {DEEPFM_STEPS} steps: losses '
+        f'{", ".join(f"{v:.4f}" for v in losses)} (finite, falling); '
+        f'{ms_step:.2f} ms/step after the first, '
+        f'{WD_BATCH / ms_step * 1e3:.0f} examples/s; peak '
+        f'{peak / 2**30:.2f} GiB; idle share {idle:.4f} under the '
+        f'profiler; no ported kernel launched')
+    del tr
+    _free()
+    return {'ms_per_step': ms_step, 'examples_per_s': WD_BATCH / ms_step
+            * 1e3, 'losses': losses, 'peak_bytes': peak,
+            'idle_share': idle, 'launches': launches}
+
+
+def longctx_phase():
+    """gpt_small at T 4096, bench.py's longctx: eager steps with exact
+    flash and LayerNorm launches, then ``step_fused`` against eager."""
+    from paddle_tpu_torch.models.gpt import gpt_small
+    model = gpt_small(device='cuda', seed=0, **LONGCTX_MODEL_KW)
+    cfg = model.config
+    L = cfg.num_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f'longctx model: gpt_small max_seq_len {cfg.max_seq_len}, '
+        f'{n_params} parameters, seed 0; B {LONGCTX_BATCH}, T '
+        f'{LONGCTX_SEQ}, bf16 O2, fused head in {cfg.fused_head_chunks} '
+        f'chunks, AdamW lr {TRAIN_LR}')
+    trainer = _trainer(model, amp_o2=True)
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (LONGCTX_BATCH, LONGCTX_SEQ)).astype(np.int64)
+    losses, launches, warm_s, dt, peak = _run_steps(
+        trainer, (ids, ids), LONGCTX_WARMUP, LONGCTX_STEPS)
+    steps = LONGCTX_WARMUP + LONGCTX_STEPS
+    per_step = _per_step(L, 2 * L + 1, flash=1)
+    _check_run('longctx', losses, launches, per_step, steps)
+    tokens = LONGCTX_BATCH * LONGCTX_SEQ
+    ms_step = dt / LONGCTX_STEPS * 1e3
+    flops, attn = gpt_step_flops(cfg, n_params, LONGCTX_BATCH, LONGCTX_SEQ)
+    mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
+    log(f'longctx: losses {", ".join(f"{x:.4f}" for x in losses)} (finite,'
+        f' falling); launches {_launch_summary(launches, per_step, steps)}')
+    log(f'longctx: warm-up {LONGCTX_WARMUP} steps {warm_s:.2f} s; '
+        f'{LONGCTX_STEPS} steps in {dt:.3f} s = {ms_step:.1f} ms/step, '
+        f'{tokens * LONGCTX_STEPS / dt:.0f} tokens/s; peak '
+        f'max_memory_allocated {peak / 2**30:.2f} GiB; MFU {mfu:.4f} = (6 '
+        f'* {n_params} params * {tokens} tokens + {attn:.4g} attention '
+        f'flops) / (step time * 989e12)')
+    summary = {'ms_per_step': ms_step,
+               'tokens_per_s': tokens * LONGCTX_STEPS / dt,
+               'peak_bytes': peak, 'mfu': mfu, 'losses': losses,
+               'warmup_s': warm_s, 'launches': launches}
+    del model, trainer
+    _free()
+    summary['fused'] = _fused_vs_eager(
+        f'longctx_fused (gpt_small B {LONGCTX_BATCH} T {LONGCTX_SEQ}, bf16 '
+        'O2)', lambda: gpt_small(device='cuda', seed=0, **LONGCTX_MODEL_KW),
+        (ids, ids), TRAIN_LR, per_step, tokens,
+        lambda cfg, n: gpt_step_flops(cfg, n, LONGCTX_BATCH, LONGCTX_SEQ))
+    return summary
+
+
+def _top2_gap(model, stream):
+    """The gap between the two largest logits after ``stream`` (1-D ids),
+    from the uncached forward."""
+    with torch.no_grad():
+        logits = model(torch.as_tensor(stream, device='cuda')[None])[0, -1]
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def gptgen_phase():
+    """``generate`` at bench.py's gptgen configuration, an eager Python
+    loop over the dense cache: tokens/s, the idle share, exact LayerNorm
+    launches per prefill and per decode step, and the 8 greedy streams
+    against the ServingEngine's of the same prompts and weights."""
+    from paddle_tpu_torch.models.gpt import gpt_small
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.serving import Request, ServeConfig, ServingEngine
+    model = gpt_small(device='cuda', seed=0, **GEN_MODEL_KW).eval()
+    cfg = model.config
+    L = cfg.num_layers
+    per_forward = 2 * L + 1
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT)).astype(np.int64)
+    log(f'gptgen model: gpt_small max_seq_len {cfg.max_seq_len}, f32, '
+        f'eval, seed 0; B {GEN_BATCH}, prompt {GEN_PROMPT}, '
+        f'{GEN_NEW} new tokens, greedy, 1 + {GEN_CALLS} calls of generate')
+    # one prefill and one decode step alone: LayerNorm launches each
+    caches = model.init_decode_caches(GEN_BATCH, GEN_PROMPT + GEN_NEW)
+    _build.reset_launches()
+    logits, caches = model.prefill(torch.from_numpy(ids).cuda(), 0, caches)
+    torch.cuda.synchronize()
+    per_prefill = launch_counts()
+    _build.reset_launches()
+    model.decode_step(logits[:, -1:].argmax(-1), GEN_PROMPT, caches)
+    torch.cuda.synchronize()
+    per_decode = launch_counts()
+    for what, counts in (('prefill', per_prefill), ('decode step',
+                                                    per_decode)):
+        ran = {k: n for k, n in counts.items() if n}
+        want = {'fused_layer_norm': per_forward,
+                'fused_layer_norm:warp': per_forward}
+        if ran != want:
+            raise AssertionError(f'gptgen: a {what} launched {ran}, '
+                                 f'expected {want}')
+    del caches, logits
+    t0 = time.perf_counter()
+    out = model.generate(ids, GEN_NEW, temperature=0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    # the main path: counts at 0 just before, read just after
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    for i in range(GEN_CALLS):
+        again = model.generate(ids, GEN_NEW, temperature=0, seed=i)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.equal(again, out):
+        raise AssertionError('gptgen: greedy generate changed between calls')
+    want = per_forward * GEN_NEW * GEN_CALLS
+    ran = {k: n for k, n in launches.items() if n}
+    if ran != {'fused_layer_norm': want, 'fused_layer_norm:warp': want}:
+        raise AssertionError(f'gptgen: {GEN_CALLS} calls launched {ran}, '
+                             f'expected fused_layer_norm {want}')
+    out = out.cpu()
+    if tuple(out.shape) != (GEN_BATCH, GEN_PROMPT + GEN_NEW) or not \
+            torch.equal(out[:, :GEN_PROMPT], torch.from_numpy(ids)):
+        raise AssertionError(f'gptgen: output {tuple(out.shape)}')
+    tokens_s = GEN_BATCH * GEN_NEW * GEN_CALLS / dt
+    idle, prof_s = idle_share(lambda: model.generate(ids, GEN_NEW,
+                                                     temperature=0))
+    log(f'gptgen: {GEN_CALLS} calls in {dt:.3f} s = {tokens_s:.1f} tokens/s '
+        f'decoded ({dt / GEN_CALLS * 1e3:.1f} ms a call, '
+        f'{dt / GEN_CALLS / GEN_NEW * 1e3:.3f} ms a token step; first call '
+        f'{warm_s:.2f} s); idle share {idle:.4f} under the profiler '
+        f'({prof_s * 1e3:.1f} ms a call there); peak max_memory_allocated '
+        f'{peak / 2**30:.3f} GiB; fused_layer_norm {per_forward} a prefill '
+        f'and {per_forward} a decode step, {want} in {GEN_CALLS} calls '
+        f'(exact, warp design), no flash (the cached prefill takes the '
+        f'plain attention)')
+    # the same prompts through the serving engine, greedy
+    eng = ServingEngine(model, ServeConfig(**GEN_SERVE_KW))
+    eng.warmup()
+    reqs = [Request(f'gen{i}', ids[i], GEN_NEW) for i in range(GEN_BATCH)]
+    eng.run(reqs)
+    if any(r.state != Request.DONE for r in reqs):
+        raise AssertionError('gptgen: not every engine request is DONE')
+    parted = []
+    for i, r in enumerate(reqs):
+        ref = out[i, GEN_PROMPT:].tolist()
+        if r.tokens == ref:
+            continue
+        pos = next(j for j, (a, b) in enumerate(zip(r.tokens, ref))
+                   if a != b)
+        gap = _top2_gap(model, out[i, :GEN_PROMPT + pos])
+        parted.append({'stream': i, 'position': pos, 'top2_gap': gap})
+        log(f'gptgen: stream {i} parts from the engine\'s at new token '
+            f'{pos}; the top two logits there lie {gap:.3e} apart (bound '
+            f'{GEN_TIE_TOL})')
+        if gap > GEN_TIE_TOL:
+            raise AssertionError(f'gptgen: stream {i} parts from the '
+                                 f'engine at {pos} with a top-2 gap {gap}')
+    log(f'gptgen: the engine\'s greedy streams of the same {GEN_BATCH} '
+        f'prompts equal generate\'s in '
+        f'{GEN_BATCH - len(parted)} of {GEN_BATCH}, every token')
+    del eng, model
+    _free()
+    return {'tokens_per_s': tokens_s, 'ms_per_call': dt / GEN_CALLS * 1e3,
+            'first_call_s': warm_s, 'idle_share': idle,
+            'profiled_ms_per_call': prof_s * 1e3, 'peak_bytes': peak,
+            'layer_norm_per_prefill': per_forward,
+            'layer_norm_per_decode_step': per_forward,
+            'streams_parted': parted, 'launches': launches}
+
+
+def ernie_phase():
+    """ERNIE 1.0 base at BERT run (a)'s configuration, token types in
+    0..3, through ``ParallelTrainer.step``."""
+    from paddle_tpu_torch.models.ernie import ernie_base
+    model = ernie_base(device='cuda', seed=0, dropout=BERT_RUNS[0][1],
+                       **ERNIE_MODEL_KW)
+    cfg = model.config
+    L = cfg.num_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = _trainer(model, amp_o2=True, lr=BERT_LR, n_inputs=2)
+    ids, lbl = bert_batch(cfg.vocab_size, BERT_BATCH, BERT_SEQ)
+    types = np.random.RandomState(1).randint(
+        0, cfg.type_vocab_size, (BERT_BATCH, BERT_SEQ)).astype(np.int64)
+    losses, launches, warm_s, dt, peak = _run_steps(
+        trainer, (ids, types, lbl), ERNIE_WARMUP, ERNIE_STEPS)
+    steps = ERNIE_WARMUP + ERNIE_STEPS
+    per_step = _per_step(L, 2 * L + 2, softmax=1)
+    _check_run('ernie', losses, launches, per_step, steps)
+    tokens = BERT_BATCH * BERT_SEQ
+    ms_step = dt / ERNIE_STEPS * 1e3
+    flops, attn = bert_step_flops(cfg, n_params, BERT_BATCH, BERT_SEQ)
+    mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
+    idle, prof_s = idle_share(lambda: trainer.step(ids, types, lbl))
+    log(f'ernie model: ernie_base vocab {cfg.vocab_size}, type vocab '
+        f'{cfg.type_vocab_size}, hidden {cfg.hidden_size}, layers {L}, '
+        f'max_seq_len {cfg.max_seq_len}, dropout {cfg.dropout}, {n_params} '
+        f'parameters, seed 0; B {BERT_BATCH}, T {BERT_SEQ}, token types in '
+        f'0..{cfg.type_vocab_size - 1}, bf16 O2, AdamW lr {BERT_LR}')
+    log(f'ernie: losses {", ".join(f"{x:.4f}" for x in losses)} (finite, '
+        f'falling); launches {_launch_summary(launches, per_step, steps)}')
+    log(f'ernie: warm-up {ERNIE_WARMUP} step {warm_s:.2f} s; {ERNIE_STEPS} '
+        f'steps in {dt:.3f} s = {ms_step:.1f} ms/step, '
+        f'{tokens * ERNIE_STEPS / dt:.0f} tokens/s; peak '
+        f'max_memory_allocated {peak / 2**30:.2f} GiB; MFU {mfu:.4f}; idle '
+        f'share {idle:.4f} under the profiler ({prof_s * 1e3:.1f} ms/step '
+        'there)')
+    del model, trainer
+    _free()
+    return {'ms_per_step': ms_step, 'tokens_per_s': tokens * ERNIE_STEPS
+            / dt, 'peak_bytes': peak, 'mfu': mfu, 'idle_share': idle,
+            'losses': losses, 'warmup_s': warm_s, 'launches': launches}
+
+
+def _zoo_trainer(name, lr, fused_steps=None):
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import models
+    model = getattr(models, name)(num_classes=ZOO_CLASSES, device='cuda',
+                                  seed=0)
+    opt = Momentum(learning_rate=lr, momentum=RESNET_MOMENTUM,
+                   parameters=model.parameters())
+    return _vision_trainer(model, opt, amp_o2=True, fused_steps=fused_steps)
+
+
+def zoo_batch(batch):
+    """NCHW images drawn in f32 and rounded to bf16, and labels, from
+    RandomState(0), on the card."""
+    rs = np.random.RandomState(0)
+    x = rs.randn(batch, 3, ZOO_IMAGE, ZOO_IMAGE).astype(np.float32)
+    y = rs.randint(0, ZOO_CLASSES, size=(batch, 1)).astype(np.int64)
+    return (torch.from_numpy(x).to('cuda', torch.bfloat16),
+            torch.from_numpy(y).to('cuda'))
+
+
+def _depthwise_ms(trainer, batch):
+    """(device ms a step of the kernels whose name says depthwise, of
+    all kernels, the depthwise kernels' names) over one eager step under
+    the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.step(*batch)
+        torch.cuda.synchronize()
+    dw, total, names = 0.0, 0.0, set()
+    for e in prof.events():
+        if not is_device_event(e) or e.name in ANNOTATIONS:
+            continue
+        us = e.time_range.end - e.time_range.start
+        total += us
+        if 'depthwise' in e.name.lower() or 'dwconv' in e.name.lower():
+            dw += us
+            names.add(e.name[:100])
+    return dw / 1e3, total / 1e3, sorted(names)
+
+
+def vision_zoo_phase():
+    """VGG-16, MobileNet v1 and v2 at 224 x 224 through
+    ``ParallelTrainer.step`` (bf16 O2, Momentum), and MobileNet v2
+    through ``step_fused`` against eager, BatchNorm buffers included."""
+    out = {}
+    for name, batch_size, lr, source in ZOO_MODELS:
+        batch = zoo_batch(batch_size)
+        trainer = _zoo_trainer(name, lr)
+        model = trainer.model
+        n_params = sum(p.numel() for p in model.parameters())
+        n_bufs = sum(1 for b in model.buffers() if b.is_floating_point())
+        flops, macs = resnet_step_flops(model, ZOO_IMAGE, batch_size,
+                                        nchw=True)
+        losses, launches, warm_s, dt, peak = _run_steps(
+            trainer, batch, ZOO_WARMUP, ZOO_STEPS)
+        _check_losses(name, losses)
+        _no_kernel_launches(name, launches)
+        ms_step = dt / ZOO_STEPS * 1e3
+        imgs = batch_size * ZOO_STEPS / dt
+        mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
+        idle, prof_s = idle_share(lambda: trainer.step(*batch))
+        dw_ms, dev_ms, dw_names = _depthwise_ms(trainer, batch)
+        log(f'{name} model ({source}): {n_params} parameters, {n_bufs} '
+            f'BatchNorm buffers, seed 0; B {batch_size} x 3 x {ZOO_IMAGE} x '
+            f'{ZOO_IMAGE} bf16 NCHW, bf16 O2, Momentum lr {lr} momentum '
+            f'{RESNET_MOMENTUM}; {macs / 1e9:.4f} G multiply-adds an image')
+        log(f'{name}: losses {", ".join(f"{v:.4f}" for v in losses)} '
+            f'(finite, falling); no ported kernel launched; warm-up '
+            f'{ZOO_WARMUP} steps {warm_s:.2f} s; {ZOO_STEPS} steps in '
+            f'{dt:.3f} s = {ms_step:.1f} ms/step, {imgs:.0f} imgs/s, MFU '
+            f'{mfu:.4f}; peak max_memory_allocated {peak / 2**30:.2f} GiB; '
+            f'idle share {idle:.4f} under the profiler ({prof_s * 1e3:.1f} '
+            f'ms/step there)')
+        log(f'{name}: depthwise convolution kernels {dw_ms:.2f} ms of '
+            f'{dev_ms:.2f} device ms a step ({len(dw_names)} kernel names'
+            + (f': {"; ".join(dw_names[:4])}' if dw_names else '') + ')')
+        out[name] = {'batch': batch_size, 'lr': lr, 'source': source,
+                     'ms_per_step': ms_step, 'imgs_per_s': imgs, 'mfu': mfu,
+                     'macs_per_image': macs, 'peak_bytes': peak,
+                     'idle_share': idle, 'depthwise_device_ms': dw_ms,
+                     'device_ms_per_step': dev_ms, 'losses': losses,
+                     'warmup_s': warm_s, 'launches': launches}
+        del trainer, model
+        _free()
+        if name == 'mobilenet_v2':
+            out[name]['fused'] = _graph_vs_eager(
+                'mobilenet_v2_fused',
+                lambda **kw: _zoo_trainer(name, lr, **kw), batch, ZOO_K,
+                batch_size, 'imgs', flops, 'cudnn.deterministic',
+                _cudnn_deterministic)
+        del batch
+        _free()
+    return out
+
+
 def optimizers_phase():
     """Every optimizer of the family on gpt_small's widths at 2 layers,
     f32: 4 guarded steps on the card against the same on the CPU, and
@@ -2706,15 +3298,23 @@ def main():
     resnet = resnet_phase()
     resnet_parity = resnet_parity_phase()
     lenet = lenet_phase()
+    widedeep = widedeep_phase()
+    longctx = longctx_phase()
+    gptgen = gptgen_phase()
+    ernie = ernie_phase()
+    zoo = vision_zoo_phase()
     optimizers = optimizers_phase()
     log(json.dumps({'serve': serve, 'train': train, 'gpt_fused': gpt_fused,
                     'gpt_recipe': gpt_recipe,
                     'gpt_dropout': gpt_dropout, 'gpt_f16': gpt_f16,
                     'bert': bert, 'bert_dropout_fused': bert_fused,
                     'resnet': resnet, 'resnet_parity': resnet_parity,
-                    'lenet': lenet, 'optimizers': optimizers}))
+                    'lenet': lenet, 'widedeep': widedeep,
+                    'longctx': longctx, 'gptgen': gptgen, 'ernie': ernie,
+                    'vision_zoo': zoo, 'optimizers': optimizers}))
     # 'serve', 'gpt_fused', 'gpt_recipe', 'bert_dropout_fused',
-    # 'resnet_fused' and half of 'optimizers' replay CUDA graphs
+    # 'resnet_fused', 'widedeep_fused', 'longctx_fused',
+    # 'mobilenet_v2_fused' and half of 'optimizers' replay CUDA graphs
     paths = {'serve': serve_launches, 'train': train['launches'],
              'gpt_fused': gpt_fused['launches'],
              'gpt_recipe': gpt_recipe['launches'],
@@ -2722,12 +3322,22 @@ def main():
              'gpt_f16': gpt_f16['launches'],
              **{run: bert[run]['launches'] for run, *_ in BERT_RUNS},
              'bert_dropout_fused': bert_fused['launches'],
-             # the vision paths launch none of the eight (checked there)
+             # the vision and Wide&Deep paths launch none of the eight
+             # (checked there)
              'resnet': resnet['launches'],
              'resnet_fused': resnet['fused']['launches'],
              **{f'resnet_parity_{name}': r['launches']
                 for name, r in resnet_parity.items()},
              'lenet': lenet['launches'],
+             'widedeep': widedeep['launches'],
+             'widedeep_fused': widedeep['fused']['launches'],
+             'deepfm': widedeep['deepfm']['launches'],
+             'longctx': longctx['launches'],
+             'longctx_fused': longctx['fused']['launches'],
+             'gptgen': gptgen['launches'],
+             'ernie': ernie['launches'],
+             **{name: r['launches'] for name, r in zoo.items()},
+             'mobilenet_v2_fused': zoo['mobilenet_v2']['fused']['launches'],
              'optimizers': optimizers['launches']}
     kernels = []
     for k in _build.KERNELS:

@@ -7,6 +7,7 @@ parameters and a PartitionSpec each; on one device they are plain
 layers, which is all this slice ports.  Sharding over
 ``torch.distributed`` comes with the distributed slice.
 """
+from ...nn.initializer import XavierNormal
 from ...nn.layer.common import Embedding, Linear
 
 __all__ = ['ColumnParallelLinear', 'RowParallelLinear',
@@ -32,4 +33,9 @@ class RowParallelLinear(Linear):
 
 
 class VocabParallelEmbedding(Embedding):
-    """Embedding whose vocab axis would be split over tensor parallel."""
+    """Embedding whose vocab axis would be split over tensor parallel;
+    its default init is XavierNormal, as the reference's (``nn.Embedding``
+    draws N(0, 1))."""
+
+    def reset_parameters(self, generator):
+        XavierNormal().fill_(self.weight, generator)

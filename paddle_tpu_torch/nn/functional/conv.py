@@ -15,7 +15,10 @@ ints, ``n`` (low, high) pairs, ``'SAME'`` (XLA's split: the odd pixel
 on the high side) or ``'VALID'``.  Symmetric padding goes to the
 convolution; asymmetric padding is an explicit zero ``F.pad`` first.
 The bias is added after the convolution, as the reference adds it (a
-separate rounding in a 16-bit dtype).
+separate rounding in a 16-bit dtype).  A list of another number of
+pairs than spatial axes raises, as ``lax`` does there.  A window larger
+than the padded input gives the reference's empty result, and zero
+gradients, without a launch.
 
 An f32 convolution computes in f32 on the card whatever the process's
 ``torch.backends.cudnn.allow_tf32`` says: forward and backward run with
@@ -43,7 +46,8 @@ def _tuple(v, n):
 
 def _padding(padding, n):
     """The reference's padding forms: ``'SAME'``/``'VALID'`` or a list
-    of ``n`` (low, high) pairs."""
+    of (low, high) pairs, ``n`` of them unless the caller gave another
+    number (the convolutions and the pools decide what that means)."""
     if isinstance(padding, str):
         pad = padding.upper()
         if pad not in ('SAME', 'VALID'):
@@ -59,6 +63,24 @@ def _padding(padding, n):
         return [(int(padding[2 * i]), int(padding[2 * i + 1]))
                 for i in range(n)]
     return [tuple(int(q) for q in p) for p in padding]
+
+
+def out_sizes(sizes, ksize, stride, dilation, pad):
+    """Windows along each axis of an input padded by ``pad``, 0 where
+    the dilated window is larger than the padded input (XLA's empty
+    result)."""
+    return [max((size + lo + hi - (k - 1) * d - 1) // s + 1, 0)
+            for size, k, s, d, (lo, hi) in zip(sizes, ksize, stride,
+                                                dilation, pad)]
+
+
+def empty_result(shape, *tensors):
+    """A result of ``shape`` with no elements that depends on
+    ``tensors``: its dtype is theirs, promoted, and each of them gets a
+    zero gradient, as ``jax.grad`` gives them through XLA's empty
+    convolution or window reduction."""
+    zero = sum(t.reshape(-1)[:0].sum() for t in tensors if t is not None)
+    return zero.expand(shape)
 
 
 def same_pads(sizes, ksize, stride, dilation):
@@ -148,10 +170,20 @@ def _conv(x, w, bias, stride, padding, dilation, groups, n, data_format):
     dilation = _tuple(dilation, n)
     pad = _padding(padding, n)
     xf = to_channel_first(x, n) if channel_last else x
+    if not isinstance(pad, str) and len(pad) != n:
+        # lax.conv_general_dilated refuses it in the reference
+        raise ValueError(f'conv{n}d: {len(pad)} padding pairs for {n} '
+                         f'spatial axes')
     if pad == 'VALID':
         pad = [(0, 0)] * n
     elif pad == 'SAME':
         pad = same_pads(xf.shape[2:], w.shape[2:], stride, dilation)
+    spatial = out_sizes(xf.shape[2:], w.shape[2:], stride, dilation, pad)
+    if 0 in spatial:
+        # the window is larger than the padded input: the reference's
+        # empty result, without a launch
+        y = empty_result([xf.shape[0], w.shape[0]] + spatial, x, w, bias)
+        return to_channel_last(y, n) if channel_last else y
     if all(lo == hi for lo, hi in pad):
         sym = [lo for lo, _ in pad]
     else:

@@ -1,10 +1,14 @@
 """Loss functionals (counterpart of ``paddle_tpu/nn/functional/loss.py``;
-the port has ``cross_entropy`` over integer labels on the last axis)."""
+the port has ``cross_entropy`` over integer labels on the last axis and
+``binary_cross_entropy_with_logits``)."""
 import torch
+import torch.nn.functional as TF
 
 from ...amp import amp_cast
 
-__all__ = ['cross_entropy']
+__all__ = ['cross_entropy', 'binary_cross_entropy_with_logits']
+
+_REDUCTIONS = ('mean', 'sum', 'none')
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,
@@ -23,9 +27,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
         raise NotImplementedError(
             'cross_entropy: only hard integer labels over the last axis '
             'with softmax are ported')
-    if reduction not in ('mean', 'sum', 'none'):
-        raise ValueError(f'reduction must be mean/sum/none, got '
-                         f'{reduction!r}')
+    _check_reduction(reduction)
     input, = amp_cast('cross_entropy', input)
     lab = label.long()
     if lab.dim() == input.dim():
@@ -42,3 +44,40 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     else:
         out = per
     return out.to(input.dtype)
+
+
+def _check_reduction(reduction):
+    if reduction not in _REDUCTIONS:
+        raise ValueError(f'reduction must be mean/sum/none, got '
+                         f'{reduction!r}')
+
+
+def _reduce(v, reduction):
+    if reduction == 'mean':
+        return v.mean()
+    if reduction == 'sum':
+        return v.sum()
+    return v
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction='mean', pos_weight=None,
+                                     name=None):
+    """Sigmoid cross entropy of ``logit`` against ``label`` (in [0, 1]),
+    in the reference's forms: without ``pos_weight`` the stable
+    ``max(z, 0) - z * y + log1p(exp(-|z|))``, with it ``-(pos_weight * y
+    * log_sigmoid(z) + (1 - y) * log_sigmoid(-z))``; times ``weight``
+    where given, then reduced.  Under AMP every input goes to f32
+    (``bce_with_logits`` is black-listed)."""
+    _check_reduction(reduction)
+    z, y, w, pw = amp_cast('bce_with_logits', logit, label, weight,
+                           pos_weight)
+    if pw is not None:
+        per = -(pw * y * TF.logsigmoid(z) + (1 - y) * TF.logsigmoid(-z))
+    else:
+        # torch.maximum splits the gradient at z == 0 as jnp.maximum does
+        per = torch.maximum(z, torch.zeros_like(z)) - z * y + torch.log1p(
+            torch.exp(-z.abs()))
+    if w is not None:
+        per = per * w
+    return _reduce(per, reduction)

@@ -11,7 +11,12 @@ The reference's semantics, in PyTorch's pooling calls:
   (``divisor_override=1``) and divides by the number of input elements
   in it (``exclusive``) or by the window's size;
 - ``ceil_mode`` extends only the high padding, so a partial last window
-  is kept; ``'SAME'`` is XLA's split and takes no ``ceil_mode``;
+  is kept (a window wholly in that padding gives ``-inf`` for max and
+  NaN for exclusive average, as in the reference); ``'SAME'`` is XLA's
+  split and takes no ``ceil_mode``;
+- a window larger than the padded input gives the reference's empty
+  result without a launch; of a padding list the first ``n`` pairs are
+  read, as the reference reads them;
 - adaptive pooling reduces one spatial axis after another: the whole
   axis at output 1, equal bins by a reshape where the size divides,
   otherwise ``floor(j*size/out) .. ceil((j+1)*size/out)`` bins; its max
@@ -26,8 +31,8 @@ import torch
 import torch.nn.functional as TF
 
 from ...amp import amp_cast
-from .conv import (CHANNEL_LAST, _padding, _tuple, pad_pairs, same_pads,
-                   to_channel_first, to_channel_last)
+from .conv import (CHANNEL_LAST, _padding, _tuple, empty_result, out_sizes,
+                   pad_pairs, same_pads, to_channel_first, to_channel_last)
 
 __all__ = [
     'avg_pool1d', 'avg_pool2d', 'avg_pool3d', 'max_pool1d', 'max_pool2d',
@@ -73,6 +78,10 @@ def _pool(x, ksize, stride, padding, n, data_format, kind, exclusive=True,
     else:
         if pad == 'VALID':
             pad = [(0, 0)] * n
+        elif len(pad) < n:
+            raise ValueError(f'{kind}_pool{n}d: {len(pad)} padding pairs '
+                             f'for {n} spatial axes')
+        pad = pad[:n]       # the reference reads the first n pairs
         if ceil_mode:
             pad = list(pad)
             for i in range(n):
@@ -80,6 +89,12 @@ def _pool(x, ksize, stride, padding, n, data_format, kind, exclusive=True,
                 rem = (size - ksize[i]) % stride[i]
                 if rem:
                     pad[i] = (pad[i][0], pad[i][1] + stride[i] - rem)
+    spatial = out_sizes(sizes, ksize, stride, (1,) * n, pad)
+    if 0 in spatial:
+        # the window is larger than the padded input: the reference's
+        # empty result, without a launch
+        y = empty_result(list(xf.shape[:2]) + spatial, x)
+        return to_channel_last(y, n) if channel_last else y
     if kind == 'max':
         if all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pad, ksize)):
             y = _MAX[n](xf, ksize, stride, [lo for lo, _ in pad])

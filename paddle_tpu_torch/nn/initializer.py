@@ -1,6 +1,7 @@
 """Weight initializers (counterpart of ``paddle_tpu/nn/initializer``; the
-port has ``Constant``, ``Uniform``, ``KaimingUniform`` and
-``calculate_gain``, what the conv layers and ResNet use).
+port has ``Constant``, ``Normal``, ``Uniform``, ``XavierNormal``,
+``KaimingUniform`` and ``calculate_gain``, what the ported layers and
+models use).
 
 An initializer is called as ``init(shape, dtype, generator)`` and
 returns a CPU tensor drawn from the explicit CPU ``torch.Generator``
@@ -13,8 +14,8 @@ import math
 
 import torch
 
-__all__ = ['Initializer', 'Constant', 'Uniform', 'KaimingUniform',
-           'calculate_gain']
+__all__ = ['Initializer', 'Constant', 'Normal', 'Uniform', 'XavierNormal',
+           'KaimingUniform', 'calculate_gain']
 
 
 def _fans(shape):
@@ -60,6 +61,33 @@ class Constant(Initializer):
 
     def _generate(self, shape, dtype, generator):
         return torch.full(shape, self.value, dtype=dtype)
+
+
+class Normal(Initializer):
+    """N(mean, std^2)."""
+
+    def __init__(self, mean=0.0, std=1.0):
+        self.mean, self.std = mean, std
+
+    def _generate(self, shape, dtype, generator):
+        z = torch.randn(shape, generator=generator, dtype=torch.float32)
+        return (self.mean + self.std * z).to(dtype)
+
+
+class XavierNormal(Initializer):
+    """N(0, gain^2 * 2 / (fan_in + fan_out)), the fans counted as the
+    reference counts them (``_fans``)."""
+
+    def __init__(self, fan_in=None, fan_out=None, gain=1.0):
+        self.fan_in, self.fan_out, self.gain = fan_in, fan_out, gain
+
+    def _generate(self, shape, dtype, generator):
+        fi, fo = _fans(shape)
+        fi = self.fan_in if self.fan_in is not None else fi
+        fo = self.fan_out if self.fan_out is not None else fo
+        std = self.gain * math.sqrt(2.0 / (fi + fo))
+        z = torch.randn(shape, generator=generator, dtype=torch.float32)
+        return (z * std).to(dtype)
 
 
 class Uniform(Initializer):

@@ -1,8 +1,9 @@
 from .activation import ReLU, ReLU6
 from .common import Dropout, Embedding, Linear
-from .container import Sequential
+from .container import LayerList, Sequential
 from .conv import Conv1D, Conv2D, Conv3D
-from .loss import CrossEntropyLoss
+from .layers import create_parameter
+from .loss import BCEWithLogitsLoss, CrossEntropyLoss
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
                    LayerNorm, SyncBatchNorm)
 from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
@@ -11,7 +12,8 @@ from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
                       AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
 
 __all__ = ['Dropout', 'Embedding', 'Linear', 'LayerNorm', 'ReLU', 'ReLU6',
-           'Sequential', 'Conv1D', 'Conv2D', 'Conv3D', 'CrossEntropyLoss',
+           'Sequential', 'LayerList', 'create_parameter', 'Conv1D',
+           'Conv2D', 'Conv3D', 'CrossEntropyLoss', 'BCEWithLogitsLoss',
            'BatchNorm', 'BatchNorm1D', 'BatchNorm2D', 'BatchNorm3D',
            'SyncBatchNorm', 'AvgPool1D', 'AvgPool2D', 'AvgPool3D',
            'MaxPool1D', 'MaxPool2D', 'MaxPool3D', 'AdaptiveAvgPool1D',

@@ -3,29 +3,18 @@
 Weights keep paddle's layout (``Linear.weight`` is ``[in, out]``) so a
 state dict moves between the two packages unchanged.  Parameters are
 allocated on the given device; ``reset_parameters(generator)`` draws
-the reference's default init (XavierNormal weights, zero bias) from an
-explicit CPU ``torch.Generator``, so one seed gives the same weights on
-every device.
+the reference's default init (``Linear``: XavierNormal weights, zero
+bias; ``Embedding``: N(0, 1)) from an explicit CPU ``torch.Generator``,
+so one seed gives the same weights on every device.
 """
-import math
-
 import torch
 from torch import nn
 
 from ...core.device import resolve_device
 from .. import functional as F
+from ..initializer import Normal, XavierNormal
 
-__all__ = ['Linear', 'Embedding', 'Dropout', 'xavier_normal_']
-
-
-def xavier_normal_(param, generator):
-    """Fill a 2-D ``[fan_in, fan_out]`` parameter from N(0, 2/(in+out))."""
-    fan_in, fan_out = param.shape
-    std = math.sqrt(2.0 / (fan_in + fan_out))
-    draw = torch.randn(tuple(param.shape), generator=generator,
-                       dtype=torch.float32) * std
-    with torch.no_grad():
-        param.copy_(draw)
+__all__ = ['Linear', 'Embedding', 'Dropout']
 
 
 class Linear(nn.Module):
@@ -40,7 +29,7 @@ class Linear(nn.Module):
                                              device=device))
 
     def reset_parameters(self, generator):
-        xavier_normal_(self.weight, generator)
+        XavierNormal().fill_(self.weight, generator)
         with torch.no_grad():
             self.bias.zero_()
 
@@ -49,7 +38,8 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    """Row lookup into ``weight [num_embeddings, embedding_dim]``."""
+    """Row lookup into ``weight [num_embeddings, embedding_dim]``, drawn
+    from N(0, 1) as the reference's ``nn.Embedding`` draws it."""
 
     def __init__(self, num_embeddings, embedding_dim, device=None):
         super().__init__()
@@ -58,7 +48,7 @@ class Embedding(nn.Module):
             (num_embeddings, embedding_dim), device=device))
 
     def reset_parameters(self, generator):
-        xavier_normal_(self.weight, generator)
+        Normal(0.0, 1.0).fill_(self.weight, generator)
 
     def forward(self, x):
         return F.embedding(x, self.weight)

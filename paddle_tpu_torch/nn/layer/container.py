@@ -1,12 +1,13 @@
-"""``Sequential`` (counterpart of ``paddle_tpu/nn/layer/container.py``):
-sublayers under ``'0'``, ``'1'``, ... (or the names of an
-``OrderedDict`` or of ``(name, layer)`` pairs), so its state-dict keys
-are the reference's (``0.weight``, ``1._mean``, ...)."""
+"""``Sequential`` and ``LayerList`` (counterpart of
+``paddle_tpu/nn/layer/container.py``): sublayers under ``'0'``,
+``'1'``, ... (or, for ``Sequential``, the names of an ``OrderedDict``
+or of ``(name, layer)`` pairs), so their state-dict keys are the
+reference's (``0.weight``, ``tables.1.weight``, ...)."""
 import collections
 
 from torch import nn
 
-__all__ = ['Sequential']
+__all__ = ['Sequential', 'LayerList']
 
 
 class Sequential(nn.Sequential):
@@ -21,3 +22,13 @@ class Sequential(nn.Sequential):
                 self.add_module(str(item[0]), item[1])
             else:
                 self.add_module(str(i), item)
+
+
+class LayerList(nn.ModuleList):
+    """A list of sublayers under ``'0'``, ``'1'``, ...: indexing,
+    slicing (a new ``LayerList`` of the same layers), ``append``,
+    ``insert`` and ``extend`` renumber the keys as the reference's
+    do."""
+
+    def __init__(self, sublayers=None):
+        super().__init__(sublayers)

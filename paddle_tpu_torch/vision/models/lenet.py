@@ -1,11 +1,9 @@
 """LeNet for MNIST-shaped inputs (counterpart of
 ``paddle_tpu/vision/models/lenet.py``): the reference's layers and
 state-dict keys, NCHW input ``[B, 1, 28, 28]``."""
-import torch
-
 from ... import nn
-from ...amp import amp_cast
 from ...core.device import resolve_device
+from ...tensor.manipulation import flatten
 from ._init import SeededModel
 
 __all__ = ['LeNet']
@@ -37,6 +35,5 @@ class LeNet(SeededModel):
     def forward(self, inputs):
         x = self.features(inputs)
         if self.num_classes > 0:
-            x, = amp_cast('flatten', x)
-            x = self.fc(torch.flatten(x, 1))
+            x = self.fc(flatten(x, 1))
         return x

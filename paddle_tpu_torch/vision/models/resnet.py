@@ -19,6 +19,7 @@ import torch
 from ... import nn
 from ...amp import amp_cast
 from ...core.device import resolve_device
+from ...tensor.manipulation import flatten
 from ._init import SeededModel
 
 __all__ = ['ResNet', 'BasicBlock', 'BottleneckBlock', 'resnet18',
@@ -211,8 +212,7 @@ class ResNet(SeededModel):
         if self.with_pool:
             x = self.avgpool(x)
         if self.num_classes > 0:
-            x, = amp_cast('flatten', x)
-            x = self.fc(torch.flatten(x, 1))
+            x = self.fc(flatten(x, 1))
         return x
 
 

@@ -370,3 +370,150 @@ def test_relu_matches_jax_at_the_kinks(name):
     layer = nn.ReLU() if name == 'relu' else nn.ReLU6()
     torch.testing.assert_close(layer(torch.from_numpy(x)),
                                getattr(F, name)(torch.from_numpy(x)))
+
+
+def _empty_grads(out, args):
+    """Gradients of ``sum(out)`` for an output with no elements."""
+    assert out.numel() == 0
+    grads = torch.autograd.grad(out.float().sum(), args, allow_unused=True)
+    return [_np(torch.zeros_like(a) if g is None else g)
+            for a, g in zip(args, grads)]
+
+
+# (n, data_format, input shape, weight shape, padding, dilation, bias,
+#  dtype): each window is larger than the padded input
+EMPTY_CONV_CASES = [
+    (2, 'NCHW', (1, 1, 2, 2), (1, 1, 3, 3), 0, 1, True, 'float32'),
+    (2, 'NHWC', (2, 2, 2, 3), (4, 3, 3, 3), 0, 1, False, 'float32'),
+    (2, 'NCHW', (1, 2, 3, 3), (2, 2, 3, 3), 0, 2, True, 'bfloat16'),
+    (1, 'NLC', (1, 4, 2), (3, 2, 3), 0, 2, False, 'float32'),
+    (1, 'NCL', (2, 2, 1), (3, 2, 3), [(0, 1)], 1, True, 'float32'),
+    (3, 'NCDHW', (1, 1, 2, 4, 4), (2, 1, 3, 3, 3), 0, 1, True, 'float32'),
+]
+
+
+@pytest.mark.parametrize('case', EMPTY_CONV_CASES, ids=lambda c: '-'.join(
+    str(v).replace(' ', '') for v in c))
+def test_conv_window_larger_than_padded_input_is_empty_as_in_jax(case):
+    """XLA gives such a convolution an empty output (and ``jax.grad``
+    zero gradients); the port returns the same empty result before
+    any launch."""
+    n, df, xs, ws, padding, dilation, bias, dtype = case
+    rs = np.random.RandomState(n)
+    arrays = [_rand(rs, *xs), _rand(rs, *ws)] + (
+        [_rand(rs, ws[0])] if bias else [])
+    jconv = getattr(JF, f'conv{n}d')
+    tconv = getattr(F, f'conv{n}d')
+    kw = dict(padding=padding, dilation=dilation, data_format=df)
+    jd = jnp.bfloat16 if dtype == 'bfloat16' else jnp.float32
+    td = torch.bfloat16 if dtype == 'bfloat16' else torch.float32
+    jargs = [jnp.asarray(a).astype(jd) for a in arrays]
+
+    def jfn(*vals):
+        with jax_no_grad():
+            out = jconv(*[JaxTensor._from_value(v) for v in vals],
+                        **kw).value
+        return jnp.sum(out.astype(jnp.float32)), out
+
+    (_, want), want_g = jax.value_and_grad(
+        jfn, argnums=tuple(range(len(jargs))), has_aux=True)(*jargs)
+    targs = [torch.from_numpy(a).to(td).requires_grad_(True)
+             for a in arrays]
+    got = tconv(*targs, **kw)
+    assert tuple(got.shape) == tuple(want.shape)
+    assert 0 in got.shape
+    assert str(got.dtype).replace('torch.', '') == str(want.dtype)
+    for g, w in zip(_empty_grads(got, targs), want_g):
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(g, _np(w))
+        assert not g.any()
+
+
+# (kind, data_format, input shape, kernel, stride, padding, ceil_mode)
+EMPTY_POOL_CASES = [
+    ('max', 'NCHW', (1, 1, 2, 2), 3, None, 0, False),
+    ('avg', 'NCHW', (1, 1, 2, 2), 3, None, 0, False),
+    ('max', 'NHWC', (2, 2, 2, 3), 3, 1, 0, True),
+    ('avg', 'NHWC', (2, 2, 2, 3), 3, 1, 0, True),
+    ('max', 'NCHW', (1, 2, 2, 5), 4, 1, [(0, 1), (0, 0)], True),
+    ('avg', 'NCHW', (1, 2, 2, 5), 4, 1, [(0, 1), (0, 0)], False),
+]
+
+
+@pytest.mark.parametrize('case', EMPTY_POOL_CASES, ids=lambda c: '-'.join(
+    str(v).replace(' ', '') for v in c))
+def test_pool_window_larger_than_padded_input_is_empty_as_in_jax(case):
+    kind, df, xs, k, s, padding, ceil = case
+    x = _rand(np.random.RandomState(1), *xs)
+    name = f'{kind}_pool2d'
+    kw = dict(stride=s, padding=padding, ceil_mode=ceil, data_format=df)
+    (_, want), (want_g,) = jax.value_and_grad(
+        lambda v: (lambda o: (jnp.sum(o), o))(
+            getattr(JF, name)(JaxTensor._from_value(v), k, **kw).value),
+        argnums=(0,), has_aux=True)(jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    got = getattr(F, name)(tx, k, **kw)
+    assert tuple(got.shape) == tuple(want.shape) and 0 in got.shape
+    assert got.dtype == torch.float32
+    (g,) = _empty_grads(got, [tx])
+    np.testing.assert_array_equal(g, _np(want_g))
+    assert not g.any()
+
+
+@pytest.mark.parametrize('n,pairs', [(3, 5), (2, 1), (2, 3), (1, 2)])
+def test_conv_padding_list_of_the_wrong_length_raises_in_both(n, pairs):
+    """``lax.conv_general_dilated`` refuses another number of (low,
+    high) pairs than spatial axes; so does the port (the exception
+    types differ)."""
+    x = np.ones((1, 1) + (5,) * n, np.float32)
+    w = np.ones((1, 1) + (3,) * n, np.float32)
+    pad = [(1, 1)] * pairs
+    with pytest.raises(Exception):
+        getattr(JF, f'conv{n}d')(paddle.to_tensor(x), paddle.to_tensor(w),
+                                 padding=pad)
+    with pytest.raises((TypeError, ValueError)):
+        getattr(F, f'conv{n}d')(torch.from_numpy(x), torch.from_numpy(w),
+                                padding=pad)
+
+
+def test_pool_reads_the_first_n_padding_pairs_as_jax_does():
+    """The reference's pools read the first ``n`` pairs of a longer
+    list and fail on a shorter one; so do the port's."""
+    x = _rand(np.random.RandomState(2), 1, 2, 6, 6)
+    kw = dict(padding=[(1, 0), (0, 1), (5, 5)], ceil_mode=True)
+    for name in ('max_pool2d', 'avg_pool2d'):
+        want = _np(getattr(JF, name)(paddle.to_tensor(x), 3, 2, **kw))
+        got = _np(getattr(F, name)(torch.from_numpy(x), 3, 2, **kw))
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+        with pytest.raises(Exception):
+            getattr(JF, name)(paddle.to_tensor(x), 3, 2, padding=[(1, 1)])
+        with pytest.raises(ValueError, match='padding pairs'):
+            getattr(F, name)(torch.from_numpy(x), 3, 2, padding=[(1, 1)])
+
+
+@pytest.mark.parametrize('kind', ['max', 'avg'])
+def test_ceil_mode_window_wholly_in_padding_agrees_element_for_element(kind):
+    """kernel 2, stride 3, padding 1 on 7 x 7 with ``ceil_mode``: the
+    last window of each axis lies wholly in the high padding, so it is
+    ``-inf`` (max) or NaN (exclusive average, 0 / 0) in both packages,
+    element for element, and the gradients agree."""
+    x = _rand(np.random.RandomState(4), 2, 3, 7, 7)
+    name = f'{kind}_pool2d'
+    kw = dict(stride=3, padding=1, ceil_mode=True)
+    cot = np.random.RandomState(5).randn(2, 3, 4, 4).astype(np.float32)
+    want, (want_g,) = _jax_vjp(lambda v: getattr(JF, name)(v, 2, **kw),
+                               [jnp.asarray(x)], cot)
+    got, (got_g,) = _torch_vjp(lambda v: getattr(F, name)(v, 2, **kw),
+                               [torch.from_numpy(x)], cot)
+    assert got.shape == want.shape == (2, 3, 4, 4)
+    last = want[:, :, -1, :], want[:, :, :, -1]
+    if kind == 'max':
+        assert all(np.isneginf(v).all() for v in last)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got_g, want_g)
+    else:
+        assert all(np.isnan(v).all() for v in last)
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(got_g, want_g, rtol=GRAD_TOL,
+                                   atol=GRAD_TOL)
+    assert np.isfinite(want[:, :, :-1, :-1]).all()

@@ -342,3 +342,17 @@ def test_span_body_reads_the_plan_and_writes_only_the_pools(models):
     for (k0, v0), (k1, v1) in zip(before, eng.cache.pools):
         assert torch.equal(k0[1:], k1[1:]) and torch.equal(v0[1:], v1[1:])
     assert torch.equal(plan, torch.zeros_like(plan))
+
+
+def test_generate_greedy_matches_jax_at_the_gptgen_shape_cut(models):
+    """``bench.py``'s ``gptgen`` (B 8, prompt 128, 128 new tokens) cut
+    to this model's 64 positions: B 8, prompt 32, 32 new tokens, greedy,
+    every stream equal to the JAX package's ``generate``."""
+    jm, pm, _ = models
+    prompt = np.random.RandomState(2).randint(0, 128, (8, 32)).astype(
+        np.int64)
+    want = jm.generate(paddle.to_tensor(prompt), max_new_tokens=32,
+                       temperature=0)
+    got = pm.generate(prompt, max_new_tokens=32, temperature=0)
+    assert got.shape == (8, 64)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want.value))

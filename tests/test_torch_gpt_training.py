@@ -487,3 +487,28 @@ def test_decorate_o2_casts_the_parameters(weights):
     model, opt = amp.decorate(pm, optimizers='opt', level='O2')
     assert model is pm and opt == 'opt'
     assert all(p.dtype == torch.bfloat16 for p in pm.parameters())
+
+
+def test_loss_and_gradients_match_jax_past_1024_positions():
+    """The long-context regime (``bench.py``'s ``longctx`` trains at T
+    4096): a 1-layer ``gpt_tiny`` with ``max_seq_len`` 2048 at T 1536,
+    past GPT-2's 1024 positions, with the fused head.  Loss within 1e-5
+    and every gradient within 1e-4 of the JAX model's ``jax.grad``."""
+    kw = dict(MODEL_KW, num_layers=1, max_seq_len=2048, fused_head=True)
+    paddle.seed(3)
+    jm = jax_gpt_tiny(**kw)
+    host = {k: np.array(v) for k, v in jm.functional_state()[0].items()}
+    assert host['gpt.wpe.weight'].shape == (2048, 64)
+    ids = np.random.RandomState(4).randint(0, 128, (1, 1536)).astype(
+        np.int64)
+    want_loss, want_grads = _jax_loss_and_grads(jm, ids)
+    pm = gpt_tiny(device='cpu', **kw).load_numpy_state(host).train()
+    loss = pm.loss(pm(torch.from_numpy(ids)), torch.from_numpy(ids))
+    _close(float(loss.detach()), want_loss, TOL)
+    loss.backward()
+    for name, g in want_grads.items():
+        got = dict(pm.named_parameters())[name].grad.numpy()
+        scale = max(float(np.abs(g).max()), 1e-30)
+        assert float(np.abs(got - g).max()) <= GRAD_TOL * scale, name
+    with pytest.raises(ValueError):
+        pm(torch.zeros((1, 2049), dtype=torch.int64))

@@ -1,6 +1,6 @@
 """Where the port's training time goes, on one CUDA card.
 
-    python3 tools/torch_train_profile.py [--model gpt|gpt_recipe|bert|bert_flash|bert_gemm_gelu|resnet50] [--path fused|eager] [--steps 2] [--out build/torch_train_profile.json]
+    python3 tools/torch_train_profile.py [--model gpt|gpt_recipe|longctx|bert|bert_flash|bert_gemm_gelu|resnet50|widedeep] [--path fused|eager] [--steps 2] [--out build/torch_train_profile.json]
 
 Run from the repository root.  Training steps at full width with random
 seeded weights, in the configuration of one of ``chip_smoke.py``'s
@@ -24,7 +24,15 @@ the kinds below, and which also times every BatchNorm of the step
 alone (``bn_breakdown``: each BatchNorm's input shape and dtype from
 one forward, then ``F.batch_norm`` forward and backward on such
 inputs, device time under the profiler), BatchNorm's device share, and
-lists every convolution kernel.
+lists every convolution kernel; ``--model longctx`` ``gpt_small`` at
+bench.py's long-context configuration (B 2, T 4096, otherwise as
+``gpt``; ``chip_smoke.LONGCTX_MODEL_KW``); ``--model widedeep``
+Wide&Deep at bench.py's configuration (26 fields of 100 000 ids, embed
+16, hidden (400, 400, 400), B 16384, bf16 O2, Adam lr 1e-3;
+``chip_smoke._widedeep_trainer``), whose device time is also split
+between the embedding gathers, the tables' dense gradient (the
+embedding backward's sort and scatter, and the zero fill of the dense
+table), the casts and the optimizer (``widedeep_split``).
 ``--path fused`` (the default) trains through
 ``ParallelTrainer(fused_steps=--steps).step_fused``, the step as a
 replayed CUDA graph: one chunk warms up (the first step eager, the
@@ -63,6 +71,14 @@ KINDS = [('conv forward (cuDNN)', ('fprop', 'implicit_convolve',
          ('conv wgrad (cuDNN)', ('wgrad',)),
          ('conv, other (cuDNN)', ('implicitgemmconvolution', 'cudnn')),
          ('layout transform', ('nchwtonhwc', 'nhwctonchw')),
+         # the embedding backward: sort the ids, then sum each id's rows
+         # into the dense gradient table
+         ('embedding backward (sort, scatter)', (
+             'embedding_backward', 'compute_grad_weight', 'sum_and_scatter',
+             'partials_per_segment', 'segment_offsets', 'radixsort',
+             'onesweep', 'sortpairs', 'compute_num_of_partial')),
+         ('gather (index_select)', ('indexselect', 'index_select',
+                                    'vectorized_gather_kernel')),
          ('pooling', ('max_pool', 'avg_pool', 'maxpool', 'avgpool')),
          ('flash_attention_fwd', ('flash_fwd',)),
          ('flash_attention_bwd_dq', ('flash_bwd_dq',)),
@@ -111,8 +127,11 @@ BERT_RUN = {'bert': 0, 'bert_flash': 1, 'bert_gemm_gelu': 2}
 
 
 def _setup(model_name, fused_steps=None):
-    """(trainer, batch, tokens (images) per step, USE_PALLAS_MLP) of the
-    named configuration."""
+    """(trainer, batch, tokens (images, examples) per step,
+    USE_PALLAS_MLP) of the named configuration."""
+    if model_name == 'widedeep':
+        return (chip_smoke._widedeep_trainer(fused_steps=fused_steps),
+                chip_smoke.widedeep_batch(), chip_smoke.WD_BATCH, False)
     if model_name == 'resnet50':
         return (chip_smoke._resnet_trainer(fused_steps=fused_steps),
                 chip_smoke.resnet_batch(), chip_smoke.RESNET_BATCH, False)
@@ -131,11 +150,14 @@ def _setup(model_name, fused_steps=None):
         return (trainer, batch, chip_smoke.BERT_BATCH * chip_smoke.BERT_SEQ,
                 pallas_mlp)
     from paddle_tpu_torch.models.gpt import gpt_small
-    model = gpt_small(device='cuda', seed=0, **chip_smoke.TRAIN_MODEL_KW)
+    long = model_name == 'longctx'
+    model = gpt_small(device='cuda', seed=0, **(
+        chip_smoke.LONGCTX_MODEL_KW if long else chip_smoke.TRAIN_MODEL_KW))
+    batch, seq = (chip_smoke.LONGCTX_BATCH, chip_smoke.LONGCTX_SEQ) if long \
+        else (chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ)
     ids = np.random.RandomState(0).randint(
-        0, model.config.vocab_size,
-        (chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ)).astype(np.int64)
-    tokens = chip_smoke.TRAIN_BATCH * chip_smoke.TRAIN_SEQ
+        0, model.config.vocab_size, (batch, seq)).astype(np.int64)
+    tokens = batch * seq
     if model_name == 'gpt_recipe':
         trainer = chip_smoke._recipe_trainer(model, fused_steps=fused_steps)
         return trainer, (ids, ids, np.ones((), np.float32)), tokens, False
@@ -208,7 +230,8 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
         'model': model_name, 'path': path, 'steps': steps,
         'loss': float(loss),
         'wall_ms_per_step': wall_us / steps / 1e3,
-        ('imgs' if model_name == 'resnet50' else 'tokens')
+        {'resnet50': 'imgs', 'widedeep': 'examples'}.get(
+            model_name, 'tokens')
         + '_per_s_under_profiler': tokens * steps / (wall_us / 1e6),
         'device_busy_ms_per_step': busy_us / steps / 1e3,
         'device_idle_share': 1.0 - busy_us / wall_us,
@@ -233,6 +256,8 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
         (graph,) = trainer._fused_cache.modules.values()
         res['capture_s'] = graph.capture_s
         res['launches_a_replay'] = graph.launches.counts()
+    if model_name == 'widedeep':
+        res['widedeep_split'] = widedeep_split(res, device, events, steps)
     if model_name == 'resnet50':
         res['conv_and_layout_kernels'] = [
             {'name': name[:160], 'count_per_step': n / steps,
@@ -264,6 +289,8 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
     for k in res.get('conv_and_layout_kernels', []):
         print(f'  conv   {k["device_ms_per_step"]:9.3f} ms/step '
               f'{k["count_per_step"]:6.1f}x {k["name"][:120]}')
+    for k, v in res.get('widedeep_split', {}).items():
+        print(f'  split  {v:9.3f} ms/step {k}')
     if 'batch_norm' in res:
         bn = res['batch_norm']
         print(f'  batch_norm: {bn["layers"]} layers, forward + backward '
@@ -271,6 +298,39 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
               f'{bn["fwd_ms_per_step"]:.3f}), a share '
               f'{bn["share_of_device_busy"]} of the device-busy time')
     return res
+
+
+def widedeep_split(res, device, events, steps):
+    """Wide&Deep's device ms a step in four parts and the rest: the
+    embedding gathers, the tables' dense gradient (the embedding
+    backward's sort and scatter kinds, and the fills of the dense
+    gradient tables: kernels named ``fill``), the casts (copy / cast:
+    O2's per-step bf16 copies of the tables and their gradients' way
+    back to f32) and the optimizer (on the eager path the kernels inside
+    the ``ParallelTrainer.optimizer`` range on the device's timeline;
+    under ``step_fused``, which has no ranges, the elementwise kind but
+    the fills, most of which is Adam)."""
+    kinds = res['device_ms_per_step_by_kind']
+
+    def dur(e):
+        return e.time_range.end - e.time_range.start
+
+    fill = sum(dur(e) for e in events
+               if 'fill' in e.name.lower()) / steps / 1e3
+    opt = [(e.time_range.start, e.time_range.end) for e in device
+           if e.name == 'ParallelTrainer.optimizer']
+    if opt:
+        adam = sum(dur(e) for e in events if any(
+            a <= e.time_range.start < b for a, b in opt)) / steps / 1e3
+    else:
+        adam = kinds.get('elementwise', 0.0) - fill
+    split = {'gather': kinds.get('gather (index_select)', 0.0),
+             'dense scatter (sort, sum, fill)': kinds.get(
+                 'embedding backward (sort, scatter)', 0.0) + fill,
+             'casts (copy / cast)': kinds.get('copy / cast', 0.0),
+             'optimizer (Adam)': adam}
+    split['rest'] = res['device_busy_ms_per_step'] - sum(split.values())
+    return split
 
 
 def bn_breakdown(trainer, batch, iters=5):
@@ -337,8 +397,8 @@ def bn_breakdown(trainer, batch, iters=5):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--model', choices=('gpt', 'gpt_recipe', *BERT_RUN,
-                                        'resnet50'),
+    ap.add_argument('--model', choices=('gpt', 'gpt_recipe', 'longctx',
+                                        *BERT_RUN, 'resnet50', 'widedeep'),
                     default='gpt')
     ap.add_argument('--path', choices=('fused', 'eager'), default='fused')
     ap.add_argument('--steps', type=int, default=2)
