@@ -53,19 +53,30 @@ From the repository root, with one CUDA card.  It
    timed in TFLOP/s;
 4. serves 32 seeded Poisson requests with ``gpt_small`` at full width
    (random seeded weights) through ``ServingEngine`` with the
-   benchmark's serving config, its decode spans as CUDA graphs: after
-   ``warmup()`` the captured (batch bucket, span) set must be the
-   declared one, and it logs each graph's capture time and launches a
+   benchmark's serving config, its prefill modules (prompt bucket x
+   chunk) and decode spans (batch bucket x span) as CUDA graphs: after
+   ``warmup()`` the captured prefill and decode sets must be the
+   declared ones, and it logs each graph's capture time and launches a
    replay.  It checks the outcome: every request done, allocator audit
-   clean, every block back, every decode step a step of a replayed
-   graph, the kernels' launch counts match the dispatches (eager
-   prefill launches plus captured launches times replays; LayerNorm on
-   its warp design); it logs tokens/s, TTFT p50/p99, TPOT and peak
-   memory.  The same 32 requests run again with every span through the
-   graph and through the eager span body on the same plan, whose
-   outputs must be equal; greedy streams equal batch-1 ``generate``,
-   and the card's prefill logits agree with the same weights run on the
-   CPU through the plain twins;
+   clean, every block back, no capture during traffic, every prefill
+   dispatch a replayed prefill graph and every decode step a step of a
+   replayed decode graph, LayerNorm's launches exactly the captured
+   launches times the replays (none eager, all on the warp design); it
+   logs tokens/s, TTFT p50/p99, TPOT and peak memory.  The same 32
+   requests run again with every span through the graph and through the
+   eager span body on the same plan, whose outputs must be equal; then,
+   all submitted at once, through two fresh engines, graphed and eager
+   prefill, whose streams must be equal token for token and whose KV
+   pools equal outside the trash block; greedy streams equal batch-1
+   ``generate`` (its graph), and the card's prefill logits agree with the
+   same weights run on the CPU through the plain twins.  Then the same
+   config with ``ServeConfig(quantize='int8')`` and ``'int4'``
+   (``serve_int8``, ``serve_int4``): the same gates and numbers, the
+   weight bytes against f32, the share of greedy tokens equal to the f32
+   run's (reported, no gate), each of the 48 swapped Linears' int32
+   accumulator on one prefill and one decode batch equal to the CPU's
+   and its output within 1 f32 ulp, and one quantized ``generate``
+   through its graph;
 5. trains ``gpt_small`` at full width (random seeded weights) through
    ``ParallelTrainer.step`` in the benchmark's configuration (B 8, T
    1024, bf16 O2, fused CE head in 8 chunks, AdamW lr 3e-4): 2 warm-up
@@ -147,11 +158,14 @@ From the repository root, with one CUDA card.  It
    2 x T 4096 (``longctx``): 3 + 7 eager steps with exact flash (12 a
    step, ``mma``) and LayerNorm (25) launches, then ``step_fused``
    against eager as in 5; ``generate`` at B 8, prompts of 128, 128 new
-   tokens, greedy, f32 (``gptgen``): 1 + 5 calls, tokens/s, the idle
-   share, LayerNorm 25 a prefill and 25 a decode step exactly, the 8
-   streams against the ServingEngine's greedy streams of the same
-   prompts (a stream may part only where its top two logits lie within
-   1e-6); ERNIE 1.0 base at BERT run (a)'s configuration with token
+   tokens, greedy, f32 (``gptgen``), one CUDA graph per signature: 1 +
+   5 calls, tokens/s, ms a token step, the idle share, the capture
+   seconds, LayerNorm 25 a prefill and 25 a decode step exactly (3200 a
+   replay), the 8 streams equal to the eager loop's and against the
+   ServingEngine's greedy streams of the same prompts (a stream may part
+   only where its top two logits lie within 1e-6), a shorter prompt in
+   the bucket and a sampled call at a second seed replaying without a
+   new capture; ERNIE 1.0 base at BERT run (a)'s configuration with token
    types in 0..3 (``ernie``: softmax 12 and LayerNorm 26 a step);
    VGG-16 at B 64, MobileNet v1 and v2 at B 256, 224 x 224 NCHW, bf16
    O2, Momentum (``vision_zoo``): 2 + 3 steps each with ms/step,
@@ -172,7 +186,8 @@ From the repository root, with one CUDA card.  It
 10. prints one JSON line with the serving and training results, one
    listing every kernel (its launches on each path, each path's counts
    set to 0 just before it and read just after, and per design where a
-   kernel has two; the paths ``serve``, ``gpt_fused``, ``gpt_recipe``,
+   kernel has two; the paths ``serve``, ``serve_int8``, ``serve_int4``,
+   ``gptgen``, ``gpt_fused``, ``gpt_recipe``,
    ``bert_dropout_fused``, ``resnet_fused``, ``widedeep_fused``,
    ``longctx_fused`` and ``mobilenet_v2_fused`` replay graphs,
    ``optimizers`` half its steps; the vision and Wide&Deep paths count
@@ -1212,15 +1227,158 @@ def gelu_kernel_phase():
     return rows
 
 
-def _decode_graphs(eng):
-    """The engine's decode modules (CUDA graphs), by (S, K)."""
+def _captured(cache, what):
+    """The modules of a ``GraphCache``, each a captured CUDA graph."""
     from paddle_tpu_torch.core.compile_cache import GraphModule
-    mods = dict(eng._modules.modules)
+    mods = dict(cache.modules)
     if not mods or not all(isinstance(m, GraphModule) and m.graph is not None
                            for m in mods.values()):
-        raise AssertionError(f'serving decode modules are not captured '
-                             f'graphs: {mods}')
+        raise AssertionError(f'{what} modules are not captured graphs: '
+                             f'{mods}')
     return mods
+
+
+def _decode_graphs(eng):
+    """The engine's decode modules (CUDA graphs), by (S, K)."""
+    return _captured(eng._modules, 'serving decode')
+
+
+def _prefill_graphs(eng):
+    """The engine's prefill modules (CUDA graphs), by (P, B)."""
+    return _captured(eng._prefill_modules, 'serving prefill')
+
+
+def _graph_log(graphs):
+    return ', '.join(f'{sig}: {g.capture_s:.3f} s, launches a replay '
+                     f'{g.launches.counts()}'
+                     for sig, g in sorted(graphs.items()))
+
+
+def _warm_engine(eng, what):
+    """``warmup()``, then the captured prefill and decode sets must be
+    the declared ones; logs each graph's capture seconds and launches a
+    replay.  Returns (warmup s, decode graphs, prefill graphs)."""
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    decode, prefill = _decode_graphs(eng), _prefill_graphs(eng)
+    buckets = eng.bucket_set()
+    want_d = {(S, buckets['decode_span']) for S in buckets['batch_buckets']}
+    want_p = {(P, B) for P in buckets['prompt_buckets']
+              for B in buckets['prefill_chunks']}
+    if set(decode) != want_d or set(prefill) != want_p:
+        raise AssertionError(
+            f'{what}: warmup captured decode {sorted(decode)} and prefill '
+            f'{sorted(prefill)}, declared {sorted(want_d)} and '
+            f'{sorted(want_p)}')
+    log(f'{what} warmup: {warm_s:.2f} s; decode graphs (S, K) captured in '
+        f'{sum(g.capture_s for g in decode.values()):.3f} s ('
+        + _graph_log(decode) + '); prefill graphs (P, B) captured in '
+        f'{sum(g.capture_s for g in prefill.values()):.3f} s ('
+        + _graph_log(prefill) + ')')
+    return warm_s, decode, prefill
+
+
+def _serve_main_path(eng, reqs, what):
+    """``eng.run(reqs)`` with the counts at 0 just before and read just
+    after, then its gates: every request DONE, the allocator audit
+    clean, every block back, no capture during traffic, every decode
+    step a step of a replayed decode graph and every prefill dispatch a
+    replayed prefill graph, and LayerNorm's launches exactly the
+    captured launches times the replays, on the warp design.  Returns
+    (launches, report, summary)."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.serving import Request
+    cfg = eng.model.config
+    K = eng.config.decode_span
+    decode, prefill = _decode_graphs(eng), _prefill_graphs(eng)
+    p0, d0 = eng.prefill_dispatches, eng.decode_steps
+    dr0 = {sig: g.replays for sig, g in decode.items()}
+    pr0 = {sig: g.replays for sig, g in prefill.items()}
+    rids = {r.rid for r in reqs}
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rep = eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    prefills = eng.prefill_dispatches - p0
+    steps = eng.decode_steps - d0
+    dreplays = {sig: g.replays - dr0[sig] for sig, g in decode.items()}
+    preplays = {sig: g.replays - pr0[sig] for sig, g in prefill.items()}
+
+    done = [r for r in eng.scheduler.finished if r.rid in rids]
+    if len(done) != len(rids) or any(r.state != Request.DONE for r in done):
+        raise AssertionError(
+            f'{what}: not every request is DONE: '
+            f'{[(r.rid, r.state, r.reason) for r in done]}')
+    if rep['audit']:
+        raise AssertionError(f'{what}: allocator audit: {rep["audit"]}')
+    if eng.cache.free_blocks != eng.cache.num_blocks - 1:
+        raise AssertionError(f'{what}: free blocks {eng.cache.free_blocks} '
+                             f'!= {eng.cache.num_blocks - 1}')
+    if set(_decode_graphs(eng)) != set(decode) or \
+            set(_prefill_graphs(eng)) != set(prefill):
+        raise AssertionError(f'{what}: traffic captured a module warmup '
+                             'did not')
+    if steps != K * sum(dreplays.values()):
+        raise AssertionError(f'{what}: {steps} decode steps, but '
+                             f'{dreplays} graph replays of {K} steps')
+    if prefills != sum(preplays.values()) or not prefills:
+        raise AssertionError(f'{what}: {prefills} prefill dispatches, but '
+                             f'{preplays} prefill graph replays')
+    per_forward = 2 * cfg.num_layers + 1
+
+    def captured(graphs, replays):
+        return sum(graphs[sig].launches.counts()['fused_layer_norm'] * n
+                   for sig, n in replays.items())
+
+    cap_d, cap_p = captured(decode, dreplays), captured(prefill, preplays)
+    if cap_d != per_forward * steps or cap_p != per_forward * prefills:
+        raise AssertionError(
+            f'{what}: captured LayerNorm launches x replays: decode {cap_d} '
+            f'!= {per_forward} x {steps}, or prefill {cap_p} != '
+            f'{per_forward} x {prefills}')
+    for key in ('fused_layer_norm', 'fused_layer_norm:warp'):
+        if launches[key] != cap_d + cap_p:
+            raise AssertionError(
+                f'{what}: {key} launched {launches[key]} times, expected '
+                f'the replays\' {cap_d} + {cap_p} and no eager launch')
+    log(f'{what}: {len(rids)} requests DONE, audit clean, '
+        f'{eng.cache.free_blocks} blocks free; {prefills} prefill '
+        f'dispatches, all graph replays '
+        f'{dict(sorted((k, n) for k, n in preplays.items() if n))}, + '
+        f'{steps} decode steps in graph replays '
+        f'{dict(sorted(dreplays.items()))} ({rep["interventions"]} '
+        f'interventions); fused_layer_norm launches '
+        f'{launches["fused_layer_norm"]} = {cap_p} prefill + {cap_d} decode '
+        f'captured x replays, none eager, all on the warp design')
+    log(f'{what}: {rep["decoded_tokens"]} tokens in {rep["wall_s"]:.3f} s '
+        f'= {rep["tokens_per_s"]:.1f} tokens/s; TTFT p50 '
+        f'{rep["ttft_p50_s"] * 1e3:.1f} ms, p99 '
+        f'{rep["ttft_p99_s"] * 1e3:.1f} ms; TPOT mean '
+        f'{rep["tpot_mean_s"] * 1e3:.2f} ms; peak max_memory_allocated '
+        f'{peak / 2**30:.2f} GiB')
+    summary = {'tokens_per_s': rep['tokens_per_s'], 'wall_s': rep['wall_s'],
+               'ttft_p50_s': rep['ttft_p50_s'],
+               'ttft_p99_s': rep['ttft_p99_s'],
+               'tpot_mean_s': rep['tpot_mean_s'], 'peak_bytes': peak,
+               'graphs': [list(sig) for sig in sorted(decode)],
+               'capture_s': sum(g.capture_s for g in decode.values()),
+               'prefill_graphs': {f'{P}x{B}': {
+                   'capture_s': g.capture_s,
+                   'layer_norm_a_replay':
+                       g.launches.counts()['fused_layer_norm'],
+                   'replays': preplays[(P, B)]}
+                   for (P, B), g in sorted(prefill.items())},
+               'prefill_capture_s': sum(g.capture_s
+                                        for g in prefill.values()),
+               'decode_steps': steps,
+               'replays': {f'{S}x{k}': n for (S, k), n in dreplays.items()},
+               'prefill_dispatches': prefills}
+    return launches, rep, summary
 
 
 def _check_spans_against_eager(eng):
@@ -1249,11 +1407,59 @@ def _check_spans_against_eager(eng):
     return checked
 
 
+def _eager_prefill(eng):
+    """Routes ``eng``'s prefill dispatches through the eager module body
+    on the same plan, in place of the graphs."""
+    eng._prefill_module = lambda P, B: (
+        lambda plan: eng._prefill_body(plan.to(eng.device), P))
+
+
+def _prefill_graphs_vs_eager(model, reqs):
+    """The same requests, all submitted at once (so both schedules are
+    the same), through two fresh engines: prefill graphs in one, the
+    eager prefill body in the other.  Equal streams, token for token,
+    and equal KV pools outside the trash block, which the padding rows
+    of a chunk all write."""
+    from paddle_tpu_torch.serving import Request, ServeConfig, ServingEngine
+    runs = []
+    for eager in (False, True):
+        eng = ServingEngine(model, ServeConfig(**SERVE_CONFIG_KW))
+        if eager:
+            _eager_prefill(eng)
+        eng.warmup()
+        subs = [eng.submit(r.prompt, r.max_new_tokens, rid=r.rid)
+                for r in reqs]
+        eng.run()
+        if any(r.state != Request.DONE for r in subs):
+            raise AssertionError('prefill parity: not every request DONE')
+        runs.append((eng, subs))
+    (geng, greqs), (eeng, ereqs) = runs
+    replays = sum(g.replays for g in _prefill_graphs(geng).values())
+    if replays != geng.prefill_dispatches:
+        raise AssertionError(f'prefill parity: {geng.prefill_dispatches} '
+                             f'dispatches, {replays} graph replays')
+    for g, e in zip(greqs, ereqs):
+        if g.tokens != e.tokens:
+            raise AssertionError(f'{g.rid}: graphed prefill stream differs '
+                                 'from the eager prefill\'s')
+    for layer, ((gk, gv), (ek, ev)) in enumerate(zip(geng.cache.pools,
+                                                     eeng.cache.pools)):
+        if not (torch.equal(gk[1:], ek[1:]) and torch.equal(gv[1:], ev[1:])):
+            raise AssertionError(f'prefill parity: layer {layer}\'s KV pool '
+                                 'differs outside the trash block')
+    log(f'parity: {len(reqs)} requests at once through prefill graphs '
+        f'({geng.prefill_dispatches} dispatches, all replays) and through '
+        f'the eager prefill body ({eeng.prefill_dispatches}): equal streams '
+        f'({sum(len(r.tokens) for r in greqs)} tokens) and equal KV pools '
+        f'of all {len(geng.cache.pools)} layers outside the trash block')
+    del geng, eeng, runs
+
+
 def serving_phase():
     """gpt_small at full width through the continuous-batching engine,
-    its decode spans as replayed CUDA graphs."""
+    its prefill and decode modules as replayed CUDA graphs.  Returns
+    (launches, summary, each request's greedy stream by rid)."""
     from paddle_tpu_torch.models.gpt import gpt_small
-    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.serving import (Request, ServeConfig,
                                           ServingEngine, poisson_requests)
     model = gpt_small(device='cuda', seed=0, **SERVE_MODEL_KW)
@@ -1262,90 +1468,13 @@ def serving_phase():
         f'{cfg.hidden_size}, layers {cfg.num_layers}, heads '
         f'{cfg.num_heads}, max_seq_len {cfg.max_seq_len}, f32, seed 0')
     eng = ServingEngine(model, ServeConfig(**SERVE_CONFIG_KW))
-    t0 = time.perf_counter()
-    eng.warmup()
-    torch.cuda.synchronize()
-    graphs = _decode_graphs(eng)
-    K = eng.config.decode_span
-    declared = {(S, K) for S in eng.config.batch_buckets}
-    if set(graphs) != declared:
-        raise AssertionError(f'warmup captured {sorted(graphs)}, declared '
-                             f'{sorted(declared)}')
-    capture_s = sum(g.capture_s for g in graphs.values())
-    log(f'warmup: {time.perf_counter() - t0:.2f} s; decode graphs (S, K) '
-        f'{sorted(graphs)} captured in {capture_s:.3f} s ('
-        + ', '.join(f'{sig}: {g.capture_s:.3f} s, launches a replay '
-                    f'{g.launches.counts()}'
-                    for sig, g in sorted(graphs.items())) + ')')
+    _warm_engine(eng, 'serve')
     reqs = poisson_requests(NUM_REQUESTS, vocab_size=cfg.vocab_size,
                             **SERVE_LOAD_KW)
     prompts = {r.rid: r.prompt.copy() for r in reqs}
-
     # the main path: counts at 0 just before, read just after
-    p0, d0 = eng.prefill_dispatches, eng.decode_steps
-    replays0 = {sig: g.replays for sig, g in graphs.items()}
-    _build.reset_launches()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    rep = eng.run(reqs)
-    torch.cuda.synchronize()
-    launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    prefills = eng.prefill_dispatches - p0
-    steps = eng.decode_steps - d0
-    replays = {sig: g.replays - replays0[sig] for sig, g in graphs.items()}
-
-    done = [r for r in eng.scheduler.finished if r.rid in prompts]
-    if len(done) != NUM_REQUESTS or any(r.state != Request.DONE
-                                        for r in done):
-        raise AssertionError(
-            f'not every request is DONE: '
-            f'{[(r.rid, r.state, r.reason) for r in done]}')
-    if rep['audit']:
-        raise AssertionError(f'allocator audit: {rep["audit"]}')
-    if eng.cache.free_blocks != eng.cache.num_blocks - 1:
-        raise AssertionError(f'free blocks {eng.cache.free_blocks} != '
-                             f'{eng.cache.num_blocks - 1}')
-    if set(_decode_graphs(eng)) != declared:
-        raise AssertionError('traffic captured a bucket warmup did not')
-    # every decode step was a step of a replayed graph
-    if steps != K * sum(replays.values()):
-        raise AssertionError(f'{steps} decode steps, but {replays} graph '
-                             f'replays of {K} steps')
-    per_forward = 2 * cfg.num_layers + 1
-    captured = sum(graphs[sig].launches.counts()['fused_layer_norm'] * n
-                   for sig, n in replays.items())
-    if captured != per_forward * steps:
-        raise AssertionError(f'captured LayerNorm launches x replays '
-                             f'{captured} != {per_forward} x {steps}')
-    want = per_forward * (prefills + steps)
-    for key in ('fused_layer_norm', 'fused_layer_norm:warp'):
-        if launches[key] != want:
-            raise AssertionError(
-                f'{key} launched {launches[key]} times, expected '
-                f'{per_forward} x ({prefills} prefill dispatches + {steps} '
-                f'decode steps) = {want}')
-    log(f'serve: {NUM_REQUESTS} requests DONE, audit clean, '
-        f'{eng.cache.free_blocks} blocks free; {prefills} prefill '
-        f'dispatches (eager) + {steps} decode steps in graph replays '
-        f'{dict(sorted(replays.items()))} ({rep["interventions"]} '
-        f'interventions); fused_layer_norm launches '
-        f'{launches["fused_layer_norm"]} = {per_forward} x {prefills} '
-        f'eager + {captured} captured x replays, all on the warp design')
-    log(f'serve: {rep["decoded_tokens"]} tokens in {rep["wall_s"]:.3f} s '
-        f'= {rep["tokens_per_s"]:.1f} tokens/s; TTFT p50 '
-        f'{rep["ttft_p50_s"] * 1e3:.1f} ms, p99 '
-        f'{rep["ttft_p99_s"] * 1e3:.1f} ms; TPOT mean '
-        f'{rep["tpot_mean_s"] * 1e3:.2f} ms; peak max_memory_allocated '
-        f'{peak / 2**30:.2f} GiB')
-    summary = {'tokens_per_s': rep['tokens_per_s'], 'wall_s': rep['wall_s'],
-               'ttft_p50_s': rep['ttft_p50_s'],
-               'ttft_p99_s': rep['ttft_p99_s'],
-               'tpot_mean_s': rep['tpot_mean_s'], 'peak_bytes': peak,
-               'graphs': [list(sig) for sig in sorted(graphs)],
-               'capture_s': capture_s, 'decode_steps': steps,
-               'replays': {f'{S}x{k}': n for (S, k), n in replays.items()},
-               'prefill_dispatches': prefills}
+    launches, rep, summary = _serve_main_path(eng, reqs, 'serve')
+    streams = {r.rid: list(r.tokens) for r in reqs}
 
     # the same requests again: every span through the graph and through
     # the eager span body on the same plan, equal outputs
@@ -1359,9 +1488,13 @@ def serving_phase():
     log(f'parity: {len(checked)} decode spans of {NUM_REQUESTS} requests '
         f'(buckets {sorted(set(S for S, _ in checked))}): replayed graph '
         '== eager span body on the same plan, every token of every stream')
+    del eng
+    _free()
+    _prefill_graphs_vs_eager(model, reqs)
+    _free()
 
-    # greedy streams of two requests equal batch-1 generate
-    by_len = sorted(done, key=lambda r: (r.prompt.size, r.rid))
+    # greedy streams of two requests equal batch-1 generate (its graph)
+    by_len = sorted(reqs, key=lambda r: (r.prompt.size, r.rid))
     for req in (by_len[0], by_len[-1]):
         ref = model.generate(prompts[req.rid][None], req.max_new_tokens,
                              temperature=0)
@@ -1392,7 +1525,166 @@ def serving_phase():
                              f'{diff:.3e} > {LOGIT_TOL}')
     log(f'parity: card prefill logits [1, {T}, {cfg.vocab_size}] vs CPU '
         f'plain twins max |diff| {diff:.3e} (tol {LOGIT_TOL})')
-    del eng, graphs, model
+    del model
+    _free()
+    return launches, summary, streams
+
+
+def _record_linear_io(layers, fn):
+    """Runs ``fn()`` with a forward hook on each layer; returns each
+    layer's (input, output) of that call, by name."""
+    seen, hooks = {}, []
+    for name, layer in layers:
+        def hook(mod, args, out, name=name):
+            seen[name] = (args[0].detach().clone(), out.detach().clone())
+        hooks.append(layer.register_forward_hook(hook))
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def _quant_layers_vs_cpu(eng, layers, mode, reqs):
+    """Each swapped Linear on one prefill batch and one decode batch of
+    the engine (eager bodies, every row on the trash block): the card's
+    int32 accumulator equals the CPU's on the same input, exactly, and
+    the layer's output lies within 1 f32 ulp of the CPU's."""
+    from paddle_tpu_torch.ops import int8_matmul as q8
+    from paddle_tpu_torch.serving import blocks_for
+    c = eng.config
+    rows = sorted(reqs, key=lambda r: r.rid)[:8]
+    P = max(c.prompt_buckets)
+    ids = np.zeros((len(rows), P), np.int64)
+    t0s = np.array([r.prompt.size for r in rows], np.int64)
+    for i, r in enumerate(rows):
+        ids[i, :r.prompt.size] = r.prompt
+    nblk = blocks_for(P, c.block_size)
+    seeds = np.array([r.seed for r in rows], np.int64)
+    plan = eng._prefill_plan(ids, t0s, np.zeros((len(rows), nblk), np.int32),
+                             seeds).cuda()
+    W = eng.scheduler.table_width
+    span = np.zeros((len(rows), W + 5), np.int64)
+    span[:, W] = t0s
+    span[:, W + 1] = ids[np.arange(len(rows)), t0s - 1]
+    span[:, W + 2] = 1
+    span[:, W + 3] = t0s + 8
+    span[:, W + 4] = seeds
+    batches = {
+        'prefill': _record_linear_io(
+            layers, lambda: eng._prefill_body(plan, P)),
+        'decode': _record_linear_io(
+            layers, lambda: eng._span_body(torch.from_numpy(span).cuda(), 1))}
+    worst = {}
+    for what, io in batches.items():
+        if set(io) != {n for n, _ in layers}:
+            raise AssertionError(f'{mode}: the {what} batch reached '
+                                 f'{len(io)} of {len(layers)} layers')
+        ulps = 0.0
+        for name, layer in layers:
+            x, out = io[name]
+            w = layer.qweight
+            if mode == 'int4':
+                w = q8.unpack_int4(w, layer.in_features)
+            acc = q8.int_dot(q8.quantize_activation(x)[0], w).cpu()
+            xc = x.cpu()
+            want_acc = q8.int_dot(q8.quantize_activation(xc)[0], w.cpu())
+            if not torch.equal(acc, want_acc):
+                raise AssertionError(
+                    f'{mode} {what} {name}: the card\'s int32 '
+                    'accumulator differs from the CPU\'s')
+            want = q8.dynamic_int8_matmul(
+                xc, w.cpu(), layer.wscale.cpu(), layer.bias.detach().cpu(),
+                out_dtype=torch.float32)
+            spacing = torch.nextafter(want.abs(), torch.tensor(
+                float('inf'))) - want.abs()
+            ulps = max(ulps, float(((out.cpu() - want).abs()
+                                    / spacing).max()))
+        if ulps > 1.0:
+            raise AssertionError(f'{mode} {what}: an output lies {ulps} '
+                                 'f32 ulps from the CPU\'s')
+        worst[what] = ulps
+        log(f'{mode} {what} batch ({tuple(x.shape)} at the last layer): '
+            f'{len(layers)} swapped Linears, int32 accumulators equal to the '
+            f'CPU\'s, outputs within {ulps:.2f} f32 ulps of it')
+    return worst
+
+
+def serve_quant_phase(mode, f32_streams):
+    """The bench's serve config with ``ServeConfig(quantize=mode)`` at
+    gpt_small's full width, the same 32 requests: the gates of the f32
+    run, the accumulators against the CPU, the weight bytes, tokens/s,
+    TPOT, peak memory, the share of greedy tokens equal to the f32
+    engine's (reported, no gate: PTQ changes tokens), and one quantized
+    ``generate`` through its graph."""
+    from paddle_tpu_torch.models.gpt import gpt_small
+    from paddle_tpu_torch.nn.layer.common import Linear
+    from paddle_tpu_torch.serving import (ServeConfig, ServingEngine,
+                                          poisson_requests)
+    from paddle_tpu_torch import quantization
+    what = f'serve_{mode}'
+    model = gpt_small(device='cuda', seed=0, **SERVE_MODEL_KW)
+    f32_bytes = sum(m.weight.numel() * m.weight.element_size()
+                    for m in model.modules() if isinstance(m, Linear))
+    eng = ServingEngine(model, ServeConfig(**SERVE_CONFIG_KW, quantize=mode))
+    kind = {'int8': quantization.Int8DynamicLinear,
+            'int4': quantization.Int4DynamicLinear}[mode]
+    layers = [(n, m) for n, m in model.named_modules() if type(m) is kind]
+    if len(layers) != 4 * model.config.num_layers or any(
+            isinstance(m, Linear) for m in model.modules()):
+        raise AssertionError(f'{what}: {len(layers)} swapped Linears')
+    q_bytes = sum(m.qweight.numel() * m.qweight.element_size()
+                  + m.wscale.numel() * m.wscale.element_size()
+                  for _, m in layers)
+    log(f'{what}: {len(layers)} Linears swapped for {kind.__name__}; weight '
+        f'bytes {q_bytes / 1e6:.1f} MB ({mode} + f32 scales) against '
+        f'{f32_bytes / 1e6:.1f} MB in f32 ({q_bytes / f32_bytes:.4f}); the '
+        f'tied head and embeddings stay f32')
+    warm_s, _, _ = _warm_engine(eng, what)
+    reqs = poisson_requests(NUM_REQUESTS, vocab_size=model.config.vocab_size,
+                            **SERVE_LOAD_KW)
+    launches, rep, summary = _serve_main_path(eng, reqs, what)
+    same = total = 0
+    for r in reqs:
+        ref = f32_streams[r.rid]
+        total += len(ref)
+        same += sum(a == b for a, b in zip(r.tokens, ref))
+    agree = same / total
+    log(f'{what}: {same} of {total} greedy tokens equal to the f32 '
+        f'engine\'s, position by position ({agree:.4f}; reported, no gate)')
+    ulps = _quant_layers_vs_cpu(eng, layers, mode, reqs)
+    # one quantized generate through its graph, then a replay
+    ids = np.random.RandomState(0).randint(
+        0, model.config.vocab_size, (GEN_BATCH, 32)).astype(np.int64)
+    t0 = time.perf_counter()
+    first = model.generate(ids, 32, temperature=0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    mod, = _captured(model._gen_cache, f'{what} generate').values()
+    t0 = time.perf_counter()
+    again = model.generate(ids, 32, temperature=0)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    per_forward = 2 * model.config.num_layers + 1
+    if not torch.equal(first, again) or mod.replays != 1 or \
+            mod.launches.counts()['fused_layer_norm'] != per_forward * 32 \
+            or int(again.max()) >= model.config.vocab_size:
+        raise AssertionError(f'{what}: generate through its graph gave '
+                             f'{tuple(again.shape)}, {mod.replays} replays, '
+                             f'{mod.launches.counts()}')
+    log(f'{what}: generate B {GEN_BATCH}, 32 + 32 greedy through one graph '
+        f'(captured in {mod.capture_s:.2f} s, first call {first_s:.2f} s), '
+        f'a replay {replay_s * 1e3:.1f} ms = '
+        f'{GEN_BATCH * 32 / replay_s:.1f} tokens/s, the same tokens')
+    summary.update({'weight_bytes': q_bytes, 'f32_weight_bytes': f32_bytes,
+                    'greedy_agreement': agree, 'warmup_s': warm_s,
+                    'max_ulps_vs_cpu': ulps,
+                    'generate': {'capture_s': mod.capture_s,
+                                 'replay_s': replay_s,
+                                 'tokens_per_s': GEN_BATCH * 32 / replay_s}})
+    del eng, model, mod
     _free()
     return launches, summary
 
@@ -2939,11 +3231,28 @@ def _top2_gap(model, stream):
     return float(top[0] - top[1])
 
 
+def _generate_eager(model, ids, t0, new, seed=0, temperature=0, top_k=None):
+    """``generate``'s module body run eagerly (the loop of kernels its
+    graph captures) on the same padded ids, T0 and seed."""
+    B = ids.shape[0]
+    P = model._decode_bucket(t0, new)
+    ids_p = torch.zeros((B, P), dtype=torch.int64, device='cuda')
+    ids_p[:, :t0] = torch.from_numpy(np.ascontiguousarray(ids[:, :t0]))
+    with torch.no_grad():
+        return model._generate_body(
+            ids_p, torch.tensor(t0, device='cuda'),
+            torch.tensor(seed, device='cuda'), max_new_tokens=new,
+            temperature=temperature, top_k=top_k)
+
+
 def gptgen_phase():
-    """``generate`` at bench.py's gptgen configuration, an eager Python
-    loop over the dense cache: tokens/s, the idle share, exact LayerNorm
-    launches per prefill and per decode step, and the 8 greedy streams
-    against the ServingEngine's of the same prompts and weights."""
+    """``generate`` at bench.py's gptgen configuration through its CUDA
+    graph (one per signature, the prefill and all 127 decode steps in
+    one capture): tokens/s, ms a token step, the idle share, the capture
+    seconds, exact LayerNorm launches per replay; the streams equal the
+    eager loop's and the ServingEngine's of the same prompts and
+    weights; another prompt length in the bucket and a sampled call at
+    a second seed replay without a new capture."""
     from paddle_tpu_torch.models.gpt import gpt_small
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.serving import Request, ServeConfig, ServingEngine
@@ -2975,11 +3284,29 @@ def gptgen_phase():
             raise AssertionError(f'gptgen: a {what} launched {ran}, '
                                  f'expected {want}')
     del caches, logits
+    # the first call makes the signature's module: warm-up and capture
     t0 = time.perf_counter()
     out = model.generate(ids, GEN_NEW, temperature=0)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    greedy_sig = (GEN_BATCH, GEN_PROMPT, GEN_NEW, True, 0.0, None)
+    mods = _captured(model._gen_cache, 'gptgen generate')
+    if set(mods) != {greedy_sig}:
+        raise AssertionError(f'gptgen: modules {sorted(mods)}, expected '
+                             f'{greedy_sig}')
+    mod = mods[greedy_sig]
+    per_replay = per_forward * GEN_NEW
+    if mod.launches.counts() != {'fused_layer_norm': per_replay}:
+        raise AssertionError(f'gptgen: the graph captured '
+                             f'{mod.launches.counts()}, expected '
+                             f'fused_layer_norm {per_replay}')
+    log(f'gptgen: generate\'s graph {greedy_sig} captured in '
+        f'{mod.capture_s:.3f} s (first call {warm_s:.2f} s with its eager '
+        f'warm-up), fused_layer_norm {per_replay} a replay (a prefill and '
+        f'{GEN_NEW - 1} decode steps); memory reserved '
+        f'{torch.cuda.memory_reserved() / 2**30:.2f} GiB')
     # the main path: counts at 0 just before, read just after
+    graph, replays0 = mod.graph, mod.replays
     _build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
@@ -2991,27 +3318,63 @@ def gptgen_phase():
     peak = torch.cuda.max_memory_allocated()
     if not torch.equal(again, out):
         raise AssertionError('gptgen: greedy generate changed between calls')
-    want = per_forward * GEN_NEW * GEN_CALLS
+    want = per_replay * GEN_CALLS
     ran = {k: n for k, n in launches.items() if n}
-    if ran != {'fused_layer_norm': want, 'fused_layer_norm:warp': want}:
-        raise AssertionError(f'gptgen: {GEN_CALLS} calls launched {ran}, '
-                             f'expected fused_layer_norm {want}')
+    if ran != {'fused_layer_norm': want, 'fused_layer_norm:warp': want} \
+            or mod.replays - replays0 != GEN_CALLS or mod.graph is not graph:
+        raise AssertionError(f'gptgen: {GEN_CALLS} calls launched {ran} in '
+                             f'{mod.replays - replays0} replays, expected '
+                             f'fused_layer_norm {want} in {GEN_CALLS}')
     out = out.cpu()
     if tuple(out.shape) != (GEN_BATCH, GEN_PROMPT + GEN_NEW) or not \
             torch.equal(out[:, :GEN_PROMPT], torch.from_numpy(ids)):
         raise AssertionError(f'gptgen: output {tuple(out.shape)}')
     tokens_s = GEN_BATCH * GEN_NEW * GEN_CALLS / dt
+    # the eager loop: the same body, kernel by kernel, on the same inputs
+    eager = _generate_eager(model, ids, GEN_PROMPT, GEN_NEW).cpu()
+    if not torch.equal(eager, out[:, GEN_PROMPT:]):
+        raise AssertionError('gptgen: the graph\'s streams differ from the '
+                             'eager loop\'s')
+    # another prompt length in the bucket, a sampled signature at two
+    # seeds: one new capture (the sampled one), the rest replays
+    short = GEN_PROMPT - 28
+    got = model.generate(ids[:, :short], GEN_NEW, temperature=0)
+    if not torch.equal(got[:, short:].cpu(), _generate_eager(
+            model, ids, short, GEN_NEW).cpu()):
+        raise AssertionError(f'gptgen: prompt {short}: the replay differs '
+                             'from the eager loop')
+    sampling = dict(temperature=0.8, top_k=40)
+    sampled = [model.generate(ids, GEN_NEW, seed=s, **sampling)
+               for s in (1, 2)]
+    mods = _captured(model._gen_cache, 'gptgen generate')
+    sampled_sig = (GEN_BATCH, GEN_PROMPT, GEN_NEW, False, 0.8, 40)
+    if set(mods) != {greedy_sig, sampled_sig} or mods[greedy_sig] is not mod \
+            or mod.graph is not graph \
+            or mod.replays - replays0 != GEN_CALLS + 1 \
+            or mods[sampled_sig].replays != 1:
+        raise AssertionError(f'gptgen: modules {sorted(mods)} after a '
+                             f'prompt of {short} and two seeds')
+    if torch.equal(sampled[0], sampled[1]) or not torch.equal(
+            sampled[1][:, GEN_PROMPT:], _generate_eager(
+                model, ids, GEN_PROMPT, GEN_NEW, seed=2, **sampling)):
+        raise AssertionError('gptgen: the sampled replay at seed 2 differs '
+                             'from the eager loop, or seeds 1 and 2 agree')
+    log(f'gptgen: the graph\'s {GEN_BATCH} streams equal the eager loop\'s, '
+        f'every token; a prompt of {short} (bucket {GEN_PROMPT}) replayed '
+        f'the greedy graph, equal to the eager loop; sampled (temperature '
+        f'0.8, top-k 40) seeds 1 and 2: one capture '
+        f'({mods[sampled_sig].capture_s:.3f} s) and one replay, seed 2 equal '
+        f'to the eager loop; 2 captures in all')
     idle, prof_s = idle_share(lambda: model.generate(ids, GEN_NEW,
                                                      temperature=0))
     log(f'gptgen: {GEN_CALLS} calls in {dt:.3f} s = {tokens_s:.1f} tokens/s '
         f'decoded ({dt / GEN_CALLS * 1e3:.1f} ms a call, '
-        f'{dt / GEN_CALLS / GEN_NEW * 1e3:.3f} ms a token step; first call '
-        f'{warm_s:.2f} s); idle share {idle:.4f} under the profiler '
-        f'({prof_s * 1e3:.1f} ms a call there); peak max_memory_allocated '
-        f'{peak / 2**30:.3f} GiB; fused_layer_norm {per_forward} a prefill '
-        f'and {per_forward} a decode step, {want} in {GEN_CALLS} calls '
-        f'(exact, warp design), no flash (the cached prefill takes the '
-        f'plain attention)')
+        f'{dt / GEN_CALLS / GEN_NEW * 1e3:.3f} ms a token step); idle '
+        f'share {idle:.4f} under the profiler ({prof_s * 1e3:.1f} ms a call '
+        f'there); peak max_memory_allocated {peak / 2**30:.3f} GiB; '
+        f'fused_layer_norm {per_replay} a replay, {want} in {GEN_CALLS} '
+        f'calls (exact, warp design), no flash (the cached prefill takes '
+        f'the plain attention)')
     # the same prompts through the serving engine, greedy
     eng = ServingEngine(model, ServeConfig(**GEN_SERVE_KW))
     eng.warmup()
@@ -3037,14 +3400,19 @@ def gptgen_phase():
     log(f'gptgen: the engine\'s greedy streams of the same {GEN_BATCH} '
         f'prompts equal generate\'s in '
         f'{GEN_BATCH - len(parted)} of {GEN_BATCH}, every token')
-    del eng, model
+    summary = {'tokens_per_s': tokens_s, 'ms_per_call': dt / GEN_CALLS * 1e3,
+               'ms_per_token_step': dt / GEN_CALLS / GEN_NEW * 1e3,
+               'first_call_s': warm_s, 'capture_s': mod.capture_s,
+               'sampled_capture_s': mods[sampled_sig].capture_s,
+               'idle_share': idle,
+               'profiled_ms_per_call': prof_s * 1e3, 'peak_bytes': peak,
+               'layer_norm_per_prefill': per_forward,
+               'layer_norm_per_decode_step': per_forward,
+               'layer_norm_per_replay': per_replay,
+               'streams_parted': parted, 'launches': launches}
+    del eng, model, mod, mods
     _free()
-    return {'tokens_per_s': tokens_s, 'ms_per_call': dt / GEN_CALLS * 1e3,
-            'first_call_s': warm_s, 'idle_share': idle,
-            'profiled_ms_per_call': prof_s * 1e3, 'peak_bytes': peak,
-            'layer_norm_per_prefill': per_forward,
-            'layer_norm_per_decode_step': per_forward,
-            'streams_parted': parted, 'launches': launches}
+    return summary
 
 
 def ernie_phase():
@@ -3287,7 +3655,9 @@ def main():
     timings.update(flash_kernel_phase())
     timings.update(softmax_kernel_phase())
     timings.update(gelu_kernel_phase())
-    serve_launches, serve = serving_phase()
+    serve_launches, serve, f32_streams = serving_phase()
+    serve_quant = {mode: serve_quant_phase(mode, f32_streams)
+                   for mode in ('int8', 'int4')}
     train = training_phase()
     gpt_fused = gpt_fused_phase()
     gpt_recipe = gpt_recipe_phase(gpt_fused['ms_per_step'])
@@ -3304,7 +3674,9 @@ def main():
     ernie = ernie_phase()
     zoo = vision_zoo_phase()
     optimizers = optimizers_phase()
-    log(json.dumps({'serve': serve, 'train': train, 'gpt_fused': gpt_fused,
+    log(json.dumps({'serve': serve,
+                    **{f'serve_{m}': r[1] for m, r in serve_quant.items()},
+                    'train': train, 'gpt_fused': gpt_fused,
                     'gpt_recipe': gpt_recipe,
                     'gpt_dropout': gpt_dropout, 'gpt_f16': gpt_f16,
                     'bert': bert, 'bert_dropout_fused': bert_fused,
@@ -3312,10 +3684,13 @@ def main():
                     'lenet': lenet, 'widedeep': widedeep,
                     'longctx': longctx, 'gptgen': gptgen, 'ernie': ernie,
                     'vision_zoo': zoo, 'optimizers': optimizers}))
-    # 'serve', 'gpt_fused', 'gpt_recipe', 'bert_dropout_fused',
-    # 'resnet_fused', 'widedeep_fused', 'longctx_fused',
-    # 'mobilenet_v2_fused' and half of 'optimizers' replay CUDA graphs
-    paths = {'serve': serve_launches, 'train': train['launches'],
+    # 'serve', 'serve_int8', 'serve_int4', 'gptgen', 'gpt_fused',
+    # 'gpt_recipe', 'bert_dropout_fused', 'resnet_fused',
+    # 'widedeep_fused', 'longctx_fused', 'mobilenet_v2_fused' and half of
+    # 'optimizers' replay CUDA graphs
+    paths = {'serve': serve_launches,
+             **{f'serve_{m}': r[0] for m, r in serve_quant.items()},
+             'train': train['launches'],
              'gpt_fused': gpt_fused['launches'],
              'gpt_recipe': gpt_recipe['launches'],
              'gpt_dropout': gpt_dropout['launches'],

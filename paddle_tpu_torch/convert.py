@@ -5,20 +5,24 @@ is ``[in, out]`` in both), so converting the JAX model's
 ``functional_state()`` — taken to numpy by the caller — is
 ``torch.from_numpy`` of a copy plus checks; a JAX trainer's optimizer
 slots and step count carry over the same way (``load_train_state``).
-Each function raises on a missing or extra key and on a shape or dtype
-mismatch.
+A weight-only PTQ model's int8 or packed int4 buffers load the same way
+(``load_quantized_state``).  Each function raises on a missing or extra
+key and on a shape or dtype mismatch.
 """
 import numpy as np
 import torch
 
 from .core.device import resolve_device
 
-__all__ = ['state_from_numpy', 'load_numpy_state', 'load_train_state']
+__all__ = ['state_from_numpy', 'load_numpy_state', 'load_quantized_state',
+           'load_train_state']
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.float64): torch.float64,
            np.dtype(np.int32): torch.int32,
-           np.dtype(np.int64): torch.int64}
+           np.dtype(np.int64): torch.int64,
+           np.dtype(np.int8): torch.int8,
+           np.dtype(np.uint8): torch.uint8}
 
 
 def state_from_numpy(params, device=None):
@@ -61,6 +65,26 @@ def load_numpy_state(module, params, buffers=None):
         for name, src in state.items():
             own[name].copy_(src)
     return module
+
+
+def load_quantized_state(module, params, buffers):
+    """Load a PTQ-quantized JAX model's ``functional_state()`` (its
+    ``params`` and its ``qweight``/``wscale`` buffers, as numpy) into a
+    port model quantized in the same mode (``quantize_for_serving``):
+    int8 ``qweight`` for 'int8', packed uint8 for 'int4'.  Raises if
+    the port model is not quantized, on a buffer of the other mode, and
+    as ``load_numpy_state`` does."""
+    mode = getattr(module, '_ptq_mode', None)
+    if mode is None:
+        raise ValueError('the port model is not quantized: call '
+                         'quantization.quantize_for_serving(model, mode) '
+                         'with the JAX model\'s mode first')
+    want = np.dtype(np.int8 if mode == 'int8' else np.uint8)
+    for name, arr in buffers.items():
+        if name.endswith('.qweight') and np.asarray(arr).dtype != want:
+            raise ValueError(f'{name}: {np.asarray(arr).dtype} weights do '
+                             f'not belong to a {mode!r} model')
+    return load_numpy_state(module, params, buffers)
 
 
 def load_train_state(trainer, params, opt_state, step):

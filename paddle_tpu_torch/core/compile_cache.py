@@ -2,7 +2,8 @@
 
 Counterpart of ``paddle_tpu/core/compile_cache.py``.  The reference
 keeps one compiled XLA module per signature (the serving engine's
-decode span per batch bucket, the trainer's fused step per batch
+prefill per prompt bucket and chunk and decode span per batch bucket,
+``generate`` per call signature, the trainer's fused step per batch
 shape).  The port's counterpart of a compiled module is a CUDA graph:
 ``GraphModule`` captures a function once and replays the capture, one
 host call in place of its thousands of launches, and ``GraphCache``
@@ -136,14 +137,29 @@ class GraphCache:
     outside the pool, and the graphs run on one stream, one at a time.
     Then a graph may overwrite only what another freed inside its own
     capture (intermediates), in any replay order.  The serving engine's
-    decode graphs share one pool this way; a trainer's step graphs keep
-    private pools (a trainer has one batch signature as a rule)."""
+    decode and prefill graphs share one pool this way (``share_with``
+    names the cache whose pool a second cache takes), and so do
+    ``generate``'s; a trainer's step graphs keep private pools (a
+    trainer has one batch signature as a rule)."""
 
-    def __init__(self, device, shared_pool=False):
+    def __init__(self, device, shared_pool=False, share_with=None):
         self.device = torch.device(device)
-        self.shared_pool = shared_pool
+        self.shared_pool = shared_pool or share_with is not None
+        self.share_with = share_with
         self.pool = None
         self.modules = {}
+
+    def _shared_pool(self):
+        owner = self.share_with if self.share_with is not None else self
+        if owner.pool is None:
+            owner.pool = torch.cuda.graph_pool_handle()
+        return owner.pool
+
+    def clear(self):
+        """Drops every module (a graph bakes in the addresses of the
+        tensors it read: after a model's layers are swapped, its
+        modules must be made anew)."""
+        self.modules.clear()
 
     def module(self, sig, fn, warmup_inputs=None):
         """The module of ``sig``, made from ``fn`` at first use; a new
@@ -155,9 +171,8 @@ class GraphCache:
         if self.device.type != 'cuda':
             mod = fn
         else:
-            if self.shared_pool and self.pool is None:
-                self.pool = torch.cuda.graph_pool_handle()
-            mod = GraphModule(fn, self.device, pool=self.pool)
+            mod = GraphModule(fn, self.device, pool=self._shared_pool()
+                              if self.shared_pool else None)
         if warmup_inputs is not None:
             mod(*warmup_inputs)
         self.modules[sig] = mod

@@ -3,7 +3,8 @@
 Serving: the cached forward that decoding and the serving engine run,
 the dense-cache attention branch (prompt prefill and ``generate``) and
 the paged branch (the engine's batched decode), ``prefill``/
-``decode_step``/``generate``.  Training: the uncached ``forward(ids)``,
+``decode_step``/``generate`` (one CUDA graph per signature on the
+card).  Training: the uncached ``forward(ids)``,
 whose attention is flash attention (the hand-written CUDA forward and
 backward kernels of ``ops/flash_attention.py``) while attention dropout
 is inactive, and otherwise the reference's plain branch (scores, the
@@ -21,13 +22,14 @@ dispatches by name cast their inputs through the AMP policy
 
 MoE, sequence parallelism and striped sp wait for their slices.
 """
+import functools
 import math
 
 import torch
 from torch import nn
 
 from ..amp import amp_cast
-from ..core.compile_cache import bucket_pow2
+from ..core.compile_cache import GraphCache, bucket_pow2
 from ..core.device import resolve_device
 from ..distributed.fleet.meta_parallel import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
@@ -159,11 +161,18 @@ class CausalSelfAttention(nn.Module):
         else:
             # dense buffers [B, nh, Tmax, hd], written in place at the
             # absolute offset `pos` (the reference's
-            # dynamic_update_slice; the caller owns the buffers)
+            # dynamic_update_slice; the caller owns the buffers): an
+            # int, or a 0-d device tensor that stays on the device
             kb, vb = cache
-            p = int(pos)
-            kb[:, :, p:p + T] = k.to(kb.dtype)
-            vb[:, :, p:p + T] = v.to(vb.dtype)
+            if torch.is_tensor(pos):
+                p = pos.to(device=kb.device, dtype=torch.int64)
+                slots = p + torch.arange(T, device=kb.device)
+                kb.index_copy_(2, slots, k.to(kb.dtype))
+                vb.index_copy_(2, slots, v.to(vb.dtype))
+            else:
+                p = int(pos)
+                kb[:, :, p:p + T] = k.to(kb.dtype)
+                vb[:, :, p:p + T] = v.to(vb.dtype)
             y = _cached_attention(q, kb, vb, p)
             new_cache = (kb, vb)
         y = y.transpose(1, 2).reshape(B, T, H)
@@ -242,6 +251,9 @@ class GPT(nn.Module):
         if torch.is_tensor(pos) and pos.dim() == 1:
             # the serving engine's ragged live set: a [B] start vector
             posv = pos.long()[:, None] + steps[None, :]
+        elif torch.is_tensor(pos):
+            # one start on the device (generate's captured steps)
+            posv = pos.long() + steps
         else:
             posv = int(pos) + steps
         x = self.drop(_add(self.wte(input_ids), self.wpe(posv)))
@@ -268,6 +280,8 @@ class GPTForCausalLM(nn.Module):
         self.gpt = GPT(config, device=self.device)
         self.init_weights(torch.Generator().manual_seed(int(seed)))
         self.eval()
+        # generate's modules, one per signature; its graphs share a pool
+        self._gen_cache = GraphCache(self.device, shared_pool=True)
 
     def init_weights(self, generator):
         """The reference's default init, drawn from ``generator``."""
@@ -347,13 +361,25 @@ class GPTForCausalLM(nn.Module):
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens, temperature=1.0,
                  top_k=None, seed=0):
-        """Autoregressive decode over the dense cache, as a Python loop.
+        """Autoregressive decode over the dense cache, one module per
+        signature, as the reference compiles one XLA module.
 
-        The prompt is right-padded to its pow2 bucket (capped so bucket
-        plus new tokens fit ``max_seq_len``), prefilled once, sampled at
-        row ``T0-1``, then one decode step per new token; padded k/v
-        slots are overwritten before the causal mask exposes them.
-        temperature 0 is greedy.  Returns ``[B, T0 + max_new_tokens]``.
+        The prompt is right-padded to its pow2 bucket P (capped so
+        bucket plus new tokens fit ``max_seq_len``), prefilled once,
+        sampled at row ``T0-1``, then one decode step per new token;
+        padded k/v slots are overwritten before the causal mask exposes
+        them.  temperature 0 is greedy.  Returns ``[B, T0 +
+        max_new_tokens]``.
+
+        Modules are keyed as the reference keys them, ``(B, P,
+        max_new_tokens, greedy, temperature, top_k)``; the padded ids,
+        the true length T0 and the seed are the module's inputs, so any
+        prompt length inside a bucket and any seed reuse it.  On the
+        card the module is one CUDA graph of the whole call (the
+        prefill and every decode step, positions and seed on the
+        device, no host read between tokens), captured at the
+        signature's first call (``core.compile_cache``); on the CPU it
+        is the same body, run eagerly.
         """
         cfg = self.config
         ids = torch.as_tensor(input_ids, dtype=torch.int64) \
@@ -367,17 +393,38 @@ class GPTForCausalLM(nn.Module):
                 f'prompt+new tokens {T0 + max_new_tokens} exceeds '
                 f'max_seq_len {cfg.max_seq_len}')
         P = self._decode_bucket(T0, max_new_tokens)
-        ids_p = torch.nn.functional.pad(ids, (0, P - T0))
+        greedy = temperature == 0 or temperature is None
+        sig = (B, P, max_new_tokens, greedy, float(temperature or 0.0),
+               top_k)
+        module = self._gen_cache.module(sig, functools.partial(
+            self._generate_body, max_new_tokens=max_new_tokens,
+            temperature=temperature, top_k=top_k))
+        new = module(torch.nn.functional.pad(ids, (0, P - T0)),
+                     torch.tensor(T0, dtype=torch.int64),
+                     torch.tensor(int(seed), dtype=torch.int64))
+        return torch.cat([ids, new], dim=1)
+
+    def _generate_body(self, ids_p, t0, seed, max_new_tokens, temperature,
+                       top_k):
+        """``generate``'s module: padded ids ``[B, P]``, the true length
+        ``t0`` and ``seed`` (0-d int64 tensors) -> the new tokens ``[B,
+        max_new_tokens]``, on device tensors only."""
+        B, P = ids_p.shape
         caches = self.init_decode_caches(B, P + max_new_tokens)
         logits, caches = self.prefill(ids_p, 0, caches)
-        tok = sample_rows(logits[:, T0 - 1], seed, T0 - 1, temperature,
-                          top_k)
+        # every sampled position: t0-1 (the prefill's last true row),
+        # then each decode step's input slot t0 .. t0+N-2
+        positions = t0 - 1 + torch.arange(max_new_tokens, device=t0.device)
+        pos = positions[0]
+        tok = sample_rows(logits.index_select(1, pos.reshape(1))[:, 0],
+                          seed, pos, temperature, top_k)
         out = [tok]
-        for p in range(T0, T0 + max_new_tokens - 1):
-            logits, caches = self.decode_step(tok[:, None], p, caches)
-            tok = sample_rows(logits[:, -1], seed, p, temperature, top_k)
+        for i in range(1, max_new_tokens):
+            pos = positions[i]
+            logits, caches = self.decode_step(tok[:, None], pos, caches)
+            tok = sample_rows(logits[:, -1], seed, pos, temperature, top_k)
             out.append(tok)
-        return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
+        return torch.stack(out, dim=1)
 
     def _decode_bucket(self, T0, max_new_tokens):
         """Prompt bucket: next power of two, capped so bucket + new

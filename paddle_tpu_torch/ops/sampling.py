@@ -53,18 +53,27 @@ def _greedy(temperature):
     return temperature == 0 or temperature is None
 
 
+def _per_row(value, B, dev):
+    """``[B]`` int64 copies of one scalar: a Python int, or a 0-d device
+    tensor read on the device (no host read, so a graph can capture
+    the draw with the seed and the position as its inputs)."""
+    if torch.is_tensor(value):
+        return value.to(device=dev, dtype=torch.int64).reshape(1).expand(B)
+    return torch.full((B,), int(value), device=dev, dtype=torch.int64)
+
+
 def sample_rows(logits, seed, pos, temperature, top_k):
     """``generate``'s batch form: every row shares ``seed`` and the
-    absolute position ``pos``; rows differ by index.  ``logits`` is
+    absolute position ``pos`` (each an int or a 0-d tensor; the draws
+    are the same either way); rows differ by index.  ``logits`` is
     ``[B, V]``; returns ``[B]`` int64."""
     if _greedy(temperature):
         return torch.argmax(logits, dim=-1)
     B = logits.shape[0]
     dev = logits.device
     rows = torch.arange(B, device=dev, dtype=torch.int64)
-    return _draw(logits, torch.full((B,), int(seed), device=dev),
-                 torch.full((B,), int(pos), device=dev), rows,
-                 temperature, top_k)
+    return _draw(logits, _per_row(seed, B, dev), _per_row(pos, B, dev),
+                 rows, temperature, top_k)
 
 
 def make_row_sampler(temperature, top_k):

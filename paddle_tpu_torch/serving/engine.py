@@ -11,27 +11,32 @@ scheduling and the same shapes:
 - the same declared prompt buckets, pow2 batch buckets and pow2
   prefill chunks, so the kernels and the allocator see a finite set of
   shapes;
-- ``decode_span=K`` decode steps per intervention, tokens on the
-  device until the span ends (one host read per intervention): one
+- one prefill module per (prompt bucket P, chunk B) and one decode
   module per (batch bucket S, span K), as the reference compiles one
-  ``lax.scan`` module each.  On the card the module is a CUDA graph of
-  the span (``core.compile_cache``), captured by ``warmup()`` for every
-  declared bucket or at a bucket's first use; the plan goes in through
-  one static buffer from pinned staging.  The engine's decode graphs
-  share one memory pool.  On the CPU the module is the same span body,
-  called directly.  Prefill runs eagerly.
+  XLA module each; ``decode_span=K`` decode steps per intervention,
+  tokens on the device until the span ends (one host read per
+  intervention).  On the card each module is a CUDA graph
+  (``core.compile_cache``), captured by ``warmup()`` for every
+  declared signature or at a signature's first use; its plan goes in
+  through one static buffer from pinned staging, and all of the
+  engine's graphs share one memory pool.  On the CPU the module is the
+  same body, called directly;
+- weight-only PTQ (``ServeConfig(quantize='int8'|'int4')``,
+  ``quantization.quantize_for_serving``), applied before any module is
+  made.
 
 The decode math runs through ``GPTForCausalLM.prefill``/``decode_step``,
 the same forward ``generate()`` uses, so greedy engine output equals
 batch-1 ``generate``.
 
 Left for later slices of the port: the live metrics plane, the memory
-sampler, the step profiler, watchdog budgets, weight-only PTQ, AOT
-precompile, graphs of the prefill modules, ``DecodeAuditLayer`` and the
-telemetry events.  A
-``ServeConfig`` that asks for one of them raises.
+sampler, the step profiler, watchdog budgets, ``DecodeAuditLayer`` and
+the telemetry events.  A ``ServeConfig`` that asks for watchdog
+budgets or the profiler raises.
 """
 import functools
+import hashlib
+import json
 import math
 import time
 import zlib
@@ -40,6 +45,7 @@ import numpy as np
 import torch
 
 from ..core.compile_cache import GraphCache, bucket_pow2
+from ..ops import _build, fused_gelu_linear
 from ..ops.sampling import make_row_sampler
 from .kv_cache import PagedKVCache, PagedCacheView, blocks_for
 from .scheduler import ContinuousBatchingScheduler, Request
@@ -65,7 +71,9 @@ def _pow2_chain(lo, hi):
 
 
 class ServeConfig:
-    """The declared serving surface (the reference's fields)."""
+    """The declared serving surface (the reference's fields): every
+    field shapes the finite module set, so the config is the bucket
+    declaration."""
 
     def __init__(self, *, block_size=16, max_slots=8, decode_span=4,
                  prompt_buckets=None, batch_buckets=None,
@@ -75,8 +83,7 @@ class ServeConfig:
                  seed=0, quantize=None):
         for field, value, what in (
                 ('watchdog', watchdog, 'watchdog budgets'),
-                ('profile', profile, 'the step profiler'),
-                ('quantize', quantize, 'weight-only PTQ')):
+                ('profile', profile, 'the step profiler')):
             if value is not None:
                 raise NotImplementedError(
                     f'ServeConfig({field}=...): {what} ports with a '
@@ -95,6 +102,26 @@ class ServeConfig:
         self.num_blocks = num_blocks
         self.request_deadline_s = request_deadline_s
         self.seed = int(seed)
+        # weight-only PTQ of the served model: None (full width), 'int8'
+        # or 'int4'; part of signature()
+        if quantize not in (None, 'int8', 'int4'):
+            raise ValueError(f'ServeConfig quantize={quantize!r}: '
+                             "expected None, 'int8' or 'int4'")
+        self.quantize = quantize
+
+    @classmethod
+    def from_json(cls, path_or_dict):
+        """A serving config file (or its dict): the ServeConfig fields,
+        plus ``model``/``model_kwargs`` keys, which the callers that
+        build models from configs read and this drops."""
+        if isinstance(path_or_dict, dict):
+            doc = dict(path_or_dict)
+        else:
+            with open(path_or_dict) as f:
+                doc = json.load(f)
+        doc.pop('model', None)
+        doc.pop('model_kwargs', None)
+        return cls(**doc)
 
     def resolved(self, model_config):
         """Fill derived fields from the model config; returns self."""
@@ -117,6 +144,18 @@ class ServeConfig:
                 f'max_model_len {self.max_model_len}')
         return self
 
+    def signature(self):
+        """The scalar fields that key the serving modules."""
+        return tuple(sorted(
+            (k, v if not isinstance(v, (list, tuple)) else tuple(v))
+            for k, v in vars(self).items()
+            if k not in ('watchdog', 'profile', 'request_deadline_s')))
+
+    def to_dict(self):
+        return {k: (list(v) if isinstance(v, tuple) else v)
+                for k, v in vars(self).items()
+                if k not in ('watchdog', 'profile')}
+
 
 class ServingEngine:
     """Continuous-batching decode over one ``GPTForCausalLM``, on the
@@ -135,6 +174,22 @@ class ServingEngine:
         self.model = model
         self.device = model.device
         self.config = (config or ServeConfig()).resolved(cfg)
+        applied = getattr(model, '_ptq_mode', None)
+        if applied != (self.config.quantize or None):
+            if applied is not None:
+                # the swap dropped the float weights: an engine whose
+                # declared signature disagrees with the model's numerics
+                # would key its modules wrongly
+                raise ValueError(
+                    f'model was already PTQ-quantized ({applied!r}) '
+                    f'but this config declares '
+                    f'quantize={self.config.quantize!r}; build each '
+                    'quantization mode from a FRESH model '
+                    '(quantize_for_serving swaps weights in place)')
+            # before any module is made: every prefill and decode module
+            # reads the narrow weights
+            from ..quantization import quantize_for_serving
+            quantize_for_serving(model, self.config.quantize)
         self.now_fn = now_fn
         # one engine-relative clock for every timestamp
         self._epoch = now_fn()
@@ -158,8 +213,11 @@ class ServingEngine:
         self.prefill_dispatches = 0
         self.decode_steps = 0
         self._rid = 0
-        # one decode module per (S, K); the graphs share one pool
+        # one decode module per (S, K) and one prefill module per (P,
+        # B); all of their graphs share one pool
         self._modules = GraphCache(self.device, shared_pool=True)
+        self._prefill_modules = GraphCache(self.device,
+                                           share_with=self._modules)
         self._staging = {}          # S -> host plan buffer (pinned)
 
     # -- buckets -------------------------------------------------------------
@@ -174,36 +232,74 @@ class ServingEngine:
     def _chunk_bucket(self, n):
         return bucket_pow2(n, cap=self.config.prefill_batch)
 
-    def _dev(self, arr):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
-
     # -- device work ---------------------------------------------------------
+    def _prefill_plan(self, ids, t0s, blocks, seeds):
+        """The host plan ``[B, P + 2 + nblk]`` int64 of one prefill
+        dispatch: each row's padded ids, true length, seed and block
+        table.  A fresh pinned buffer a dispatch: several dispatches of
+        one intervention may share a module, and the caching host
+        allocator keeps a buffer until its copy to the card is done."""
+        B, P = ids.shape
+        plan = torch.empty((B, P + 2 + blocks.shape[1]), dtype=torch.int64,
+                           pin_memory=self.device.type == 'cuda')
+        host = plan.numpy()
+        host[:, :P] = ids
+        host[:, P] = t0s
+        host[:, P + 1] = seeds
+        host[:, P + 2:] = blocks
+        return plan
+
     @torch.no_grad()
-    def _prefill(self, ids, t0s, blocks, seeds):
-        """ONE cached forward over B padded prompts: per-row first
-        tokens sampled at each row's true length, every row's
-        block-rounded KV scattered (in place) into its own blocks.
-        Returns the first tokens as an un-synced device tensor [B]."""
+    def _prefill_body(self, plan, P):
+        """ONE cached forward over B padded prompts, on device tensors
+        only (the card captures it): per-row first tokens sampled at
+        each row's true length, every row's block-rounded KV scattered
+        (in place) into its own blocks of the persistent pools, which
+        live outside any graph's pool.  Returns the first tokens
+        ``[B]``."""
         model = self.model
-        B, _ = ids.shape
-        nblk = blocks.shape[1]
+        B = plan.shape[0]
+        ids = plan[:, :P]
+        t0, seeds = plan[:, P], plan[:, P + 1]
+        blk = plan[:, P + 2:]
+        nblk = blk.shape[1]
         bs = self.config.block_size
         nh = model.config.num_heads
         hd = model.config.hidden_size // nh
         caches = model.init_decode_caches(B, nblk * bs)
-        logits, caches = model.prefill(self._dev(ids), 0, caches)
-        t0 = self._dev(t0s.astype(np.int64))
-        rows = logits[torch.arange(B, device=self.device), t0 - 1]
+        logits, caches = model.prefill(ids, 0, caches)
+        rows = logits[torch.arange(B, device=logits.device), t0 - 1]
         # the first token's absolute position is t0-1, where
         # generate's prefill samples too
-        tok = self._sample(rows, self._dev(seeds), t0 - 1)
-        blk = self._dev(blocks.astype(np.int64))
+        tok = self._sample(rows, seeds, t0 - 1)
         for (kbuf, vbuf), (kp, vp) in zip(caches, self.cache.pools):
             # [B, nh, Pc, hd] -> [B, nblk, nh, bs, hd] block rows
             kp[blk] = kbuf.reshape(B, nh, nblk, bs, hd) \
                 .permute(0, 2, 1, 3, 4).to(kp.dtype)
             vp[blk] = vbuf.reshape(B, nh, nblk, bs, hd) \
                 .permute(0, 2, 1, 3, 4).to(vp.dtype)
+        return tok
+
+    def _prefill_module(self, P, B):
+        """The prefill module of prompt bucket ``P`` and chunk ``B``:
+        made at first use and called once on an inert plan (every row
+        on the trash block), which on the card warms it up and captures
+        it."""
+        nblk = blocks_for(P, self.config.block_size)
+        inert = np.zeros((B, nblk), np.int32)
+        return self._prefill_modules.module(
+            (P, B), functools.partial(self._prefill_body, P=P),
+            warmup_inputs=(self._prefill_plan(
+                np.zeros((B, P), np.int64), np.full((B,), P, np.int64),
+                inert, np.zeros((B,), np.int64)),))
+
+    def _prefill(self, ids, t0s, blocks, seeds):
+        """One prefill dispatch through its (P, B) module; returns the
+        first tokens as an un-synced device tensor ``[B]`` of its own
+        (the module's output is overwritten by its next replay)."""
+        B, P = ids.shape
+        plan = self._prefill_plan(ids, t0s, blocks, seeds)
+        tok = self._prefill_module(P, B)(plan).clone()
         self.prefill_dispatches += 1
         return tok
 
@@ -478,20 +574,83 @@ class ServingEngine:
                 'kv_frag': self.cache.frag_report()}
 
     def warmup(self):
-        """Run every declared prefill (prompt bucket x pow2 chunk) shape
-        once and make every declared decode module (batch bucket x
-        ``decode_span``; on the card, capture its graph), all on inert
-        inputs — every row on the trash block, decode lanes inactive —
-        so kernel builds, captures and the allocator's first
-        allocations happen before traffic.  Returns stats()."""
+        """Make every declared prefill module (prompt bucket x pow2
+        chunk) and decode module (batch bucket x ``decode_span``) and
+        call each once on inert inputs (every row on the trash block,
+        decode lanes inactive): on the card that builds the kernels and
+        captures every graph, so ``run()`` captures nothing.  Returns
+        stats()."""
         c = self.config
         for P in c.prompt_buckets:
-            nblk = blocks_for(P, c.block_size)
             for B in _pow2_chain(1, c.prefill_batch):
-                self._prefill(np.zeros((B, P), np.int64),
-                              np.full((B,), P, np.int32),
-                              np.zeros((B, nblk), np.int32),
-                              np.zeros((B,), np.int64)).cpu()
+                self._prefill_module(P, B)
         for S in c.batch_buckets:
             self._decode_module(S, c.decode_span)
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
         return self.stats()
+
+    # -- declared bucket set -------------------------------------------------
+    def bucket_set(self):
+        """The declared module signatures (the reference's dict)."""
+        c = self.config
+        return {'prompt_buckets': list(c.prompt_buckets),
+                'batch_buckets': list(c.batch_buckets),
+                'prefill_chunks': list(_pow2_chain(1, c.prefill_batch)),
+                'decode_span': c.decode_span,
+                'block_size': c.block_size,
+                'max_slots': c.max_slots,
+                'max_model_len': c.max_model_len}
+
+    def precompile(self):
+        """What persists across processes, made for every declared
+        module; returns ``(entries, errors)`` in the reference's shape,
+        one entry per declared prefill and decode module.
+
+        The reference exports each module's XLA executable into its
+        persistent compile cache.  A CUDA graph cannot be serialised,
+        so here what persists is the nvcc build of every kernel the
+        modules launch (``ops._build``, keyed by source and flags under
+        ``build/``); a later process loads the libraries instead of
+        compiling.  ``warmup()`` stays the step that captures the
+        graphs.  On the CPU nothing is built (the modules are the eager
+        bodies over the plain twins) and each entry says so."""
+        c = self.config
+        specs = [(f'serve-prefill bucket {P} chunk {B}', ('prefill', P, B))
+                 for P in c.prompt_buckets
+                 for B in _pow2_chain(1, c.prefill_batch)]
+        specs += [(f'serve-decode batch {S} span {c.decode_span}',
+                   ('decode', S, c.decode_span)) for S in c.batch_buckets]
+        # the serving forward's kernels: LayerNorm, and GEMM+GELU where
+        # USE_PALLAS_MLP routes the MLP through it
+        sources = ['fused_norm'] + (['fused_gelu_linear']
+                                    if fused_gelu_linear.USE_PALLAS_MLP
+                                    else [])
+        tier = 'nvcc' if self.device.type == 'cuda' else 'eager'
+        built, failure = [], None
+        if tier == 'nvcc':
+            try:
+                built = _build.build(sources)
+            except RuntimeError as e:    # reported per module, as there
+                failure = repr(e)
+        model_cfg = tuple(sorted(vars(self.model.config).items()))
+        pspec = tuple(sorted((n, tuple(v.shape), str(v.dtype)) for n, v in
+                             self.model.state_dict().items()))
+        entries, errors = [], {}
+        for desc, sig in specs:
+            if failure is not None:
+                errors[desc] = failure
+                continue
+            fp = hashlib.sha256(repr((
+                sig, model_cfg, self.config.signature(), pspec,
+                [p.rsplit('/', 1)[-1] for p in built])).encode()) \
+                .hexdigest()
+            entries.append({'tier': tier, 'fingerprint': fp,
+                            'description': desc, 'kernels': list(built)})
+        return entries, errors
+
+    def close(self):
+        """The reference tears down its live metrics plane here; the
+        port has none yet (ROADMAP Queue 1 item 5), so this only keeps
+        the API.  Idempotent; the engine stays usable."""
+        return None

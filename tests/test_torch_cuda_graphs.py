@@ -25,7 +25,14 @@ a machine without them.  On the card, from the repository root:
 - the serving engine's decode spans, two batch buckets captured in one
   order and replayed out of it, give the same streams as the span body
   run eagerly on the same schedule, greedy and sampled (temperature
-  0.8, top-k 20: the counter-hash sampler inside the graph).
+  0.8, top-k 20: the counter-hash sampler inside the graph);
+- ``generate``'s one graph per signature replays across prompt lengths
+  in a bucket and across seeds, equal to its body run eagerly; the
+  engine's prefill graphs leave the streams and the KV pools of eager
+  prefill (the trash block left out);
+- the int8 product on the card equals the CPU's: weights, activation
+  quantization and int32 accumulator exactly, the output within 1 f32
+  ulp.
 """
 import numpy as np
 import pytest
@@ -261,3 +268,104 @@ def test_decode_graphs_replayed_out_of_capture_order_keep_the_streams(
     for g, w in zip(got, want):
         assert g.state == w.state == Request.DONE
         assert g.tokens == w.tokens, g.rid
+
+
+def _tiny_gpt():
+    return gpt_tiny(device='cuda', seed=0, vocab_size=256, hidden_size=128,
+                    num_layers=2, num_heads=2, max_seq_len=64)
+
+
+@pytest.mark.parametrize('sampling', [
+    dict(temperature=0.0), dict(temperature=0.8, top_k=20)],
+    ids=['greedy', 'sampled'])
+def test_generate_graph_replays_the_eager_body_across_lengths_and_seeds(
+        sampling):
+    """One graph per signature: prompt lengths 5 and 7 (bucket 8) and two
+    seeds replay the first capture, each call equal to the eager body
+    bit for bit; LayerNorm's launches are the capture's per replay."""
+    _cuda()
+    model = _tiny_gpt()
+    rs = np.random.RandomState(6)
+    calls = [(5, 1), (7, 1), (7, 2), (5, 3)]
+    for i, (t0, seed) in enumerate(calls):
+        prompt = rs.randint(0, 256, (2, t0))
+        got = model.generate(prompt, 9, seed=seed, **sampling)
+        ids_p = torch.zeros((2, 8), dtype=torch.int64, device='cuda')
+        ids_p[:, :t0] = torch.from_numpy(prompt)
+        with torch.no_grad():
+            want = model._generate_body(
+                ids_p, torch.tensor(t0, device='cuda'),
+                torch.tensor(seed, device='cuda'), max_new_tokens=9,
+                top_k=sampling.get('top_k'),
+                temperature=sampling['temperature'])
+        assert torch.equal(got[:, t0:], want), (t0, seed)
+        mod, = model._gen_cache.modules.values()
+        if i == 0:
+            graph = mod.graph
+            _build.reset_launches()
+    assert mod.graph is graph and mod.replays == len(calls) - 1
+    per_replay = mod.launches.counts()['fused_layer_norm']
+    assert per_replay == 9 * (2 * 2 + 1)
+    # the eager bodies launched as many as the replays recorded
+    norm, = [k for k in _build.KERNELS if k.name == 'fused_layer_norm']
+    assert norm.launches == 2 * (len(calls) - 1) * per_replay
+
+
+def test_prefill_graphs_write_the_pools_as_the_eager_body():
+    """Every prefill of a run is a replay of a graph warmup captured;
+    two engines, graphed and eager prefill, end with the same streams
+    and the same KV pools outside the trash block."""
+    _cuda()
+    model = _tiny_gpt()
+    cfg = dict(block_size=16, max_slots=4, decode_span=3,
+               prompt_buckets=(16, 32), batch_buckets=(4,),
+               prefill_batch=2, max_model_len=64)
+    rs = np.random.RandomState(7)
+    prompts = [rs.randint(0, 256, (int(rs.randint(3, 30)),))
+               for _ in range(7)]
+    runs = []
+    for eager in (False, True):
+        eng = ServingEngine(model, ServeConfig(**cfg))
+        if eager:
+            eng._prefill_module = lambda P, B: (
+                lambda plan: eng._prefill_body(plan.to(eng.device), P))
+        eng.warmup()
+        reqs = [eng.submit(p, 6) for p in prompts]
+        eng.run()
+        runs.append((eng, reqs))
+    (geng, greqs), (eeng, ereqs) = runs
+    mods = geng._prefill_modules.modules
+    assert set(mods) == {(P, B) for P in (16, 32) for B in (1, 2)}
+    assert sum(m.replays for m in mods.values()) \
+        == geng.prefill_dispatches > 0
+    for g, e in zip(greqs, ereqs):
+        assert g.state == e.state == Request.DONE
+        assert g.tokens == e.tokens, g.rid
+    for (gk, gv), (ek, ev) in zip(geng.cache.pools, eeng.cache.pools):
+        assert torch.equal(gk[1:], ek[1:]) and torch.equal(gv[1:], ev[1:])
+
+
+def test_int8_product_on_the_card_equals_the_cpu():
+    """At 8 rows (padded for ``_int_mm``) and 64: the weights, the
+    activation's quantization and the int32 accumulator exactly the
+    CPU's, the output within 1 f32 ulp."""
+    _cuda()
+    from paddle_tpu_torch.ops import int8_matmul as q8
+    g = torch.Generator().manual_seed(0)
+    for m, k, n in ((8, 768, 2304), (64, 3072, 768)):
+        x = torch.randn(m, k, generator=g)
+        w = torch.randn(k, n, generator=g) / k ** 0.5
+        b = torch.randn(n, generator=g)
+        wq, ws = q8.quantize_weight_int8(w)
+        cwq, cws = q8.quantize_weight_int8(w.cuda())
+        assert torch.equal(cwq.cpu(), wq) and torch.equal(cws.cpu(), ws)
+        xq, xs = q8.quantize_activation(x)
+        cxq, cxs = q8.quantize_activation(x.cuda())
+        assert torch.equal(cxq.cpu(), xq) and torch.equal(cxs.cpu(), xs)
+        assert torch.equal(q8.int_dot(cxq, cwq).cpu(), q8.int_dot(xq, wq))
+        want = q8.dynamic_int8_matmul(x, wq, ws, b, out_dtype=torch.float32)
+        got = q8.dynamic_int8_matmul(x.cuda(), cwq, cws, b.cuda(),
+                                     out_dtype=torch.float32).cpu()
+        ulp = torch.nextafter(want.abs(), torch.tensor(float('inf'))) \
+            - want.abs()
+        assert bool(((got - want).abs() <= ulp).all())

@@ -219,10 +219,17 @@ def test_uncached_forward_belongs_to_training_slice(models):
 
 
 def test_serve_config_rejects_unported_features():
-    for kw in ({'quantize': 'int8'}, {'watchdog': True},
-               {'profile': True}):
+    for kw in ({'watchdog': True}, {'profile': True}):
         with pytest.raises(NotImplementedError):
             ServeConfig(**kw)
+    # weight-only PTQ is ported: its modes are validated as the
+    # reference validates them
+    for mode in ('int8', 'int4', None):
+        assert ServeConfig(quantize=mode).quantize == mode
+        assert JaxServeConfig(quantize=mode).quantize == mode
+    for cls in (ServeConfig, JaxServeConfig):
+        with pytest.raises(ValueError, match='int3'):
+            cls(quantize='int3')
 
 
 def test_allocator_churn_never_leaks_never_aliases():

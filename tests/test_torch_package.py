@@ -70,7 +70,9 @@ def test_import_leaves_jax_unloaded():
             'paddle_tpu_torch.amp, paddle_tpu_torch.optimizer, '
             'paddle_tpu_torch.parallel, paddle_tpu_torch.distributed, '
             'paddle_tpu_torch.ops.flash_attention, '
-            'paddle_tpu_torch.ops.fused_ce, paddle_tpu_torch.vision; '
+            'paddle_tpu_torch.ops.fused_ce, paddle_tpu_torch.vision, '
+            'paddle_tpu_torch.quantization, '
+            'paddle_tpu_torch.ops.int8_matmul; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "paddle_tpu")]; print(bad); '
             'sys.exit(1 if bad else 0)')
