@@ -183,15 +183,37 @@ From the repository root, with one CUDA card.  It
    ``qkv.bias`` within ``2 * lr * steps``), and ``step_fused`` (K 4)
    on the card equal to its eager steps bit for bit, with exact launch
    counts;
-10. prints one JSON line with the serving and training results, one
+10. trains ``gpt_small`` with Switch-Base-8's routing (``moe``: 8 experts
+   in every other block, top-1, capacity factor 1.25, aux weight 0.01;
+   322.9 M parameters, 124.5 M active a token) at the GPT training
+   configuration: 2 + 5 eager steps with finite, falling losses, each
+   block's aux loss, exact launches (LayerNorm 25, each flash kernel 12,
+   GEMM+GELU 0), ms/step, tokens/s, the MFU over the active parameters
+   plus attention, idle share, peak memory and the device ms of one
+   layer's four einsums forward and backward against the busy step;
+   ``step_fused`` K 5 against two eager trainers, parameters and Adam's
+   state bit for bit; an f32 step at 2 layers (one MoE block) on the
+   card against the CPU; then ``generate`` on the same model at
+   gptgen's configuration through one graph a call (``moe_gen``: the
+   prompt unpadded, LayerNorm launches exact, the streams equal to the
+   eager loop's, tokens/s); then ResNet-50 under ``ImperativeQuantAware``
+   at the resnet configuration (``qat``: 2 + 5 eager steps against the
+   ``resnet`` phase's ms/step, no hand-written kernel, the ``.quant``
+   artifact loaded into a float ResNet-50 whose every weight must equal
+   the QAT model's fake-quantized one, the top-1 agreement of the two;
+   ``step_fused`` against eager bit for bit with all 106 BatchNorm
+   buffers and 54 activation scales; ``PostTrainingQuantization`` over
+   4 batches on the card and on the CPU: int8 weights and scales equal,
+   the stem's activation scale equal, the rest within 1e-3);
+11. prints one JSON line with the serving and training results, one
    listing every kernel (its launches on each path, each path's counts
    set to 0 just before it and read just after, and per design where a
    kernel has two; the paths ``serve``, ``serve_int8``, ``serve_int4``,
    ``gptgen``, ``gpt_fused``, ``gpt_recipe``,
    ``bert_dropout_fused``, ``resnet_fused``, ``widedeep_fused``,
-   ``longctx_fused`` and ``mobilenet_v2_fused`` replay graphs,
-   ``optimizers`` half its steps; the vision and Wide&Deep paths count
-   0 of each),
+   ``longctx_fused``, ``mobilenet_v2_fused``, ``moe_fused``, ``moe_gen``
+   and ``qat_fused`` replay graphs, ``optimizers`` half its steps; the
+   vision, Wide&Deep and QAT paths count 0 of each),
    then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  Without a
@@ -482,6 +504,28 @@ ZOO_MODELS = [('vgg16', 64, 1e-3, 'Simonyan & Zisserman 2014, '
               ('mobilenet_v2', 256, RESNET_LR, 'Sandler et al. 2018, '
                'arXiv:1801.04381, Table 2')]
 ZOO_IMAGE, ZOO_CLASSES, ZOO_WARMUP, ZOO_STEPS, ZOO_K = 224, 1000, 2, 3, 5
+# Switch-Base-8's routing (Fedus et al. 2021, "Switch Transformers",
+# arXiv:2101.03961, section 2 and Appendix: 8 experts in every other FFN
+# layer, top-1, capacity factor 1.25, load-balance weight 0.01) on
+# gpt_small, whose widths are T5-Base's (768, FFN 3072, 12 heads): 6 MoE
+# blocks, ~323 M parameters, ~125 M active a token.  Trained at the GPT
+# training configuration (B 8 x T 1024, bf16 O2, fused head, AdamW),
+# eagerly and through step_fused; an f32 card-vs-CPU step at 2 layers
+# (one MoE block); generate at gptgen's configuration (moe_gen)
+MOE_KW = dict(moe_num_experts=8, moe_every=2, moe_top_k=1,
+              moe_capacity_factor=1.25, moe_aux_weight=0.01)
+MOE_PARITY_LAYERS = 2
+# QAT of ResNet-50 at the resnet configuration (ImperativeQuantAware's
+# defaults: abs_max weights, moving-average activations, 8 bits): 2 + 5
+# eager steps, step_fused K 5 against eager; the .quant artifact loaded
+# into a fresh float ResNet-50 (the QAT model's float state first), its
+# eval logits on QAT_EVAL_IMAGES images against the QAT model's; PTQ
+# over PTQ_BATCHES calibration batches of PTQ_BATCH f32 images, card
+# against CPU: int8 weights and scales equal, the stem's activation
+# scale equal (its input is the batch), every other within
+# PARITY_GRAD_RTOL (an f32 forward in another order)
+QAT_WARMUP, QAT_STEPS, QAT_EVAL_IMAGES = 2, 5, 64
+PTQ_BATCHES, PTQ_BATCH = 4, 8
 
 
 def log(*args):
@@ -2001,8 +2045,16 @@ def idle_share(fn):
     return 1.0 - busy / wall_us, wall_us / 1e6
 
 
+def _opt_state(trainer):
+    """The optimizer's state tensors (Adam's moments), cloned, keyed
+    ``'opt.<name>_<slot>'``."""
+    return {f'opt.{k}': v.detach().clone()
+            for k, v in trainer.optimizer.state_dict().items()
+            if torch.is_tensor(v)}
+
+
 def _fused_vs_eager(what, make_model, batch, lr, per_step, tokens,
-                    step_flops):
+                    step_flops, with_opt_state=False, mfu_params=None):
     """``ParallelTrainer(fused_steps=K).step_fused`` (K = TRAIN_STEPS, one
     captured step replayed) against eager ``step`` calls, from the same
     seed (weights and dropout's generator) on the same batch, 2 K steps:
@@ -2011,7 +2063,10 @@ def _fused_vs_eager(what, make_model, batch, lr, per_step, tokens,
     whose first chunk is the warm-up step, the capture and K - 1
     replays, and whose second chunk (K replays) is timed and has its
     launches counted with the first's; a third chunk under the profiler
-    reads the idle share.  Returns the summary."""
+    reads the idle share.  ``with_opt_state`` holds the optimizer's
+    state along with the parameters; ``mfu_params(model)`` counts the
+    parameters the MFU's 6 x params x tokens takes (all of them when
+    None).  Returns the summary."""
     import paddle_tpu_torch
     from paddle_tpu_torch.ops import _build
     k = TRAIN_STEPS
@@ -2026,9 +2081,10 @@ def _fused_vs_eager(what, make_model, batch, lr, per_step, tokens,
         losses += [tr.step(*batch) for _ in range(k)]
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        out = (torch.stack(losses),
-               {n: p.detach().clone() for n, p in tr.model.named_parameters()},
-               dt)
+        state = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+        if with_opt_state:
+            state.update(_opt_state(tr))
+        out = torch.stack(losses), state, dt
         del tr
         _free()
         return out
@@ -2044,7 +2100,8 @@ def _fused_vs_eager(what, make_model, batch, lr, per_step, tokens,
 
     paddle_tpu_torch.seed(0)
     model = make_model()
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = mfu_params(model) if mfu_params else sum(
+        p.numel() for p in model.parameters())
     tr = _trainer(model, amp_o2=True, lr=lr, fused_steps=k)
     _build.reset_launches()
     torch.cuda.synchronize()
@@ -2063,6 +2120,8 @@ def _fused_vs_eager(what, make_model, batch, lr, per_step, tokens,
     got_l = torch.cat([first, second])
     loss_diff = float((got_l - want_l).abs().max())
     got_p = {n: p.detach() for n, p in tr.model.named_parameters()}
+    if with_opt_state:
+        got_p.update(_opt_state(tr))
     param_diff = worst(got_p, want_p)
     exact = torch.equal(got_l, want_l) and all(
         torch.equal(got_p[n], want_p[n]) for n in want_p)
@@ -2082,9 +2141,12 @@ def _fused_vs_eager(what, make_model, batch, lr, per_step, tokens,
     flops, attn = step_flops(model.config, n_params)
     mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
     eager_ms = eager_dt / k * 1e3
+    held = 'every parameter' + (
+        f' and the optimizer\'s {sum(n.startswith("opt.") for n in got_p)} '
+        'state tensors' if with_opt_state else '')
     log(f'{what}: step_fused K {k} == {2 * k} eager steps '
-        + ('bit for bit (losses and every parameter; eager vs eager equal '
-           'too)' if exact else
+        + (f'bit for bit (losses and {held}; eager vs eager equal too)'
+           if exact else
            f'within the eager-vs-eager spread (losses {loss_diff:.3e} <= '
            f'{loss_spread:.3e}, parameters {param_diff:.3e} <= '
            f'{param_spread:.3e})')
@@ -2105,7 +2167,7 @@ def _fused_vs_eager(what, make_model, batch, lr, per_step, tokens,
            'mfu': mfu, 'capture_s': graph.capture_s,
            'first_chunk_s': first_s, 'losses': losses,
            'bit_for_bit': exact, 'loss_spread': loss_spread,
-           'param_spread': param_spread, 'launches': launches,
+           'param_spread': param_spread, 'held': held, 'launches': launches,
            'launches_a_replay': graph.launches.counts()}
     del tr, model, graph, got_p, want_p
     _free()
@@ -2458,11 +2520,16 @@ def _vision_trainer(model, optimizer, amp_o2, fused_steps=None):
                            strategy=strategy, fused_steps=fused_steps)
 
 
-def _resnet_trainer(fused_steps=None):
+def _resnet_trainer(fused_steps=None, qat=False):
+    """bench.py's ResNet-50 trainer; with ``qat`` the model's convs and
+    fc wrapped by ``ImperativeQuantAware`` first."""
     from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.quantization import ImperativeQuantAware
     from paddle_tpu_torch.vision.models import BottleneckBlock, ResNet
     model = ResNet(BottleneckBlock, 50, num_classes=RESNET_CLASSES,
                    data_format='NHWC', device='cuda', seed=0)
+    if qat:
+        ImperativeQuantAware().quantize(model)
     opt = Momentum(learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM,
                    parameters=model.parameters())
     return _vision_trainer(model, opt, amp_o2=True, fused_steps=fused_steps)
@@ -3640,6 +3707,398 @@ def optimizers_phase():
         f'{time.perf_counter() - t0:.1f} s')
     return {'optimizers': out, 'launches': launches}
 
+def _moe_blocks(model):
+    return [b.mlp for b in model.gpt.blocks
+            if type(b.mlp).__name__ == 'SwitchMoE']
+
+
+def _active_params(model):
+    """Parameters a token meets: all but the experts it is not routed
+    to (top-k of E in each MoE block)."""
+    total = sum(p.numel() for p in model.parameters())
+    for moe in _moe_blocks(model):
+        per_expert = sum(getattr(moe, n)[0].numel()
+                         for n in ('w1', 'b1', 'w2', 'b2'))
+        total -= (moe.num_experts - moe.top_k) * per_expert
+    return total
+
+
+def _moe_einsum_ms(S, E, C, H, F):
+    """Device ms of one MoE layer's four einsums, forward and backward,
+    at the training step's shapes in bf16 (random operands: a dense
+    einsum's time does not depend on the values): ``{'routing': the
+    dispatch and combine einsums, 'experts': the two expert products,
+    'all': the four}``, and their flops."""
+    dev, bf = 'cuda', torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, grad=False):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=bf).requires_grad_(grad)
+
+    dispatch, combine = rnd(S, E, C), rnd(S, E, C, grad=True)
+    xs, w1, w2 = rnd(S, H, grad=True), rnd(E, H, F, grad=True), \
+        rnd(E, F, H, grad=True)
+    out, gy = rnd(E, C, H, grad=True), rnd(S, H)
+
+    def routing():
+        ein = torch.einsum('sec,sh->ech', dispatch, xs)
+        y = torch.einsum('ech,sec->sh', out, combine)
+        torch.autograd.grad([ein, y], [xs, out, combine],
+                            [torch.ones_like(ein), gy])
+
+    def experts():
+        ein = xs.new_ones((E, C, H)).requires_grad_()
+        h = torch.einsum('ech,ehf->ecf', ein, w1)
+        o = torch.einsum('ecf,efh->ech', h, w2)
+        torch.autograd.grad(o, [ein, w1, w2], torch.ones_like(o))
+
+    def four():
+        ein = torch.einsum('sec,sh->ech', dispatch, xs)
+        h = torch.einsum('ech,ehf->ecf', ein, w1)
+        o = torch.einsum('ecf,efh->ech', h, w2)
+        y = torch.einsum('ech,sec->sh', o, combine)
+        torch.autograd.grad(y, [xs, w1, w2, combine], gy)
+
+    ms = {name: device_ms(fn, iters=20)[0]
+          for name, fn in (('routing', routing), ('experts', experts),
+                           ('all', four))}
+    flops = {'routing': 5 * 2 * S * E * C * H,
+             'experts': 6 * 2 * E * C * H * F}
+    flops['all'] = flops['routing'] + flops['experts']
+    del dispatch, combine, xs, w1, w2, out, gy
+    _free()
+    return ms, flops
+
+
+def moe_phase():
+    """gpt_small with Switch-Base-8's routing (MOE_KW) at the GPT
+    training configuration: eager steps, the four einsums' device time,
+    step_fused against eager (parameters and Adam state bit for bit),
+    and an f32 card-vs-CPU step at 2 layers."""
+    from paddle_tpu_torch.models.gpt import gpt_small
+    kw = dict(TRAIN_MODEL_KW, **MOE_KW)
+    model = gpt_small(device='cuda', seed=0, **kw)
+    cfg = model.config
+    L = cfg.num_layers
+    moes = _moe_blocks(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_active = _active_params(model)
+    E, H, F = moes[0].num_experts, cfg.hidden_size, cfg.intermediate_size
+    S = TRAIN_BATCH * TRAIN_SEQ
+    C = moes[0]._capacity(S * cfg.moe_top_k)
+    log(f'moe model: gpt_small with {len(moes)} SwitchMoE blocks of {E} '
+        f'experts (blocks {cfg.moe_every - 1}, {2 * cfg.moe_every - 1}, '
+        f'... of {L}, top-{cfg.moe_top_k}, '
+        f'capacity factor {cfg.moe_capacity_factor}, aux weight '
+        f'{cfg.moe_aux_weight}), {n_params} parameters, {n_active} active '
+        f'a token, seed 0; B {TRAIN_BATCH}, T {TRAIN_SEQ}, bf16 O2, fused '
+        f'head, AdamW lr {TRAIN_LR}; routing tensors [S {S}, E {E}, C {C}]')
+    trainer = _trainer(model, amp_o2=True)
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)
+    losses, launches, warm_s, dt, peak = _run_steps(
+        trainer, (ids, ids), TRAIN_WARMUP, TRAIN_STEPS)
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    per_step = _per_step(L, 2 * L + 1, flash=1)
+    _check_run('moe', losses, launches, per_step, steps)
+    aux = [float(m.aux_loss.detach()) for m in moes]
+    if not all(math.isfinite(a) and a >= 1.0 - 1e-3 for a in aux):
+        raise AssertionError(f'moe: aux losses {aux} (each >= 1, the '
+                             'balanced floor)')
+    ms_step = dt / TRAIN_STEPS * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops, attn = gpt_step_flops(cfg, n_active, TRAIN_BATCH, TRAIN_SEQ)
+    mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
+    idle, prof_s = idle_share(lambda: [trainer.step(ids, ids)
+                                       for _ in range(2)])
+    busy_ms = prof_s / 2 * 1e3 * (1.0 - idle)
+    del model, trainer, moes
+    _free()
+    ein_ms, ein_flops = _moe_einsum_ms(S, E, C, H, F)
+    n_moe = L // cfg.moe_every
+    step_ein = {k: v * n_moe if v is not None else None
+                for k, v in ein_ms.items()}
+    share = {k: v / busy_ms if v is not None else None
+             for k, v in step_ein.items()}
+    log(f'moe: losses {", ".join(f"{x:.4f}" for x in losses)} (finite, '
+        f'falling); aux losses of the last step '
+        f'{", ".join(f"{a:.4f}" for a in aux)}; '
+        f'launches {_launch_summary(launches, per_step, steps)}')
+    log(f'moe: warm-up {TRAIN_WARMUP} steps {warm_s:.2f} s; {TRAIN_STEPS} '
+        f'steps in {dt:.3f} s = {ms_step:.1f} ms/step, '
+        f'{tokens * TRAIN_STEPS / dt:.0f} tokens/s; MFU {mfu:.4f} = (6 * '
+        f'{n_active} active params * {tokens} tokens + {attn:.4g} attention '
+        f'flops) / (step time * 989e12); idle share {idle:.4f} under the '
+        f'profiler ({prof_s / 2 * 1e3:.1f} ms/step there, {busy_ms:.1f} '
+        f'busy); peak max_memory_allocated {peak / 2**30:.2f} GiB')
+    log('moe: one layer\'s einsums, forward and backward, device ms: '
+        + ', '.join(f'{k} {ein_ms[k]:.3f} ('
+                    f'{ein_flops[k] / ein_ms[k] / 1e9:.1f} TFLOP/s)'
+                    if ein_ms[k] else f'{k} not measured'
+                    for k in ein_ms)
+        + f'; x {n_moe} layers a step: '
+        + ', '.join(f'{k} {step_ein[k]:.2f} ms ({share[k]:.3f} of the busy '
+                    'step)' if step_ein[k] else f'{k} not measured'
+                    for k in step_ein))
+    summary = {'ms_per_step': ms_step,
+               'tokens_per_s': tokens * TRAIN_STEPS / dt, 'mfu': mfu,
+               'params': n_params, 'active_params': n_active,
+               'capacity': C, 'peak_bytes': peak, 'idle_share': idle,
+               'profiled_ms_per_step': prof_s / 2 * 1e3,
+               'busy_ms_per_step': busy_ms, 'losses': losses,
+               'aux_losses': aux, 'warmup_s': warm_s,
+               'einsum_ms_per_layer': ein_ms,
+               'einsum_ms_per_step': step_ein,
+               'einsum_share_of_busy': share, 'launches': launches}
+    summary['fused'] = _fused_vs_eager(
+        f'moe_fused (gpt_small + Switch-Base-8 routing B {TRAIN_BATCH} T '
+        f'{TRAIN_SEQ}, bf16 O2)',
+        lambda: gpt_small(device='cuda', seed=0, **kw), (ids, ids),
+        TRAIN_LR, per_step, tokens,
+        lambda cfg, n: gpt_step_flops(cfg, n, TRAIN_BATCH, TRAIN_SEQ),
+        with_opt_state=True, mfu_params=_active_params)
+    summary['parity'] = _card_vs_cpu(
+        f'moe {MOE_PARITY_LAYERS} layers B 1 T {PARITY_SEQ}',
+        lambda dev: gpt_small(device=dev, seed=0, **dict(
+            kw, max_seq_len=PARITY_SEQ, num_layers=MOE_PARITY_LAYERS)),
+        lambda cfg: 2 * [np.random.RandomState(1).randint(
+            0, cfg.vocab_size, (1, PARITY_SEQ)).astype(np.int64)],
+        _per_step(MOE_PARITY_LAYERS, 2 * MOE_PARITY_LAYERS + 1, flash=1,
+                  flash_design='simt'))
+    return summary
+
+
+def moe_gen_phase():
+    """``generate`` on the MoE gpt_small at gptgen's configuration (B 8,
+    128 + 128, greedy, f32), one CUDA graph a call: tokens/s, exact
+    LayerNorm launches a replay, the streams equal to the eager loop's;
+    the prompt bucket is the prompt's own length."""
+    from paddle_tpu_torch.models.gpt import gpt_small
+    from paddle_tpu_torch.ops import _build
+    model = gpt_small(device='cuda', seed=0,
+                      **dict(GEN_MODEL_KW, **MOE_KW)).eval()
+    cfg = model.config
+    per_forward = 2 * cfg.num_layers + 1
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT)).astype(np.int64)
+    if model._decode_bucket(GEN_PROMPT - 28, GEN_NEW) != GEN_PROMPT - 28:
+        raise AssertionError('moe_gen: a MoE prompt bucket is padded')
+    t0 = time.perf_counter()
+    out = model.generate(ids, GEN_NEW, temperature=0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    sig = (GEN_BATCH, GEN_PROMPT, GEN_NEW, True, 0.0, None)
+    mods = _captured(model._gen_cache, 'moe_gen generate')
+    if set(mods) != {sig}:
+        raise AssertionError(f'moe_gen: modules {sorted(mods)}, expected '
+                             f'{sig}')
+    mod = mods[sig]
+    per_replay = per_forward * GEN_NEW
+    if mod.launches.counts() != {'fused_layer_norm': per_replay}:
+        raise AssertionError(f'moe_gen: the graph captured '
+                             f'{mod.launches.counts()}, expected '
+                             f'fused_layer_norm {per_replay}')
+    replays0 = mod.replays
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    for i in range(GEN_CALLS):
+        again = model.generate(ids, GEN_NEW, temperature=0, seed=i)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = per_replay * GEN_CALLS
+    ran = {k: n for k, n in launches.items() if n}
+    if ran != {'fused_layer_norm': want, 'fused_layer_norm:warp': want} \
+            or mod.replays - replays0 != GEN_CALLS:
+        raise AssertionError(f'moe_gen: {GEN_CALLS} calls launched {ran} in '
+                             f'{mod.replays - replays0} replays, expected '
+                             f'fused_layer_norm {want}')
+    if not torch.equal(again, out):
+        raise AssertionError('moe_gen: greedy generate changed between '
+                             'calls')
+    out = out.cpu()
+    if tuple(out.shape) != (GEN_BATCH, GEN_PROMPT + GEN_NEW) or not \
+            torch.equal(out[:, :GEN_PROMPT], torch.from_numpy(ids)):
+        raise AssertionError(f'moe_gen: output {tuple(out.shape)}')
+    eager = _generate_eager(model, ids, GEN_PROMPT, GEN_NEW).cpu()
+    if not torch.equal(eager, out[:, GEN_PROMPT:]):
+        raise AssertionError('moe_gen: the graph\'s streams differ from the '
+                             'eager loop\'s')
+    tokens_s = GEN_BATCH * GEN_NEW * GEN_CALLS / dt
+    log(f'moe_gen: gpt_small + Switch-Base-8 routing, max_seq_len '
+        f'{cfg.max_seq_len}, f32, B {GEN_BATCH}, prompt {GEN_PROMPT} '
+        f'(bucket = the prompt\'s length), {GEN_NEW} new tokens, greedy: '
+        f'graph {sig} captured in {mod.capture_s:.3f} s (first call '
+        f'{warm_s:.2f} s); {GEN_CALLS} calls in {dt:.3f} s = '
+        f'{tokens_s:.1f} tokens/s ({dt / GEN_CALLS / GEN_NEW * 1e3:.3f} ms '
+        f'a token step); fused_layer_norm {per_replay} a replay, {want} in '
+        f'{GEN_CALLS} calls (exact, warp); the {GEN_BATCH} streams equal '
+        f'the eager loop\'s, every token; peak max_memory_allocated '
+        f'{peak / 2**30:.3f} GiB')
+    summary = {'tokens_per_s': tokens_s, 'ms_per_call': dt / GEN_CALLS * 1e3,
+               'ms_per_token_step': dt / GEN_CALLS / GEN_NEW * 1e3,
+               'first_call_s': warm_s, 'capture_s': mod.capture_s,
+               'peak_bytes': peak, 'layer_norm_per_replay': per_replay,
+               'launches': launches}
+    del model, mod, mods
+    _free()
+    return summary
+
+
+def _quanted(model):
+    return [(n, m) for n, m in model.named_modules()
+            if type(m).__name__ == 'QuantedLayer']
+
+
+def qat_phase(resnet_ms):
+    """ResNet-50 under ``ImperativeQuantAware`` at the resnet
+    configuration: eager steps against the plain model's ``resnet_ms``,
+    the ``.quant`` artifact loaded into a fresh float ResNet-50, then
+    step_fused against eager (``_graph_vs_eager``: every BatchNorm
+    buffer and activation scale bit for bit) and PTQ card vs CPU."""
+    import os
+    from paddle_tpu_torch.quantization import (ImperativeQuantAware,
+                                               load_quantized_model)
+    from paddle_tpu_torch.vision.models import BottleneckBlock, ResNet
+    x, y = resnet_batch()
+    trainer = _resnet_trainer(qat=True)
+    model = trainer.model
+    quanted = _quanted(model)
+    n_scales = sum(1 for n, _ in model.named_buffers()
+                   if n.endswith('act_fq.scale'))
+    flops, macs = resnet_step_flops(model, RESNET_IMAGE, RESNET_BATCH)
+    log(f'qat model: ResNet-50 (NHWC, seed 0) with {len(quanted)} '
+        f'QuantedLayers (ImperativeQuantAware: abs_max weights, '
+        f'moving-average activations, 8 bits), {n_scales} activation '
+        f'scales; B {RESNET_BATCH} x {RESNET_IMAGE}^2 bf16, bf16 O2, '
+        f'Momentum lr {RESNET_LR}')
+    losses, launches, warm_s, dt, peak = _run_steps(
+        trainer, (x, y), QAT_WARMUP, QAT_STEPS)
+    _check_losses('qat', losses)
+    _no_kernel_launches('qat', launches)
+    scales = [float(m.act_fq.scale) for _, m in quanted]
+    if not all(math.isfinite(v) and v > 0 for v in scales):
+        raise AssertionError(f'qat: activation scales {scales}')
+    ms_step = dt / QAT_STEPS * 1e3
+    mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
+    # deploy: the artifact into a fresh float ResNet-50 that holds the
+    # QAT model's float state (BatchNorm, biases) first
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'build', 'qat', 'resnet50')
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    state = ImperativeQuantAware().save_quantized_model(model, path)
+    fp = ResNet(BottleneckBlock, 50, num_classes=RESNET_CLASSES,
+                data_format='NHWC', device='cuda', seed=1)
+    fp.load_state_dict({k.replace('.inner.', '.'): v
+                        for k, v in model.state_dict().items()
+                        if not k.endswith('act_fq.scale')})
+    load_quantized_model(fp, path)
+    # the deployed weights are the grid QAT trained on: each equals its
+    # layer's fake-quantized weight (f32) bit for bit
+    fp_layers = dict(fp.named_modules())
+    with torch.no_grad():
+        off = [name for name, q in quanted if not torch.equal(
+            q.weight_fq(q.inner.weight), fp_layers[name].weight)]
+    if off:
+        raise AssertionError(f'qat: loaded int8 weights differ from the '
+                             f'fake-quantized ones: {off[:5]}')
+    # top-1 agreement in eval mode, and with BatchNorm on the batch's
+    # statistics: 7 steps leave the running statistics near their init,
+    # where activations overrun the learned (frozen) activation scales
+    xe = x[:QAT_EVAL_IMAGES].float()
+    agree = {}
+    with torch.no_grad():
+        for mode in ('eval', 'batch_stats'):
+            for m in (model, fp):
+                m.train(mode == 'batch_stats')
+            for _, q in quanted:
+                q.act_fq.eval()
+            qat_logits, int8_logits = model(xe), fp(xe)
+            if not (torch.isfinite(qat_logits).all()
+                    and torch.isfinite(int8_logits).all()):
+                raise AssertionError(f'qat: non-finite {mode} logits')
+            agree[mode] = float((qat_logits.argmax(-1)
+                                 == int8_logits.argmax(-1)).float().mean())
+    n_q = sum(k.endswith('.qweight') for k in state)
+    log(f'qat: losses {", ".join(f"{v:.4f}" for v in losses)} (finite, '
+        f'falling); no ported kernel launched; {len(scales)} activation '
+        f'scales in [{min(scales):.4g}, {max(scales):.4g}]')
+    log(f'qat: warm-up {QAT_WARMUP} steps {warm_s:.2f} s; {QAT_STEPS} steps '
+        f'in {dt:.3f} s = {ms_step:.1f} ms/step ({ms_step / resnet_ms:.3f}x '
+        f'the resnet phase\'s {resnet_ms:.1f}), '
+        f'{RESNET_BATCH * QAT_STEPS / dt:.0f} imgs/s, MFU {mfu:.4f}; peak '
+        f'max_memory_allocated {peak / 2**30:.2f} GiB; .quant artifact: '
+        f'{n_q} int8 weights; loaded into a float ResNet-50: every weight '
+        f'equal to its fake-quantized one, finite logits, top-1 '
+        f'agreement with the QAT model on {QAT_EVAL_IMAGES} images '
+        f'{agree["eval"]:.4f} in eval mode, '
+        f'{agree["batch_stats"]:.4f} with BatchNorm on batch statistics')
+    summary = {'ms_per_step': ms_step, 'resnet_ms_per_step': resnet_ms,
+               'vs_resnet': ms_step / resnet_ms,
+               'imgs_per_s': RESNET_BATCH * QAT_STEPS / dt, 'mfu': mfu,
+               'peak_bytes': peak, 'losses': losses, 'warmup_s': warm_s,
+               'quanted_layers': len(quanted), 'act_scales': len(scales),
+               'artifact_weights': n_q, 'top1_agreement_int8': agree,
+               'launches': launches}
+    del trainer, model, fp, qat_logits, int8_logits
+    _free()
+    summary['fused'] = _graph_vs_eager(
+        'qat_fused', lambda fused_steps=None: _resnet_trainer(
+            fused_steps, qat=True), (x, y), RESNET_K, RESNET_BATCH, 'imgs',
+        flops, 'cudnn.deterministic', _cudnn_deterministic)
+    del x, y
+    _free()
+    summary['ptq'] = _ptq_vs_cpu()
+    return summary
+
+
+def _ptq_vs_cpu():
+    """``PostTrainingQuantization`` of the same seeded float ResNet-50
+    (eval, f32) over the same PTQ_BATCHES batches on the card and on the
+    CPU: the same artifact keys, int8 weights and scales equal, the
+    stem's activation scale equal, every other within PARITY_GRAD_RTOL."""
+    from paddle_tpu_torch.quantization import PostTrainingQuantization
+    from paddle_tpu_torch.vision.models import BottleneckBlock, ResNet
+    rs = np.random.RandomState(2)
+    batches = [rs.randn(PTQ_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3)
+               .astype(np.float32) for _ in range(PTQ_BATCHES)]
+    got = {}
+    t0 = time.perf_counter()
+    for dev in ('cuda', 'cpu'):
+        model = ResNet(BottleneckBlock, 50, num_classes=RESNET_CLASSES,
+                       data_format='NHWC', device=dev, seed=0).eval()
+        got[dev] = PostTrainingQuantization(
+            model, data_loader=batches, batch_nums=PTQ_BATCHES).quantize()
+        del model
+    card, cpu = got['cuda'], got['cpu']
+    if set(card) != set(cpu):
+        raise AssertionError('ptq: artifact keys differ, card vs CPU')
+    off = [k for k in card if not k.endswith('.act_scale')
+           and not np.array_equal(card[k], cpu[k])]
+    acts = [k for k in card if k.endswith('.act_scale')]
+    rel = {k: abs(float(card[k]) - float(cpu[k])) / float(cpu[k])
+           for k in acts}
+    stem = acts[0]
+    equal = sum(card[k] == cpu[k] for k in acts)
+    worst = max(rel, key=rel.get)
+    if off or card[stem] != cpu[stem] or rel[worst] > PARITY_GRAD_RTOL:
+        raise AssertionError(
+            f'ptq card vs CPU: weights or scales differ {off[:5]}; stem '
+            f'{stem} {card[stem]} vs {cpu[stem]}; worst activation scale '
+            f'{worst} rel {rel[worst]:.3e}')
+    log(f'ptq: PostTrainingQuantization of ResNet-50 (eval, f32) over '
+        f'{PTQ_BATCHES} batches of {PTQ_BATCH} x {RESNET_IMAGE}^2, card vs '
+        f'CPU ({time.perf_counter() - t0:.1f} s): {len(card) - len(acts)} '
+        f'int8 weights and scales equal; {len(acts)} activation scales, '
+        f'{equal} equal (the stem {stem} among them), worst {worst} rel '
+        f'{rel[worst]:.3e} (tol {PARITY_GRAD_RTOL})')
+    return {'act_scales': len(acts), 'act_scales_equal': int(equal),
+            'worst_act_scale_rel': rel[worst], 'worst_act_scale': worst}
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3674,6 +4133,9 @@ def main():
     ernie = ernie_phase()
     zoo = vision_zoo_phase()
     optimizers = optimizers_phase()
+    moe = moe_phase()
+    moe_gen = moe_gen_phase()
+    qat = qat_phase(resnet['ms_per_step'])
     log(json.dumps({'serve': serve,
                     **{f'serve_{m}': r[1] for m, r in serve_quant.items()},
                     'train': train, 'gpt_fused': gpt_fused,
@@ -3683,11 +4145,13 @@ def main():
                     'resnet': resnet, 'resnet_parity': resnet_parity,
                     'lenet': lenet, 'widedeep': widedeep,
                     'longctx': longctx, 'gptgen': gptgen, 'ernie': ernie,
-                    'vision_zoo': zoo, 'optimizers': optimizers}))
+                    'vision_zoo': zoo, 'optimizers': optimizers,
+                    'moe': moe, 'moe_gen': moe_gen, 'qat': qat}))
     # 'serve', 'serve_int8', 'serve_int4', 'gptgen', 'gpt_fused',
     # 'gpt_recipe', 'bert_dropout_fused', 'resnet_fused',
-    # 'widedeep_fused', 'longctx_fused', 'mobilenet_v2_fused' and half of
-    # 'optimizers' replay CUDA graphs
+    # 'widedeep_fused', 'longctx_fused', 'mobilenet_v2_fused',
+    # 'moe_fused', 'moe_gen', 'qat_fused' and half of 'optimizers' replay
+    # CUDA graphs
     paths = {'serve': serve_launches,
              **{f'serve_{m}': r[0] for m, r in serve_quant.items()},
              'train': train['launches'],
@@ -3713,7 +4177,10 @@ def main():
              'ernie': ernie['launches'],
              **{name: r['launches'] for name, r in zoo.items()},
              'mobilenet_v2_fused': zoo['mobilenet_v2']['fused']['launches'],
-             'optimizers': optimizers['launches']}
+             'optimizers': optimizers['launches'],
+             'moe': moe['launches'], 'moe_fused': moe['fused']['launches'],
+             'moe_gen': moe_gen['launches'], 'qat': qat['launches'],
+             'qat_fused': qat['fused']['launches']}
     kernels = []
     for k in _build.KERNELS:
         rows = timings[k.name]

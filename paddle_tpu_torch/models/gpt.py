@@ -20,7 +20,11 @@ through ``mlp_gelu`` (``ops/fused_gelu_linear.py``).  Ops the reference
 dispatches by name cast their inputs through the AMP policy
 (``amp.amp_cast``), under the same names.
 
-MoE, sequence parallelism and striped sp wait for their slices.
+MoE: with ``moe_num_experts > 0`` every ``moe_every``-th block's MLP is
+a ``SwitchMoE`` (``incubate/moe.py``), ``loss`` adds the mean of the
+blocks' load-balance terms times ``moe_aux_weight``, and ``generate``
+does not pad the prompt (padded rows would take expert capacity).
+Sequence parallelism and striped sp wait for the multi-chip slice.
 """
 import functools
 import math
@@ -33,6 +37,7 @@ from ..core.compile_cache import GraphCache, bucket_pow2
 from ..core.device import resolve_device
 from ..distributed.fleet.meta_parallel import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+from ..incubate.moe import SwitchMoE
 from ..nn import functional as F
 from ..nn.layer.common import Dropout, Embedding
 from ..nn.layer.norm import LayerNorm
@@ -42,25 +47,39 @@ from ..ops.fused_gelu_linear import mlp_gelu
 from ..ops.paged_attention import paged_attention, write_kv
 from ..ops.sampling import sample_rows
 
-__all__ = ['GPTConfig', 'GPT', 'GPTForCausalLM', 'gpt_tiny', 'gpt_small']
+__all__ = ['GPTConfig', 'GPT', 'GPTForCausalLM', 'gpt_tiny', 'gpt_small',
+           'gpt_1p3b', 'gpt_moe_tiny']
 
 
 class GPTConfig:
-    """The reference ``GPTConfig``'s single-device fields, with the same
-    defaults.  The multi-chip fields (sequence parallel, MoE, striped
-    sp, scan decode) come with the slices that use them.
+    """The reference ``GPTConfig``: its fields and defaults.
 
     ``fused_head``: the training forward returns the final hidden
     states and ``loss`` fuses the tied head matmul with the softmax CE
     (``ops/fused_ce.py``), chunked over the vocab in
-    ``fused_head_chunks`` chunks.  ``initializer_range`` is kept for
-    parity; the reference's init does not read it either."""
+    ``fused_head_chunks`` chunks.  ``moe_*``: routed experts
+    (``SwitchMoE``) on every ``moe_every``-th block when
+    ``moe_num_experts > 0``, and the load-balance term's weight in the
+    loss.  ``sequence_parallel`` and ``striped_sp`` need a mesh (ROADMAP
+    Queue 1 item 9) and raise when set; ``scan_decode_blocks`` is the
+    reference's compile-time lever with token-exact results, which the
+    port has no use for; ``initializer_range`` is read by neither
+    package's init."""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, max_seq_len=1024, intermediate_size=None,
                  dropout=0.1, layer_norm_epsilon=1e-5,
-                 initializer_range=0.02, fused_head=False,
-                 fused_head_chunks=8):
+                 sequence_parallel=False, initializer_range=0.02,
+                 moe_num_experts=0, moe_every=2, moe_top_k=1,
+                 moe_capacity_factor=1.25, moe_aux_weight=0.01,
+                 fused_head=False, fused_head_chunks=8,
+                 striped_sp=False, scan_decode_blocks=False):
+        for field, value in (('sequence_parallel', sequence_parallel),
+                             ('striped_sp', striped_sp)):
+            if value:
+                raise NotImplementedError(
+                    f'GPTConfig({field}=True) needs a device mesh, which '
+                    'the port does not have yet (ROADMAP Queue 1 item 9)')
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -70,8 +89,16 @@ class GPTConfig:
         self.dropout = dropout
         self.layer_norm_epsilon = layer_norm_epsilon
         self.initializer_range = initializer_range
+        self.sequence_parallel = sequence_parallel
+        self.moe_num_experts = moe_num_experts
+        self.moe_every = moe_every
+        self.moe_top_k = moe_top_k
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_aux_weight = moe_aux_weight
         self.fused_head = fused_head
         self.fused_head_chunks = fused_head_chunks
+        self.striped_sp = striped_sp
+        self.scan_decode_blocks = scan_decode_blocks
 
 
 def _cached_attention(q, kb, vb, p):
@@ -195,14 +222,20 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, use_moe=False, device=None):
         super().__init__()
         self.ln1 = LayerNorm(cfg.hidden_size,
                              epsilon=cfg.layer_norm_epsilon, device=device)
         self.attn = CausalSelfAttention(cfg, device=device)
         self.ln2 = LayerNorm(cfg.hidden_size,
                              epsilon=cfg.layer_norm_epsilon, device=device)
-        self.mlp = GPTMLP(cfg, device=device)
+        if use_moe:
+            self.mlp = SwitchMoE(cfg.hidden_size, cfg.intermediate_size,
+                                 cfg.moe_num_experts, top_k=cfg.moe_top_k,
+                                 capacity_factor=cfg.moe_capacity_factor,
+                                 device=device)
+        else:
+            self.mlp = GPTMLP(cfg, device=device)
 
     def forward(self, x, cache=None, pos=None):
         a, new_cache = self.attn(self.ln1(x), cache=cache, pos=pos)
@@ -218,6 +251,12 @@ def _add(a, b):
     return a + b
 
 
+def _f32(value, device):
+    """A 0-d f32 tensor: CUDA divides by a Python number through its
+    rounded reciprocal, one ulp off the CPU's quotient."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
 class GPT(nn.Module):
     """Backbone: embeddings + blocks + final LN -> hidden states."""
 
@@ -229,8 +268,12 @@ class GPT(nn.Module):
         self.wpe = Embedding(config.max_seq_len, config.hidden_size,
                              device=device)
         self.drop = Dropout(config.dropout)
-        self.blocks = nn.ModuleList([GPTBlock(config, device=device)
-                                     for _ in range(config.num_layers)])
+        self.blocks = nn.ModuleList([
+            GPTBlock(config, use_moe=(
+                config.moe_num_experts > 0
+                and i % config.moe_every == config.moe_every - 1),
+                device=device)
+            for i in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size,
                               epsilon=config.layer_norm_epsilon,
                               device=device)
@@ -318,10 +361,33 @@ class GPTForCausalLM(nn.Module):
         states ``[B, T, H]`` and the tied head, softmax and CE fuse
         here (``ops/fused_ce.py``, a gray op under AMP); the branch is
         keyed off the shape the forward produced, as in the reference.
-        ``aux_losses`` (MoE) is not ported."""
-        if aux_losses:
-            raise NotImplementedError('MoE auxiliary losses are not '
-                                      'ported yet')
+
+        A MoE model adds ``moe_aux_weight`` times the mean of the
+        blocks' load-balance terms: ``aux_losses`` where given, else
+        each ``SwitchMoE``'s ``.aux_loss`` from the forward that made
+        ``logits``.  The sum, mean, product and the add to the CE run
+        in f32 under every AMP policy: the reference's AMP casts them
+        to the low dtype, but its trainer compiles the loss with XLA,
+        which drops those round trips (excess precision), so its losses
+        are not rounded to bf16."""
+        out = self._lm_loss(logits, labels)
+        if self.config.moe_num_experts <= 0:
+            return out
+        if aux_losses is not None:
+            aux = list(aux_losses)
+        else:
+            aux = [blk.mlp.aux_loss for blk in self.gpt.blocks
+                   if getattr(blk.mlp, 'aux_loss', None) is not None]
+        if not aux:
+            return out
+        total = aux[0].float()
+        for a in aux[1:]:
+            total = total + a.float()
+        total = total / _f32(len(aux), total.device)
+        return out.float() + _f32(self.config.moe_aux_weight,
+                                  total.device) * total
+
+    def _lm_loss(self, logits, labels):
         cfg = self.config
         B, T, D = logits.shape
         labels = torch.as_tensor(labels, device=logits.device)
@@ -428,7 +494,10 @@ class GPTForCausalLM(nn.Module):
 
     def _decode_bucket(self, T0, max_new_tokens):
         """Prompt bucket: next power of two, capped so bucket + new
-        tokens fit ``max_seq_len``."""
+        tokens fit ``max_seq_len``; a MoE model's is ``T0`` itself
+        (padded rows would compete for expert capacity in prefill)."""
+        if self.config.moe_num_experts > 0:
+            return T0
         return bucket_pow2(T0, cap=self.config.max_seq_len - max_new_tokens)
 
 
@@ -448,4 +517,20 @@ def gpt_small(device=None, seed=0, **kw):
     kw.setdefault('hidden_size', 768)
     kw.setdefault('num_layers', 12)
     kw.setdefault('num_heads', 12)
+    return GPTForCausalLM(GPTConfig(**kw), device=device, seed=seed)
+
+
+def gpt_moe_tiny(device=None, seed=0, **kw):
+    """gpt_tiny with routed experts on alternating blocks."""
+    kw.setdefault('moe_num_experts', 4)
+    kw.setdefault('moe_top_k', 1)
+    return gpt_tiny(device=device, seed=seed, **kw)
+
+
+def gpt_1p3b(device=None, seed=0, **kw):
+    """GPT-3 XL-ish 1.3B, the reference's hybrid-parallel config."""
+    kw.setdefault('hidden_size', 2048)
+    kw.setdefault('num_layers', 24)
+    kw.setdefault('num_heads', 16)
+    kw.setdefault('max_seq_len', 2048)
     return GPTForCausalLM(GPTConfig(**kw), device=device, seed=seed)

@@ -1,7 +1,7 @@
 """Weight initializers (counterpart of ``paddle_tpu/nn/initializer``; the
 port has ``Constant``, ``Normal``, ``Uniform``, ``XavierNormal``,
-``KaimingUniform`` and ``calculate_gain``, what the ported layers and
-models use).
+``XavierUniform``, ``KaimingUniform`` and ``calculate_gain``, what the
+ported layers and models use).
 
 An initializer is called as ``init(shape, dtype, generator)`` and
 returns a CPU tensor drawn from the explicit CPU ``torch.Generator``
@@ -15,12 +15,13 @@ import math
 import torch
 
 __all__ = ['Initializer', 'Constant', 'Normal', 'Uniform', 'XavierNormal',
-           'KaimingUniform', 'calculate_gain']
+           'XavierUniform', 'KaimingUniform', 'calculate_gain']
 
 
 def _fans(shape):
     """(fan_in, fan_out) as the reference counts them; conv kernels are
-    ``[out, in, *spatial]``."""
+    ``[out, in, *spatial]``, so a 3-D expert stack ``[E, H, F]`` counts
+    ``H * F`` in and ``E * F`` out."""
     shape = tuple(shape)
     if len(shape) == 0:
         return 1, 1
@@ -88,6 +89,21 @@ class XavierNormal(Initializer):
         std = self.gain * math.sqrt(2.0 / (fi + fo))
         z = torch.randn(shape, generator=generator, dtype=torch.float32)
         return (z * std).to(dtype)
+
+
+class XavierUniform(Initializer):
+    """U[-limit, limit) with ``limit = gain * sqrt(6 / (fan_in +
+    fan_out))``, the fans as ``_fans`` counts them."""
+
+    def __init__(self, fan_in=None, fan_out=None, gain=1.0):
+        self.fan_in, self.fan_out, self.gain = fan_in, fan_out, gain
+
+    def _generate(self, shape, dtype, generator):
+        fi, fo = _fans(shape)
+        fi = self.fan_in if self.fan_in is not None else fi
+        fo = self.fan_out if self.fan_out is not None else fo
+        limit = self.gain * math.sqrt(6.0 / (fi + fo))
+        return Uniform(-limit, limit)._generate(shape, dtype, generator)
 
 
 class Uniform(Initializer):

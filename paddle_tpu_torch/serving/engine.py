@@ -166,10 +166,16 @@ class ServingEngine:
         eng = ServingEngine(model, ServeConfig(max_slots=64))
         eng.submit(prompt_ids, max_new_tokens=64)
         report = eng.run()          # drain; per-request TTFT/TPOT
+
+    The model must be non-MoE: padded prefill rows would contend for
+    expert capacity, the exemption ``generate``'s bucket makes.
     """
 
     def __init__(self, model, config=None, now_fn=time.monotonic):
         cfg = model.config
+        if cfg.moe_num_experts > 0:
+            raise ValueError('serving engine requires a non-MoE model '
+                             '(see GPTForCausalLM._decode_bucket)')
         model.eval()
         self.model = model
         self.device = model.device

@@ -381,13 +381,15 @@ def test_what_is_not_ported_raises(weights, ids):
     st.recompute = True
     with pytest.raises(NotImplementedError, match='recompute'):
         ParallelTrainer(pm, opt, pm.loss, strategy=st)
-    # dropout trains now (tests/test_torch_dropout.py); MoE does not
+    # dropout trains now (tests/test_torch_dropout.py), and so does MoE
+    # (tests/test_torch_moe.py): a dense model's loss ignores aux_losses,
+    # as the reference's does
     drop = gpt_tiny(device='cpu', **dict(MODEL_KW, dropout=0.1)).train()
     logits = drop(torch.from_numpy(ids))
     assert logits.shape == (2, 32, 128)
-    with pytest.raises(NotImplementedError, match='MoE'):
-        drop.loss(logits, torch.from_numpy(ids),
-                  aux_losses=[torch.zeros(())])
+    plain = drop.loss(logits, torch.from_numpy(ids))
+    assert torch.equal(drop.loss(logits, torch.from_numpy(ids),
+                                 aux_losses=[torch.ones(())]), plain)
     drop.eval()
     assert drop(torch.from_numpy(ids)).shape == (2, 32, 128)
     # schedulers and clipping train now (tests/test_torch_optimizers.py);

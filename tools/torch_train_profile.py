@@ -1,6 +1,6 @@
 """Where the port's training time goes, on one CUDA card.
 
-    python3 tools/torch_train_profile.py [--model gpt|gpt_recipe|longctx|bert|bert_flash|bert_gemm_gelu|resnet50|widedeep] [--path fused|eager] [--steps 2] [--out build/torch_train_profile.json]
+    python3 tools/torch_train_profile.py [--model gpt|gpt_recipe|longctx|moe|bert|bert_flash|bert_gemm_gelu|resnet50|qat|widedeep] [--path fused|eager] [--steps 2] [--out build/torch_train_profile.json]
 
 Run from the repository root.  Training steps at full width with random
 seeded weights, in the configuration of one of ``chip_smoke.py``'s
@@ -26,7 +26,11 @@ one forward, then ``F.batch_norm`` forward and backward on such
 inputs, device time under the profiler), BatchNorm's device share, and
 lists every convolution kernel; ``--model longctx`` ``gpt_small`` at
 bench.py's long-context configuration (B 2, T 4096, otherwise as
-``gpt``; ``chip_smoke.LONGCTX_MODEL_KW``); ``--model widedeep``
+``gpt``; ``chip_smoke.LONGCTX_MODEL_KW``); ``--model moe`` the ``gpt``
+configuration with Switch-Base-8's routing (``chip_smoke.MOE_KW``: 8
+experts in every other block, top-1, capacity factor 1.25); ``--model
+qat`` the ``resnet50`` configuration under ``ImperativeQuantAware``
+(``chip_smoke._resnet_trainer(qat=True)``); ``--model widedeep``
 Wide&Deep at bench.py's configuration (26 fields of 100 000 ids, embed
 16, hidden (400, 400, 400), B 16384, bf16 O2, Adam lr 1e-3;
 ``chip_smoke._widedeep_trainer``), whose device time is also split
@@ -100,7 +104,9 @@ RANGES = chip_smoke.ANNOTATIONS
 
 
 def _kind(name):
-    low = name.lower()
+    # PyTorch's elementwise kernels without dtype casts are named
+    # gpu_kernel_impl_nocast: not a cast
+    low = name.lower().replace('nocast', '')
     for kind, keys in KINDS:
         if any(k in low for k in keys):
             return kind
@@ -132,8 +138,9 @@ def _setup(model_name, fused_steps=None):
     if model_name == 'widedeep':
         return (chip_smoke._widedeep_trainer(fused_steps=fused_steps),
                 chip_smoke.widedeep_batch(), chip_smoke.WD_BATCH, False)
-    if model_name == 'resnet50':
-        return (chip_smoke._resnet_trainer(fused_steps=fused_steps),
+    if model_name in ('resnet50', 'qat'):
+        return (chip_smoke._resnet_trainer(fused_steps=fused_steps,
+                                           qat=model_name == 'qat'),
                 chip_smoke.resnet_batch(), chip_smoke.RESNET_BATCH, False)
     if model_name in BERT_RUN:
         from paddle_tpu_torch.models.bert import bert_base
@@ -151,8 +158,10 @@ def _setup(model_name, fused_steps=None):
                 pallas_mlp)
     from paddle_tpu_torch.models.gpt import gpt_small
     long = model_name == 'longctx'
-    model = gpt_small(device='cuda', seed=0, **(
-        chip_smoke.LONGCTX_MODEL_KW if long else chip_smoke.TRAIN_MODEL_KW))
+    kw = chip_smoke.LONGCTX_MODEL_KW if long else chip_smoke.TRAIN_MODEL_KW
+    if model_name == 'moe':
+        kw = dict(kw, **chip_smoke.MOE_KW)
+    model = gpt_small(device='cuda', seed=0, **kw)
     batch, seq = (chip_smoke.LONGCTX_BATCH, chip_smoke.LONGCTX_SEQ) if long \
         else (chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ)
     ids = np.random.RandomState(0).randint(
@@ -230,7 +239,7 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
         'model': model_name, 'path': path, 'steps': steps,
         'loss': float(loss),
         'wall_ms_per_step': wall_us / steps / 1e3,
-        {'resnet50': 'imgs', 'widedeep': 'examples'}.get(
+        {'resnet50': 'imgs', 'qat': 'imgs', 'widedeep': 'examples'}.get(
             model_name, 'tokens')
         + '_per_s_under_profiler': tokens * steps / (wall_us / 1e6),
         'device_busy_ms_per_step': busy_us / steps / 1e3,
@@ -397,8 +406,9 @@ def bn_breakdown(trainer, batch, iters=5):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--model', choices=('gpt', 'gpt_recipe', 'longctx',
-                                        *BERT_RUN, 'resnet50', 'widedeep'),
+    ap.add_argument('--model', choices=('gpt', 'gpt_recipe', 'longctx', 'moe',
+                                        *BERT_RUN, 'resnet50', 'qat',
+                                        'widedeep'),
                     default='gpt')
     ap.add_argument('--path', choices=('fused', 'eager'), default='fused')
     ap.add_argument('--steps', type=int, default=2)
