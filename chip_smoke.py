@@ -77,6 +77,31 @@ From the repository root, with one CUDA card.  It
    accumulator on one prefill and one decode batch equal to the CPU's
    and its output within 1 f32 ulp, and one quantized ``generate``
    through its graph;
+   then the serving plane (``frontdoor``): the same deployment, warmed
+   up, behind ``ServingFrontend`` with the live plane armed (metrics
+   server, ``PADDLE_TPU_MEMSTATS`` sampler, a watchdog budget, a profile
+   window on decode steps 32..47), the same 32 requests sent as SSE
+   streams on their arrival times by a client process of its own while
+   it scrapes ``/metrics`` and ``/status.json``: every stream equal to
+   the serve run's, LayerNorm's launches exactly the captured launches
+   times the replays, one ``serve_request`` per rid with the reference's
+   fields, the window on exactly the asked steps with its trace on disk,
+   ``memory_sample``s from ``torch.cuda.memory_stats`` within the card,
+   one ``memory_compiled`` per captured module, a 413 with
+   ``Retry-After``, a disconnected client evicted with every block back,
+   429s from a door of queue 1 under a burst, a starved request evicted
+   with a ``timeout`` event and no thread or port left after ``close()``
+   (TTFT, TPOT and tokens/s through the door against the in-process
+   run, the window's idle share, the door's host CPU a request); and the
+   fleet (``fleet``): 2 replicas and a warm spare of ``gpt_small``
+   (``paddle_tpu_torch.tools.serve_fleet`` workers on the card, the
+   reference drill's pool and sampling) behind ``FleetFrontend``, run
+   through the reference's four drills (an overload burst shed typed, a
+   clean twin through the door equal to one in-process engine, a seeded
+   ``replica_kill`` retried bit for bit with the spare promoted, a
+   forced ``slo_breach`` drain dropping nothing), with the spawn-to-ready
+   seconds, each replica's allocator peak and LayerNorm launches read
+   from its metrics plane;
 5. trains ``gpt_small`` at full width (random seeded weights) through
    ``ParallelTrainer.step`` in the benchmark's configuration (B 8, T
    1024, bf16 O2, fused CE head in 8 chunks, AdamW lr 3e-4): 2 warm-up
@@ -208,7 +233,8 @@ From the repository root, with one CUDA card.  It
 11. prints one JSON line with the serving and training results, one
    listing every kernel (its launches on each path, each path's counts
    set to 0 just before it and read just after, and per design where a
-   kernel has two; the paths ``serve``, ``serve_int8``, ``serve_int4``,
+   kernel has two; the paths ``serve``, ``frontdoor``, ``fleet`` (the
+   replicas' counts), ``serve_int8``, ``serve_int4``,
    ``gptgen``, ``gpt_fused``, ``gpt_recipe``,
    ``bert_dropout_fused``, ``resnet_fused``, ``widedeep_fused``,
    ``longctx_fused``, ``mobilenet_v2_fused``, ``moe_fused``, ``moe_gen``
@@ -1344,8 +1370,10 @@ def _serve_main_path(eng, reqs, what):
     _build.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    cpu0 = time.process_time()
     rep = eng.run(reqs)
     torch.cuda.synchronize()
+    host_cpu_s = time.process_time() - cpu0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     prefills = eng.prefill_dispatches - p0
@@ -1409,6 +1437,7 @@ def _serve_main_path(eng, reqs, what):
                'ttft_p50_s': rep['ttft_p50_s'],
                'ttft_p99_s': rep['ttft_p99_s'],
                'tpot_mean_s': rep['tpot_mean_s'], 'peak_bytes': peak,
+               'host_cpu_s': host_cpu_s,
                'graphs': [list(sig) for sig in sorted(decode)],
                'capture_s': sum(g.capture_s for g in decode.values()),
                'prefill_graphs': {f'{P}x{B}': {
@@ -1572,6 +1601,876 @@ def serving_phase():
     del model
     _free()
     return launches, summary, streams
+
+
+# the live plane's phases (after the serve phase): the same gpt_small
+# deployment behind the HTTP front door, and the reference drill's
+# fleet.  The door's watchdog budget is generous (no request of the
+# drive may time out); its profile window covers decode interventions
+# 4 and 5, i.e. decode step ids 32..47 at span 8.
+FRONTDOOR_WATCHDOG = dict(step_s=30.0, first_step_s=60.0)
+FRONTDOOR_PROFILE_SPANS = (4, 5)
+FRONTDOOR_SCRAPE_S = 0.05
+FRONTDOOR_BURST = 8             # requests at once at a door of max_queue 1
+LN_PER_FORWARD = 2 * 12 + 1     # LayerNorms in one gpt_small forward
+# bench.py::_frontdoor_smoke_child's deployment, with gpt_small at full
+# width and depth: the pool and sampling are deployment parameters
+FLEET_DOC = dict(model='small', model_kwargs=dict(SERVE_MODEL_KW),
+                 block_size=8, max_slots=4, decode_span=4, num_blocks=64,
+                 temperature=0.7, top_k=8, seed=13)
+FLEET_REPLICAS, FLEET_SPARES = 2, 1
+# the overload burst: released at once (the bench's 24 requests at 2 ms
+# gaps fit two replicas' 4 slots + 8 queued each on the card)
+FLEET_OVERLOAD = 48
+FLEET_POLL_S = 0.002            # the replicas' counters, during the kill drill
+
+
+def _http(host, port, method, path, doc=None, timeout=60):
+    """(status, headers, parsed JSON or text) of one request."""
+    import http.client
+    c = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        c.request(method, path, body=None if doc is None else
+                  json.dumps(doc),
+                  headers={'Content-Type': 'application/json'})
+        r = c.getresponse()
+        raw = r.read().decode()
+        ctype = r.getheader('Content-Type') or ''
+        body = json.loads(raw) if ctype.startswith('application/json') \
+            else raw
+        return r.status, dict(r.getheaders()), body
+    finally:
+        c.close()
+
+
+def _sse(port, doc, out, start_at=None, timeout=120):
+    """One SSE request to ``127.0.0.1:port``; fills ``out`` with its
+    status, tokens, terminal record and client-side times (send, first
+    token, done; ``time.perf_counter``)."""
+    import http.client
+    if start_at is not None:
+        time.sleep(max(0.0, start_at - time.perf_counter()))
+    out['t_send'] = time.perf_counter()
+    c = http.client.HTTPConnection('127.0.0.1', port, timeout=timeout)
+    try:
+        c.request('POST', '/v1/generate', body=json.dumps(doc),
+                  headers={'Content-Type': 'application/json'})
+        r = c.getresponse()
+        out['status'] = r.status
+        out['headers'] = dict(r.getheaders())
+        if r.status != 200:
+            out['body'] = json.loads(r.read().decode())
+            return out
+        tokens = out['tokens'] = []
+        while True:
+            line = r.readline()
+            if not line:
+                break
+            line = line.strip()
+            if not line.startswith(b'data: '):
+                continue
+            ev = json.loads(line[len(b'data: '):])
+            if ev.get('done'):
+                out['done'] = ev
+                r.read()            # the terminal chunk: leave nothing unread
+                break
+            if not tokens:
+                out['t_first'] = time.perf_counter()
+            tokens.append(int(ev['token']))
+        out['t_done'] = time.perf_counter()
+        return out
+    finally:
+        c.close()
+
+
+def door_client():
+    """The ``frontdoor`` phase's load, in a process of its own (so its
+    threads do not contend for the server's GIL): reads a job from
+    stdin (``port``, ``scrape`` [(port, path)], ``scrape_s``,
+    ``requests`` [{rid, prompt, max_new_tokens, arrival_s}]), sends each
+    request as an SSE stream at its arrival offset while one thread
+    scrapes the given routes, and prints one JSON line: every stream's
+    status, tokens and times (``time.perf_counter``, the system's
+    monotonic clock) and every scrape's route and status."""
+    import threading
+    job = json.loads(sys.stdin.read())
+    outs = {r['rid']: {} for r in job['requests']}
+    scrapes, stop = [], threading.Event()
+
+    def scrape():
+        while not stop.is_set():
+            for port, path in job['scrape']:
+                st, _h, body = _http('127.0.0.1', port, 'GET', path,
+                                     timeout=10)
+                scrapes.append([path, st, 'paddle_tpu_serve_' in body
+                                if path == '/metrics' else True])
+            stop.wait(job['scrape_s'])
+
+    t0 = time.perf_counter()
+    scraper = threading.Thread(target=scrape, daemon=True)
+    threads = [threading.Thread(target=_sse, args=(
+        job['port'], {'prompt': r['prompt'],
+                      'max_new_tokens': r['max_new_tokens'],
+                      'rid': r['rid']}, outs[r['rid']],
+        t0 + r['arrival_s']), daemon=True) for r in job['requests']]
+    scraper.start()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    stop.set()
+    scraper.join(30)
+    for out in outs.values():
+        out.pop('headers', None)
+    print(json.dumps({'outs': outs, 'scrapes': scrapes}), flush=True)
+
+
+def _refused(port):
+    """True when nothing listens on 127.0.0.1:port any more."""
+    import socket
+    try:
+        socket.create_connection(('127.0.0.1', port), timeout=2).close()
+        return False
+    except OSError:
+        return True
+
+
+def _live_threads():
+    import threading
+    return sorted(t.name for t in threading.enumerate()
+                  if t.is_alive() and t.name.startswith('paddle-tpu'))
+
+
+def _trace_idle_share(path):
+    """(device idle share, device busy s, traced s) of one exported
+    profile window: 1 - the union of its device-kernel intervals over
+    the span its events cover (the profiler's own start, stop and
+    export lie outside that span)."""
+    import gzip
+    with gzip.open(path, 'rt') as f:
+        doc = json.load(f)
+    events = [e for e in doc.get('traceEvents', []) if e.get('ph') == 'X'
+              and 'ts' in e and 'dur' in e]
+    lo = min(float(e['ts']) for e in events)
+    hi = max(float(e['ts']) + float(e['dur']) for e in events)
+    spans = sorted((float(e['ts']), float(e['ts']) + float(e['dur']))
+                   for e in events if str(e.get('cat', '')).lower()
+                   in ('kernel', 'gpu_memcpy', 'gpu_memset'))
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return 1.0 - busy / (hi - lo), busy / 1e6, (hi - lo) / 1e6
+
+
+def _door_gates(eng, decode0, prefill0, p0, d0, launches, serve):
+    """LayerNorm's launches on the door's run: exactly the captured
+    launches times the replays, a replay launching what the unarmed
+    serve path's graphs launch (25 a prefill, 25 x K a decode span),
+    no capture during traffic and none eager."""
+    K = eng.config.decode_span
+    decode, prefill = _decode_graphs(eng), _prefill_graphs(eng)
+    if set(decode) != set(decode0) or set(prefill) != set(prefill0):
+        raise AssertionError('frontdoor: traffic captured a module warmup '
+                             'did not')
+    dreplays = {sig: g.replays - decode0[sig] for sig, g in decode.items()}
+    preplays = {sig: g.replays - prefill0[sig] for sig, g in prefill.items()}
+    steps = eng.decode_steps - d0
+    prefills = eng.prefill_dispatches - p0
+    if steps != K * sum(dreplays.values()) or \
+            prefills != sum(preplays.values()) or not prefills:
+        raise AssertionError(f'frontdoor: {steps} decode steps / {prefills} '
+                             f'prefills, graph replays {dreplays} '
+                             f'{preplays}')
+    for (P, B), g in prefill.items():
+        n = g.launches.counts()['fused_layer_norm']
+        want = serve['prefill_graphs'][f'{P}x{B}']['layer_norm_a_replay']
+        if n != want or n != LN_PER_FORWARD:
+            raise AssertionError(f'frontdoor: prefill graph {P}x{B} '
+                                 f'launches {n} LayerNorms a replay, the '
+                                 f'serve path\'s {want}')
+    for sig, g in decode.items():
+        n = g.launches.counts()['fused_layer_norm']
+        if n != LN_PER_FORWARD * K:
+            raise AssertionError(f'frontdoor: decode graph {sig} launches '
+                                 f'{n} LayerNorms a replay, not '
+                                 f'{LN_PER_FORWARD} x {K}')
+    want = LN_PER_FORWARD * (steps + prefills)
+    for key in ('fused_layer_norm', 'fused_layer_norm:warp'):
+        if launches[key] != want:
+            raise AssertionError(f'frontdoor: {key} launched '
+                                 f'{launches[key]} times, the replays\' '
+                                 f'{want}')
+    return steps, prefills, dreplays, preplays
+
+
+def frontdoor_phase(f32_streams, serve):
+    """The serve phase's deployment behind ``ServingFrontend`` with the
+    live plane armed (metrics server, memory sampler, a profile window,
+    a watchdog budget): the same Poisson requests over HTTP as SSE
+    streams on their arrival times, scraped throughout; then the typed
+    rejections, a disconnect, a burst at a door of queue 1, a starved
+    request and the teardown.  Returns (launches, summary)."""
+    import os
+    import tempfile
+    import threading
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.models.gpt import gpt_small
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.resilience.watchdog import Budget
+    from paddle_tpu_torch.serving import (Request, ServeConfig,
+                                          ServingEngine, poisson_requests)
+    from paddle_tpu_torch.serving.frontend import ServingFrontend
+    from paddle_tpu_torch.telemetry import memory
+
+    K = SERVE_CONFIG_KW['decode_span']
+    lo = FRONTDOOR_PROFILE_SPANS[0] * K
+    n_steps = len(FRONTDOOR_PROFILE_SPANS) * K
+    trace_dir = tempfile.mkdtemp(prefix='frontdoor_profile_')
+    saved_env = os.environ.get(memory.MEMSTATS_ENV)
+    os.environ[memory.MEMSTATS_ENV] = 'interval=0.05'
+    telemetry.reset()
+    memory.reset_modules()
+    events = []
+    telemetry.get_recorder().subscribe(events.append)
+    model = gpt_small(device='cuda', seed=0, **SERVE_MODEL_KW)
+    cfg = ServeConfig(**SERVE_CONFIG_KW, watchdog=dict(FRONTDOOR_WATCHDOG),
+                      profile=f'start={lo},steps={n_steps},limit=1,'
+                              f'dir={trace_dir}')
+    eng = ServingEngine(model, cfg, serve_metrics_port=0)
+    doors, ports = [], [eng.metrics_server.port]
+    try:
+        _warm_engine(eng, 'frontdoor')
+        captured = [e for e in events if e['kind'] == 'memory_compiled']
+        if sorted(e['name'] for e in captured) != sorted(
+                [f'serve.decode[{S}x{k}]' for S, k in _decode_graphs(eng)]
+                + [f'serve.prefill[{P}x{B}]'
+                   for P, B in _prefill_graphs(eng)]):
+            raise AssertionError(f'frontdoor: memory_compiled events '
+                                 f'{[e["name"] for e in captured]}')
+        pool = max(e['reserved_bytes_after'] for e in captured)
+        log(f'frontdoor: {len(captured)} memory_compiled events, one per '
+            f'captured module; the shared graph pool and the weights '
+            f'reserve {pool / 2**30:.2f} GiB after the last capture; '
+            'largest growth ' + ', '.join(
+                f'{e["name"]} {e["compiled_peak_bytes"] / 2**20:.0f} MiB'
+                for e in sorted(captured, key=lambda e:
+                                -e['compiled_peak_bytes'])[:3]))
+        fe = ServingFrontend(eng, port=0).start()
+        doors.append(fe)
+        ports.append(fe.port)
+        reqs = poisson_requests(NUM_REQUESTS,
+                                vocab_size=model.config.vocab_size,
+                                **SERVE_LOAD_KW)
+        mport = eng.metrics_server.port
+        job = json.dumps({
+            'port': fe.port, 'scrape_s': FRONTDOOR_SCRAPE_S,
+            'scrape': [(mport, '/metrics'), (mport, '/status.json'),
+                       (fe.port, '/status.json')],
+            'requests': [{'rid': r.rid, 'prompt': r.prompt.tolist(),
+                          'max_new_tokens': r.max_new_tokens,
+                          'arrival_s': r.arrival_t} for r in reqs]})
+
+        def drive(what):
+            """The requests through the door once, scraped throughout,
+            every gate of the pass checked; returns its streams,
+            scrapes, host CPU seconds, launches, replay counts and
+            events."""
+            decode0 = {s: g.replays for s, g in _decode_graphs(eng).items()}
+            prefill0 = {s: g.replays
+                        for s, g in _prefill_graphs(eng).items()}
+            p0, d0 = eng.prefill_dispatches, eng.decode_steps
+            n_ev0 = len(events)
+            client = subprocess.Popen(
+                [sys.executable, '-c', 'import chip_smoke; '
+                 'chip_smoke.door_client()'], cwd=os.path.dirname(
+                    os.path.abspath(__file__)), stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, text=True)
+            # the main path: counts at 0 just before, read just after
+            # (the client's interpreter starts while the door idles)
+            _build.reset_launches()
+            torch.cuda.synchronize()
+            cpu0 = time.process_time()
+            try:
+                stdout, _ = client.communicate(job, timeout=600)
+            finally:
+                if client.poll() is None:
+                    client.kill()
+                    client.wait()
+            host_cpu_s = time.process_time() - cpu0
+            if client.returncode != 0:
+                raise AssertionError(f'frontdoor {what}: the client exited '
+                                     f'{client.returncode}')
+            doc = json.loads(stdout.strip().splitlines()[-1])
+            outs, scrapes = doc['outs'], doc['scrapes']
+            deadline = time.monotonic() + 30
+            while (eng.scheduler.running or eng.scheduler.queue) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.01)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            gates = _door_gates(eng, decode0, prefill0, p0, d0, launches,
+                                serve)
+            # every stream equals the unarmed in-process serve run's
+            for rid, out in outs.items():
+                if out.get('status') != 200 or \
+                        (out.get('done') or {}).get('state') != \
+                        Request.DONE:
+                    raise AssertionError(
+                        f'frontdoor {what} {rid}: {out.get("status")} '
+                        f'{out.get("done") or out.get("body")}')
+                if out['tokens'] != f32_streams[rid]:
+                    first = next((i for i, (x, y) in enumerate(
+                        zip(out['tokens'], f32_streams[rid])) if x != y),
+                        min(len(out['tokens']), len(f32_streams[rid])))
+                    raise AssertionError(f'frontdoor {what} {rid}: stream '
+                                         f'differs from the serve phase\'s '
+                                         f'at token {first}')
+            bad = [(q, st) for q, st, ok in scrapes if st != 200 or not ok]
+            if bad or len(scrapes) < 3:
+                raise AssertionError(f'frontdoor {what}: scrapes '
+                                     f'{len(scrapes)}, failed {bad[:5]}')
+            # one serve_request per rid, the reference's fields
+            run_ev = events[n_ev0:]
+            sreq = [e for e in run_ev if e['kind'] == 'serve_request']
+            fields = {'rid', 'state', 'reason', 'prompt_len', 'tokens',
+                      'ttft_s', 'tpot_s', 'preemptions', 'age_s'}
+            if sorted(e['rid'] for e in sreq) != sorted(outs) or any(
+                    not fields <= set(e) or e['state'] != Request.DONE
+                    for e in sreq):
+                raise AssertionError(
+                    f'frontdoor {what}: serve_request events '
+                    f'{[(e["rid"], e["state"]) for e in sreq]}')
+            if sum(e['decoded'] + e['prefilled'] for e in run_ev
+                   if e['kind'] == 'serve_step') != \
+                    sum(len(o['tokens']) for o in outs.values()):
+                raise AssertionError(f'frontdoor {what}: serve_step token '
+                                     'accounting differs from the streams')
+            return outs, scrapes, host_cpu_s, launches, gates, sreq
+
+        outs, scrapes, host_cpu_s, launches, gates, sreq = drive('armed')
+        steps, prefills, dreplays, preplays = gates
+        # the profile window: exactly the asked steps, its trace on disk
+        wins = eng._prof.windows
+        if len(wins) != 1 or (wins[0]['step_lo'], wins[0]['step_hi'],
+                              wins[0]['steps']) != \
+                (lo, lo + n_steps - 1, n_steps) or 'error' in wins[0] or \
+                not os.path.exists(wins[0].get('trace', '')) or \
+                not wins[0]['device_total_us'] > 0:
+            raise AssertionError(f'frontdoor: profile windows {wins}')
+        idle, busy_s, traced_s = _trace_idle_share(wins[0]['trace'])
+        # memory samples from torch.cuda.memory_stats, within the card
+        limit = torch.cuda.get_device_properties(0).total_memory
+        samples = [e for e in events if e['kind'] == 'memory_sample']
+        if not samples or any(
+                e['source'] != 'device_stats' or
+                e.get('device_limit_bytes') != limit or
+                not 0 < e['device_bytes'] <= e['device_peak_bytes'] <= limit
+                for e in samples):
+            raise AssertionError(f'frontdoor: memory samples {samples[:3]}')
+        # the same requests again with the window spent: the door, the
+        # live plane and the sampler, no profile
+        pl_outs, _pl_scrapes, pl_cpu_s, pl_launches, pl_gates, pl_sreq = \
+            drive('window-less')
+        if len(eng._prof.windows) != 1:
+            raise AssertionError(f'frontdoor: a second profile window '
+                                 f'{eng._prof.windows[1:]}')
+
+        # 413: a request beyond max_model_len, typed, with Retry-After
+        st, hdrs, body = _http('127.0.0.1', fe.port, 'POST', '/v1/generate',
+                               {'prompt': list(range(64)),
+                                'max_new_tokens': 200, 'rid': 'big-0'})
+        if st != 413 or body.get('error') != 'exceeds_pool' or \
+                'Retry-After' not in hdrs:
+            raise AssertionError(f'frontdoor: 413 case {st} {hdrs} {body}')
+        # a client that goes away mid-stream is evicted, its blocks back
+        import http.client
+        c = http.client.HTTPConnection('127.0.0.1', fe.port, timeout=60)
+        c.request('POST', '/v1/generate', body=json.dumps(
+            {'prompt': list(range(1, 33)), 'max_new_tokens': 128,
+             'rid': 'cd-0'}), headers={'Content-Type': 'application/json'})
+        r = c.getresponse()
+        seen = 0
+        while seen < 2:
+            if r.readline().strip().startswith(b'data: '):
+                seen += 1
+        r.fp.close()
+        c.sock.close()
+        req = fe.get_request('cd-0')
+        deadline = time.monotonic() + 60
+        while not req.done and time.monotonic() < deadline:
+            time.sleep(0.01)
+        while eng.scheduler.running and time.monotonic() < deadline:
+            time.sleep(0.01)
+        if req.state != Request.EVICTED or \
+                req.reason != 'client_disconnect' or \
+                eng.cache.free_blocks != eng.cache.num_blocks - 1:
+            raise AssertionError(f'frontdoor: disconnect {req.state} '
+                                 f'{req.reason} after {len(req.tokens)} '
+                                 f'tokens, free blocks '
+                                 f'{eng.cache.free_blocks}')
+        disconnected_after = len(req.tokens)
+        fe.stop()
+
+        # a door of queue 1 under a burst sheds 429, typed
+        burst = ServingFrontend(eng, port=0, max_queue=1).start()
+        doors.append(burst)
+        ports.append(burst.port)
+        bouts = [{} for _ in range(FRONTDOOR_BURST)]
+        bthreads = [threading.Thread(target=_sse, args=(
+            burst.port, {'prompt': reqs[i].prompt.tolist(),
+                         'max_new_tokens': 8, 'rid': f'burst-{i}'},
+            bouts[i]), daemon=True) for i in range(FRONTDOOR_BURST)]
+        for t in bthreads:
+            t.start()
+        for t in bthreads:
+            t.join(120)
+        codes = sorted(o.get('status') for o in bouts)
+        shed = [o for o in bouts if o.get('status') == 429]
+        if not shed or set(codes) != {200, 429} or any(
+                o['body'].get('error') != 'queue_full' or
+                'Retry-After' not in o['headers'] for o in shed):
+            raise AssertionError(f'frontdoor: burst statuses {codes}')
+        burst.stop()
+
+        # a starved request under a tight budget: evicted, 'timeout'
+        saved_budget = eng.budget
+        eng.budget = Budget(step_s=1e-3, first_step_s=1e-3)
+        try:
+            starved = eng.submit(reqs[0].prompt, 16, rid='starved-0')
+            time.sleep(0.05)
+            eng.step()
+        finally:
+            eng.budget = saved_budget
+        tos = [e for e in events if e['kind'] == 'timeout'
+               and e['rid'] == 'starved-0']
+        if starved.reason != 'deadline' or len(tos) != 1 or \
+                tos[0]['budget_s'] != starved.deadline_s:
+            raise AssertionError(f'frontdoor: starved request '
+                                 f'{starved.state} {starved.reason}, '
+                                 f'timeout events {tos}')
+    finally:
+        for d in doors:
+            d.stop()
+        eng.close()
+        eng.close()
+        memory.stop_sampler()
+        telemetry.get_recorder().unsubscribe(events.append)
+        if saved_env is None:
+            os.environ.pop(memory.MEMSTATS_ENV, None)
+        else:
+            os.environ[memory.MEMSTATS_ENV] = saved_env
+    deadline = time.monotonic() + 10
+    while _live_threads() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if _live_threads() or not all(_refused(p) for p in ports):
+        raise AssertionError(f'frontdoor: after close, threads '
+                             f'{_live_threads()}, ports open '
+                             f'{[p for p in ports if not _refused(p)]}')
+
+    def pct(vals, q):
+        return vals[max(0, min(len(vals) - 1,
+                               math.ceil(q * len(vals)) - 1))]
+
+    def door_numbers(outs, sreq, host_cpu_s):
+        """One pass's end-to-end numbers: TTFT and TPOT on the engine's
+        clock (the reference's serve_request fields) and TTFT as the
+        client felt it."""
+        tokens = sum(len(o['tokens']) for o in outs.values())
+        wall = max(o['t_done'] for o in outs.values()) - \
+            min(o['t_send'] for o in outs.values())
+        ttft_c = sorted(o['t_first'] - o['t_send'] for o in outs.values())
+        ttft_e = sorted(e['ttft_s'] for e in sreq)
+        tpot_e = [e['tpot_s'] for e in sreq if e['tpot_s'] is not None]
+        return {'tokens': tokens, 'wall_s': wall,
+                'tokens_per_s': tokens / wall,
+                'ttft_p50_s': pct(ttft_e, 0.5),
+                'ttft_p99_s': pct(ttft_e, 0.99),
+                'client_ttft_p50_s': pct(ttft_c, 0.5),
+                'client_ttft_p99_s': pct(ttft_c, 0.99),
+                'tpot_mean_s': sum(tpot_e) / len(tpot_e),
+                'host_cpu_s': host_cpu_s,
+                'host_ms_a_request': (host_cpu_s - serve['host_cpu_s'])
+                / NUM_REQUESTS * 1e3}
+
+    def door_log(what, n):
+        return (f'{n["tokens"]} tokens in {n["wall_s"]:.3f} s = '
+                f'{n["tokens_per_s"]:.1f} tokens/s through the door '
+                f'{what} ({n["tokens_per_s"] / serve["tokens_per_s"]:.3f} '
+                f'of in-process serve); TTFT p50 '
+                f'{n["ttft_p50_s"] * 1e3:.1f} ms, p99 '
+                f'{n["ttft_p99_s"] * 1e3:.1f} ms on the engine\'s clock '
+                f'(client {n["client_ttft_p50_s"] * 1e3:.1f} / '
+                f'{n["client_ttft_p99_s"] * 1e3:.1f} ms); TPOT mean '
+                f'{n["tpot_mean_s"] * 1e3:.2f} ms; host CPU '
+                f'{n["host_cpu_s"]:.3f} s = {n["host_ms_a_request"]:.2f} ms '
+                f'a request more than serve\'s')
+
+    summary = door_numbers(outs, sreq, host_cpu_s)
+    summary['window_less'] = door_numbers(pl_outs, pl_sreq, pl_cpu_s)
+    summary.update({
+        'serve_tokens_per_s': serve['tokens_per_s'],
+        'serve_ttft_p50_s': serve['ttft_p50_s'],
+        'serve_ttft_p99_s': serve['ttft_p99_s'],
+        'serve_tpot_mean_s': serve['tpot_mean_s'],
+        'serve_host_cpu_s': serve['host_cpu_s'],
+        'idle_share_window': idle, 'window_device_s': busy_s,
+        'window_wall_s': wins[0]['wall_s'], 'window_traced_s': traced_s,
+        'window_steps': [wins[0]['step_lo'], wins[0]['step_hi']],
+        'scrapes': len(scrapes), 'memory_samples': len(samples),
+        'memory_peak_bytes': max(e['device_peak_bytes'] for e in samples),
+        'decode_steps': steps, 'prefill_dispatches': prefills,
+        'replays': {f'{S}x{k}': n for (S, k), n in dreplays.items()},
+        'burst_statuses': codes, 'disconnected_after': disconnected_after})
+    pl_steps, pl_prefills = pl_gates[:2]
+    log(f'frontdoor: {NUM_REQUESTS} SSE streams over HTTP equal the serve '
+        f'phase\'s token for token, in both passes; {len(scrapes)} scrapes '
+        f'of /metrics, /status.json and the door\'s /status.json during '
+        f'the armed run; fused_layer_norm launches '
+        f'{launches["fused_layer_norm"]} = {LN_PER_FORWARD} x ({steps} '
+        f'decode steps + {prefills} prefills) armed, '
+        f'{pl_launches["fused_layer_norm"]} = {LN_PER_FORWARD} x '
+        f'({pl_steps} + {pl_prefills}) window-less, all graph replays on '
+        'the warp design; one serve_request per rid')
+    log(f'frontdoor: in-process serve {serve["tokens_per_s"]:.1f} tokens/s,'
+        f' TTFT p50 {serve["ttft_p50_s"] * 1e3:.1f} ms, p99 '
+        f'{serve["ttft_p99_s"] * 1e3:.1f} ms, TPOT mean '
+        f'{serve["tpot_mean_s"] * 1e3:.2f} ms, host CPU '
+        f'{serve["host_cpu_s"]:.3f} s')
+    log('frontdoor: ' + door_log('armed (live plane, sampler, profile '
+                                 'window)', summary))
+    log('frontdoor: ' + door_log('window-less (live plane, sampler)',
+                                 summary['window_less']))
+    log(f'frontdoor: device idle share {idle:.3f} over the profile window '
+        f'(steps {lo}..{lo + n_steps - 1}: {traced_s:.3f} s traced, '
+        f'{wins[0]["wall_s"]:.3f} s with the profiler\'s stop); '
+        f'{len(samples)} memory samples, peak '
+        f'{summary["memory_peak_bytes"] / 2**30:.2f} GiB of '
+        f'{limit / 2**30:.1f}; the clients run in a process of their own')
+    log(f'frontdoor: 413 exceeds_pool with Retry-After; a client gone after '
+        f'2 tokens evicted ({disconnected_after} decoded), every block '
+        f'back; a door of queue 1 under {FRONTDOOR_BURST} at once: '
+        f'{codes}; a starved request evicted with one timeout event; '
+        'close() left no thread and no open port')
+    del eng, model
+    _free()
+    return launches, summary
+
+
+def _worker_json(rep, path):
+    """GET ``path`` from a fleet worker's metrics plane."""
+    st, _h, body = _http('127.0.0.1', rep.metrics_port, 'GET', path,
+                         timeout=10)
+    if st != 200:
+        raise AssertionError(f'{rep.name} {path}: {st}')
+    return body
+
+
+def _replica_gate(name, a, b):
+    """A fleet worker's LayerNorm launches between two snapshots of its
+    ``/kernels/status.json`` (each read under the lock its replays are
+    counted under): exactly the captured launches times the replays (25
+    a prefill, 25 x K a decode span), so none eager, no graph captured
+    between them, every launch on the warp design.  Returns the
+    launches by key and (prefill replays, decode replays)."""
+    K = FLEET_DOC['decode_span']
+    if set(a['graphs']) != set(b['graphs']) or not b['graphs']:
+        raise AssertionError(f'fleet {name}: graphs {sorted(a["graphs"])} '
+                             f'-> {sorted(b["graphs"])}')
+    replays = {g: b['graphs'][g]['replays'] - a['graphs'][g]['replays']
+               for g in b['graphs']}
+    for g, doc in b['graphs'].items():
+        n = doc['launches_a_replay'].get('fused_layer_norm', 0)
+        want = LN_PER_FORWARD * (K if g.startswith('decode') else 1)
+        if n != want:
+            raise AssertionError(f'fleet {name}: {g} launches {n} '
+                                 f'LayerNorms a replay, not {want}')
+    prefill = sum(n for g, n in replays.items() if g.startswith('prefill'))
+    decode = sum(n for g, n in replays.items() if g.startswith('decode'))
+    delta = {k: n - a['launches'].get(k, 0)
+             for k, n in b['launches'].items()}
+    want = LN_PER_FORWARD * (prefill + K * decode)
+    for key in ('fused_layer_norm', 'fused_layer_norm:warp'):
+        if delta.get(key) != want:
+            raise AssertionError(f'fleet {name}: {key} launched '
+                                 f'{delta.get(key)} times, the replays\' '
+                                 f'{want} ({replays})')
+    return delta, (prefill, decode)
+
+
+def fleet_phase():
+    """The reference drill's fleet on the card: 2 replicas + 1 warm spare
+    of ``gpt_small`` (subprocess workers, ``--device cuda``) behind
+    ``FleetFrontend``; overload, clean twin (through the door), seeded
+    ``replica_kill`` and forced ``slo_breach`` drain.  Returns
+    (launches, summary)."""
+    import random
+    import signal
+    import tempfile
+    import threading
+    from paddle_tpu_torch.resilience.chaos import (Fault, FaultPlan,
+                                                   ServingFaultInjector)
+    from paddle_tpu_torch.serving import RejectReason, Request
+    from paddle_tpu_torch.serving.router import FleetFrontend
+    from paddle_tpu_torch.tools import serve_fleet
+
+    workdir = tempfile.mkdtemp(prefix='fleet_')
+    config_path = f'{workdir}/serve.json'
+    with open(config_path, 'w') as f:
+        json.dump(FLEET_DOC, f)
+    rng = random.Random(20)
+    shapes = {}
+
+    def shape(rid):
+        if rid not in shapes:
+            shapes[rid] = ([rng.randrange(1, 120)
+                            for _ in range(rng.randrange(4, 9))],
+                           rng.randrange(6, 10))
+        return shapes[rid]
+
+    single = serve_fleet.build_engine(FLEET_DOC, device='cuda')
+
+    def single_tokens(rid):
+        prompt, n = shape(rid)
+        req = Request(rid, prompt, max_new_tokens=n)
+        single.submit(req)
+        single.run()
+        return [int(t) for t in req.tokens]
+
+    def run_many(router, rids, pace_s=0.0, on_token=None, at_once=False):
+        results, threads, go = {}, [], threading.Event()
+
+        def one(rid):
+            if at_once:
+                go.wait()
+            prompt, n = shape(rid)
+            try:
+                results[rid] = router.generate(
+                    prompt, n, rid, on_token=None if on_token is None else
+                    (lambda i, t: on_token(rid, i, t)))
+            except Exception as e:      # a crash is the finding
+                results[rid] = {'state': 'crashed', 'reason': repr(e)}
+        for rid in rids:
+            threads.append(threading.Thread(target=one, args=(rid,),
+                                            daemon=True))
+            threads[-1].start()
+            if pace_s:
+                time.sleep(pace_s)
+        go.set()
+        for t in threads:
+            t.join(180)
+        return results
+
+    def sheds(router):
+        return sum(sum(rep.status()['shed_counts'].values())
+                   for rep in router.replicas + router.spares if rep.alive())
+
+    counts, peaks = {}, {}
+
+    def read_workers(router):
+        """Each live worker's launches and allocator peak."""
+        for rep in router.replicas + router.spares:
+            if rep.alive():
+                counts.setdefault(rep.name, []).append(
+                    _worker_json(rep, '/kernels/status.json'))
+                live = _worker_json(rep, '/memory.json')['live']
+                peaks[rep.name] = max(peaks.get(rep.name, 0),
+                                      live.get('device_peak_bytes', 0))
+
+    t0 = time.perf_counter()
+    router = serve_fleet.launch_fleet(
+        config_path, replicas=FLEET_REPLICAS, spares=FLEET_SPARES,
+        workdir=workdir, device='cuda', metrics=True,
+        extra_env={'PADDLE_TPU_MEMSTATS': 'interval=0.2'})
+    spawn_s = time.perf_counter() - t0
+    door = FleetFrontend(router).start()
+    summary = {'spawn_to_ready_s': spawn_s}
+    try:
+        read_workers(router)
+        # drill 1: an overload burst, released at once
+        res = run_many(router, [f'ov-{i}' for i in range(FLEET_OVERLOAD)],
+                       at_once=True)
+        states = {}
+        for r in res.values():
+            states[r['state']] = states.get(r['state'], 0) + 1
+        summary['overload'] = {
+            'total': FLEET_OVERLOAD, 'states': states, 'sheds': sheds(router),
+            'typed': all(r.get('reason') in RejectReason.ALL
+                         for r in res.values() if r['state'] == 'rejected'),
+            'invariants': router.check_invariants(),
+            'replicas_alive': sum(r.alive() for r in router.replicas)}
+
+        # drill 2: the clean twin through the door, against one engine
+        shed0 = sheds(router)
+        clean = [f'cl-{i}' for i in range(4)]
+        outs = {rid: {} for rid in clean}
+        cthreads = []
+        for rid in clean:
+            prompt, n = shape(rid)
+            cthreads.append(threading.Thread(target=_sse, args=(
+                door.port, {'prompt': prompt, 'max_new_tokens': n,
+                            'rid': rid}, outs[rid]), daemon=True))
+            cthreads[-1].start()
+            time.sleep(0.4)
+        for t in cthreads:
+            t.join(120)
+        summary['clean'] = {
+            'finished': sum((o.get('done') or {}).get('state') == 'finished'
+                            for o in outs.values()),
+            'total': len(clean), 'sheds': sheds(router) - shed0,
+            'bitexact': all(outs[rid].get('tokens') == single_tokens(rid)
+                            for rid in clean),
+            'invariants': router.check_invariants()}
+        read_workers(router)
+
+        # drill 3: a seeded replica_kill mid-stream.  The replicas'
+        # counters are polled throughout, so the victim's last read lies
+        # just before the kill without a read delaying it (the stream
+        # may end within a decode span)
+        plan = FaultPlan(seed=0, faults=[
+            Fault('replica_kill', after_tokens=3, count=1)])
+        inj = ServingFaultInjector(plan)
+        lock = threading.Lock()
+        last, polling = {}, threading.Event()
+
+        def poll():
+            while not polling.wait(FLEET_POLL_S):
+                for rep in list(router.replicas):
+                    try:
+                        doc = _worker_json(rep, '/kernels/status.json')
+                    except (OSError, AssertionError):
+                        continue            # the victim, gone
+                    with lock:
+                        last[rep.name] = (time.perf_counter(), doc)
+
+        def tap(rid, i, tok):
+            with lock:
+                fired = inj.fleet_faults(rid, i + 1)
+                if fired:
+                    victim = router.replica(
+                        router.ledger[rid]['replicas'][-1])
+                    read_t, doc = last[victim.name]
+                    counts[victim.name].append(doc)
+                    victim.kill(signal.SIGKILL)
+                    summary['victim_read_before_kill_s'] = \
+                        time.perf_counter() - read_t
+
+        poller = threading.Thread(target=poll, daemon=True)
+        poller.start()
+        deadline = time.monotonic() + 30
+        while len(last) < len(router.replicas) and \
+                time.monotonic() < deadline:
+            time.sleep(FLEET_POLL_S)
+        kill = [f'ki-{i}' for i in range(3)]
+        try:
+            res = run_many(router, kill, pace_s=0.05, on_token=tap)
+        finally:
+            polling.set()
+            poller.join(30)
+        summary['kill'] = {
+            'injected': list(inj.injected),
+            'finished': sum(r['state'] == 'finished' for r in res.values()),
+            'total': len(kill),
+            'retried': sum(r.get('retried', 0) for r in res.values()),
+            'bitexact': all(res[rid].get('tokens') == single_tokens(rid)
+                            for rid in kill),
+            'promoted': sum(e['action'] == 'promote' for e in router.events),
+            'invariants': router.check_invariants()}
+
+        # drill 4: a forced slo_breach latch drains the stream's owner
+        out = {}
+        t = threading.Thread(target=lambda: out.update(
+            e=router.generate(*shape('dr-0'), 'dr-0')), daemon=True)
+        t.start()
+        while 'dr-0' not in router.ledger or \
+                not router.ledger['dr-0']['replicas']:
+            time.sleep(0.005)
+        owner = router.replica(router.ledger['dr-0']['replicas'][-1])
+        owner.post_json('/admin/alert/slo_breach')
+        router.health_tick()
+        t.join(120)
+        entry = out.get('e') or router.ledger['dr-0']
+        summary['drain'] = {
+            'owner': owner.name, 'drained': owner.draining,
+            'state': entry['state'],
+            'bitexact': entry['tokens'] == single_tokens('dr-0'),
+            'still_serving': bool(router.dispatchable()),
+            'drain_events': sum(e['action'] == 'drain'
+                                for e in router.events),
+            'invariants': router.check_invariants()}
+        summary['fleet_actions'] = sorted({e['action']
+                                           for e in router.events})
+        read_workers(router)
+    finally:
+        door.stop()
+        router.stop()
+        del single
+        _free()
+
+    failures = []
+    over, cl = summary['overload'], summary['clean']
+    ki, dr = summary['kill'], summary['drain']
+    if not over['sheds'] or not over['typed'] or \
+            set(over['states']) - {'finished', 'rejected'} or \
+            over['replicas_alive'] < FLEET_REPLICAS:
+        failures.append(f'overload: {over}')
+    if cl['sheds'] or cl['finished'] != cl['total'] or not cl['bitexact']:
+        failures.append(f'clean twin: {cl}')
+    if len(ki['injected']) != 1 or ki['finished'] != ki['total'] or \
+            ki['retried'] < 1 or not ki['bitexact'] or ki['promoted'] < 1:
+        failures.append(f'replica_kill: {ki}')
+    if not dr['drained'] or dr['state'] != 'finished' or \
+            not dr['bitexact'] or not dr['still_serving'] or \
+            not dr['drain_events']:
+        failures.append(f'drain: {dr}')
+    for name in ('overload', 'clean', 'kill', 'drain'):
+        if summary[name]['invariants']:
+            failures.append(f'{name}: invariants '
+                            f'{summary[name]["invariants"]}')
+    if 'crashed' in json.dumps(summary):
+        failures.append('a request crashed')
+    # each replica's LayerNorm launches over the drills, from its
+    # counters read before the first drill and after its last (the
+    # killed one's just before the kill): exactly its replays'
+    launches = {key: 0 for key in launch_counts()}
+    per_replica, replays = {}, {}
+    for name, seq in sorted(counts.items()):
+        try:
+            delta, replays[name] = _replica_gate(name, seq[0], seq[-1])
+        except AssertionError as e:
+            failures.append(str(e))
+            continue
+        per_replica[name] = delta['fused_layer_norm']
+        for k, n in delta.items():
+            launches[k] = launches.get(k, 0) + n
+    if not launches['fused_layer_norm']:
+        failures.append(f'LayerNorm launches by replica {per_replica}')
+    if failures:
+        raise AssertionError('fleet: ' + '; '.join(failures))
+    summary['peak_bytes'] = peaks
+    summary['layer_norm_by_replica'] = per_replica
+    summary['replays_by_replica'] = replays
+    for name in ('overload', 'clean', 'kill', 'drain'):
+        log(f'fleet {name}: {json.dumps(summary[name])}')
+    log(f'fleet: {FLEET_REPLICAS} replicas + {FLEET_SPARES} warm spare of '
+        f'gpt_small (subprocess workers on the card, warmed up) ready in '
+        f'{spawn_s:.1f} s; allocator peak by replica '
+        + ', '.join(f'{k} {v / 2**30:.2f} GiB' for k, v in
+                    sorted(peaks.items()))
+        + f'; fused_layer_norm launches by replica over the drills '
+        f'{per_replica} (the killed replica\'s up to its last read, '
+        f'{summary["victim_read_before_kill_s"] * 1e3:.1f} ms before the '
+        f'kill) = '
+        f'{LN_PER_FORWARD} x (prefill replays + {FLEET_DOC["decode_span"]}'
+        f' x decode replays) {replays}, all on the warp design; actions '
+        f'{summary["fleet_actions"]}')
+    return launches, summary
 
 
 def _record_linear_io(layers, fn):
@@ -4115,6 +5014,8 @@ def main():
     timings.update(softmax_kernel_phase())
     timings.update(gelu_kernel_phase())
     serve_launches, serve, f32_streams = serving_phase()
+    frontdoor_launches, frontdoor = frontdoor_phase(f32_streams, serve)
+    fleet_launches, fleet = fleet_phase()
     serve_quant = {mode: serve_quant_phase(mode, f32_streams)
                    for mode in ('int8', 'int4')}
     train = training_phase()
@@ -4136,7 +5037,8 @@ def main():
     moe = moe_phase()
     moe_gen = moe_gen_phase()
     qat = qat_phase(resnet['ms_per_step'])
-    log(json.dumps({'serve': serve,
+    log(json.dumps({'serve': serve, 'frontdoor': frontdoor,
+                    'fleet': fleet,
                     **{f'serve_{m}': r[1] for m, r in serve_quant.items()},
                     'train': train, 'gpt_fused': gpt_fused,
                     'gpt_recipe': gpt_recipe,
@@ -4147,12 +5049,16 @@ def main():
                     'longctx': longctx, 'gptgen': gptgen, 'ernie': ernie,
                     'vision_zoo': zoo, 'optimizers': optimizers,
                     'moe': moe, 'moe_gen': moe_gen, 'qat': qat}))
-    # 'serve', 'serve_int8', 'serve_int4', 'gptgen', 'gpt_fused',
+    # 'serve', 'frontdoor', 'fleet', 'serve_int8', 'serve_int4',
+    # 'gptgen', 'gpt_fused',
     # 'gpt_recipe', 'bert_dropout_fused', 'resnet_fused',
     # 'widedeep_fused', 'longctx_fused', 'mobilenet_v2_fused',
     # 'moe_fused', 'moe_gen', 'qat_fused' and half of 'optimizers' replay
     # CUDA graphs
     paths = {'serve': serve_launches,
+             # the door's run in this process; the fleet's in its
+             # replicas, read from each worker's metrics plane
+             'frontdoor': frontdoor_launches, 'fleet': fleet_launches,
              **{f'serve_{m}': r[0] for m, r in serve_quant.items()},
              'train': train['launches'],
              'gpt_fused': gpt_fused['launches'],

@@ -17,5 +17,7 @@ never ``jax`` and nothing of ``paddle_tpu``.
 """
 from .core.device import resolve_device
 from .core.rng import seed
+from . import resilience  # noqa: F401
+from . import telemetry  # noqa: F401
 
-__all__ = ['resolve_device', 'seed']
+__all__ = ['resolve_device', 'seed', 'resilience', 'telemetry']

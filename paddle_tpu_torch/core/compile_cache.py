@@ -93,8 +93,9 @@ class GraphModule:
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src, non_blocking=True)
         self.graph.replay()
-        self.launches.replayed()
-        self.replays += 1
+        with _build.counts_lock:
+            self.launches.replayed()
+            self.replays += 1
         return self.outputs
 
     def _warm_up_and_capture(self, inputs):

@@ -19,7 +19,8 @@ Each ``Kernel`` counts its launches.  Under a CUDA-graph capture a
 wrapper's launch is recorded, not run: ``capture_launches()`` takes
 the capture's counts back out and keeps them, and the graph adds them
 again on every replay (``CapturedLaunches.replayed``), so the counts
-stay what the card ran.
+stay what the card ran.  A replay is counted under ``counts_lock``, so
+a thread that reads under it sees the launches agree with the replays.
 """
 import contextlib
 import ctypes
@@ -33,7 +34,7 @@ import torch
 
 __all__ = ['Kernel', 'KERNELS', 'aligned16', 'build', 'load', 'sources',
            'reset_launches', 'capture_launches', 'CapturedLaunches',
-           'stream']
+           'counts_lock', 'stream']
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
@@ -44,6 +45,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _lock = threading.Lock()
 _libs = {}
+counts_lock = threading.Lock()
 
 
 def sources():

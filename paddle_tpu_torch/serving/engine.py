@@ -23,16 +23,29 @@ scheduling and the same shapes:
   same body, called directly;
 - weight-only PTQ (``ServeConfig(quantize='int8'|'int4')``,
   ``quantization.quantize_for_serving``), applied before any module is
-  made.
+  made;
+- per-request SLOs: watchdog budgets (``ServeConfig(watchdog=)`` or
+  ``PADDLE_TPU_WATCHDOG``, ``resilience.watchdog.Budget``) give each
+  request a deadline; a starved request is evicted with a ``timeout``
+  telemetry event; TTFT and TPOT land on ``serve_request`` events and
+  profile windows (``ServeConfig(profile=)``, ``telemetry.profile``)
+  name exact decode step ids;
+- live observability (``serve_metrics_port=`` /
+  ``PADDLE_TPU_METRICS_PORT``, default OFF): a
+  ``telemetry.live.LiveAggregator`` on the recorder's stream keeps
+  rolling TTFT/TPOT/occupancy windows, SLO/drift (and, with a
+  ``PADDLE_TPU_MEMSTATS`` budget, memory) monitors emit their edges,
+  and ``telemetry.httpd.MetricsServer`` serves ``/healthz``
+  ``/status.json`` ``/metrics`` ``/requests/<rid>``.  Every event is
+  emitted from host state the engine already holds (the span's tokens
+  are read once per intervention whatever is armed), so the plane adds
+  no device sync and a scrape changes no numerics.  Under
+  ``PADDLE_TPU_MEMSTATS`` each module's capture also records its graph
+  pool bytes (``telemetry.memory.note_graph_capture``).
 
 The decode math runs through ``GPTForCausalLM.prefill``/``decode_step``,
 the same forward ``generate()`` uses, so greedy engine output equals
 batch-1 ``generate``.
-
-Left for later slices of the port: the live metrics plane, the memory
-sampler, the step profiler, watchdog budgets, ``DecodeAuditLayer`` and
-the telemetry events.  A ``ServeConfig`` that asks for watchdog
-budgets or the profiler raises.
 """
 import functools
 import hashlib
@@ -44,13 +57,21 @@ import zlib
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..core.compile_cache import GraphCache, bucket_pow2
 from ..ops import _build, fused_gelu_linear
 from ..ops.sampling import make_row_sampler
+from ..resilience.watchdog import resolve_watchdog
+from ..telemetry import memory as _mem
+from ..telemetry.httpd import MetricsServer, resolve_metrics_port
+from ..telemetry.live import LiveAggregator
+from ..telemetry.monitors import DriftMonitor, MemoryMonitor, SLOMonitor
+from ..telemetry.profile import step_profiler
 from .kv_cache import PagedKVCache, PagedCacheView, blocks_for
-from .scheduler import ContinuousBatchingScheduler, Request
+from .scheduler import ContinuousBatchingScheduler, RejectedRequest, Request
 
-__all__ = ['ServeConfig', 'ServingEngine', 'request_seed']
+__all__ = ['ServeConfig', 'ServingEngine', 'DecodeAuditLayer',
+           'request_seed']
 
 
 def request_seed(rid, engine_seed):
@@ -81,13 +102,6 @@ class ServeConfig:
                  top_k=None, eos_id=None, num_blocks=None,
                  request_deadline_s=None, watchdog=None, profile=None,
                  seed=0, quantize=None):
-        for field, value, what in (
-                ('watchdog', watchdog, 'watchdog budgets'),
-                ('profile', profile, 'the step profiler')):
-            if value is not None:
-                raise NotImplementedError(
-                    f'ServeConfig({field}=...): {what} ports with a '
-                    'later slice of paddle_tpu_torch')
         self.block_size = int(block_size)
         self.max_slots = int(max_slots)
         self.decode_span = max(1, int(decode_span))
@@ -101,6 +115,11 @@ class ServeConfig:
         self.eos_id = eos_id
         self.num_blocks = num_blocks
         self.request_deadline_s = request_deadline_s
+        # watchdog budgets (resilience.watchdog.resolve_watchdog's
+        # posture) and the step profiler's schedule
+        # (telemetry.profile.resolve_schedule's); neither keys a module
+        self.watchdog = watchdog
+        self.profile = profile
         self.seed = int(seed)
         # weight-only PTQ of the served model: None (full width), 'int8'
         # or 'int4'; part of signature()
@@ -171,7 +190,8 @@ class ServingEngine:
     expert capacity, the exemption ``generate``'s bucket makes.
     """
 
-    def __init__(self, model, config=None, now_fn=time.monotonic):
+    def __init__(self, model, config=None, now_fn=time.monotonic,
+                 serve_metrics_port=None, live_window_s=60.0):
         cfg = model.config
         if cfg.moe_num_experts > 0:
             raise ValueError('serving engine requires a non-MoE model '
@@ -225,6 +245,88 @@ class ServingEngine:
         self._prefill_modules = GraphCache(self.device,
                                            share_with=self._modules)
         self._staging = {}          # S -> host plan buffer (pinned)
+        self.budget = resolve_watchdog(self.config.watchdog)
+        # first-token / rollback counts carried to the NEXT serve_step
+        # event, so the live plane's token accounting matches
+        # decoded_tokens exactly (a prefill-only intervention emits no
+        # serve_step of its own)
+        self._pending_prefilled = 0
+        self._pending_discarded = 0
+        self._prof = step_profiler(profile=self.config.profile,
+                                   name='serve')
+        # the CPU memory census counts what the engine holds
+        _mem.track(model)
+        for kp, vp in self.cache.pools:
+            _mem.track(kp)
+            _mem.track(vp)
+        # -- live observability plane (default OFF; see telemetry.live) --
+        # the aggregator consumes the recorder's boundary-rate stream,
+        # the monitors turn its windows into slo_breach/drift_detected
+        # events, and the HTTP server exposes /metrics + /status.json;
+        # scrapes read host-side rolling state only
+        self.live = None
+        self.monitors = []
+        self.metrics_server = None
+        port = resolve_metrics_port(serve_metrics_port)
+        if port is not None:
+            self.live = LiveAggregator(window_s=live_window_s).install()
+            self.live.live_trace_fn = self._live_trace
+            # the Budget that derives per-request deadlines also defines
+            # the aggregate TTFT envelope
+            self.monitors = [
+                self.live.attach_monitor(SLOMonitor(budget=self.budget)),
+                self.live.attach_monitor(DriftMonitor()),
+            ]
+            mcfg = _mem.resolve_memstats()
+            if mcfg is not None and mcfg.budget_bytes is not None:
+                self.monitors.append(self.live.attach_monitor(
+                    MemoryMonitor(config=mcfg)))
+        # the live memory sampler: default OFF, armed by the same env
+        # (idempotent; a daemon thread at boundary rate)
+        _mem.ensure_sampler()
+        if port is not None:
+            try:
+                self.metrics_server = MetricsServer(self.live,
+                                                    port=port).start()
+            except Exception:
+                # a dead port must not leak the recorder subscription:
+                # the engine never constructs, so close() never runs
+                self.live.uninstall()
+                self.live = None
+                self.monitors = []
+                raise
+
+    # -- live plane ----------------------------------------------------------
+    def _live_trace(self, rid):
+        """telemetry.live hook: the in-flight trace for `rid` (the
+        finished ones live in the aggregator's serve_trace store).
+        Runs on a scrape thread while the engine thread mutates the
+        scheduler's deques; copying one mid-mutation raises
+        RuntimeError, so retry a few times and give up with None."""
+        sched = self.scheduler
+        for _ in range(4):
+            try:
+                reqs = list(sched.running) + list(sched.queue) \
+                    + list(sched.finished)
+                for req in reqs:
+                    if req.rid == rid:
+                        return [dict(row) for row in req.trace]
+                return None
+            except RuntimeError:    # mutated during iteration
+                continue
+        return None
+
+    def close(self):
+        """Tear down the live plane (HTTP server + stream subscription)
+        and close an open profile window.  Idempotent; the engine stays
+        usable."""
+        if self.metrics_server is not None:
+            self.metrics_server.stop()
+            self.metrics_server = None
+        if self.live is not None:
+            self.live.uninstall()
+        if self._prof is not None:
+            self._prof.close()
 
     # -- buckets -------------------------------------------------------------
     def prompt_bucket(self, t0):
@@ -237,6 +339,27 @@ class ServingEngine:
 
     def _chunk_bucket(self, n):
         return bucket_pow2(n, cap=self.config.prefill_batch)
+
+    def request_deadline_s(self, max_new_tokens):
+        """Per-request completion budget: the config's explicit value
+        wins; an armed watchdog Budget derives prefill + per-span
+        allowances; None = no deadline."""
+        if self.config.request_deadline_s is not None:
+            return float(self.config.request_deadline_s)
+        if self.budget is None:
+            return None
+        return self.budget.request_budget_s(
+            max_new_tokens, span=self.config.decode_span)
+
+    def _made(self, cache, sig, name, make):
+        """``make()``, the first call of a module (warm-up and capture on
+        the card); under PADDLE_TPU_MEMSTATS its graph pool bytes become
+        a ``memory_compiled`` event (telemetry.memory)."""
+        mod = cache.modules.get(sig)
+        if mod is not None:
+            return mod
+        return _mem.note_graph_capture(name, self.device, make,
+                                       shared=cache.shared_pool)
 
     # -- device work ---------------------------------------------------------
     def _prefill_plan(self, ids, t0s, blocks, seeds):
@@ -293,11 +416,14 @@ class ServingEngine:
         it."""
         nblk = blocks_for(P, self.config.block_size)
         inert = np.zeros((B, nblk), np.int32)
-        return self._prefill_modules.module(
-            (P, B), functools.partial(self._prefill_body, P=P),
-            warmup_inputs=(self._prefill_plan(
-                np.zeros((B, P), np.int64), np.full((B,), P, np.int64),
-                inert, np.zeros((B,), np.int64)),))
+        return self._made(
+            self._prefill_modules, (P, B), f'serve.prefill[{P}x{B}]',
+            lambda: self._prefill_modules.module(
+                (P, B), functools.partial(self._prefill_body, P=P),
+                warmup_inputs=(self._prefill_plan(
+                    np.zeros((B, P), np.int64),
+                    np.full((B,), P, np.int64), inert,
+                    np.zeros((B,), np.int64)),)))
 
     def _prefill(self, ids, t0s, blocks, seeds):
         """One prefill dispatch through its (P, B) module; returns the
@@ -349,10 +475,12 @@ class ServingEngine:
         trash block, every lane inactive), which on the card warms the
         span up and captures it."""
         W = self.scheduler.table_width
-        return self._modules.module(
-            (S, K), functools.partial(self._span_body, span=K),
-            warmup_inputs=(torch.zeros((S, W + len(self._PLAN_COLS)),
-                                       dtype=torch.int64),))
+        return self._made(
+            self._modules, (S, K), f'serve.decode[{S}x{K}]',
+            lambda: self._modules.module(
+                (S, K), functools.partial(self._span_body, span=K),
+                warmup_inputs=(torch.zeros((S, W + len(self._PLAN_COLS)),
+                                           dtype=torch.int64),)))
 
     def _decode_span(self, tables, ctx, tok, active, limit, seeds, span):
         """One span of the live set through its module; returns host
@@ -379,12 +507,11 @@ class ServingEngine:
     # -- request lifecycle ---------------------------------------------------
     def submit(self, prompt, max_new_tokens=None, rid=None,
                arrival_t=None, deadline_s=None):
-        # the config's per-request completion budget, if any
-        default_deadline = self.config.request_deadline_s
         if isinstance(prompt, Request):
             req = prompt
             if req.deadline_s is None:
-                req.deadline_s = default_deadline
+                req.deadline_s = self.request_deadline_s(
+                    req.max_new_tokens)
         else:
             self._rid += 1
             req = Request(
@@ -393,24 +520,39 @@ class ServingEngine:
                 arrival_t=(arrival_t if arrival_t is not None
                            else self._clock()),
                 deadline_s=(deadline_s if deadline_s is not None
-                            else default_deadline))
+                            else self.request_deadline_s(
+                                max_new_tokens)))
         if req.seed is None:
+            # rid-derived, so the same request replayed on any replica
+            # sharing the config seed samples the identical stream
             req.seed = request_seed(req.rid, self.config.seed)
-        return self.scheduler.submit(req)
+        try:
+            return self.scheduler.submit(req)
+        except RejectedRequest as e:
+            telemetry.event('serve_reject', rid=req.rid,
+                            reason=e.reason, detail=e.detail)
+            raise
 
     def cancel(self, rid, cause='cancelled'):
-        """Evict one in-flight request; rolls its decoded-token
-        accounting back.  True if the rid was queued or running."""
+        """Evict one in-flight request (client cancel / disconnect):
+        frees its blocks, rolls its decoded-token accounting back (a
+        token nobody received does not count as delivered), and emits
+        the finished-request telemetry with the typed cause.  True if
+        the rid was queued or running."""
         sched = self.scheduler
         for req in list(sched.queue):
             if req.rid == rid:
                 sched.queue.remove(req)
                 sched.finish(req, cause)
+                self._note_finished([req], self._clock())
                 return True
         for req in list(sched.running):
             if req.rid == rid:
-                self.decoded_tokens -= len(req.tokens)
+                rolled = len(req.tokens)
+                self.decoded_tokens -= rolled
+                self._pending_discarded += rolled
                 sched.finish(req, cause)
+                self._note_finished([req], self._clock())
                 return True
         return False
 
@@ -450,6 +592,46 @@ class ServingEngine:
             self.scheduler.finish(req, 'max_tokens')
         return req
 
+    def _flush_pending_tokens(self, admitted, t_start):
+        """A prefill-only intervention (nothing left running) emits a
+        decode-less ``serve_step`` carrying the pending first-token /
+        rollback counts, so no delivered token is lost to the early
+        return paths."""
+        if not self._pending_prefilled and not self._pending_discarded:
+            return
+        sched = self.scheduler
+        frag = self.cache.frag_report()
+        telemetry.event('serve_step', intervention=self.interventions,
+                        live=0, batch=0, span=0, decoded=0,
+                        admitted=admitted, finished=0, preempted=0,
+                        queued=len(sched.queue),
+                        free_blocks=self.cache.free_blocks,
+                        total_blocks=self.cache.num_blocks,
+                        kv_frag_frac=frag['frag_frac'],
+                        kv_largest_free_run=frag['largest_free_run'],
+                        kv_high_water=frag['high_water_blocks'],
+                        prefilled=self._pending_prefilled,
+                        discarded=self._pending_discarded,
+                        dur_s=round(self._clock() - t_start, 6))
+        self._pending_prefilled = 0
+        self._pending_discarded = 0
+
+    def _note_finished(self, finished, now):
+        for req in finished:
+            rec = req.record(now)
+            telemetry.event('serve_request', **rec)
+            # the full lifecycle trail, ONE event per finished request,
+            # joinable with serve_request by rid, served live at
+            # /requests/<rid>
+            telemetry.event('serve_trace', rid=req.rid,
+                            state=req.state, reason=req.reason,
+                            prompt_bucket=req.prompt_bucket,
+                            trace=[dict(r) for r in req.trace])
+            if req.reason == 'deadline':
+                telemetry.event(
+                    'timeout', op='serve_request', rid=req.rid,
+                    budget_s=req.deadline_s, age_s=rec['age_s'])
+
     # -- the intervention loop -----------------------------------------------
     def step(self, now=None):
         """ONE scheduler intervention: release/admit/prefill, decode
@@ -457,7 +639,9 @@ class ServingEngine:
         the progress count (admissions + evictions + decoded tokens)."""
         sched = self.scheduler
         now = self._clock() if now is None else now
+        t_start = self._clock()
         breached = sched.check_deadlines(now)
+        self._note_finished(breached, now)
         dispatched, chunk = [], []
         admitted = 0
 
@@ -481,24 +665,56 @@ class ServingEngine:
             toks = toks_dev.cpu().numpy()
             for i, req in enumerate(reqs):
                 self._prefill_finish(req, toks[i])
+            self._pending_prefilled += len(reqs)
+        self._note_finished(
+            [r for reqs, _ in dispatched for r in reqs if r.done], now)
         progress = admitted + len(breached)
         if not sched.running:
+            # everything finished at prefill (or was evicted): flush the
+            # carried first-token counts now, no later serve_step will
+            self._flush_pending_tokens(admitted, t_start)
             return progress
         preempted = sched.reserve_span(sched.decode_span)
         # a preempted request's tokens are recomputed later: un-count
         # them so tokens_per_s counts delivered tokens once
-        self.decoded_tokens -= sum(getattr(r, 'discarded_tokens', 0)
-                                   for r in preempted)
+        discarded = sum(getattr(r, 'discarded_tokens', 0)
+                        for r in preempted)
+        self.decoded_tokens -= discarded
+        self._pending_discarded += discarded
         plan = sched.plan()
         if plan is None:
+            self._flush_pending_tokens(admitted, t_start)
             return progress
         toks, valid = self._decode_span(plan.tables, plan.ctx, plan.tok,
                                         plan.active, plan.limit,
                                         plan.seed, plan.span)
-        sched.absorb(plan, toks, valid)
+        if self._prof is not None:
+            # the span's tokens were read to the host: its work is done
+            self._prof.observe(self.interventions * plan.span,
+                               span=plan.span)
+        finished = sched.absorb(plan, toks, valid)
+        self._note_finished(finished, self._clock())
         n = int(valid.sum())
         self.decoded_tokens += n
         self.interventions += 1
+        frag = self.cache.frag_report()
+        telemetry.event('serve_step', intervention=self.interventions,
+                        live=len(plan.requests), batch=plan.batch,
+                        span=plan.span, decoded=n, admitted=admitted,
+                        finished=len(finished),
+                        preempted=len(preempted),
+                        queued=len(sched.queue),
+                        free_blocks=self.cache.free_blocks,
+                        total_blocks=self.cache.num_blocks,
+                        kv_frag_frac=frag['frag_frac'],
+                        kv_largest_free_run=frag['largest_free_run'],
+                        kv_high_water=frag['high_water_blocks'],
+                        prefilled=self._pending_prefilled,
+                        discarded=self._pending_discarded,
+                        dur_s=round(self._clock() - t_start, 6))
+        self._pending_prefilled = 0
+        self._pending_discarded = 0
+        telemetry.add('serve.decoded_tokens', n)
         return progress + n
 
     def run(self, requests=(), timeout_s=None):
@@ -513,27 +729,37 @@ class ServingEngine:
         tok0 = self.decoded_tokens
         for r in pending:
             r.arrival_t = start + max(0.0, r.arrival_t)
-        while pending or sched.queue or sched.running:
-            now = self._clock()
-            if timeout_s is not None and now - start > timeout_s:
-                for req in list(sched.running) + list(sched.queue):
-                    if req in sched.queue:
-                        sched.queue.remove(req)
-                    sched.finish(req, 'engine_timeout')
-                pending = []
-                break
-            while pending and pending[0].arrival_t <= now:
-                self.submit(pending.pop(0))
-            if not sched.queue and not sched.running:
-                if pending:
-                    time.sleep(min(
-                        0.05, max(0.0, pending[0].arrival_t - now)))
-                continue
-            if self.step(now=now) == 0 and not sched.running \
-                    and sched.queue:
-                # the head of the queue cannot be admitted even into
-                # an empty pool: evict instead of spinning forever
-                sched.finish(sched.queue.popleft(), 'oom')
+        try:
+            while pending or sched.queue or sched.running:
+                now = self._clock()
+                if timeout_s is not None and now - start > timeout_s:
+                    timed_out = []
+                    for req in list(sched.running) + list(sched.queue):
+                        if req in sched.queue:
+                            sched.queue.remove(req)
+                        sched.finish(req, 'engine_timeout')
+                        timed_out.append(req)
+                    # the same telemetry as any other eviction
+                    self._note_finished(timed_out, self._clock())
+                    pending = []
+                    break
+                while pending and pending[0].arrival_t <= now:
+                    self.submit(pending.pop(0))
+                if not sched.queue and not sched.running:
+                    if pending:
+                        time.sleep(min(
+                            0.05, max(0.0, pending[0].arrival_t - now)))
+                    continue
+                if self.step(now=now) == 0 and not sched.running \
+                        and sched.queue:
+                    # the head of the queue cannot be admitted even
+                    # into an empty pool: evict instead of spinning
+                    req = sched.queue.popleft()
+                    sched.finish(req, 'oom')
+                    self._note_finished([req], self._clock())
+        finally:
+            if self._prof is not None:
+                self._prof.close()
         return self.report(wall_s=self.now_fn() - t0,
                            finished_from=fin0, tokens_from=tok0)
 
@@ -594,6 +820,10 @@ class ServingEngine:
             self._decode_module(S, c.decode_span)
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
+        if self.live is not None:
+            # every declared module is made: a compile from here on is
+            # an anomaly the drift monitor flags
+            self.live.mark_steady()
         return self.stats()
 
     # -- declared bucket set -------------------------------------------------
@@ -655,8 +885,29 @@ class ServingEngine:
                             'description': desc, 'kernels': list(built)})
         return entries, errors
 
-    def close(self):
-        """The reference tears down its live metrics plane here; the
-        port has none yet (ROADMAP Queue 1 item 5), so this only keeps
-        the API.  Idempotent; the engine stays usable."""
-        return None
+
+class DecodeAuditLayer(torch.nn.Module):
+    """One paged decode step as a module (the reference's audit
+    surface): its forward runs the serving engine's per-step math,
+    paged views and ragged attention over the pools, on the model's
+    device.
+
+    ``tok`` [S, 1] int64, ``k_pools``/``v_pools`` [L, num_blocks, H,
+    block, D] (or a sequence of L pools), ``tables`` [S, W] int, ``ctx``
+    [S] int64.  Returns ``(logits [S, 1, V], new k pools, new v pools)``
+    with the new pools stacked [L, ...]; the inputs' pools are written
+    in place, as the engine's are."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    @torch.no_grad()
+    def forward(self, tok, k_pools, v_pools, tables, ctx):
+        L = self.model.config.num_layers
+        views = [PagedCacheView(k_pools[l], v_pools[l], tables, ctx,
+                                ctx + 1) for l in range(L)]
+        logits, views = self.model.decode_step(tok, ctx, views)
+        nk = torch.stack([v.k_pool for v in views])
+        nv = torch.stack([v.v_pool for v in views])
+        return logits, nk, nv

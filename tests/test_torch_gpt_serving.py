@@ -219,9 +219,14 @@ def test_uncached_forward_belongs_to_training_slice(models):
 
 
 def test_serve_config_rejects_unported_features():
-    for kw in ({'watchdog': True}, {'profile': True}):
-        with pytest.raises(NotImplementedError):
-            ServeConfig(**kw)
+    # watchdog budgets and the step profiler are ported: accepted and
+    # kept out of the module signature, as the reference keeps them
+    for kw in ({'watchdog': True}, {'profile': True},
+               {'watchdog': {'step_s': 2.0}, 'profile': 'start=3,steps=2'}):
+        got, want = ServeConfig(**kw), JaxServeConfig(**kw)
+        assert (got.watchdog, got.profile) == (want.watchdog, want.profile)
+        assert got.signature() == want.signature()
+        assert got.to_dict() == want.to_dict()
     # weight-only PTQ is ported: its modes are validated as the
     # reference validates them
     for mode in ('int8', 'int4', None):

@@ -7,7 +7,9 @@
 - ``import paddle_tpu_torch`` in a fresh interpreter leaves ``jax``
   out of ``sys.modules``;
 - an entry point with no device and no CUDA raises instead of quietly
-  running on the CPU.
+  running on the CPU: the models, the KV cache, the serving stack a
+  front door stands on, ``launch_fleet`` and the fleet's worker CLI
+  (which exits non-zero, naming ``device='cpu'``).
 """
 import ast
 import os
@@ -72,7 +74,11 @@ def test_import_leaves_jax_unloaded():
             'paddle_tpu_torch.ops.flash_attention, '
             'paddle_tpu_torch.ops.fused_ce, paddle_tpu_torch.vision, '
             'paddle_tpu_torch.quantization, '
-            'paddle_tpu_torch.ops.int8_matmul; '
+            'paddle_tpu_torch.ops.int8_matmul, '
+            'paddle_tpu_torch.telemetry, paddle_tpu_torch.resilience, '
+            'paddle_tpu_torch.serving.frontend, '
+            'paddle_tpu_torch.serving.router, '
+            'paddle_tpu_torch.tools.serve_fleet; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "paddle_tpu")]; print(bad); '
             'sys.exit(1 if bad else 0)')
@@ -94,3 +100,40 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match='CUDA'):
             model()
     assert resolve_device('cpu') == torch.device('cpu')
+
+
+def test_serving_stack_without_device_raises_without_cuda(monkeypatch,
+                                                          tmp_path):
+    from paddle_tpu_torch.serving import ServeConfig, ServingEngine
+    from paddle_tpu_torch.serving.frontend import ServingFrontend
+    from paddle_tpu_torch.tools import serve_fleet
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+
+    def door():
+        model = gpt_tiny(num_layers=1)
+        return ServingFrontend(ServingEngine(model, ServeConfig()))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        door()
+    config = tmp_path / 'serve.json'
+    config.write_text('{"model": "tiny"}')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_fleet.launch_fleet(str(config), replicas=1,
+                                 workdir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_fleet.build_engine({'model': 'tiny'})
+    assert not list(tmp_path.glob('*.port'))        # nothing spawned
+
+
+def test_fleet_worker_cli_without_cuda_exits_naming_cpu(tmp_path):
+    config = tmp_path / 'serve.json'
+    config.write_text('{"model": "tiny", "model_kwargs": '
+                      '{"num_layers": 1}}')
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES='')
+    proc = subprocess.run(
+        [sys.executable, '-m', 'paddle_tpu_torch.tools.serve_fleet',
+         'worker', '--config', str(config), '--port-file',
+         str(tmp_path / 'w.port')], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr, proc.stderr
+    assert not (tmp_path / 'w.port').exists()
