@@ -230,16 +230,42 @@ From the repository root, with one CUDA card.  It
    buffers and 54 activation scales; ``PostTrainingQuantization`` over
    4 batches on the card and on the CPU: int8 weights and scales equal,
    the stem's activation scale equal, the rest within 1e-3);
-11. prints one JSON line with the serving and training results, one
+11. trains the sequence models, each built from the public ``nn`` layers
+   by code the CPU tests run on both packages (``transformer_model``,
+   ``lstm_lm_model``): Transformer-base (``transformer``:
+   ``nn.Transformer()`` at its defaults, d_model 512, 8 heads, 6 + 6
+   layers, FFN 2048, dropout 0.1; a shared vocabulary of 37000, one
+   embedding for both inputs and the pre-softmax projection, sinusoidal
+   positions; B 64 x source 128 (padded, a -1e9 key mask) x target 128,
+   bf16 O2, Adam 0.9/0.98/1e-9 under ``NoamDecay(512, 4000)``, label
+   smoothing 0.1 through ``F.label_smooth`` and a soft-label
+   ``cross_entropy``): 2 + 5 eager steps with finite losses, LayerNorm
+   exactly 30 a step and no other kernel, ms/step, target tokens/s and
+   an f32 step at B 2 against the CPU; then ``step_fused`` K 5 against
+   two eager trainers, parameters and Adam's moments bit for bit
+   (``transformer_fused``); beam search over the decoder's caches
+   (``transformer_beam``: ``BeamSearchDecoder`` + ``dynamic_decode``,
+   ``gen_cache``'s ``Cache`` and ``StaticCache``, beam 4, B 8 sources of
+   128, 128 steps, f32): LayerNorm 12 + 18 a step exactly, the first 16
+   steps' ids and parents equal to a decoder without caches, B 1 x 16
+   steps equal to the CPU's, tokens/s and the idle share; Zaremba's
+   large PTB LSTM LM (``lstm_lm``: 2 x 1500, vocabulary 10000, B 20 x
+   35 steps, dropout 0.65, ``Uniform(+-0.04)`` through ``ParamAttr``,
+   f32, SGD lr 1 with a global-norm clip of 10): 2 + 5 eager steps with
+   finite, falling losses, no ported kernel, words/s and an f32 step at
+   B 2 against the CPU, then ``step_fused`` against eager bit for bit
+   (``lstm_lm_fused``);
+12. prints one JSON line with the serving and training results, one
    listing every kernel (its launches on each path, each path's counts
    set to 0 just before it and read just after, and per design where a
    kernel has two; the paths ``serve``, ``frontdoor``, ``fleet`` (the
    replicas' counts), ``serve_int8``, ``serve_int4``,
    ``gptgen``, ``gpt_fused``, ``gpt_recipe``,
    ``bert_dropout_fused``, ``resnet_fused``, ``widedeep_fused``,
-   ``longctx_fused``, ``mobilenet_v2_fused``, ``moe_fused``, ``moe_gen``
-   and ``qat_fused`` replay graphs, ``optimizers`` half its steps; the
-   vision, Wide&Deep and QAT paths count 0 of each),
+   ``longctx_fused``, ``mobilenet_v2_fused``, ``moe_fused``, ``moe_gen``,
+   ``qat_fused``, ``transformer_fused`` and ``lstm_lm_fused`` replay
+   graphs, ``optimizers`` half its steps; the vision, Wide&Deep, QAT and
+   LSTM paths count 0 of each, the Transformer's LayerNorm only),
    then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  Without a
@@ -552,6 +578,34 @@ MOE_PARITY_LAYERS = 2
 # PARITY_GRAD_RTOL (an f32 forward in another order)
 QAT_WARMUP, QAT_STEPS, QAT_EVAL_IMAGES = 2, 5, 64
 PTQ_BATCHES, PTQ_BATCH = 4, 8
+# sequence models (transformer*, lstm_lm*): Transformer-base
+# (arXiv:1706.03762 Table 3 "base"; a shared source/target vocabulary of
+# 37000, one embedding for both inputs and the pre-softmax projection,
+# scaled by sqrt(d_model), sinusoidal positions; Adam 0.9/0.98/1e-9
+# under Noam's schedule, label smoothing 0.1), bf16 O2, B 64 x source
+# 128 x target 128 (sources 64..128 ids long, padded with id 0); and
+# Zaremba et al.'s large PTB LSTM LM (arXiv:1409.2329 section 4.1: 2 x
+# 1500, vocabulary 10000, 35 steps, batch 20, dropout 0.65, SGD lr 1,
+# global-norm clip 10, Uniform(+-0.04) init), f32, its state zeroed
+# each batch.  Each runs TRAIN_STEPS eager steps, then step_fused
+# (K TRAIN_STEPS) against eager bit for bit, and an f32 card-vs-CPU step
+# at B SEQ_PARITY_BATCH; the beam search (transformer_beam) decodes B
+# BEAM_BATCH sources of 128 ids, beam BEAM_SIZE, BEAM_MAX_STEP + 1
+# steps, f32, its first BEAM_CHECK_STEPS steps' ids and parents held to
+# a decoder without caches, and B 1 x BEAM_CHECK_STEPS steps to the CPU
+TRANSFORMER_KW = dict(vocab_size=37000, d_model=512, nhead=8, num_layers=6,
+                      dim_feedforward=2048, dropout=0.1, max_len=256)
+TRANSFORMER_BATCH, TRANSFORMER_SRC, TRANSFORMER_TGT = 64, 128, 128
+TRANSFORMER_MIN_SRC, TRANSFORMER_LS, TRANSFORMER_WARMUP = 64, 0.1, 4000
+TRANSFORMER_ADAM = dict(beta1=0.9, beta2=0.98, epsilon=1e-9)
+LN_PER_TRANSFORMER_FORWARD = 6 * 2 + 6 * 3      # post-norm: no final norm
+BEAM_BATCH, BEAM_SIZE, BEAM_MAX_STEP, BEAM_CHECK_STEPS = 8, 4, 127, 16
+BEAM_PROFILE_STEPS = 32
+BOS, EOS = 1, 2
+LSTM_LM_KW = dict(vocab_size=10000, hidden_size=1500, num_layers=2,
+                  dropout=0.65, init_scale=0.04)
+LSTM_LM_BATCH, LSTM_LM_STEPS, LSTM_LM_LR, LSTM_LM_CLIP = 20, 35, 1.0, 10.0
+SEQ_PARITY_BATCH = 2
 
 
 def log(*args):
@@ -582,7 +636,8 @@ def is_device_event(evt):
 # the port's record_function ranges: on the device's timeline they are
 # spans around kernels, not kernels
 ANNOTATIONS = ('ParallelTrainer.forward', 'ParallelTrainer.backward',
-               'ParallelTrainer.optimizer', 'batch_norm')
+               'ParallelTrainer.optimizer', 'batch_norm',
+               'multihead_attention', 'cross_entropy')
 
 
 def self_device_us(evt):
@@ -2675,12 +2730,12 @@ def _run_steps(trainer, batch, warmup, steps):
             torch.cuda.max_memory_allocated())
 
 
-def _check_run(what, losses, launches, per_step, steps):
-    """Finite losses, the last below the first, and exactly
-    ``per_step[k] * steps`` launches of each kernel."""
+def _check_run(what, losses, launches, per_step, steps, falls=True):
+    """Finite losses, the last below the first (unless not ``falls``),
+    and exactly ``per_step[k] * steps`` launches of each kernel."""
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f'{what}: non-finite training loss: {losses}')
-    if not losses[-1] < losses[0]:
+    if falls and not losses[-1] < losses[0]:
         raise AssertionError(f'{what}: loss did not fall on one batch: '
                              f'{losses}')
     for name, n in per_step.items():
@@ -2792,16 +2847,24 @@ def training_phase():
     return summary
 
 
-def _card_vs_cpu(what, make_model, make_batch, per_step):
+def _card_vs_cpu(what, make_model, make_batch, per_step, make_trainer=None,
+                 zero_grads=()):
     """One f32 training step of the same seeded weights on the card (the
     kernels, launched as ``per_step`` says) and on the CPU (the plain
     twins): the loss within PARITY_LOSS_RTOL and each gradient's max
-    |diff| within PARITY_GRAD_RTOL of its max |value|."""
+    |diff| within PARITY_GRAD_RTOL of its max |value|.  The trainer is
+    ``make_trainer(model)`` (the GPT one, AdamW over ``model.loss``,
+    when None).  A parameter whose name ends in one of ``zero_grads``
+    has a true gradient of 0 (an attention key's bias: softmax does not
+    see a shift shared by every key), so both sides hold round-off:
+    each side's max |gradient| there must stay within PARITY_GRAD_RTOL
+    of the model's largest gradient instead."""
     from paddle_tpu_torch.ops import _build
     got = {}
     for dev in ('cuda', 'cpu'):
         model = make_model(dev)
-        trainer = _trainer(model, amp_o2=False)
+        trainer = make_trainer(model) if make_trainer else \
+            _trainer(model, amp_o2=False)
         batch = make_batch(model.config)
         _build.reset_launches()
         loss = trainer.loss_float(trainer.step(*batch))
@@ -2816,8 +2879,19 @@ def _card_vs_cpu(what, make_model, make_batch, per_step):
             raise AssertionError(f'f32 step {what}: {name} launched '
                                  f'{launches[name]} times, expected {n}')
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    largest = max(float(g.abs().max()) for g in g_cpu.values())
+    zero = {n for n in g_cpu if n.endswith(tuple(zero_grads))}
+    roundoff = max((float(g[n].abs().max()) / largest for n in zero
+                    for g in (g_card, g_cpu)), default=0.0)
+    if roundoff > PARITY_GRAD_RTOL:
+        raise AssertionError(
+            f'f32 step {what}: a gradient that is 0 in exact arithmetic '
+            f'({sorted(zero)[:3]}...) reaches {roundoff:.3e} of the '
+            f'largest gradient (tol {PARITY_GRAD_RTOL})')
     worst, worst_name = 0.0, None
     for name, want in g_cpu.items():
+        if name in zero:
+            continue
         rel = float((g_card[name] - want).abs().max()) / max(
             float(want.abs().max()), 1e-30)
         if rel > worst:
@@ -2831,9 +2905,11 @@ def _card_vs_cpu(what, make_model, make_batch, per_step):
         f') vs CPU plain twins: loss {l_card:.6f} vs {l_cpu:.6f} (rel '
         f'{loss_rel:.3e}, tol {PARITY_LOSS_RTOL}); worst gradient '
         f'{worst_name} max |diff| / max |grad| {worst:.3e} (tol '
-        f'{PARITY_GRAD_RTOL})')
+        f'{PARITY_GRAD_RTOL})'
+        + (f'; {len(zero)} gradients 0 in exact arithmetic at most '
+           f'{roundoff:.3e} of the largest on either side' if zero else ''))
     return {'loss_rel': loss_rel, 'worst_grad_rel': worst,
-            'worst_grad': worst_name}
+            'worst_grad': worst_name, 'zero_grad_roundoff': roundoff}
 
 
 def bert_batch(vocab_size, batch, seq, seed=0):
@@ -2953,7 +3029,8 @@ def _opt_state(trainer):
 
 
 def _fused_vs_eager(what, make_model, batch, lr, per_step, tokens,
-                    step_flops, with_opt_state=False, mfu_params=None):
+                    step_flops, with_opt_state=False, mfu_params=None,
+                    make_trainer=None, falls=True):
     """``ParallelTrainer(fused_steps=K).step_fused`` (K = TRAIN_STEPS, one
     captured step replayed) against eager ``step`` calls, from the same
     seed (weights and dropout's generator) on the same batch, 2 K steps:
@@ -2965,15 +3042,21 @@ def _fused_vs_eager(what, make_model, batch, lr, per_step, tokens,
     reads the idle share.  ``with_opt_state`` holds the optimizer's
     state along with the parameters; ``mfu_params(model)`` counts the
     parameters the MFU's 6 x params x tokens takes (all of them when
-    None).  Returns the summary."""
+    None).  ``make_trainer(model, fused_steps)`` builds the trainers
+    (the GPT one, bf16 O2 AdamW at ``lr``, when None); ``falls`` asks
+    the loss to fall over the run.  Returns the summary."""
     import paddle_tpu_torch
     from paddle_tpu_torch.ops import _build
     k = TRAIN_STEPS
     chunk = tuple(np.stack([b] * k) for b in batch)
+    if make_trainer is None:
+        def make_trainer(model, fused_steps=None):
+            return _trainer(model, amp_o2=True, lr=lr,
+                            fused_steps=fused_steps)
 
     def eager():
         paddle_tpu_torch.seed(0)
-        tr = _trainer(make_model(), amp_o2=True, lr=lr)
+        tr = make_trainer(make_model())
         losses = [tr.step(*batch) for _ in range(k)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3001,7 +3084,7 @@ def _fused_vs_eager(what, make_model, batch, lr, per_step, tokens,
     model = make_model()
     n_params = mfu_params(model) if mfu_params else sum(
         p.numel() for p in model.parameters())
-    tr = _trainer(model, amp_o2=True, lr=lr, fused_steps=k)
+    tr = make_trainer(model, fused_steps=k)
     _build.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3034,7 +3117,7 @@ def _fused_vs_eager(what, make_model, batch, lr, per_step, tokens,
         raise AssertionError(f'{what}: {graph.replays} replays, step '
                              f'{tr._step_no}, expected {2 * k - 1}, {2 * k}')
     losses = [float(x) for x in got_l]
-    _check_run(what, losses, launches, per_step, 2 * k)
+    _check_run(what, losses, launches, per_step, 2 * k, falls=falls)
     idle, prof_s = idle_share(lambda: tr.step_fused(*chunk))
     ms_step = dt / k * 1e3
     flops, attn = step_flops(model.config, n_params)
@@ -4999,6 +5082,507 @@ def _ptq_vs_cpu():
 
 
 
+
+# -- sequence models, written against a Paddle-like package ``paddle``
+# (this package or the JAX one: the tests build both from one code)
+
+def sinusoid_table(max_len, d_model):
+    """The sinusoidal position encodings of arXiv:1706.03762 section
+    3.5, ``[max_len, d_model]`` f32: sin on even, cos on odd
+    features."""
+    pos = np.arange(max_len, dtype=np.float64)[:, None]
+    i = np.arange(d_model // 2, dtype=np.float64)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / d_model)
+    table = np.zeros((max_len, d_model), np.float64)
+    table[:, 0::2], table[:, 1::2] = np.sin(angle), np.cos(angle)
+    return table.astype(np.float32)
+
+
+def transformer_model(paddle, vocab_size, d_model, nhead, num_layers,
+                      dim_feedforward, dropout, max_len, pad_id=0):
+    """``nn.Transformer`` with one shared embedding (N(0, d_model^-0.5),
+    ``pad_id`` zeroed) for source, target and the pre-softmax
+    projection, the inputs scaled by sqrt(d_model) plus sinusoidal
+    positions, then dropout.  ``model(src, tgt)`` -> logits ``[B, T,
+    V]``; a source token ``pad_id`` is masked from every attention over
+    the source (bool key mask, -1e9), the target causally (the -1e9
+    mask of ``generate_square_subsequent_mask``)."""
+    nn = paddle.nn
+
+    class TransformerSeq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.config = dict(vocab_size=vocab_size, d_model=d_model,
+                               nhead=nhead, num_layers=num_layers,
+                               dim_feedforward=dim_feedforward)
+            self.pad_id = pad_id
+            self.embedding = nn.Embedding(
+                vocab_size, d_model, pad_id, weight_attr=paddle.ParamAttr(
+                    initializer=nn.initializer.Normal(0.0, d_model ** -0.5)))
+            self.transformer = nn.Transformer(
+                d_model, nhead, num_layers, num_layers, dim_feedforward,
+                dropout)
+            self.dropout = nn.Dropout(dropout)
+            self.register_buffer('position', paddle.to_tensor(
+                sinusoid_table(max_len, d_model)), persistable=False)
+            # generate_square_subsequent_mask(max_len), made once where
+            # the model is
+            causal = np.triu(np.full((max_len, max_len), -1e9, np.float32),
+                             1)
+            self.register_buffer('causal', paddle.to_tensor(causal),
+                                 persistable=False)
+
+        def embed(self, ids, offset=0):
+            x = paddle.scale(self.embedding(ids), d_model ** 0.5)
+            pos = self.position[offset:offset + ids.shape[1]]
+            return self.dropout(paddle.add(x, pos))
+
+        def source_mask(self, src):
+            return paddle.unsqueeze(paddle.not_equal(src, self.pad_id),
+                                    [1, 2])
+
+        def logits(self, h):
+            return paddle.matmul(h, self.embedding.weight, transpose_y=True)
+
+        def forward(self, src, tgt):
+            src_mask = self.source_mask(src)
+            T = tgt.shape[1]
+            h = self.transformer(self.embed(src), self.embed(tgt), src_mask,
+                                 self.causal[:T, :T], src_mask)
+            return self.logits(h)
+
+    return TransformerSeq2Seq()
+
+
+def transformer_loss(paddle, epsilon=TRANSFORMER_LS):
+    """Label-smoothed cross entropy: ``F.label_smooth`` of the one-hot
+    targets, a soft-label ``cross_entropy``, the mean over tokens."""
+    F = paddle.nn.functional
+
+    def loss(logits, labels):
+        soft = F.label_smooth(F.one_hot(labels, logits.shape[-1]),
+                              epsilon=epsilon)
+        return F.cross_entropy(logits, soft, soft_label=True)
+    return loss
+
+
+def transformer_batch(batch, src_len, tgt_len, vocab, seed=0,
+                      min_src=TRANSFORMER_MIN_SRC):
+    """Seeded ids: sources of ``min_src .. src_len`` ids padded with 0,
+    targets ``[BOS] + y[:-1]`` and labels ``y``, ids in ``3 .. vocab``
+    (0 pads, 1 and 2 are BOS and EOS)."""
+    rs = np.random.RandomState(seed)
+    src = rs.randint(3, vocab, (batch, src_len)).astype(np.int64)
+    lens = rs.randint(min(min_src, src_len), src_len + 1, batch)
+    src[np.arange(src_len)[None, :] >= lens[:, None]] = 0
+    y = rs.randint(3, vocab, (batch, tgt_len)).astype(np.int64)
+    tgt = np.concatenate([np.full((batch, 1), BOS, np.int64), y[:, :-1]], 1)
+    return src, tgt, y
+
+
+def transformer_trainer(paddle, model, amp_o2, fused_steps=None):
+    """Adam (0.9, 0.98, 1e-9) under ``NoamDecay(d_model, 4000)``, the
+    label-smoothed loss, bf16 O2 when ``amp_o2``, through
+    ``ParallelTrainer`` (two model inputs: source and target)."""
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.parallel import ParallelTrainer
+    strategy = DistributedStrategy()
+    if amp_o2:
+        strategy.amp = True
+        strategy.amp_configs['use_pure_fp16'] = True
+    sched = paddle.optimizer.lr.NoamDecay(model.config['d_model'],
+                                          TRANSFORMER_WARMUP)
+    opt = paddle.optimizer.Adam(sched, parameters=model.parameters(),
+                                **TRANSFORMER_ADAM)
+    return ParallelTrainer(model, opt, transformer_loss(paddle),
+                           strategy=strategy, n_inputs=2,
+                           fused_steps=fused_steps)
+
+
+def lstm_lm_model(paddle, vocab_size, hidden_size, num_layers, dropout,
+                  init_scale):
+    """Zaremba's PTB language model: embedding, dropout, ``nn.LSTM``
+    (dropout between its layers), dropout, the softmax projection; every
+    weight and bias ``Uniform(+-init_scale)`` through ``ParamAttr``.
+    ``model(ids)`` -> logits ``[B, T, V]``, the state zeroed."""
+    nn = paddle.nn
+
+    def attr():
+        return paddle.ParamAttr(initializer=nn.initializer.Uniform(
+            -init_scale, init_scale))
+
+    class PTBLanguageModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.config = dict(vocab_size=vocab_size,
+                               hidden_size=hidden_size,
+                               num_layers=num_layers)
+            self.embedding = nn.Embedding(vocab_size, hidden_size,
+                                          weight_attr=attr())
+            self.lstm = nn.LSTM(hidden_size, hidden_size, num_layers,
+                                dropout=dropout, weight_ih_attr=attr(),
+                                weight_hh_attr=attr(), bias_ih_attr=attr(),
+                                bias_hh_attr=attr())
+            self.dropout = nn.Dropout(dropout)
+            self.out = nn.Linear(hidden_size, vocab_size, attr(), attr())
+
+        def forward(self, ids):
+            y, _ = self.lstm(self.dropout(self.embedding(ids)))
+            return self.out(self.dropout(y))
+
+    return PTBLanguageModel()
+
+
+def lstm_lm_loss(paddle):
+    """PaddlePaddle ``ptb_lm``'s loss: per-word cross entropy, the mean
+    over the batch, summed over the unrolled steps."""
+    F = paddle.nn.functional
+
+    def loss(logits, labels):
+        per = F.cross_entropy(logits, labels, reduction='none')
+        return paddle.sum(paddle.mean(per, axis=0))
+    return loss
+
+
+def lstm_lm_batch(batch, steps, vocab, seed=0):
+    """Seeded word ids ``[batch, steps + 1]``: inputs and next words."""
+    ids = np.random.RandomState(seed).randint(
+        0, vocab, (batch, steps + 1)).astype(np.int64)
+    return ids[:, :-1].copy(), ids[:, 1:].copy()
+
+
+def lstm_lm_trainer(paddle, model, fused_steps=None):
+    """SGD lr 1 with ``ClipGradByGlobalNorm(10)``, f32."""
+    from paddle_tpu_torch.parallel import ParallelTrainer
+    opt = paddle.optimizer.SGD(
+        LSTM_LM_LR, parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(LSTM_LM_CLIP))
+    return ParallelTrainer(model, opt, lstm_lm_loss(paddle),
+                           fused_steps=fused_steps)
+
+
+def transformer_beam_cell(paddle, model):
+    """The decoder as a ``BeamSearchDecoder`` cell over its caches:
+    ``cell(ids [N], caches, memory_mask=)`` embeds the ids at the
+    position the self-attention cache has reached, runs the decoder
+    one step and returns the logits and the grown caches."""
+    def cell(ids, caches, memory_mask=None):
+        t = caches[0][0].k.shape[2]
+        x = model.embed(paddle.unsqueeze(ids, [1]), offset=t)
+        h, caches = model.transformer.decoder(x, None, None, memory_mask,
+                                              caches)
+        return model.logits(h[:, -1]), caches
+    return cell
+
+
+def transformer_prefix_cell(paddle, model, memory):
+    """The decoder without caches: the state is every id so far ``[N,
+    t]``, and each step runs the decoder over the whole prefix
+    (``memory`` tiled to the beams)."""
+    def cell(ids, prefix, memory_mask=None):
+        prefix = paddle.concat([prefix, paddle.unsqueeze(ids, [1])], axis=1)
+        t = prefix.shape[1]
+        h = model.transformer.decoder(model.embed(prefix), memory,
+                                      model.causal[:t, :t], memory_mask)
+        return model.logits(h[:, -1]), prefix
+    return cell
+
+
+def beam_decode(paddle, model, src, max_step_num, cached=True, record=None):
+    """Beam search (``BEAM_SIZE``, ``BOS`` to ``EOS``) over ``src`` with
+    the decoder's caches (``gen_cache``: ``Cache`` for self-attention,
+    ``StaticCache`` for cross-attention), or without (``cached=False``);
+    returns ``dynamic_decode``'s ids ``[B, T, beam]``.  ``record``, a
+    list, gets each step's ``(predicted_ids, parent_ids)``."""
+    nn = paddle.nn
+    K = BEAM_SIZE
+    tile = nn.BeamSearchDecoder.tile_beam_merge_with_batch
+    src_mask = model.source_mask(src)
+    memory = model.transformer.encoder(model.embed(src), src_mask)
+    if cached:
+        cell = transformer_beam_cell(paddle, model)
+        inits = model.transformer.decoder.gen_cache(memory)
+    else:
+        cell = transformer_prefix_cell(paddle, model, tile(memory, K))
+        inits = src[:, :0]
+
+    class Recording(nn.BeamSearchDecoder):
+        def step(self, time, inputs, states, **kwargs):
+            out = super().step(time, inputs, states, **kwargs)
+            if record is not None:
+                record.append((out[0].predicted_ids, out[0].parent_ids))
+            return out
+
+    dec = Recording(cell, BOS, EOS, K)
+    ids, _ = nn.dynamic_decode(dec, inits=inits, max_step_num=max_step_num,
+                               memory_mask=tile(src_mask, K))
+    return ids
+
+
+def _seq_model(build, dev):
+    """A sequence model seeded at 0 on the CPU, moved to ``dev``: the
+    same weights on either side of a card-vs-CPU check."""
+    import paddle_tpu_torch as paddle
+    paddle.seed(0)
+    paddle.set_device('cpu')
+    try:
+        model = build(paddle)
+    finally:
+        paddle.set_device(None)
+    return model.to(dev)
+
+
+def transformer_step_flops(cfg, n_params, batch, src, tgt):
+    """(model flops of one Transformer training step, its attention
+    part): 6 x parameters x tokens, the encoder's parameters over the
+    source tokens, the decoder's and the shared embedding's (the
+    projection) over the target tokens, plus attention at 12 x d_model
+    per (query, key) pair per layer (4 forward, 8 backward): the
+    encoder's and the cross-attention's full, the decoder's causal."""
+    d, L, ff, V = (cfg['d_model'], cfg['num_layers'],
+                   cfg['dim_feedforward'], cfg['vocab_size'])
+    enc = L * (4 * d * d + 2 * d * ff)
+    dec = L * (8 * d * d + 2 * d * ff)
+    dense = 6 * batch * (enc * src + (dec + V * d) * tgt)
+    pairs = src * src + tgt * src + attention_pairs(tgt, tgt, True)
+    attn = 12 * d * pairs * batch * L
+    return dense + attn, attn
+
+
+def transformer_phase():
+    """Transformer-base (``nn.Transformer()``) trained through
+    ``ParallelTrainer.step`` at bf16 O2: the LayerNorm kernel 30 times a
+    step and no other; then one f32 step at B 2 against the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import _build
+    paddle.seed(0)
+    model = transformer_model(paddle, **TRANSFORMER_KW)
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f'transformer model: nn.Transformer() (d_model {cfg["d_model"]}, '
+        f'{cfg["nhead"]} heads, {cfg["num_layers"]} + '
+        f'{cfg["num_layers"]} layers, FFN {cfg["dim_feedforward"]}, '
+        f'dropout {TRANSFORMER_KW["dropout"]}), shared vocabulary '
+        f'{cfg["vocab_size"]}, {n_params} parameters, seed 0; B '
+        f'{TRANSFORMER_BATCH}, source {TRANSFORMER_SRC}, target '
+        f'{TRANSFORMER_TGT}, bf16 O2, Adam 0.9/0.98/1e-9 under '
+        f'NoamDecay(512, {TRANSFORMER_WARMUP}), label smoothing '
+        f'{TRANSFORMER_LS}')
+    trainer = transformer_trainer(paddle, model, amp_o2=True)
+    batch = transformer_batch(TRANSFORMER_BATCH, TRANSFORMER_SRC,
+                              TRANSFORMER_TGT, cfg['vocab_size'])
+    losses, launches, warm_s, dt, peak = _run_steps(
+        trainer, batch, TRAIN_WARMUP, TRAIN_STEPS)
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    per_step = _per_step(cfg['num_layers'], LN_PER_TRANSFORMER_FORWARD)
+    # Noam's rate over the first steps is ~1e-7: the loss need not fall
+    _check_run('transformer', losses, launches, per_step, steps,
+               falls=False)
+    tokens = TRANSFORMER_BATCH * TRANSFORMER_TGT
+    ms_step = dt / TRAIN_STEPS * 1e3
+    flops, attn = transformer_step_flops(cfg, n_params, TRANSFORMER_BATCH,
+                                         TRANSFORMER_SRC, TRANSFORMER_TGT)
+    mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
+    log(f'transformer: losses {", ".join(f"{x:.4f}" for x in losses)} '
+        f'(finite); launches {_launch_summary(launches, per_step, steps)}'
+        f'; no softmax, flash or GEMM+GELU launch')
+    log(f'transformer: warm-up {TRAIN_WARMUP} steps {warm_s:.2f} s; '
+        f'{TRAIN_STEPS} steps in {dt:.3f} s = {ms_step:.1f} ms/step, '
+        f'{tokens * TRAIN_STEPS / dt:.0f} target tokens/s; peak '
+        f'max_memory_allocated {peak / 2**30:.2f} GiB; MFU {mfu:.4f} = '
+        f'{flops:.4g} flops ({attn:.4g} attention) / (step time * 989e12)')
+    summary = {'ms_per_step': ms_step,
+               'target_tokens_per_s': tokens * TRAIN_STEPS / dt,
+               'peak_bytes': peak, 'mfu': mfu, 'losses': losses,
+               'warmup_s': warm_s, 'launches': launches}
+    del model, trainer
+    _free()
+    kw = dict(TRANSFORMER_KW, dropout=0.0)
+    summary['parity'] = _card_vs_cpu(
+        f'transformer B {SEQ_PARITY_BATCH}, dropout 0',
+        lambda dev: _seq_model(lambda p: transformer_model(p, **kw), dev),
+        lambda cfg: transformer_batch(SEQ_PARITY_BATCH, TRANSFORMER_SRC,
+                                      TRANSFORMER_TGT, cfg['vocab_size'],
+                                      seed=1),
+        per_step, make_trainer=lambda m: transformer_trainer(
+            paddle, m, amp_o2=False), zero_grads=('k_proj.bias',))
+    _build.reset_launches()
+    return summary
+
+
+def transformer_fused_phase():
+    """The transformer configuration through ``step_fused`` (K 5)
+    against eager steps, parameters and Adam's moments bit for bit."""
+    import paddle_tpu_torch as paddle
+    cfg = dict(TRANSFORMER_KW)
+    batch = transformer_batch(TRANSFORMER_BATCH, TRANSFORMER_SRC,
+                              TRANSFORMER_TGT, cfg['vocab_size'])
+    return _fused_vs_eager(
+        f'transformer_fused (Transformer-base B {TRANSFORMER_BATCH}, '
+        f'{TRANSFORMER_SRC} + {TRANSFORMER_TGT}, bf16 O2)',
+        lambda: transformer_model(paddle, **cfg), batch, None,
+        _per_step(cfg['num_layers'], LN_PER_TRANSFORMER_FORWARD),
+        TRANSFORMER_BATCH * TRANSFORMER_TGT,
+        lambda c, n: transformer_step_flops(
+            c, n, TRANSFORMER_BATCH, TRANSFORMER_SRC, TRANSFORMER_TGT),
+        with_opt_state=True,
+        make_trainer=lambda m, fused_steps=None: transformer_trainer(
+            paddle, m, amp_o2=True, fused_steps=fused_steps),
+        falls=False)
+
+
+def transformer_beam_phase():
+    """Beam search over Transformer-base's decoder caches: B 8 sources
+    of 128 ids, beam 4, 128 steps, f32, eval.  The first 16 steps' ids
+    and parents equal a decoder without caches over the same weights;
+    B 1 x 16 steps equal the CPU's; LayerNorm 12 launches for the
+    encoder and 18 a step, no other kernel."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import _build
+    kw = dict(TRANSFORMER_KW, dropout=0.0)
+    model = _seq_model(lambda p: transformer_model(p, **kw), 'cuda').eval()
+    src = torch.from_numpy(transformer_batch(
+        BEAM_BATCH, TRANSFORMER_SRC, 1, kw['vocab_size'], seed=2)[0]).cuda()
+    n_enc, n_step = 2 * kw['num_layers'], 3 * kw['num_layers']
+    with torch.no_grad():
+        beam_decode(paddle, model, src, 3)                  # warm-up
+        record = []
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = beam_decode(paddle, model, src, BEAM_MAX_STEP, record=record)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        steps = len(record)
+        want = _per_step(kw['num_layers'], n_enc + n_step * steps)
+        for name, n in want.items():
+            if launches[name] != n:
+                raise AssertionError(
+                    f'transformer_beam: {name} launched {launches[name]} '
+                    f'times in {steps} steps, expected {n}')
+        # the profiler's trace of a shorter decode: the share per step is
+        # the same, the trace's parse a quarter
+        idle, prof_s = idle_share(lambda: beam_decode(
+            paddle, model, src, BEAM_PROFILE_STEPS - 1))
+        plain = []
+        beam_decode(paddle, model, src, BEAM_CHECK_STEPS - 1, cached=False,
+                    record=plain)
+        for t, ((a_ids, a_par), (b_ids, b_par)) in enumerate(
+                zip(record[:BEAM_CHECK_STEPS], plain)):
+            if not (torch.equal(a_ids, b_ids) and torch.equal(a_par, b_par)):
+                raise AssertionError(
+                    f'transformer_beam: step {t}: cached ids/parents '
+                    f'{a_ids.tolist()} / {a_par.tolist()} != without '
+                    f'caches {b_ids.tolist()} / {b_par.tolist()}')
+        if len(plain) != BEAM_CHECK_STEPS:
+            raise AssertionError(f'transformer_beam: {len(plain)} steps '
+                                 'without caches')
+        one = beam_decode(paddle, model, src[:1], BEAM_CHECK_STEPS - 1)
+        cpu_model = _seq_model(lambda p: transformer_model(p, **kw),
+                               'cpu').eval()
+        want_one = beam_decode(paddle, cpu_model, src[:1].cpu(),
+                               BEAM_CHECK_STEPS - 1)
+        if not torch.equal(one.cpu(), want_one):
+            raise AssertionError(
+                f'transformer_beam: B 1 x {BEAM_CHECK_STEPS} steps, card '
+                f'{one[0, :, 0].tolist()} != CPU '
+                f'{want_one[0, :, 0].tolist()}')
+    tokens = BEAM_BATCH * BEAM_SIZE * steps
+    log(f'transformer_beam: BeamSearchDecoder (beam {BEAM_SIZE}) + '
+        f'dynamic_decode over gen_cache (Cache + StaticCache), B '
+        f'{BEAM_BATCH} x source {TRANSFORMER_SRC}, {steps} steps '
+        f'(max_step_num {BEAM_MAX_STEP}), f32: ids {tuple(ids.shape)}; '
+        f'launches fused_layer_norm {launches["fused_layer_norm"]} = '
+        f'{n_enc} + {n_step} x {steps} (exact), no other kernel; first '
+        f'{BEAM_CHECK_STEPS} steps\' ids and parents == the decoder '
+        f'without caches; B 1 x {BEAM_CHECK_STEPS} steps == the CPU\'s')
+    log(f'transformer_beam: {dt:.3f} s = {dt / steps * 1e3:.2f} ms a '
+        f'step, {tokens / dt:.0f} beam tokens/s ({BEAM_BATCH * steps / dt:.0f}'
+        f' target tokens/s); idle share {idle:.4f} under the profiler '
+        f'over {BEAM_PROFILE_STEPS} steps ({prof_s:.3f} s there)')
+    out = {'steps': steps, 's': dt, 'ms_per_step': dt / steps * 1e3,
+           'beam_tokens_per_s': tokens / dt,
+           'target_tokens_per_s': BEAM_BATCH * steps / dt,
+           'idle_share': idle, 'launches': launches}
+    del model, cpu_model
+    _free()
+    return out
+
+
+def _lstm_lm_trainer(fused_steps=None):
+    import paddle_tpu_torch as paddle
+    return lstm_lm_trainer(paddle, lstm_lm_model(paddle, **LSTM_LM_KW),
+                           fused_steps=fused_steps)
+
+
+def lstm_lm_step_flops(cfg, batch, steps):
+    """6 x parameters x words: each word passes the embedding row (no
+    flops, left out), both LSTM layers and the softmax projection."""
+    H, L, V = cfg['hidden_size'], cfg['num_layers'], cfg['vocab_size']
+    return 6 * (L * 8 * H * H + H * V) * batch * steps
+
+
+def lstm_lm_phase():
+    """Zaremba's large PTB LSTM LM trained through
+    ``ParallelTrainer.step`` in f32 (no hand-written kernel), then one
+    f32 step at B 2 against the CPU (dropout 0)."""
+    import paddle_tpu_torch as paddle
+    paddle.seed(0)
+    trainer = _lstm_lm_trainer()
+    cfg = trainer.model.config
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    log(f'lstm_lm model: {cfg["num_layers"]} x {cfg["hidden_size"]} LSTM, '
+        f'vocabulary {cfg["vocab_size"]}, dropout '
+        f'{LSTM_LM_KW["dropout"]}, Uniform(+-{LSTM_LM_KW["init_scale"]}), '
+        f'{n_params} parameters, seed 0; B {LSTM_LM_BATCH} x '
+        f'{LSTM_LM_STEPS} steps, f32, SGD lr {LSTM_LM_LR}, global-norm '
+        f'clip {LSTM_LM_CLIP}')
+    batch = lstm_lm_batch(LSTM_LM_BATCH, LSTM_LM_STEPS, cfg['vocab_size'])
+    losses, launches, warm_s, dt, peak = _run_steps(
+        trainer, batch, TRAIN_WARMUP, TRAIN_STEPS)
+    _check_losses('lstm_lm', losses)
+    _no_kernel_launches('lstm_lm', launches)
+    words = LSTM_LM_BATCH * LSTM_LM_STEPS
+    ms_step = dt / TRAIN_STEPS * 1e3
+    flops = lstm_lm_step_flops(cfg, LSTM_LM_BATCH, LSTM_LM_STEPS)
+    log(f'lstm_lm: losses {", ".join(f"{x:.4f}" for x in losses)} '
+        f'(finite, falling); no ported kernel launched')
+    log(f'lstm_lm: warm-up {TRAIN_WARMUP} steps {warm_s:.2f} s; '
+        f'{TRAIN_STEPS} steps in {dt:.3f} s = {ms_step:.1f} ms/step, '
+        f'{words * TRAIN_STEPS / dt:.0f} words/s; peak '
+        f'max_memory_allocated {peak / 2**30:.2f} GiB; '
+        f'{flops / (ms_step / 1e3) / 1e12:.2f} TFLOP/s of f32 '
+        f'({flops:.4g} flops a step)')
+    summary = {'ms_per_step': ms_step,
+               'words_per_s': words * TRAIN_STEPS / dt, 'peak_bytes': peak,
+               'losses': losses, 'warmup_s': warm_s, 'launches': launches}
+    del trainer
+    _free()
+    kw = dict(LSTM_LM_KW, dropout=0.0)
+    summary['parity'] = _card_vs_cpu(
+        f'lstm_lm B {SEQ_PARITY_BATCH}, dropout 0',
+        lambda dev: _seq_model(lambda p: lstm_lm_model(p, **kw), dev),
+        lambda cfg: lstm_lm_batch(SEQ_PARITY_BATCH, LSTM_LM_STEPS,
+                                  cfg['vocab_size'], seed=1),
+        _per_step(cfg['num_layers'], 0),
+        make_trainer=lambda m: lstm_lm_trainer(paddle, m))
+    return summary
+
+
+def lstm_lm_fused_phase():
+    """The lstm_lm configuration through ``step_fused`` (K 5) against
+    eager steps bit for bit (``_graph_vs_eager``)."""
+    cfg = dict(LSTM_LM_KW)
+    batch = tuple(torch.from_numpy(b).cuda() for b in lstm_lm_batch(
+        LSTM_LM_BATCH, LSTM_LM_STEPS, cfg['vocab_size']))
+    return _graph_vs_eager(
+        f'lstm_lm_fused (PTB large B {LSTM_LM_BATCH} x {LSTM_LM_STEPS}, '
+        'f32)', _lstm_lm_trainer, batch, TRAIN_STEPS,
+        LSTM_LM_BATCH * LSTM_LM_STEPS, 'words',
+        lstm_lm_step_flops(cfg, LSTM_LM_BATCH, LSTM_LM_STEPS),
+        'torch.use_deterministic_algorithms', _deterministic_algorithms)
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -5037,6 +5621,11 @@ def main():
     moe = moe_phase()
     moe_gen = moe_gen_phase()
     qat = qat_phase(resnet['ms_per_step'])
+    transformer = transformer_phase()
+    transformer_fused = transformer_fused_phase()
+    transformer_beam = transformer_beam_phase()
+    lstm_lm = lstm_lm_phase()
+    lstm_lm_fused = lstm_lm_fused_phase()
     log(json.dumps({'serve': serve, 'frontdoor': frontdoor,
                     'fleet': fleet,
                     **{f'serve_{m}': r[1] for m, r in serve_quant.items()},
@@ -5048,13 +5637,17 @@ def main():
                     'lenet': lenet, 'widedeep': widedeep,
                     'longctx': longctx, 'gptgen': gptgen, 'ernie': ernie,
                     'vision_zoo': zoo, 'optimizers': optimizers,
-                    'moe': moe, 'moe_gen': moe_gen, 'qat': qat}))
+                    'moe': moe, 'moe_gen': moe_gen, 'qat': qat,
+                    'transformer': transformer,
+                    'transformer_fused': transformer_fused,
+                    'transformer_beam': transformer_beam,
+                    'lstm_lm': lstm_lm, 'lstm_lm_fused': lstm_lm_fused}))
     # 'serve', 'frontdoor', 'fleet', 'serve_int8', 'serve_int4',
     # 'gptgen', 'gpt_fused',
     # 'gpt_recipe', 'bert_dropout_fused', 'resnet_fused',
     # 'widedeep_fused', 'longctx_fused', 'mobilenet_v2_fused',
-    # 'moe_fused', 'moe_gen', 'qat_fused' and half of 'optimizers' replay
-    # CUDA graphs
+    # 'moe_fused', 'moe_gen', 'qat_fused', 'transformer_fused',
+    # 'lstm_lm_fused' and half of 'optimizers' replay CUDA graphs
     paths = {'serve': serve_launches,
              # the door's run in this process; the fleet's in its
              # replicas, read from each worker's metrics plane
@@ -5086,7 +5679,14 @@ def main():
              'optimizers': optimizers['launches'],
              'moe': moe['launches'], 'moe_fused': moe['fused']['launches'],
              'moe_gen': moe_gen['launches'], 'qat': qat['launches'],
-             'qat_fused': qat['fused']['launches']}
+             'qat_fused': qat['fused']['launches'],
+             # the sequence models: LayerNorm only, on the Transformer's
+             # paths; none on the LSTM's (checked there)
+             'transformer': transformer['launches'],
+             'transformer_fused': transformer_fused['launches'],
+             'transformer_beam': transformer_beam['launches'],
+             'lstm_lm': lstm_lm['launches'],
+             'lstm_lm_fused': lstm_lm_fused['launches']}
     kernels = []
     for k in _build.KERNELS:
         rows = timings[k.name]

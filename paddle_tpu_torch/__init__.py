@@ -6,18 +6,28 @@ and keeps its state-dict keys and shapes (``Linear.weight`` is
 ``[in, out]``) so one set of weights loads into both.
 
 Entry points run on the CUDA device unless the caller passes
-``device='cpu'``; with no card and no explicit device they raise
-(``core.device.resolve_device``).  Every TPU kernel on a ported path is
-a hand-written Hopper kernel under ``csrc/``, built with ``nvcc`` at
-first use (``ops._build``); on a CPU tensor its wrapper runs the plain
-PyTorch twin instead.
+``device='cpu'`` (or calls ``set_device('cpu')``); with no card and no
+explicit device they raise (``core.device.resolve_device``).  Every TPU
+kernel on a ported path is a hand-written Hopper kernel under
+``csrc/``, built with ``nvcc`` at first use (``ops._build``); on a CPU
+tensor its wrapper runs the plain PyTorch twin instead.
+
+The top level carries what a Paddle script reaches for as
+``paddle.<name>``: ``seed``, ``set_device``, ``ParamAttr``, the tensor
+ops of ``tensor`` (``to_tensor``, ``concat``, ``expand``, ...), and the
+``nn``, ``optimizer`` and ``amp`` packages.
 
 The package imports ``torch``, numpy and the standard library only —
 never ``jax`` and nothing of ``paddle_tpu``.
 """
-from .core.device import resolve_device
+from .core.device import get_device, resolve_device, set_device
 from .core.rng import seed
+from . import amp, nn, optimizer, tensor  # noqa: F401
 from . import resilience  # noqa: F401
 from . import telemetry  # noqa: F401
+from .nn.layer.layers import ParamAttr, create_parameter
+from .tensor import *  # noqa: F401,F403
 
-__all__ = ['resolve_device', 'seed', 'resilience', 'telemetry']
+__all__ = (['resolve_device', 'set_device', 'get_device', 'seed',
+            'ParamAttr', 'create_parameter', 'amp', 'nn', 'optimizer', 'tensor', 'resilience',
+            'telemetry'] + tensor.__all__)

@@ -8,6 +8,14 @@ slots and step count carry over the same way (``load_train_state``).
 A weight-only PTQ model's int8 or packed int4 buffers load the same way
 (``load_quantized_state``).  Each function raises on a missing or extra
 key and on a shape or dtype mismatch.
+
+Any model built from the ``nn`` layers loads this way from one set of
+numpy arrays, and the port's ``state_dict()`` taken to numpy loads into
+the JAX layer's ``set_state_dict``: the keys are the reference's and
+every layout is kept as it is, ``Linear.weight`` ``[in, out]`` and the
+recurrent weights ``[gates * hidden, in]`` (``weight_ih_l0``, ...; the
+LSTM's gates in the order i, f, g, o).  A non-persistable buffer (a
+position table) stays out of both.
 """
 import numpy as np
 import torch

@@ -31,6 +31,7 @@ from ..distributed.fleet.meta_parallel import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
 from ..nn import functional as F
 from ..nn.layer.common import Dropout, Embedding, Linear
+from ..nn.layer.layers import deferred_init
 from ..nn.layer.norm import LayerNorm
 from ..ops.flash_attention import can_use_pallas, flash_attention
 from ..ops.fused_ce import fused_linear_cross_entropy
@@ -178,13 +179,15 @@ class BertForPretraining(nn.Module):
         super().__init__()
         self.device = resolve_device(device)
         self.config = config
-        self.bert = BertModel(config, device=self.device)
-        self.mlm_transform = Linear(config.hidden_size, config.hidden_size,
+        with deferred_init():       # init_weights draws every parameter
+            self.bert = BertModel(config, device=self.device)
+            self.mlm_transform = Linear(config.hidden_size,
+                                        config.hidden_size,
+                                        device=self.device)
+            self.mlm_ln = LayerNorm(config.hidden_size,
+                                    epsilon=config.layer_norm_epsilon,
                                     device=self.device)
-        self.mlm_ln = LayerNorm(config.hidden_size,
-                                epsilon=config.layer_norm_epsilon,
-                                device=self.device)
-        self.nsp = Linear(config.hidden_size, 2, device=self.device)
+            self.nsp = Linear(config.hidden_size, 2, device=self.device)
         self.init_weights(torch.Generator().manual_seed(int(seed)))
 
     def init_weights(self, generator):

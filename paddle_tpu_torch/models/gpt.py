@@ -40,6 +40,7 @@ from ..distributed.fleet.meta_parallel import (
 from ..incubate.moe import SwitchMoE
 from ..nn import functional as F
 from ..nn.layer.common import Dropout, Embedding
+from ..nn.layer.layers import deferred_init
 from ..nn.layer.norm import LayerNorm
 from ..ops.flash_attention import can_use_pallas, flash_attention
 from ..ops.fused_ce import fused_linear_cross_entropy
@@ -320,7 +321,8 @@ class GPTForCausalLM(nn.Module):
         super().__init__()
         self.device = resolve_device(device)
         self.config = config
-        self.gpt = GPT(config, device=self.device)
+        with deferred_init():       # init_weights draws every parameter
+            self.gpt = GPT(config, device=self.device)
         self.init_weights(torch.Generator().manual_seed(int(seed)))
         self.eval()
         # generate's modules, one per signature; its graphs share a pool

@@ -4,10 +4,13 @@ port has ``Constant``, ``Normal``, ``Uniform``, ``XavierNormal``,
 ported layers and models use).
 
 An initializer is called as ``init(shape, dtype, generator)`` and
-returns a CPU tensor drawn from the explicit CPU ``torch.Generator``
-(``None`` takes torch's default one), so one seed gives the same
-weights on every device; ``init.fill_(param, generator)`` copies the
-draw into a parameter in place.  The laws are the reference's; the
+returns a tensor drawn from the explicit ``torch.Generator`` on that
+generator's device (``None`` takes torch's default CPU one): the
+models draw from a seeded CPU generator, so one seed gives the same
+weights on every device, and ``Layer.create_parameter`` from the
+device's generator (``core.rng``), as the reference draws from its
+global key; ``init.fill_(param, generator)`` copies the draw into a
+parameter in place.  The laws are the reference's; the
 draws are torch's, so parity tests carry weights across.
 """
 import math
@@ -41,6 +44,10 @@ def calculate_gain(nonlinearity, param=None):
     return gains[nonlinearity]
 
 
+def _dev(generator):
+    return None if generator is None else generator.device
+
+
 class Initializer:
     def __call__(self, shape, dtype=torch.float32, generator=None):
         return self._generate(tuple(int(s) for s in shape), dtype,
@@ -61,7 +68,8 @@ class Constant(Initializer):
         self.value = value
 
     def _generate(self, shape, dtype, generator):
-        return torch.full(shape, self.value, dtype=dtype)
+        return torch.full(shape, self.value, dtype=dtype,
+                          device=_dev(generator))
 
 
 class Normal(Initializer):
@@ -71,7 +79,8 @@ class Normal(Initializer):
         self.mean, self.std = mean, std
 
     def _generate(self, shape, dtype, generator):
-        z = torch.randn(shape, generator=generator, dtype=torch.float32)
+        z = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=_dev(generator))
         return (self.mean + self.std * z).to(dtype)
 
 
@@ -87,7 +96,8 @@ class XavierNormal(Initializer):
         fi = self.fan_in if self.fan_in is not None else fi
         fo = self.fan_out if self.fan_out is not None else fo
         std = self.gain * math.sqrt(2.0 / (fi + fo))
-        z = torch.randn(shape, generator=generator, dtype=torch.float32)
+        z = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=_dev(generator))
         return (z * std).to(dtype)
 
 
@@ -113,7 +123,8 @@ class Uniform(Initializer):
         self.low, self.high = low, high
 
     def _generate(self, shape, dtype, generator):
-        u = torch.rand(shape, generator=generator, dtype=torch.float32)
+        u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                       device=_dev(generator))
         return (u * (self.high - self.low) + self.low).to(dtype)
 
 

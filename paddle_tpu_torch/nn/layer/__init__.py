@@ -1,21 +1,17 @@
-from .activation import ReLU, ReLU6
-from .common import Dropout, Embedding, Linear
-from .container import LayerList, Sequential
-from .conv import Conv1D, Conv2D, Conv3D
-from .layers import create_parameter
-from .loss import BCEWithLogitsLoss, CrossEntropyLoss
-from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
-                   LayerNorm, SyncBatchNorm)
-from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
-                      AdaptiveAvgPool3D, AdaptiveMaxPool1D,
-                      AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
-                      AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
+from . import (activation, common, container, conv, loss, norm, pooling,
+               rnn, transformer)
+from .activation import *    # noqa: F401,F403
+from .common import *        # noqa: F401,F403
+from .container import *     # noqa: F401,F403
+from .conv import *          # noqa: F401,F403
+from .layers import Layer, ParamAttr, create_parameter
+from .loss import *          # noqa: F401,F403
+from .norm import *          # noqa: F401,F403
+from .pooling import *       # noqa: F401,F403
+from .rnn import *           # noqa: F401,F403
+from .transformer import *   # noqa: F401,F403
 
-__all__ = ['Dropout', 'Embedding', 'Linear', 'LayerNorm', 'ReLU', 'ReLU6',
-           'Sequential', 'LayerList', 'create_parameter', 'Conv1D',
-           'Conv2D', 'Conv3D', 'CrossEntropyLoss', 'BCEWithLogitsLoss',
-           'BatchNorm', 'BatchNorm1D', 'BatchNorm2D', 'BatchNorm3D',
-           'SyncBatchNorm', 'AvgPool1D', 'AvgPool2D', 'AvgPool3D',
-           'MaxPool1D', 'MaxPool2D', 'MaxPool3D', 'AdaptiveAvgPool1D',
-           'AdaptiveAvgPool2D', 'AdaptiveAvgPool3D', 'AdaptiveMaxPool1D',
-           'AdaptiveMaxPool2D', 'AdaptiveMaxPool3D']
+__all__ = (['Layer', 'ParamAttr', 'create_parameter'] + activation.__all__
+           + common.__all__ + container.__all__ + conv.__all__
+           + loss.__all__ + norm.__all__ + pooling.__all__ + rnn.__all__
+           + transformer.__all__)

@@ -1,13 +1,15 @@
-"""``Sequential`` and ``LayerList`` (counterpart of
-``paddle_tpu/nn/layer/container.py``): sublayers under ``'0'``,
-``'1'``, ... (or, for ``Sequential``, the names of an ``OrderedDict``
-or of ``(name, layer)`` pairs), so their state-dict keys are the
-reference's (``0.weight``, ``tables.1.weight``, ...)."""
+"""``Sequential``, ``LayerList``, ``ParameterList`` and ``LayerDict``
+(counterpart of ``paddle_tpu/nn/layer/container.py``): sublayers under
+``'0'``, ``'1'``, ... (or, for ``Sequential``, the names of an
+``OrderedDict`` or of ``(name, layer)`` pairs; for ``LayerDict`` its
+keys), parameters of a ``ParameterList`` under ``'0'``, ``'1'``, ...,
+so their state-dict keys are the reference's (``0.weight``,
+``tables.1.weight``, ``params.0``, ...)."""
 import collections
 
 from torch import nn
 
-__all__ = ['Sequential', 'LayerList']
+__all__ = ['Sequential', 'LayerList', 'ParameterList', 'LayerDict']
 
 
 class Sequential(nn.Sequential):
@@ -29,6 +31,22 @@ class LayerList(nn.ModuleList):
     slicing (a new ``LayerList`` of the same layers), ``append``,
     ``insert`` and ``extend`` renumber the keys as the reference's
     do."""
+
+    def __init__(self, sublayers=None):
+        super().__init__(sublayers)
+
+
+class ParameterList(nn.ParameterList):
+    """Parameters under ``'0'``, ``'1'``, ...; ``append`` adds one."""
+
+    def __init__(self, parameters=None):
+        super().__init__(parameters)
+
+
+class LayerDict(nn.ModuleDict):
+    """Sublayers under their keys, in insertion order; ``update``
+    takes a dict or ``(key, layer)`` pairs, ``pop`` and ``clear`` as a
+    dict's."""
 
     def __init__(self, sublayers=None):
         super().__init__(sublayers)

@@ -1,43 +1,52 @@
 """LayerNorm and BatchNorm (counterpart of
 ``paddle_tpu/nn/layer/norm.py``)."""
 import torch
-from torch import nn
 
 from ...core.device import resolve_device
 from .. import functional as F
+from ..initializer import Constant
+from .layers import Layer
 
 __all__ = ['LayerNorm', 'BatchNorm', 'BatchNorm1D', 'BatchNorm2D',
            'BatchNorm3D', 'SyncBatchNorm']
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """LayerNorm with weight (ones) and bias (zeros) over the trailing
-    ``normalized_shape``; runs ``F.layer_norm``, hence the kernel."""
+    ``normalized_shape``; runs ``F.layer_norm``, hence the kernel.  The
+    reference's signature, ``device`` keyword-only; ``weight_attr`` or
+    ``bias_attr`` False leaves that parameter None and out of the state
+    dict."""
 
-    def __init__(self, normalized_shape, epsilon=1e-5, device=None):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None):
         super().__init__()
         device = resolve_device(device)
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self.normalized_shape = tuple(int(s) for s in normalized_shape)
         self.epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
-                                              device=device))
-        self.bias = nn.Parameter(torch.zeros(self.normalized_shape,
-                                             device=device))
+        self.weight = self.create_parameter(
+            self.normalized_shape, attr=weight_attr,
+            default_initializer=Constant(1.0), device=device)
+        self.bias = self.create_parameter(
+            self.normalized_shape, attr=bias_attr, is_bias=True,
+            device=device)
 
     def reset_parameters(self, generator=None):
         del generator
         with torch.no_grad():
-            self.weight.fill_(1.0)
-            self.bias.zero_()
+            if self.weight is not None:
+                self.weight.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight,
                             self.bias, self.epsilon)
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     """BatchNorm with weight (ones), bias (zeros) and the running
     statistics as f32 buffers under the reference's names, ``_mean``
     (zeros) and ``_variance`` (ones), so a state dict carries keys such
@@ -48,16 +57,17 @@ class _BatchNormBase(nn.Module):
                  weight_attr=None, bias_attr=None, data_format='NCHW',
                  use_global_stats=None, name=None, device=None):
         super().__init__()
-        if weight_attr is not None or bias_attr is not None:
-            raise NotImplementedError('ParamAttr is not ported')
         device = resolve_device(device)
         self.num_features = num_features
         self.momentum = momentum
         self.epsilon = epsilon
         self.data_format = data_format
         self.use_global_stats = use_global_stats
-        self.weight = nn.Parameter(torch.ones(num_features, device=device))
-        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.weight = self.create_parameter(
+            [num_features], attr=weight_attr,
+            default_initializer=Constant(1.0), device=device)
+        self.bias = self.create_parameter(
+            [num_features], attr=bias_attr, is_bias=True, device=device)
         self.register_buffer('_mean', torch.zeros(
             num_features, dtype=torch.float32, device=device))
         self.register_buffer('_variance', torch.ones(
@@ -66,8 +76,10 @@ class _BatchNormBase(nn.Module):
     def reset_parameters(self, generator=None):
         del generator
         with torch.no_grad():
-            self.weight.fill_(1.0)
-            self.bias.zero_()
+            if self.weight is not None:
+                self.weight.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x):
         return F.batch_norm(

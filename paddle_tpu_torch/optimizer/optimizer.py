@@ -200,8 +200,18 @@ class Optimizer:
                 self._accumulators[key] = self._create_state(p)
             g = self._apply_weight_decay_grad(p, g.to(p.dtype))
             self._ctx_param_name = self._name(i, p)
-            self._put(p, self._rule(p, g, self._accumulators[key],
-                                    self._scalars))
+            s = self._scalars if functional else self._param_scalars(p)
+            self._put(p, self._rule(p, g, self._accumulators[key], s))
+
+    def _param_scalars(self, p):
+        """The eager step's scalars for ``p``: its ``ParamAttr``
+        learning-rate multiplier (``p.optimize_attr``) scales the rate,
+        as the reference's eager ``step`` does (its trainer does not)."""
+        mult = getattr(p, 'optimize_attr', {}).get('learning_rate', 1.0)
+        if mult == 1.0:
+            return self._scalars
+        row = self._step_scalars(self._t, self.get_lr() * mult)
+        return {n: torch.tensor(v, device=p.device) for n, v in row.items()}
 
     def _apply(self, t):
         """One eager update at step number ``t`` (1-based) from the

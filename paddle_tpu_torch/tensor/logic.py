@@ -1,0 +1,37 @@
+"""Comparison and logic ops (counterpart of
+``paddle_tpu/tensor/logic.py``; the port has ``equal``, ``not_equal``,
+the ``logical_*`` ops and ``all``); each returns a bool tensor."""
+import torch
+
+__all__ = ['equal', 'not_equal', 'logical_and', 'logical_or',
+           'logical_xor', 'logical_not', 'all']
+
+
+def equal(x, y, name=None):
+    return torch.eq(x, y)
+
+
+def not_equal(x, y, name=None):
+    return torch.ne(x, y)
+
+
+def logical_and(x, y, out=None, name=None):
+    return torch.logical_and(x, y)
+
+
+def logical_or(x, y, out=None, name=None):
+    return torch.logical_or(x, y)
+
+
+def logical_xor(x, y, out=None, name=None):
+    return torch.logical_xor(x, y)
+
+
+def logical_not(x, out=None, name=None):
+    return torch.logical_not(x)
+
+
+def all(x, axis=None, keepdim=False, name=None):
+    if axis is None:
+        return torch.all(x)
+    return torch.all(x, dim=axis, keepdim=keepdim)

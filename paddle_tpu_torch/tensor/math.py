@@ -34,3 +34,40 @@ def sum(x, axis=None, keepdim=False, name=None):
     if isinstance(axis, int):
         axis = (axis,)
     return x.sum(dim=axis, keepdim=keepdim)
+
+
+def mean(x, axis=None, keepdim=False, name=None):
+    """Mean over ``axis`` (an int, a list, or None for every axis); in
+    f32 under AMP (``mean`` is black-listed)."""
+    x, = amp_cast('mean', x)
+    if isinstance(axis, int):
+        axis = (axis,)
+    return x.mean(dim=axis, keepdim=keepdim)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
+    """``x @ y``, either side transposed on its last two axes first
+    (white-listed: low precision under AMP)."""
+    x, y = amp_cast('matmul', x, y)
+    if transpose_x and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if transpose_y and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    return torch.matmul(x, y)
+
+
+__all__ += ['mean', 'matmul']
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    """``x * scale + bias`` (or ``(x + bias) * scale``); the Python
+    scalars round to ``x``'s dtype first, as the reference's weakly
+    typed constants do."""
+    from ..nn.functional.norm import _scalar
+    x, = amp_cast('scale', x)
+    s, b = _scalar(scale, x.dtype), _scalar(bias, x.dtype)
+    return x * s + b if bias_after_scale else (x + b) * s
+
+
+__all__ += ['scale']

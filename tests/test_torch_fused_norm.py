@@ -142,10 +142,15 @@ def test_any_width_matches_the_reference(shape):
 
 def _stub_launch(monkeypatch):
     """The kernel's entry point replaced by a recorder (no card here):
-    what the wrapper hands a launch on a CUDA tensor."""
+    what the wrapper hands a launch on a CUDA tensor.  The launch counts
+    go back to theirs after the test, so a later file in the same
+    process sees the CPU's zero launches."""
     seen = []
     monkeypatch.setattr(port_ln.KERNEL, '_fn',
                         lambda *a: seen.append(a) or 0)
+    monkeypatch.setattr(port_ln.KERNEL, 'launches', port_ln.KERNEL.launches)
+    monkeypatch.setattr(port_ln.KERNEL, 'variant_launches',
+                        dict(port_ln.KERNEL.variant_launches))
     monkeypatch.setattr(port_ln, 'stream', lambda device: 7)
     return seen
 

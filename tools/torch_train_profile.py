@@ -1,6 +1,6 @@
 """Where the port's training time goes, on one CUDA card.
 
-    python3 tools/torch_train_profile.py [--model gpt|gpt_recipe|longctx|moe|bert|bert_flash|bert_gemm_gelu|resnet50|qat|widedeep] [--path fused|eager] [--steps 2] [--out build/torch_train_profile.json]
+    python3 tools/torch_train_profile.py [--model gpt|gpt_recipe|longctx|moe|bert|bert_flash|bert_gemm_gelu|resnet50|qat|widedeep|transformer|lstm_lm] [--path fused|eager] [--steps 2] [--out build/torch_train_profile.json]
 
 Run from the repository root.  Training steps at full width with random
 seeded weights, in the configuration of one of ``chip_smoke.py``'s
@@ -36,7 +36,16 @@ Wide&Deep at bench.py's configuration (26 fields of 100 000 ids, embed
 ``chip_smoke._widedeep_trainer``), whose device time is also split
 between the embedding gathers, the tables' dense gradient (the
 embedding backward's sort and scatter, and the zero fill of the dense
-table), the casts and the optimizer (``widedeep_split``).
+table), the casts and the optimizer (``widedeep_split``); ``--model
+transformer`` Transformer-base (``nn.Transformer()``, a shared
+vocabulary of 37000, B 64 x source 128 x target 128, bf16 O2, Adam
+under Noam's schedule, label smoothing 0.1;
+``chip_smoke.transformer_trainer``), whose device time also shows the
+attention and the label-smoothed loss (``seq_split``: the kernels inside
+the ``multihead_attention`` and ``cross_entropy`` ranges, which the
+port's layers mark); ``--model lstm_lm`` Zaremba's large PTB LSTM LM
+(2 x 1500, vocabulary 10000, B 20 x 35 steps, f32, SGD lr 1 with a
+global-norm clip of 10; ``chip_smoke.lstm_lm_trainer``).
 ``--path fused`` (the default) trains through
 ``ParallelTrainer(fused_steps=--steps).step_fused``, the step as a
 replayed CUDA graph: one chunk warms up (the first step eager, the
@@ -101,6 +110,7 @@ KINDS = [('conv forward (cuDNN)', ('fprop', 'implicit_convolve',
                                        'embedding'))]
 # the trainer's ranges, and every range the port annotates
 RANGES = chip_smoke.ANNOTATIONS
+SEQ_RANGES = ('multihead_attention', 'cross_entropy')
 
 
 def _kind(name):
@@ -133,8 +143,28 @@ BERT_RUN = {'bert': 0, 'bert_flash': 1, 'bert_gemm_gelu': 2}
 
 
 def _setup(model_name, fused_steps=None):
-    """(trainer, batch, tokens (images, examples) per step,
-    USE_PALLAS_MLP) of the named configuration."""
+    """(trainer, batch, tokens (images, examples, target tokens, words)
+    per step, USE_PALLAS_MLP) of the named configuration."""
+    if model_name == 'transformer':
+        import paddle_tpu_torch as paddle
+        paddle.seed(0)
+        model = chip_smoke.transformer_model(paddle,
+                                             **chip_smoke.TRANSFORMER_KW)
+        batch = chip_smoke.transformer_batch(
+            chip_smoke.TRANSFORMER_BATCH, chip_smoke.TRANSFORMER_SRC,
+            chip_smoke.TRANSFORMER_TGT, model.config['vocab_size'])
+        return (chip_smoke.transformer_trainer(paddle, model, amp_o2=True,
+                                               fused_steps=fused_steps),
+                batch, chip_smoke.TRANSFORMER_BATCH
+                * chip_smoke.TRANSFORMER_TGT, False)
+    if model_name == 'lstm_lm':
+        import paddle_tpu_torch as paddle
+        paddle.seed(0)
+        batch = chip_smoke.lstm_lm_batch(
+            chip_smoke.LSTM_LM_BATCH, chip_smoke.LSTM_LM_STEPS,
+            chip_smoke.LSTM_LM_KW['vocab_size'])
+        return (chip_smoke._lstm_lm_trainer(fused_steps=fused_steps), batch,
+                chip_smoke.LSTM_LM_BATCH * chip_smoke.LSTM_LM_STEPS, False)
     if model_name == 'widedeep':
         return (chip_smoke._widedeep_trainer(fused_steps=fused_steps),
                 chip_smoke.widedeep_batch(), chip_smoke.WD_BATCH, False)
@@ -239,7 +269,8 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
         'model': model_name, 'path': path, 'steps': steps,
         'loss': float(loss),
         'wall_ms_per_step': wall_us / steps / 1e3,
-        {'resnet50': 'imgs', 'qat': 'imgs', 'widedeep': 'examples'}.get(
+        {'resnet50': 'imgs', 'qat': 'imgs', 'widedeep': 'examples',
+         'transformer': 'target_tokens', 'lstm_lm': 'words'}.get(
             model_name, 'tokens')
         + '_per_s_under_profiler': tokens * steps / (wall_us / 1e6),
         'device_busy_ms_per_step': busy_us / steps / 1e3,
@@ -267,6 +298,8 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
         res['launches_a_replay'] = graph.launches.counts()
     if model_name == 'widedeep':
         res['widedeep_split'] = widedeep_split(res, device, events, steps)
+    if model_name == 'transformer':
+        res['seq_split'] = seq_split(device, events, steps)
     if model_name == 'resnet50':
         res['conv_and_layout_kernels'] = [
             {'name': name[:160], 'count_per_step': n / steps,
@@ -298,7 +331,8 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
     for k in res.get('conv_and_layout_kernels', []):
         print(f'  conv   {k["device_ms_per_step"]:9.3f} ms/step '
               f'{k["count_per_step"]:6.1f}x {k["name"][:120]}')
-    for k, v in res.get('widedeep_split', {}).items():
+    for k, v in {**res.get('widedeep_split', {}),
+                 **res.get('seq_split', {})}.items():
         print(f'  split  {v:9.3f} ms/step {k}')
     if 'batch_norm' in res:
         bn = res['batch_norm']
@@ -307,6 +341,23 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
               f'{bn["fwd_ms_per_step"]:.3f}), a share '
               f'{bn["share_of_device_busy"]} of the device-busy time')
     return res
+
+
+def seq_split(device, events, steps):
+    """Device ms per step of the kernels launched inside each
+    ``SEQ_RANGES`` range, forward only (the backward's kernels run
+    outside any range)."""
+    out = {}
+    for name in SEQ_RANGES:
+        spans = [(e.time_range.start, e.time_range.end) for e in device
+                 if e.name == name]
+        inside = [e for e in events if any(
+            a <= e.time_range.start and e.time_range.end <= b
+            for a, b in spans)]
+        out[f'{name} forward (kernels inside its range)'] = sum(
+            e.time_range.end - e.time_range.start
+            for e in inside) / steps / 1e3
+    return out
 
 
 def widedeep_split(res, device, events, steps):
@@ -408,7 +459,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--model', choices=('gpt', 'gpt_recipe', 'longctx', 'moe',
                                         *BERT_RUN, 'resnet50', 'qat',
-                                        'widedeep'),
+                                        'widedeep', 'transformer',
+                                        'lstm_lm'),
                     default='gpt')
     ap.add_argument('--path', choices=('fused', 'eager'), default='fused')
     ap.add_argument('--steps', type=int, default=2)
