@@ -169,9 +169,30 @@ From the repository root, with one CUDA card.  It
    (10 classes) at B 8 x 64 x 64 on the card against the CPU with
    cuDNN's TF32 left on, each train-mode gradient also against a
    float64 witness (``resnet_parity``); LeNet at B 256 f32 with Adam,
-   5 + 50 steps and the bench's loss anchor (``lenet``); none of these
-   paths may launch a hand-written kernel (the reference has no Pallas
-   kernel on them);
+   5 + 50 steps and the bench's loss anchor (``lenet``); then the
+   high-level API: ``examples/mnist_lenet.py``'s program
+   (``mnist_lenet``, the same function the CPU tests run on both
+   packages) through ``hapi.Model`` over synthetic MNIST
+   (``hapi_lenet``): ``fit`` of 1024 images, B 64, 8 epochs, to the
+   reference's anchor (train-split accuracy above 0.9 by ``evaluate``),
+   the same fit with ``fused_steps`` 4 (one captured step, replayed)
+   whose losses, parameters and metric logs must equal the eager fit's
+   bit for bit, three ``train_batch`` steps on the card against the CPU
+   (within 1e-4 of each tensor's largest value), ``save`` and ``load``
+   into a fresh Model whose next step equals the uninterrupted one bit
+   for bit, and bench.py's LeNet batch (B 256) through
+   ``Model.train_batch`` beside the bare ``ParallelTrainer``; and the
+   Paddle tutorial's ``Model(resnet50(num_classes=102))`` (f32 NCHW, B
+   64) over the synthetic Flowers train split through
+   ``RandomResizedCrop(224)`` in a ``DataLoader`` of 4 process workers
+   with the native ring and ``device_prefetch`` (``hapi_flowers``): one
+   epoch with images/s, ms/step, the prefetch wait a step and the idle
+   share (the device's busy time a step from steps 8-11 under the
+   profiler, over the epoch's wall, and those steps' own), the native
+   ring checked to have carried every batch and 3 staged batches held
+   to their host copies, then the same steps on batches already on the
+   card; none of these paths may launch a hand-written kernel (the
+   reference has no Pallas kernel on them);
    then the bench's last three configurations and the rest of the zoo:
    Wide&Deep at bench.py's configuration (``widedeep``: 26 fields of
    100 000 ids, embed 16, hidden 400-400-400, B 16384, bf16 O2, Adam):
@@ -264,8 +285,9 @@ From the repository root, with one CUDA card.  It
    ``bert_dropout_fused``, ``resnet_fused``, ``widedeep_fused``,
    ``longctx_fused``, ``mobilenet_v2_fused``, ``moe_fused``, ``moe_gen``,
    ``qat_fused``, ``transformer_fused`` and ``lstm_lm_fused`` replay
-   graphs, ``optimizers`` half its steps; the vision, Wide&Deep, QAT and
-   LSTM paths count 0 of each, the Transformer's LayerNorm only),
+   graphs, ``optimizers`` half its steps; the vision, hapi, Wide&Deep,
+   QAT and LSTM paths count 0 of each, the Transformer's LayerNorm
+   only),
    then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  Without a
@@ -606,6 +628,19 @@ LSTM_LM_KW = dict(vocab_size=10000, hidden_size=1500, num_layers=2,
                   dropout=0.65, init_scale=0.04)
 LSTM_LM_BATCH, LSTM_LM_STEPS, LSTM_LM_LR, LSTM_LM_CLIP = 20, 35, 1.0, 10.0
 SEQ_PARITY_BATCH = 2
+# hapi: examples/mnist_lenet.py's program (Adam 1e-3, B 64) fitted to
+# tests/test_hapi.py's anchor (1024 synthetic MNIST images, 8 epochs,
+# train-split accuracy above 0.9), fused in chunks of K, and bench.py's
+# LeNet batch through Model.train_batch; the Paddle tutorial's
+# ResNet-50 on Flowers-102 (f32 NCHW, B 64, the synthetic 1024-image
+# train split through RandomResizedCrop(224)) over 4 process workers:
+# the chip host's pipes carry a 38.5 MB batch in ~350-450 ms, with 4
+# workers as with 7, so more workers buy nothing there
+HAPI_LENET_N, HAPI_LENET_EPOCHS, HAPI_LENET_BATCH = 1024, 8, 64
+HAPI_LENET_K, HAPI_LENET_TOL, HAPI_LENET_ACC = 4, 1e-4, 0.9
+HAPI_FLOWERS_BATCH, HAPI_FLOWERS_WORKERS, HAPI_FLOWERS_WARMUP = 64, 4, 2
+HAPI_FLOWERS_CHECKED = 3        # staged batches held to their host copy
+HAPI_FLOWERS_WINDOW = (8, 12)   # the epoch's steps profiled for idle
 
 
 def log(*args):
@@ -3004,6 +3039,26 @@ def idle_share(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return 1.0 - device_busy_us(prof) / wall_us, wall_us / 1e6
+
+
+def device_time_by_name(prof, top=3):
+    """(µs of memory copies and sets, [(name, µs)] of the ``top``
+    kernels by device time) of a profile's device events."""
+    by_name, copies = {}, 0.0
+    for e in prof.events():
+        if not is_device_event(e) or e.name in ANNOTATIONS:
+            continue
+        us = e.time_range.end - e.time_range.start
+        if e.name.startswith(('Memcpy', 'Memset')):
+            copies += us
+        else:
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    return copies, sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+
+
+def device_busy_us(prof):
+    """The union of a profile's device-kernel intervals, in µs."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if is_device_event(e)
                    and e.name not in ANNOTATIONS)
@@ -3017,7 +3072,7 @@ def idle_share(fn):
             cur_e = max(cur_e, b)
     if cur_e is not None:
         busy += cur_e - cur_s
-    return 1.0 - busy / wall_us, wall_us / 1e6
+    return busy
 
 
 def _opt_state(trainer):
@@ -5583,6 +5638,486 @@ def lstm_lm_fused_phase():
         lstm_lm_step_flops(cfg, LSTM_LM_BATCH, LSTM_LM_STEPS),
         'torch.use_deterministic_algorithms', _deterministic_algorithms)
 
+def mnist_lenet(paddle, network=None, epochs=2, batch_size=64, limit=0,
+                eval_split='test', shuffle=True, fused_steps=None,
+                callbacks=None, verbose=0, before_fit=None):
+    """``examples/mnist_lenet.py``'s program against ``paddle`` (either
+    package): synthetic MNIST through ``Normalize(127.5, 127.5, 'HWC')``
+    and ``Transpose((2, 0, 1))``, ``Model(LeNet())`` (or ``network``)
+    prepared with Adam 1e-3, ``CrossEntropyLoss`` and ``Accuracy``,
+    ``fit`` and ``evaluate`` on the ``eval_split`` split.  ``limit``
+    keeps the first images of each split; ``before_fit(model)`` runs
+    between ``prepare`` and ``fit``.  Returns ``(model, eval logs)``."""
+    T = paddle.vision.transforms
+    transform = T.Compose([T.Normalize(mean=[127.5], std=[127.5],
+                                       data_format='HWC'),
+                           T.Transpose((2, 0, 1))])
+    train_ds = paddle.vision.datasets.MNIST(mode='train',
+                                            transform=transform)
+    test_ds = paddle.vision.datasets.MNIST(mode='test', transform=transform)
+    if limit:
+        train_ds = paddle.io.Subset(train_ds,
+                                    range(min(limit, len(train_ds))))
+        test_ds = paddle.io.Subset(test_ds, range(min(limit, len(test_ds))))
+    model = paddle.Model(network if network is not None
+                         else paddle.vision.models.LeNet())
+    model.prepare(
+        paddle.optimizer.Adam(learning_rate=1e-3,
+                              parameters=model.parameters()),
+        paddle.nn.CrossEntropyLoss(),
+        paddle.metric.Accuracy())
+    if before_fit is not None:
+        before_fit(model)
+    model.fit(train_ds, epochs=epochs, batch_size=batch_size,
+              verbose=verbose, shuffle=shuffle, fused_steps=fused_steps,
+              callbacks=callbacks)
+    logs = model.evaluate(train_ds if eval_split == 'train' else test_ds,
+                          batch_size=batch_size, verbose=0)
+    return model, logs
+
+
+def step_recorder(model):
+    """Wrap ``model``'s ``train_batch`` and ``train_chunk`` so every
+    step's loss (device tensors, read at the end) lands in the returned
+    list, in order: ``torch.cat`` of it is the run's losses."""
+    losses = []
+    batch, chunk = model.train_batch, model.train_chunk
+
+    def train_batch(*a, **kw):
+        loss, logs = batch(*a, **kw)
+        losses.append(loss.detach().reshape(1).clone())
+        return loss, logs
+
+    def train_chunk(*a, **kw):
+        out, oks = chunk(*a, **kw)
+        losses.append(out.detach().clone())
+        return out, oks
+    model.train_batch, model.train_chunk = train_batch, train_chunk
+    return losses
+
+
+def metric_logs(paddle):
+    """A hapi callback of ``paddle`` that keeps each epoch's metric
+    logs (``logs`` of ``on_epoch_end``, the loss left out)."""
+
+    class MetricLogs(paddle.hapi.callbacks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.logs = []
+
+        def on_epoch_end(self, epoch, logs=None):
+            self.logs.append({k: v for k, v in (logs or {}).items()
+                              if k != 'loss'})
+    return MetricLogs()
+
+
+def _hapi_params(model):
+    return {k: v.detach().clone() for k, v in
+            model.network.state_dict().items()}
+
+
+def _hapi_lenet_fit(paddle, fused_steps):
+    """The anchor's fit on the card from LeNet(seed 0), unshuffled so a
+    fused run sees the eager run's batches; -> (model, eval logs, [n]
+    losses, epoch metric logs, seconds of the fit)."""
+    from paddle_tpu_torch.vision.models import LeNet
+    cb = metric_logs(paddle)
+    rec = {}
+
+    def before_fit(model):
+        rec['losses'] = step_recorder(model)
+        rec['t0'] = time.perf_counter()
+    model, logs = mnist_lenet(
+        paddle, network=LeNet(device='cuda', seed=0),
+        epochs=HAPI_LENET_EPOCHS, batch_size=HAPI_LENET_BATCH,
+        limit=HAPI_LENET_N, eval_split='train', shuffle=False,
+        fused_steps=fused_steps, callbacks=[cb], before_fit=before_fit)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - rec['t0']
+    return model, logs, torch.cat(rec['losses']), cb.logs, dt
+
+
+def _hapi_vs_cpu(paddle):
+    """Three ``train_batch`` steps of one LeNet on the card and on the
+    CPU: the largest gap of each loss and each tensor, over its largest
+    value."""
+    from paddle_tpu_torch.vision.models import LeNet
+    batches = _lenet_train_batches(3)
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        net = LeNet(device=dev, seed=0)
+        model = paddle.Model(net)
+        model.prepare(paddle.optimizer.Adam(learning_rate=1e-3,
+                                            parameters=model.parameters()),
+                      paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+        losses = [float(model.train_batch([x], [y])[0]) for x, y in batches]
+        out[dev] = (losses, {k: v.detach().cpu() for k, v in
+                             net.state_dict().items()})
+    worst = max(abs(a - b) / max(abs(b), 1e-12)
+                for a, b in zip(out['cuda'][0], out['cpu'][0]))
+    for k, v in out['cpu'][1].items():
+        worst = max(worst, float((out['cuda'][1][k] - v).abs().max())
+                    / max(float(v.abs().max()), 1e-12))
+    return worst, out['cuda'][0]
+
+
+def _lenet_train_batches(n, batch=HAPI_LENET_BATCH, seed=0):
+    """``n`` seeded MNIST-shaped batches: (x f32 NCHW, y int64 [B, 1])."""
+    rs = np.random.RandomState(seed)
+    return [(rs.randn(batch, 1, 28, 28).astype(np.float32),
+             rs.randint(0, 10, (batch, 1)).astype(np.int64))
+            for _ in range(n)]
+
+
+def _hapi_resume(paddle, workdir):
+    """Save a Model after 3 steps, load it into a fresh one, step both:
+    the resumed step must equal the uninterrupted one bit for bit."""
+    from paddle_tpu_torch.vision.models import LeNet
+    batches = _lenet_train_batches(4, seed=1)
+
+    def fresh():
+        net = LeNet(device='cuda', seed=0)
+        model = paddle.Model(net)
+        model.prepare(paddle.optimizer.Adam(learning_rate=1e-3,
+                                            parameters=model.parameters()),
+                      paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+        return model
+    a = fresh()
+    for x, y in batches[:3]:
+        a.train_batch([x], [y])
+    path = f'{workdir}/lenet'
+    a.save(path)
+    b = fresh().load(path)
+    x, y = batches[3]
+    la, lb = a.train_batch([x], [y])[0], b.train_batch([x], [y])[0]
+    pa, pb = _hapi_params(a), _hapi_params(b)
+    same = bool(torch.equal(la, lb)) and all(
+        torch.equal(pa[k], pb[k]) for k in pa) and all(
+        torch.equal(u, w) for (_, u), (_, w) in zip(
+            sorted(a._optimizer.state_dict().items()),
+            sorted(b._optimizer.state_dict().items()))
+        if torch.is_tensor(u))
+    if not same or a._optimizer._global_step != b._optimizer._global_step:
+        raise AssertionError('hapi_lenet: the resumed step is not the '
+                             'uninterrupted one')
+    return float(la)
+
+
+def _hapi_host_cost(paddle):
+    """bench.py's LeNet configuration (f32 B 256, Adam 1e-3) through
+    ``Model.train_batch`` and through the bare ``ParallelTrainer`` on
+    the same batch, in turns: ms/step of each."""
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.models import LeNet
+    (x, y), = _lenet_train_batches(1, batch=LENET_BATCH, seed=2)
+    xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    net = LeNet(device='cuda', seed=0)
+    model = paddle.Model(net)
+    model.prepare(Adam(learning_rate=LENET_LR,
+                       parameters=model.parameters()),
+                  paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    tnet = LeNet(device='cuda', seed=0)
+    tr = _vision_trainer(tnet, Adam(learning_rate=LENET_LR,
+                                    parameters=tnet.parameters()),
+                         amp_o2=False)
+    runs = {'hapi': lambda: model.train_batch([xd], [yd]),
+            'trainer': lambda: tr.step(xd, yd)}
+    for fn in runs.values():
+        for _ in range(LENET_WARMUP):
+            fn()
+    ms = {name: [] for name in runs}
+    for _ in range(2):
+        for name, fn in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(LENET_STEPS):
+                fn()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) / LENET_STEPS * 1e3)
+    return {name: min(v) for name, v in ms.items()}
+
+
+def hapi_lenet_phase(trainer_ms=None):
+    """``examples/mnist_lenet.py``'s program on the card through
+    ``hapi.Model`` (``hapi_lenet``): the eager fit to the reference's
+    anchor, the same fit in fused chunks bit for bit, three steps
+    against the CPU, save and resume bit for bit, and bench.py's LeNet
+    batch through ``train_batch`` beside the bare trainer; no
+    hand-written kernel may launch."""
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import _build
+    _build.reset_launches()
+    t_phase = time.perf_counter()
+    # bit-for-bit comparisons take cuDNN's deterministic algorithms
+    with _cudnn_deterministic():
+        eager = _hapi_lenet_fit(paddle, None)
+        fused = _hapi_lenet_fit(paddle, HAPI_LENET_K)
+        with tempfile.TemporaryDirectory() as d:
+            resumed = _hapi_resume(paddle, d)
+    model, logs, losses, epochs, fit_s = eager
+    acc = logs['acc']
+    if not acc > HAPI_LENET_ACC:
+        raise AssertionError(f'hapi_lenet: train-split accuracy {acc} '
+                             f'after {HAPI_LENET_EPOCHS} epochs is not above '
+                             f'{HAPI_LENET_ACC}')
+    f_model, f_logs, f_losses, f_epochs, f_fit_s = fused
+    pe, pf = _hapi_params(model), _hapi_params(f_model)
+    steps = len(losses)
+    if not (torch.equal(losses, f_losses) and all(
+            torch.equal(pe[k], pf[k]) for k in pe)
+            and epochs == f_epochs and logs == f_logs):
+        raise AssertionError(
+            'hapi_lenet: fused fit differs from the eager fit: losses '
+            f'{(losses - f_losses).abs().max().item()}, params '
+            f'{max((pe[k] - pf[k]).abs().max().item() for k in pe)}, '
+            f'logs {epochs[-1]} vs {f_epochs[-1]}, eval {logs} vs '
+            f'{f_logs}')
+    if f_model.chunk_syncs != steps // HAPI_LENET_K:
+        raise AssertionError(f'hapi_lenet: {f_model.chunk_syncs} chunk '
+                             f'reads for {steps // HAPI_LENET_K} chunks')
+    graphs = list(f_model._fused_cache.modules.values())
+    if len(graphs) != 1 or graphs[0].replays != steps - 1:
+        raise AssertionError(
+            f'hapi_lenet: {len(graphs)} captured steps with '
+            f'{[g.replays for g in graphs]} replays; want one graph '
+            f'replayed {steps - 1} times (the first step is its warm-up)')
+    capture_s, syncs = graphs[0].capture_s, f_model.chunk_syncs
+    cpu_gap, _ = _hapi_vs_cpu(paddle)
+    if not cpu_gap <= HAPI_LENET_TOL:
+        raise AssertionError(f'hapi_lenet: card vs CPU {cpu_gap} > '
+                             f'{HAPI_LENET_TOL}')
+    cost = _hapi_host_cost(paddle)
+    launches = launch_counts()
+    _no_kernel_launches('hapi_lenet', launches)
+    phase_s = time.perf_counter() - t_phase
+    log(f'hapi_lenet: mnist_lenet program, {HAPI_LENET_N} synthetic MNIST '
+        f'images, B {HAPI_LENET_BATCH}, {HAPI_LENET_EPOCHS} epochs = {steps} '
+        f'steps: eager fit {fit_s:.3f} s ({fit_s / steps * 1e3:.3f} ms/step '
+        f'with the loader), loss {float(losses[0]):.4f} -> '
+        f'{float(losses[-1]):.4f}, train-split acc {acc:.4f} (> '
+        f'{HAPI_LENET_ACC}); fused K {HAPI_LENET_K}: {f_fit_s:.3f} s, one '
+        f'step graph (capture {capture_s:.3f} s, {steps - 1} replays), '
+        f'{syncs} chunk reads, losses, parameters and metric logs equal to '
+        f'eager bit for bit; card vs CPU 3 steps {cpu_gap:.3g} '
+        f'(<= {HAPI_LENET_TOL}); saved and resumed step equal bit for bit '
+        f'(loss {resumed:.4f}); bench LeNet B {LENET_BATCH}: train_batch '
+        f'{cost["hapi"]:.3f} ms/step vs ParallelTrainer.step '
+        f'{cost["trainer"]:.3f} (lenet phase {trainer_ms}); no ported '
+        f'kernel launched; phase {phase_s:.1f} s')
+    del model, f_model, graphs, eager, fused
+    _free()
+    return {'acc': acc, 'steps': steps, 'eager_fit_s': fit_s,
+            'fused_fit_s': f_fit_s, 'fused_k': HAPI_LENET_K,
+            'chunk_syncs': syncs, 'capture_s': capture_s,
+            'card_vs_cpu': cpu_gap,
+            'hapi_ms_per_step': cost['hapi'],
+            'trainer_ms_per_step': cost['trainer'],
+            'lenet_phase_ms_per_step': trainer_ms,
+            'phase_s': phase_s, 'launches': launches}
+
+
+def flowers_loader(paddle, batch_size, num_workers, device_prefetch=True):
+    """The Paddle tutorial's Flowers-102 input pipeline against
+    ``paddle``: the synthetic train split through
+    ``RandomResizedCrop(224)``, ``RandomHorizontalFlip()``,
+    ``Normalize(127.5, 127.5, 'HWC')`` and ``Transpose((2, 0, 1))``, in
+    a shuffled ``DataLoader`` of OS-process workers that stages each
+    batch on the device ahead of the step."""
+    T = paddle.vision.transforms
+    transform = T.Compose([
+        T.RandomResizedCrop(224), T.RandomHorizontalFlip(),
+        T.Normalize(mean=[127.5] * 3, std=[127.5] * 3, data_format='HWC'),
+        T.Transpose((2, 0, 1))])
+    ds = paddle.vision.datasets.Flowers(mode='train', transform=transform)
+    return paddle.io.DataLoader(
+        ds, batch_size=batch_size, shuffle=True, drop_last=True,
+        num_workers=num_workers, use_process_workers=True,
+        device_prefetch=device_prefetch)
+
+
+class _CheckedLoader:
+    """A loader whose first ``n`` batches are cloned on the consumer's
+    stream as they are handed out, beside a host copy of each taken as
+    the staging thread starts its copy to the card: a batch read on the
+    consumer's stream before its side-stream copy finished would show
+    as a difference."""
+
+    def __init__(self, loader, n):
+        self.loader, self.n = loader, n
+        self.num_workers = loader.num_workers
+        self.host, self.seen, self.staged = [], [], []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        from paddle_tpu_torch.io import DataLoader
+        put = DataLoader._device_put_batch
+        host = self.host
+
+        def recording(item, device):
+            if len(host) < self.n:
+                host.append([x.clone() for x in item])
+            return put(item, device)
+        DataLoader._device_put_batch = staticmethod(recording)
+        try:
+            for i, batch in enumerate(self.loader):
+                if i < self.n:
+                    self.seen.append([x.clone() for x in batch])
+                self.staged.append([x.clone() for x in batch])
+                yield batch
+        finally:
+            DataLoader._device_put_batch = staticmethod(put)
+
+
+def hapi_flowers_phase():
+    """The Paddle tutorial's ResNet-50 on Flowers-102 through
+    ``hapi.Model`` (``hapi_flowers``): f32 NCHW, B 64, one epoch of the
+    synthetic train split through process workers, the native ring and
+    ``device_prefetch``: images/s, ms/step, the prefetch wait a step and
+    the idle share (the device's busy time a step from four steps under
+    the profiler, over the epoch's wall, and the four steps' own); then
+    the same steps on batches already on the card; no hand-written
+    kernel may launch."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.io import default_collate_fn, native
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.vision.models import resnet50
+    _build.reset_launches()
+    t_phase = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f'hapi_flowers: the native ring did not build: '
+                             f'{native._lib_err!r}')
+    net = resnet50(num_classes=102, device='cuda', seed=0)
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.Momentum(learning_rate=0.01, momentum=0.9,
+                                            parameters=model.parameters()),
+                  paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    B, W = HAPI_FLOWERS_BATCH, HAPI_FLOWERS_WORKERS
+    loader = flowers_loader(paddle, B, W)
+    steps = len(loader)
+    if steps < HAPI_FLOWERS_WINDOW[1]:
+        raise AssertionError(f'hapi_flowers: {steps} steps cannot hold the '
+                             f'profiled window {HAPI_FLOWERS_WINDOW}')
+    build_s = time.perf_counter() - t_phase
+    # warm-up on batches made in this process (cuDNN's first calls)
+    t0 = time.perf_counter()
+    ds = loader.dataset
+    for i in range(HAPI_FLOWERS_WARMUP):
+        x, y = default_collate_fn([ds[j] for j in range(i * B, i * B + B)])
+        model.train_batch([x], [y])
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    rec = telemetry.get_recorder()
+
+    def counters():
+        c = rec.snapshot()['counters']
+        return (c.get('io.device_prefetch.wait_s', 0.0),
+                native.batches_carried())
+    checked = _CheckedLoader(loader, HAPI_FLOWERS_CHECKED)
+    wait0, ring0 = counters()
+    losses = []
+
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    window = {}
+
+    class Steps(paddle.hapi.callbacks.Callback):
+        """The losses, and the device's activity over steps
+        HAPI_FLOWERS_WINDOW of the epoch (the steady state: the workers
+        are up) for the idle share."""
+
+        def on_train_batch_begin(self, step, logs=None):
+            if step == HAPI_FLOWERS_WINDOW[0]:
+                torch.cuda.synchronize()
+                prof.start()
+                window['t0'] = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            losses.append(logs['loss'])
+            if step == HAPI_FLOWERS_WINDOW[1] - 1:
+                torch.cuda.synchronize()
+                window['wall_us'] = (time.perf_counter() - window['t0']) \
+                    * 1e6
+                prof.stop()
+    # one epoch: its wall gives images/s and ms/step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(checked, epochs=1, verbose=0, callbacks=[Steps()])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy_us = device_busy_us(prof)
+    idle = 1.0 - busy_us / window['wall_us']
+    copy_us, top = device_time_by_name(prof)
+    # every step does the same device work, so the window's busy time a
+    # step, over the epoch's wall, is the epoch's busy share
+    n_window = HAPI_FLOWERS_WINDOW[1] - HAPI_FLOWERS_WINDOW[0]
+    epoch_idle = 1.0 - busy_us / n_window * steps / (wall * 1e6)
+    wait1, ring1 = counters()
+    if ring1 - ring0 < steps:
+        raise AssertionError(f'hapi_flowers: the native ring carried '
+                             f'{ring1 - ring0} batches of the {steps}')
+    for i, (h, d) in enumerate(zip(checked.host, checked.seen)):
+        for a, b in zip(h, d):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f'hapi_flowers: staged batch {i} is '
+                                     'not its host batch')
+    if len(checked.seen) != HAPI_FLOWERS_CHECKED:
+        raise AssertionError('hapi_flowers: too few batches checked')
+    losses = [float(v) for v in losses]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f'hapi_flowers: losses {losses}')
+    wait_ms = (wait1 - wait0) / steps * 1e3
+    # the same batches, already on the card: the step without the loader
+    staged = checked.staged
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x, y in staged:
+        model.train_batch([x], [y])
+    torch.cuda.synchronize()
+    dev_wall = time.perf_counter() - t0
+    launches = launch_counts()
+    _no_kernel_launches('hapi_flowers', launches)
+    ips, dev_ips = steps * B / wall, len(staged) * B / dev_wall
+    dev_ms = dev_wall / len(staged) * 1e3
+    phase_s = time.perf_counter() - t_phase
+    log(f'hapi_flowers: Model(resnet50(num_classes=102)) f32 NCHW, B {B}, '
+        f'synthetic Flowers train split through RandomResizedCrop(224), '
+        f'{W} process workers, the native ring and device_prefetch: one '
+        f'epoch of {steps} steps in {wall:.3f} s = '
+        f'{wall / steps * 1e3:.2f} ms/step, {ips:.1f} images/s, prefetch '
+        f'wait {wait_ms:.2f} ms a step, idle share {epoch_idle:.3f} over '
+        f'the epoch (the device busy {busy_us / n_window / 1e3:.1f} ms a '
+        f'step) and {idle:.3f} over steps {HAPI_FLOWERS_WINDOW[0]}-'
+        f'{HAPI_FLOWERS_WINDOW[1] - 1} under the profiler (busy '
+        f'{busy_us / 1e3:.1f} of {window["wall_us"] / 1e3:.1f} ms, copies '
+        f'{copy_us / 1e3:.1f} ms, top kernels '
+        f'{[(n[:40], round(us / 1e3, 1)) for n, us in top]}); the same '
+        f'steps on batches already on the card {dev_ms:.2f} ms/step, '
+        f'{dev_ips:.1f} images/s; loss {losses[0]:.4f} -> '
+        f'{losses[-1]:.4f}; the ring carried {ring1 - ring0} batches; '
+        f'{HAPI_FLOWERS_CHECKED} staged batches equal to their host copies; '
+        f'no ported kernel launched; phase {phase_s:.1f} s (model '
+        f'{build_s:.1f} s, {HAPI_FLOWERS_WARMUP} warm-up steps '
+        f'{warmup_s:.1f} s)')
+    del model, net, checked, staged
+    _free()
+    return {'workers': W, 'batch': B, 'steps': steps,
+            'ms_per_step': wall / steps * 1e3, 'images_per_s': ips,
+            'prefetch_wait_ms_per_step': wait_ms,
+            'idle_share': epoch_idle, 'window_idle_share': idle,
+            'window_busy_ms': busy_us / 1e3,
+            'window_wall_ms': window['wall_us'] / 1e3,
+            'window_copy_ms': copy_us / 1e3,
+            'device_fed_ms_per_step': dev_ms,
+            'device_fed_images_per_s': dev_ips,
+            'ring_batches': ring1 - ring0, 'phase_s': phase_s,
+            'model_s': build_s, 'warmup_s': warmup_s,
+            'launches': launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -5612,6 +6147,8 @@ def main():
     resnet = resnet_phase()
     resnet_parity = resnet_parity_phase()
     lenet = lenet_phase()
+    hapi_lenet = hapi_lenet_phase(lenet['ms_per_step'])
+    hapi_flowers = hapi_flowers_phase()
     widedeep = widedeep_phase()
     longctx = longctx_phase()
     gptgen = gptgen_phase()
@@ -5634,7 +6171,8 @@ def main():
                     'gpt_dropout': gpt_dropout, 'gpt_f16': gpt_f16,
                     'bert': bert, 'bert_dropout_fused': bert_fused,
                     'resnet': resnet, 'resnet_parity': resnet_parity,
-                    'lenet': lenet, 'widedeep': widedeep,
+                    'lenet': lenet, 'hapi_lenet': hapi_lenet,
+                    'hapi_flowers': hapi_flowers, 'widedeep': widedeep,
                     'longctx': longctx, 'gptgen': gptgen, 'ernie': ernie,
                     'vision_zoo': zoo, 'optimizers': optimizers,
                     'moe': moe, 'moe_gen': moe_gen, 'qat': qat,
@@ -5667,6 +6205,9 @@ def main():
              **{f'resnet_parity_{name}': r['launches']
                 for name, r in resnet_parity.items()},
              'lenet': lenet['launches'],
+             # hapi over LeNet and ResNet-50 launches none (checked there)
+             'hapi_lenet': hapi_lenet['launches'],
+             'hapi_flowers': hapi_flowers['launches'],
              'widedeep': widedeep['launches'],
              'widedeep_fused': widedeep['fused']['launches'],
              'deepfm': widedeep['deepfm']['launches'],

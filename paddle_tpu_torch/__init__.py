@@ -14,8 +14,11 @@ tensor its wrapper runs the plain PyTorch twin instead.
 
 The top level carries what a Paddle script reaches for as
 ``paddle.<name>``: ``seed``, ``set_device``, ``ParamAttr``, the tensor
-ops of ``tensor`` (``to_tensor``, ``concat``, ``expand``, ...), and the
-``nn``, ``optimizer`` and ``amp`` packages.
+ops of ``tensor`` (``to_tensor``, ``concat``, ``expand``, ...), the
+high-level API (``Model``, ``summary``, ``flops``, ``save``, ``load``),
+and the ``nn``, ``optimizer``, ``amp``, ``io``, ``metric``, ``hapi``,
+``callbacks``, ``jit``, ``static``, ``framework`` and ``vision``
+packages.
 
 The package imports ``torch``, numpy and the standard library only —
 never ``jax`` and nothing of ``paddle_tpu``.
@@ -25,9 +28,16 @@ from .core.rng import seed
 from . import amp, nn, optimizer, tensor  # noqa: F401
 from . import resilience  # noqa: F401
 from . import telemetry  # noqa: F401
+from . import framework, io, jit, metric, static, vision  # noqa: F401
+from . import callbacks, hapi  # noqa: F401
+from .framework.io import load, save
+from .hapi import Model, flops, summary
 from .nn.layer.layers import ParamAttr, create_parameter
 from .tensor import *  # noqa: F401,F403
 
 __all__ = (['resolve_device', 'set_device', 'get_device', 'seed',
-            'ParamAttr', 'create_parameter', 'amp', 'nn', 'optimizer', 'tensor', 'resilience',
-            'telemetry'] + tensor.__all__)
+            'ParamAttr', 'create_parameter', 'amp', 'nn', 'optimizer',
+            'tensor', 'resilience', 'telemetry', 'framework', 'io', 'jit',
+            'metric', 'static', 'vision', 'hapi', 'callbacks', 'Model',
+            'summary',
+            'flops', 'save', 'load'] + tensor.__all__)

@@ -16,6 +16,8 @@ import collections
 
 import torch
 
+from ..tensor.search import stable_topk
+
 __all__ = ['Decoder', 'BeamSearchDecoder', 'dynamic_decode']
 
 
@@ -129,7 +131,7 @@ class BeamSearchDecoder(Decoder):
         only_end[self.end_token] = 0.0
         step_lp = torch.where(finished[..., None], only_end, step_lp)
         total = states.log_probs[..., None] + step_lp
-        scores, top = torch.topk(total.reshape(B, K * V), K, dim=-1)
+        scores, top = stable_topk(total.reshape(B, K * V), K)
         parent = top // V
         token = top % V
         prev_fin = finished.gather(1, parent)

@@ -21,13 +21,14 @@ __all__ = ['linear', 'dropout', 'dropout2d', 'dropout3d', 'alpha_dropout',
 _DROPOUT_MODES = ('upscale_in_train', 'downscale_in_infer')
 
 
-def linear(x, weight, bias=None):
+def linear(x, weight, bias=None, name=None):
     """``x @ weight + bias`` with paddle's ``weight [in, out]``."""
     x, weight, bias = amp_cast('linear', x, weight, bias)
     return TF.linear(x, weight.t(), bias)
 
 
-def dropout(x, p=0.5, axis=None, training=True, mode='upscale_in_train'):
+def dropout(x, p=0.5, axis=None, training=True, mode='upscale_in_train',
+            name=None):
     """Zero each element with probability ``p``, as the reference does.
 
     ``upscale_in_train`` scales the kept elements by ``1 / (1 - p)`` in

@@ -13,7 +13,8 @@ from .conv import CHANNEL_LAST
 __all__ = ['layer_norm', 'batch_norm']
 
 
-def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
     """LayerNorm over the last axis, through ``fused_layer_norm`` (the
     kernel on a CUDA tensor, with or without weight/bias).  It is on
     the AMP keep list: a bf16 ``x`` keeps f32 gamma/beta and f32

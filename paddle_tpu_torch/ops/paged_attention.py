@@ -67,6 +67,10 @@ def paged_attention(q, k_pool, v_pool, block_tables, lens):
     hd = q.shape[-1]
     k = gather_dense(k_pool, block_tables)     # [S, nh, mb*bs, hd]
     v = gather_dense(v_pool, block_tables)
+    # a pool of another dtype (PagedKVCache(dtype=)) meets q as the
+    # reference's einsum promotes them
+    dt = torch.promote_types(q.dtype, k.dtype)
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
     scores = torch.einsum('shd,shkd->shk', q, k) * (1.0 / math.sqrt(hd))
     cols = torch.arange(k.shape[2], device=q.device)
     mask = cols[None, :] < lens.long()[:, None]

@@ -27,6 +27,12 @@ it are formed in f32 arithmetic; a float learning rate is a Python float
 whose derived scalars are formed in double and rounded once, as the
 reference's weakly typed scalars are.
 
+``_ctx_names`` gives the name a rule sees for a parameter
+(``_ctx_param_name``, which AdamW's ``apply_decay_param_fun`` reads)
+without renaming its state-dict keys: ``hapi.Model`` passes the
+parameters' names there, as the reference's compiled step sees its
+pytree paths, while its ``.pdopt`` keys stay the reference's indices.
+
 ``grad_clip`` (``nn.clip``) runs before the coupled decay: its eager
 ``__call__`` (which honours ``need_clip``) under ``step()``, its
 ``clip_values`` under the trainer.  ``weight_decay`` is a float or an
@@ -68,6 +74,7 @@ class Optimizer:
         self._coupled_wd = 0.0 if weight_decay is None else weight_decay
         self._accumulators = {}     # id(param) -> state dict
         self._param_names = {}      # id(param) -> name (set by callers)
+        self._ctx_names = {}        # id(param) -> the name _rule sees
         self._global_step = 0
         self._ctx_param_name = None  # name of the param in _rule
         self._scalar_buf = None      # the per-step scalars, on the device
@@ -199,7 +206,8 @@ class Optimizer:
             if key not in self._accumulators:
                 self._accumulators[key] = self._create_state(p)
             g = self._apply_weight_decay_grad(p, g.to(p.dtype))
-            self._ctx_param_name = self._name(i, p)
+            self._ctx_param_name = self._ctx_names.get(id(p)) or \
+                self._name(i, p)
             s = self._scalars if functional else self._param_scalars(p)
             self._put(p, self._rule(p, g, self._accumulators[key], s))
 

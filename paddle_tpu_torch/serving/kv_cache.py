@@ -65,7 +65,8 @@ class PagedKVCache:
     """
 
     def __init__(self, num_layers, num_heads, head_dim, *,
-                 block_size, num_blocks, device=None, device_init=True):
+                 block_size, num_blocks, dtype=None, device=None,
+                 device_init=True):
         if num_blocks < 2:
             raise ValueError('num_blocks must be >= 2 (block 0 is the '
                              'reserved trash block)')
@@ -74,12 +75,17 @@ class PagedKVCache:
         self.head_dim = int(head_dim)
         self.block_size = int(block_size)
         self.num_blocks = int(num_blocks)
+        # the pools' dtype: a torch dtype or its name, float32 by default
+        self.dtype = getattr(torch, dtype) if isinstance(dtype, str) \
+            else (dtype or torch.float32)
         if device_init:
             self.device = resolve_device(device)
             shape = (self.num_blocks, self.num_heads, self.block_size,
                      self.head_dim)
-            self.pools = [(torch.zeros(shape, device=self.device),
-                           torch.zeros(shape, device=self.device))
+            self.pools = [(torch.zeros(shape, dtype=self.dtype,
+                                       device=self.device),
+                           torch.zeros(shape, dtype=self.dtype,
+                                       device=self.device))
                           for _ in range(self.num_layers)]
         else:
             self.device = None

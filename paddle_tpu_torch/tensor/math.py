@@ -27,13 +27,20 @@ subtract = _binary(torch.sub, 'subtract')
 multiply = _binary(torch.mul, 'multiply')
 
 
-def sum(x, axis=None, keepdim=False, name=None):
-    """Sum over ``axis`` (an int, a list, or None for every axis); in
-    f32 under AMP (``sum`` is black-listed)."""
+def sum(x, axis=None, dtype=None, keepdim=False, name=None):
+    """Sum over ``axis`` (an int, a list, or None for every axis) in
+    ``dtype`` (a name or a torch dtype); in f32 under AMP (``sum`` is
+    black-listed).  With no ``dtype`` a bool or integer tensor sums to
+    int32, as the reference's 32-bit integers do."""
     x, = amp_cast('sum', x)
     if isinstance(axis, int):
         axis = (axis,)
-    return x.sum(dim=axis, keepdim=keepdim)
+    if dtype is None and not x.is_floating_point() \
+            and not x.is_complex():
+        dtype = torch.int32
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return x.sum(dim=axis, keepdim=keepdim, dtype=dtype)
 
 
 def mean(x, axis=None, keepdim=False, name=None):
@@ -61,12 +68,21 @@ __all__ += ['mean', 'matmul']
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
           name=None):
-    """``x * scale + bias`` (or ``(x + bias) * scale``); the Python
-    scalars round to ``x``'s dtype first, as the reference's weakly
-    typed constants do."""
+    """``x * scale + bias`` (or ``(x + bias) * scale``).  The Python
+    scalars meet ``x`` as the reference's weakly typed constants do: on
+    a float tensor they round to its dtype first; a bool or integer
+    tensor goes to float32 where either scalar is a float, and else
+    keeps its integer dtype (int32 for bool)."""
     from ..nn.functional.norm import _scalar
     x, = amp_cast('scale', x)
-    s, b = _scalar(scale, x.dtype), _scalar(bias, x.dtype)
+    if x.is_floating_point():
+        s, b = _scalar(scale, x.dtype), _scalar(bias, x.dtype)
+    else:
+        s, b = scale, bias
+        if any(isinstance(v, float) for v in (s, b)):
+            x = x.to(torch.float32)
+        elif x.dtype == torch.bool:
+            x = x.to(torch.int32)
     return x * s + b if bias_after_scale else (x + b) * s
 
 

@@ -126,6 +126,26 @@ def _sheds(router):
     return n
 
 
+def _wait_idle(router, timeout_s=60.0):
+    """Until every live replica has nothing running or queued: a drill
+    starts from a quiet fleet, whatever the one before it left."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        busy = [rep.name for rep in router.replicas + router.spares
+                if rep.alive() and (rep.status().get('live')
+                                    or rep.status().get('queue_depth'))]
+        if not busy:
+            return
+        assert time.monotonic() < deadline, f'replicas busy: {busy}'
+        time.sleep(0.05)
+
+
+# the longest generation the drills' model holds (max_seq_len 128 less
+# the longest _shape prompt, 8 tokens): long enough that a replica is
+# still decoding when a burst's last request or a token-3 kill lands
+LONG_NEW = 120
+
+
 # ------------------------------------------------------- real fleet --
 def test_workers_are_port_processes_on_the_asked_device(fleet):
     router, door = fleet
@@ -167,10 +187,21 @@ def test_clean_twin_is_bit_exact_and_sheds_nothing(fleet, reference_engine):
 
 
 def test_overload_sheds_typed_and_every_rid_is_terminal(fleet):
+    """32 long requests at once against 2 replicas that hold 4 running
+    and 8 queued each, and 4 whose prompt + new tokens exceed the
+    model's 128 positions.  The pool's arithmetic can never admit
+    those 4: each replica they reach sheds them, ``exceeds_pool`` at
+    the engine's preflight or ``queue_full`` at a full door before it,
+    so the burst sheds whatever the arrival timing; the long
+    generations keep the replicas busy while the burst lands, so
+    ``queue_full`` sheds of the others come on top as a rule."""
     router, _door = fleet
+    _wait_idle(router)
     rids = [f'ov-{i}' for i in range(32)]
-    shapes = [(_shape(i)[0], 24) for i in range(32)]
-    res = _many(router, rids, shapes)
+    shapes = [(_shape(i)[0], LONG_NEW) for i in range(32)]
+    over = [f'ov-big-{i}' for i in range(4)]
+    over_shapes = [(_shape(50 + i)[0], 128) for i in range(4)]
+    res = _many(router, rids + over, shapes + over_shapes)
     states = {}
     for r in res.values():
         states[r['state']] = states.get(r['state'], 0) + 1
@@ -179,6 +210,10 @@ def test_overload_sheds_typed_and_every_rid_is_terminal(fleet):
     for r in res.values():
         if r['state'] == 'rejected':
             assert r['reason'] in RejectReason.ALL
+    for rid in over:
+        assert res[rid]['state'] == 'rejected', res[rid]
+        assert res[rid]['reason'] in (RejectReason.EXCEEDS_POOL,
+                                      RejectReason.QUEUE_FULL), res[rid]
     assert _sheds(router) > 0
     assert all(rep.alive() for rep in router.replicas)
     assert router.check_invariants() == []
@@ -187,6 +222,7 @@ def test_overload_sheds_typed_and_every_rid_is_terminal(fleet):
 def test_seeded_replica_kill_retries_bit_exact_and_promotes(
         fleet, reference_engine):
     router, _door = fleet
+    _wait_idle(router)
     plan = FaultPlan(seed=0, faults=[
         Fault('replica_kill', after_tokens=3, count=1)])
     inj = ServingFaultInjector(plan)
@@ -200,7 +236,10 @@ def test_seeded_replica_kill_retries_bit_exact_and_promotes(
             victim.kill(signal.SIGKILL)
 
     rids = [f'ki-{i}' for i in range(3)]
-    shapes = [_shape(100 + i) for i in range(3)]
+    # long streams: the victim still has ~29 decode spans to run when
+    # the kill at token 3 lands, so it dies mid-stream (a short stream
+    # can be written out whole before the signal arrives)
+    shapes = [(_shape(100 + i)[0], LONG_NEW) for i in range(3)]
     res = _many(router, rids, shapes, pace_s=0.05, on_token=tap)
     assert len(inj.injected) == 1
     killed = inj.injected[0]['rid']

@@ -9,7 +9,9 @@
 - an entry point with no device and no CUDA raises instead of quietly
   running on the CPU: the models, the KV cache, the serving stack a
   front door stands on, ``launch_fleet`` and the fleet's worker CLI
-  (which exits non-zero, naming ``device='cpu'``).
+  (which exits non-zero, naming ``device='cpu'``), and the high-level
+  API's (``hapi.Model`` over the zoo's default model, the
+  ``mnist_lenet`` program, ``DataLoader(device_prefetch=True)``).
 """
 import ast
 import os
@@ -78,7 +80,12 @@ def test_import_leaves_jax_unloaded():
             'paddle_tpu_torch.telemetry, paddle_tpu_torch.resilience, '
             'paddle_tpu_torch.serving.frontend, '
             'paddle_tpu_torch.serving.router, '
-            'paddle_tpu_torch.tools.serve_fleet; '
+            'paddle_tpu_torch.tools.serve_fleet, paddle_tpu_torch.hapi, '
+            'paddle_tpu_torch.io, paddle_tpu_torch.io.native, '
+            'paddle_tpu_torch.metric, paddle_tpu_torch.jit, '
+            'paddle_tpu_torch.static, paddle_tpu_torch.framework, '
+            'paddle_tpu_torch.vision.transforms, '
+            'paddle_tpu_torch.vision.datasets; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "paddle_tpu")]; print(bad); '
             'sys.exit(1 if bad else 0)')
@@ -137,3 +144,22 @@ def test_fleet_worker_cli_without_cuda_exits_naming_cpu(tmp_path):
     assert proc.returncode != 0
     assert "device='cpu'" in proc.stderr, proc.stderr
     assert not (tmp_path / 'w.port').exists()
+
+
+def test_high_level_api_without_device_raises_without_cuda(monkeypatch):
+    import numpy as np
+    import chip_smoke
+    import paddle_tpu_torch as paddle
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        paddle.Model(paddle.vision.models.LeNet())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        chip_smoke.mnist_lenet(paddle, epochs=1, limit=64)
+    ds = paddle.io.TensorDataset([np.zeros((4, 2), np.float32)])
+    loader = paddle.io.DataLoader(ds, batch_size=2, num_workers=1,
+                                  device_prefetch=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        list(loader)
+    # asked for, the CPU runs: a CPU network's Model stays there
+    model = paddle.Model(LeNet(device='cpu'))
+    assert model.device == torch.device('cpu')
