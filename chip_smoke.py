@@ -193,6 +193,24 @@ From the repository root, with one CUDA card.  It
    to their host copies, then the same steps on batches already on the
    card; none of these paths may launch a hand-written kernel (the
    reference has no Pallas kernel on them);
+   then deploying a model (``jit_deploy``): ``bert_base`` at the bench's
+   width (T 128) in f32 and eval mode, B 64 eagerly and through
+   ``jit.to_static`` (one CUDA graph: equal bit for bit, LayerNorm 26
+   and flash forward 12 a replay, ms per forward of each);
+   ``jit.save`` of it and of its encoder with an additive mask, batch
+   ``None`` (the export seconds and the files' bytes, into a temporary
+   directory outside the tree); a fresh process that imports only
+   ``paddle_tpu_torch.inference`` (``paddle_tpu_torch.models.bert`` must
+   stay unloaded) serving both artifacts through ``create_predictor`` at
+   B 1, 8 and 64: every forward exactly 26 LayerNorm + 12 flash
+   launches (25 + 12 softmax masked), the outputs within 1e-5 of the
+   largest of the eager model's (bit-equality printed), ms per forward
+   at B 64; the reference's greedy decoder, a tensor ``if`` and a
+   Python ``if`` under ``to_static`` on the card equal to eager, each
+   signature's mode printed (the tensor predicates read on the host:
+   eager; the Python one: a graph); and ``batch(reader.shuffle(
+   dataset.mnist.train(), 1024), 64)`` feeding LeNet through 16
+   ``ParallelTrainer`` steps, finite and falling, no kernel launched;
    then the bench's last three configurations and the rest of the zoo:
    Wide&Deep at bench.py's configuration (``widedeep``: 26 fields of
    100 000 ids, embed 16, hidden 400-400-400, B 16384, bf16 O2, Adam):
@@ -284,10 +302,12 @@ From the repository root, with one CUDA card.  It
    ``gptgen``, ``gpt_fused``, ``gpt_recipe``,
    ``bert_dropout_fused``, ``resnet_fused``, ``widedeep_fused``,
    ``longctx_fused``, ``mobilenet_v2_fused``, ``moe_fused``, ``moe_gen``,
-   ``qat_fused``, ``transformer_fused`` and ``lstm_lm_fused`` replay
-   graphs, ``optimizers`` half its steps; the vision, hapi, Wide&Deep,
-   QAT and LSTM paths count 0 of each, the Transformer's LayerNorm
-   only),
+   ``qat_fused``, ``transformer_fused``, ``lstm_lm_fused`` and
+   ``jit_deploy_to_static`` replay graphs, ``optimizers`` half its
+   steps, ``jit_deploy_predictor`` and ``jit_deploy_masked`` are the
+   fresh process's forwards, counted there; the vision, hapi, reader,
+   Wide&Deep, QAT and LSTM paths count 0 of each, the Transformer's
+   LayerNorm only),
    then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  Without a
@@ -641,6 +661,18 @@ HAPI_LENET_K, HAPI_LENET_TOL, HAPI_LENET_ACC = 4, 1e-4, 0.9
 HAPI_FLOWERS_BATCH, HAPI_FLOWERS_WORKERS, HAPI_FLOWERS_WARMUP = 64, 4, 2
 HAPI_FLOWERS_CHECKED = 3        # staged batches held to their host copy
 HAPI_FLOWERS_WINDOW = (8, 12)   # the epoch's steps profiled for idle
+# slice 17: deploying bert_base (bench.py:148-191's width, T 128) in f32
+JIT_SEQ = 128
+JIT_BATCHES = (1, 8, 64)
+JIT_MODEL_KW = dict(max_seq_len=JIT_SEQ)
+JIT_TOL = 1e-5          # of the largest |output| of the eager model's
+JIT_TIMED = 10          # forwards timed at B 64, eager, graph, Predictor
+JIT_LAYERS = 12
+JIT_LN = 1 + 2 * JIT_LAYERS + 1         # embeddings, 2 a layer, MLM head
+JIT_LN_MASKED = 1 + 2 * JIT_LAYERS      # BertModel: no MLM head
+JIT_READER_STEPS, JIT_READER_BATCH, JIT_READER_BUF = 16, 64, 1024
+# the reference's greedy decoder (tests/test_dy2static.py:144-175)
+DY2_V, DY2_H, DY2_EOS, DY2_MAXLEN = 16, 8, 0, 10
 
 
 def log(*args):
@@ -6118,6 +6150,446 @@ def hapi_flowers_phase():
             'launches': launches}
 
 
+# -- slice 17: deploying a model ---------------------------------------------
+
+def _scatter_nd_add(x, index, updates):
+    from paddle_tpu_torch.tensor.manipulation import scatter_nd_add
+    return scatter_nd_add(x, index, updates)
+
+
+class GreedyDecoder(torch.nn.Module):
+    """The reference's dy2static decoder (``tests/test_dy2static.py:
+    144-175``): greedy decoding that stops at EOS, a data-dependent trip
+    count in a ``while`` whose test is ``(i < MAXLEN) and (~done)``.
+    ``nn`` is the port's layer package (its layers on the default
+    device); the sizes are module globals, as there (a closure would
+    keep ``dy2static`` from converting it)."""
+
+    def __init__(self, nn):
+        super().__init__()
+        self.emb = nn.Embedding(DY2_V, DY2_H)
+        self.cell = nn.GRUCell(DY2_H, DY2_H)
+        self.head = nn.Linear(DY2_H, DY2_V)
+
+    def forward(self, start_ids, h0):
+        tok = start_ids
+        h = h0
+        out = torch.zeros([DY2_MAXLEN], dtype=torch.int64, device=h0.device)
+        i = torch.zeros((), dtype=torch.int64, device=h0.device)
+        done = tok.sum() < -1
+        while (i < DY2_MAXLEN) and (~done):
+            x = self.emb(tok)
+            h, _ = self.cell(x, h)
+            nxt = self.head(h).argmax(-1)
+            out = _scatter_nd_add(out, i.reshape([1, 1]), nxt.reshape([1]))
+            done = (nxt == DY2_EOS).all()
+            tok = nxt
+            i = i + 1
+        return out, i
+
+
+def tensor_if(x):
+    """A tensor ``if`` (the reference's ``test_tensor_if_in_to_static``)."""
+    if x.sum() > 0:
+        y = x * 2.0
+    else:
+        y = -x
+    return y + 1.0
+
+
+def python_if(x, flag):
+    """A Python ``if``: no host read, so ``to_static`` captures a graph."""
+    if flag:
+        y = x * 2.0
+    else:
+        y = x
+    return y - 1.0
+
+
+def _forward_launches(ln, softmax=0, flash=0):
+    """Launches of one inference forward: LayerNorm on ``warp``, the
+    softmax on ``vec``, the flash forward on ``simt`` (f32), nothing
+    else (no backward)."""
+    want = _per_step(1, ln, softmax=softmax)
+    want['flash_attention_fwd'] = flash
+    want['flash_attention_fwd:simt'] = flash
+    return want
+
+
+def _check_launches(what, launches, want, times=1):
+    bad = {k: (launches.get(k, 0), n * times) for k, n in want.items()
+           if launches.get(k, 0) != n * times}
+    bad.update({k: (n, 0) for k, n in launches.items()
+                if n and k not in want})
+    if bad:
+        raise AssertionError(f'{what}: launches (got, want) {bad}')
+
+
+def jit_inputs(vocab_size, batch, seq, seed=0):
+    """Seeded ids and token types (a second segment from a random
+    position of each row), int64."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, vocab_size, (batch, seq)).astype(np.int64)
+    types = (np.arange(seq)[None, :] >= rs.randint(1, seq, (batch, 1))) \
+        .astype(np.int64)
+    return ids, types
+
+
+def jit_mask(batch, seq, seed=1):
+    """An additive padding mask ``[B, 1, 1, T]``: 0 on each row's first
+    ``len`` keys, -1e9 after."""
+    lens = np.random.RandomState(seed).randint(seq // 4, seq + 1, batch)
+    keep = np.arange(seq)[None, :] < lens[:, None]
+    return np.where(keep, 0.0, -1e9).astype(np.float32)[:, None, None, :]
+
+
+# The fresh process of ``jit_deploy``: it imports the port's inference
+# API only, never the model's class, loads the two artifacts, feeds them
+# by name at B 1, 8 and 64, counts every kernel launch of each forward,
+# times the Predictor at B 64, and holds its outputs to the eager model's
+# (saved by the parent) on the host.  Prints one JSON line.
+JIT_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from paddle_tpu_torch import inference
+from paddle_tpu_torch.ops import _build
+
+def counts():
+    out = {}
+    for k in _build.KERNELS:
+        out[k.name] = k.launches
+        for v, n in k.variant_launches.items():
+            out[k.name + ':' + v] = n
+    return out
+
+def predictor(path):
+    t0 = time.perf_counter()
+    cfg = inference.Config(path)
+    cfg.enable_use_gpu(device_id=0)
+    pred = inference.create_predictor(cfg)
+    return pred, time.perf_counter() - t0
+
+def run(pred, feeds):
+    for name, arr in feeds.items():
+        pred.get_input_handle(name).copy_from_cpu(arr)
+    pred.run()
+
+def fetch(pred):
+    return [pred.get_output_handle(n).copy_to_cpu()
+            for n in pred.get_output_names()]
+
+def compare(got, want):
+    rel = max(float(np.abs(g - w).max()) / float(np.abs(w).max())
+              for g, w in zip(got, want))
+    return rel, all(np.array_equal(g, w) for g, w in zip(got, want))
+
+tmp, timed = sys.argv[1], int(sys.argv[2])
+assert 'paddle_tpu_torch.models.bert' not in sys.modules
+assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'paddle_tpu')]
+data = np.load(tmp + '/inputs.npz')
+refs = torch.load(tmp + '/eager.pt')
+res = {'models_bert_imported': False}
+pred, res['load_s'] = predictor(tmp + '/bert')
+res['input_names'] = pred.get_input_names()
+# a kernel registers when its module loads, at the first forward
+main_path = {}
+per_forward = []
+for b in (1, 8, 64):
+    feeds = {'input_ids': data['ids'][:b], 'token_type_ids': data['types'][:b]}
+    for call in range(2):                   # the capture, then a replay
+        _build.reset_launches()
+        run(pred, feeds)
+        torch.cuda.synchronize()
+        c = counts()
+        per_forward.append(c)
+        for k, n in c.items():
+            main_path[k] = main_path.get(k, 0) + n
+    got = fetch(pred)
+    rel, equal = compare(got, [t.numpy() for t in refs['b%d' % b]])
+    res['b%d' % b] = {'rel_err': rel, 'bit_equal': equal,
+                      'shapes': [list(g.shape) for g in got]}
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+for _ in range(timed):
+    run(pred, feeds)
+torch.cuda.synchronize()
+res['predictor_ms'] = (time.perf_counter() - t0) / timed * 1e3
+t0 = time.perf_counter()
+fetch(pred)
+res['copy_to_cpu_ms'] = (time.perf_counter() - t0) * 1e3
+res['graphs'] = len(pred._fn.graphs())
+res['per_forward'] = per_forward
+res['main_path'] = main_path
+masked, res['masked_load_s'] = predictor(tmp + '/bert_masked')
+feeds = {'input_ids': data['ids'], 'token_type_ids': data['types'],
+         'attn_mask': data['mask']}
+masked_forward, masked_path = [], {}
+for call in range(2):
+    _build.reset_launches()
+    run(masked, feeds)
+    torch.cuda.synchronize()
+    c = counts()
+    masked_forward.append(c)
+    for k, n in c.items():
+        masked_path[k] = masked_path.get(k, 0) + n
+rel, equal = compare(fetch(masked), [t.numpy() for t in refs['masked']])
+res['masked'] = {'rel_err': rel, 'bit_equal': equal,
+                 'per_forward': masked_forward, 'main_path': masked_path}
+res['models_bert_imported'] = 'paddle_tpu_torch.models.bert' in sys.modules
+print(json.dumps({'jit_child': res}))
+"""
+
+
+def _jit_to_static(model, ids, types, eager):
+    """Eager against ``to_static`` at B 64: bit for bit, the launches of
+    one replay exact, ms per forward of each."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.ops import _build
+    with torch.no_grad():
+        eager_ms = time_ms(lambda: model(ids, types), iters=JIT_TIMED,
+                           warmup=1)
+    jit.to_static(model)
+    t0 = time.perf_counter()
+    first = model(ids, types)                   # warm-up and capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    _build.reset_launches()
+    replay = model(ids, types)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    _check_launches('jit_deploy to_static replay', launches,
+                    _forward_launches(JIT_LN, flash=JIT_LAYERS))
+    for what, out in (('warm-up', first), ('replay', replay)):
+        if not all(torch.equal(a, b) for a, b in zip(out, eager)):
+            raise AssertionError(f'jit_deploy: to_static {what} differs '
+                                 f'from eager at B 64')
+    static_ms = time_ms(lambda: model(ids, types), iters=JIT_TIMED,
+                        warmup=1)
+    modes = list(model.forward.modes().values())
+    if modes != ['graph']:
+        raise AssertionError(f'jit_deploy: to_static modes {modes}')
+    return {'eager_ms': eager_ms, 'to_static_ms': static_ms,
+                   'capture_s': capture_s, 'mode': modes[0],
+                   'bit_equal': True, 'launches': launches}
+
+
+def _jit_dy2static():
+    """The reference's greedy decoder, a tensor ``if`` and a Python
+    ``if`` under ``to_static`` on the card: outputs equal eager's, and
+    each signature's mode."""
+    from paddle_tpu_torch import jit, nn, seed
+    from paddle_tpu_torch.jit import dy2static
+    seed(3)
+    dec = GreedyDecoder(nn)
+    ids = torch.tensor([3], device='cuda')
+    h0 = torch.zeros((1, DY2_H), device='cuda')
+    with torch.no_grad():
+        want = dec(ids, h0)
+    reads = dy2static.host_reads()
+    jit.to_static(dec)
+    got = dec(ids, h0)
+    again = dec(ids, h0)
+    dec_reads = dy2static.host_reads() - reads
+    if not all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(got, want, again)):
+        raise AssertionError(f'jit_deploy: to_static decoder {got} != '
+                             f'eager {want}')
+    x = torch.tensor([[1.0, -2.0, 0.5]], device='cuda')
+    st_if, st_py = jit.to_static(tensor_if), jit.to_static(python_if)
+    results = {}
+    for name, sf, args, fn in (('tensor_if', st_if, (x,), tensor_if),
+                               ('tensor_if_neg', st_if, (-x,), tensor_if),
+                               ('python_if', st_py, (x, True), python_if)):
+        outs = [sf(*args) for _ in range(3)]
+        if not all(torch.equal(o, fn(*args)) for o in outs):
+            raise AssertionError(f'jit_deploy: to_static {name} != eager')
+    modes = {'greedy_decoder': list(dec.forward.modes().values()),
+             'tensor_if': list(st_if.modes().values()),
+             'python_if': list(st_py.modes().values())}
+    want_modes = {'greedy_decoder': ['eager'],
+                  'tensor_if': ['eager'], 'python_if': ['graph']}
+    if modes != want_modes:
+        raise AssertionError(f'jit_deploy: signature modes {modes}, '
+                             f'expected {want_modes}')
+    results.update(tokens=got[0].tolist(), steps=int(got[1]),
+                   decoder_host_reads=dec_reads, modes=modes)
+    return results
+
+
+def _jit_reader_lenet():
+    """The fluid-era input pipeline, ``batch(reader.shuffle(dataset.
+    mnist.train(), 1024), 64)``, feeding LeNet through 16
+    ``ParallelTrainer`` steps: finite losses, the last four's mean below
+    the first four's (a new batch each step), no kernel launched."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.models import LeNet
+    paddle.seed(0)
+    model = LeNet(device='cuda', seed=0)
+    tr = _vision_trainer(model, Adam(learning_rate=LENET_LR,
+                                     parameters=model.parameters()),
+                         amp_o2=False)
+    feed = paddle.batch(paddle.reader.shuffle(
+        paddle.dataset.mnist.train(), JIT_READER_BUF), JIT_READER_BATCH)
+    _build.reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for batch in feed():
+        x = torch.from_numpy(np.stack([s[0] for s in batch]).reshape(
+            -1, 1, 28, 28)).to('cuda')
+        y = torch.tensor([[s[1]] for s in batch], device='cuda')
+        losses.append(tr.step(x, y))
+        if len(losses) == JIT_READER_STEPS:
+            break
+    losses = [tr.loss_float(v) for v in losses]
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    _no_kernel_launches('jit_deploy reader', launches)
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    if not (all(math.isfinite(v) for v in losses) and last < first):
+        raise AssertionError(f'jit_deploy reader: losses {losses}')
+    return {'losses': losses, 'ms_per_step': dt / len(losses) * 1e3,
+            'launches': launches}
+
+
+def jit_deploy_phase():
+    """``bert_base`` deployed (slice 17): eager against ``to_static`` at B
+    64 bit for bit; ``jit.save`` with ``None`` batch ``InputSpec``s (the
+    export seconds, the files' bytes), of the MLM model and of the
+    masked encoder; a fresh process that imports only
+    ``paddle_tpu_torch.inference`` serving both artifacts at B 1, 8 and
+    64, every forward's launches exact and its outputs within 1e-5 of
+    the largest of eager's; dy2static on the card; the fluid-era reader
+    feeding LeNet."""
+    import os
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models.bert import bert_base
+    from paddle_tpu_torch.static import InputSpec
+    t_phase = time.perf_counter()
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    model = bert_base(device='cuda', seed=0, **JIT_MODEL_KW).eval()
+    cfg = model.config
+    B = max(JIT_BATCHES)
+    ids, types = jit_inputs(cfg.vocab_size, B, JIT_SEQ)
+    mask = jit_mask(B, JIT_SEQ)
+    ids_d, types_d = (torch.from_numpy(a).to('cuda') for a in (ids, types))
+    refs = {}
+    with torch.no_grad():
+        for b in JIT_BATCHES:
+            refs[f'b{b}'] = model(ids_d[:b], types_d[:b])
+        refs['masked'] = model.bert(ids_d, types_d,
+                                    torch.from_numpy(mask).to('cuda'))
+    summary = _jit_to_static(model, ids_d, types_d, refs[f'b{B}'])
+    log(f'jit_deploy: on {card}: bert_base f32 eval B {B} T {JIT_SEQ}: eager '
+        f'{summary["eager_ms"]:.3f} ms/forward, to_static '
+        f'{summary["to_static_ms"]:.3f} (one graph, capture '
+        f'{summary["capture_s"]:.2f} s), equal bit for bit; launches a '
+        f'replay: LayerNorm {JIT_LN}, flash forward {JIT_LAYERS} (exact)')
+    tmp = tempfile.mkdtemp(prefix='jit_deploy_')
+    try:
+        torch.save({k: [t.cpu() for t in v] for k, v in refs.items()},
+                   os.path.join(tmp, 'eager.pt'))
+        del refs
+        np.savez(os.path.join(tmp, 'inputs.npz'), ids=ids, types=types,
+                 mask=mask)
+        spec = [InputSpec([None, JIT_SEQ], 'int64', 'input_ids'),
+                InputSpec([None, JIT_SEQ], 'int64', 'token_type_ids')]
+        files = {}
+        for name, layer, sp in (
+                ('bert', model, spec),
+                ('bert_masked', model.bert, spec + [InputSpec(
+                    [None, 1, 1, JIT_SEQ], 'float32', 'attn_mask')])):
+            t0 = time.perf_counter()
+            jit.save(layer, os.path.join(tmp, name), input_spec=sp)
+            files[name] = {
+                'export_s': time.perf_counter() - t0,
+                'pdmodel_bytes': os.path.getsize(
+                    os.path.join(tmp, name + '.pdmodel')),
+                'pdiparams_bytes': os.path.getsize(
+                    os.path.join(tmp, name + '.pdiparams'))}
+        log(f'jit_deploy: jit.save ' + '; '.join(
+            f'{n} export {f["export_s"]:.2f} s, .pdmodel '
+            f'{f["pdmodel_bytes"]} bytes, .pdiparams '
+            f'{f["pdiparams_bytes"]} bytes' for n, f in files.items()))
+        del model
+        _free()
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-c', JIT_CHILD, tmp, str(JIT_TIMED)],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if proc.returncode != 0:
+        raise AssertionError(f'jit_deploy: the Predictor process failed '
+                             f'({proc.returncode}):\n{proc.stdout}\n'
+                             f'{proc.stderr[-4000:]}')
+    child = json.loads([ln for ln in proc.stdout.splitlines()
+                        if ln.startswith('{"jit_child"')][-1])['jit_child']
+    # the child registers a kernel only when its module loads: count the
+    # others at 0, under every name this process knows
+    names = launch_counts()
+    for part in (child, child['masked']):
+        part['main_path'] = {k: part['main_path'].get(k, 0) for k in names}
+    if child['models_bert_imported']:
+        raise AssertionError('jit_deploy: the Predictor imported the model')
+    if child['input_names'] != ['input_ids', 'token_type_ids']:
+        raise AssertionError(f'jit_deploy: input names '
+                             f'{child["input_names"]}')
+    want = _forward_launches(JIT_LN, flash=JIT_LAYERS)
+    for i, c in enumerate(child['per_forward']):
+        _check_launches(f'jit_deploy Predictor forward {i}', c, want)
+    _check_launches('jit_deploy Predictor', child['main_path'], want,
+                    times=len(child['per_forward']))
+    want_masked = _forward_launches(JIT_LN_MASKED, softmax=JIT_LAYERS)
+    for i, c in enumerate(child['masked']['per_forward']):
+        _check_launches(f'jit_deploy masked forward {i}', c, want_masked)
+    for key in [f'b{b}' for b in JIT_BATCHES] + ['masked']:
+        if not child[key]['rel_err'] <= JIT_TOL:
+            raise AssertionError(f'jit_deploy: Predictor {key} lies '
+                                 f'{child[key]["rel_err"]:.3g} of the '
+                                 f'largest output from eager')
+    log(f'jit_deploy: fresh process (imports paddle_tpu_torch.inference '
+        f'only; models.bert never imported): load {child["load_s"]:.2f} '
+        f's, ' + ', '.join(
+            f'B {b} within {child[f"b{b}"]["rel_err"]:.3g} of eager '
+            f'(bit-equal {child[f"b{b}"]["bit_equal"]})'
+            for b in JIT_BATCHES) + f'; {child["graphs"]} graphs; '
+        f'Predictor {child["predictor_ms"]:.3f} ms/forward at B {B} '
+        f'(copy_to_cpu {child["copy_to_cpu_ms"]:.1f} ms); every forward '
+        f'LayerNorm {JIT_LN} + flash {JIT_LAYERS} exactly; masked '
+        f'artifact within {child["masked"]["rel_err"]:.3g} (bit-equal '
+        f'{child["masked"]["bit_equal"]}), LayerNorm {JIT_LN_MASKED} + '
+        f'softmax {JIT_LAYERS} a forward exactly; process {child_s:.1f} s')
+    dy2 = _jit_dy2static()
+    log(f'jit_deploy: dy2static on the card: greedy decoder tokens '
+        f'{dy2["tokens"]} in {dy2["steps"]} steps ({dy2["decoder_host_reads"]}'
+        f' host reads of its predicates), tensor if and Python if equal '
+        f'to eager; modes {dy2["modes"]}')
+    reader = _jit_reader_lenet()
+    log(f'jit_deploy: batch(reader.shuffle(dataset.mnist.train(), '
+        f'{JIT_READER_BUF}), {JIT_READER_BATCH}) into LeNet, '
+        f'{JIT_READER_STEPS} ParallelTrainer steps: losses '
+        f'{reader["losses"][0]:.4f} .. {reader["losses"][-1]:.4f} (finite, '
+        f'falling), {reader["ms_per_step"]:.2f} ms/step with the reader; '
+        f'no kernel launched')
+    summary.update(card=card, files=files, predictor=child, child_s=child_s,
+                   dy2static=dy2, reader=reader,
+                   phase_s=time.perf_counter() - t_phase)
+    log(f'jit_deploy: phase {summary["phase_s"]:.1f} s on {card}')
+    return summary
+
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -6149,6 +6621,7 @@ def main():
     lenet = lenet_phase()
     hapi_lenet = hapi_lenet_phase(lenet['ms_per_step'])
     hapi_flowers = hapi_flowers_phase()
+    jit_deploy = jit_deploy_phase()
     widedeep = widedeep_phase()
     longctx = longctx_phase()
     gptgen = gptgen_phase()
@@ -6172,7 +6645,10 @@ def main():
                     'bert': bert, 'bert_dropout_fused': bert_fused,
                     'resnet': resnet, 'resnet_parity': resnet_parity,
                     'lenet': lenet, 'hapi_lenet': hapi_lenet,
-                    'hapi_flowers': hapi_flowers, 'widedeep': widedeep,
+                    'hapi_flowers': hapi_flowers,
+                    'jit_deploy': {k: v for k, v in jit_deploy.items()
+                                   if k != 'predictor'},
+                    'widedeep': widedeep,
                     'longctx': longctx, 'gptgen': gptgen, 'ernie': ernie,
                     'vision_zoo': zoo, 'optimizers': optimizers,
                     'moe': moe, 'moe_gen': moe_gen, 'qat': qat,
@@ -6208,6 +6684,14 @@ def main():
              # hapi over LeNet and ResNet-50 launches none (checked there)
              'hapi_lenet': hapi_lenet['launches'],
              'hapi_flowers': hapi_flowers['launches'],
+             # slice 17: bert_base's to_static replay, the Predictor's
+             # forwards in its fresh process (counted there), the masked
+             # artifact's; dy2static and the reader-fed LeNet launch none
+             'jit_deploy_to_static': jit_deploy['launches'],
+             'jit_deploy_predictor': jit_deploy['predictor']['main_path'],
+             'jit_deploy_masked':
+                 jit_deploy['predictor']['masked']['main_path'],
+             'jit_deploy_reader': jit_deploy['reader']['launches'],
              'widedeep': widedeep['launches'],
              'widedeep_fused': widedeep['fused']['launches'],
              'deepfm': widedeep['deepfm']['launches'],

@@ -16,9 +16,9 @@ The top level carries what a Paddle script reaches for as
 ``paddle.<name>``: ``seed``, ``set_device``, ``ParamAttr``, the tensor
 ops of ``tensor`` (``to_tensor``, ``concat``, ``expand``, ...), the
 high-level API (``Model``, ``summary``, ``flops``, ``save``, ``load``),
-and the ``nn``, ``optimizer``, ``amp``, ``io``, ``metric``, ``hapi``,
-``callbacks``, ``jit``, ``static``, ``framework`` and ``vision``
-packages.
+the fluid-era ``batch``, and the ``nn``, ``optimizer``, ``amp``, ``io``,
+``metric``, ``hapi``, ``callbacks``, ``jit``, ``static``, ``framework``,
+``vision``, ``inference``, ``reader`` and ``dataset`` packages.
 
 The package imports ``torch``, numpy and the standard library only —
 never ``jax`` and nothing of ``paddle_tpu``.
@@ -30,6 +30,8 @@ from . import resilience  # noqa: F401
 from . import telemetry  # noqa: F401
 from . import framework, io, jit, metric, static, vision  # noqa: F401
 from . import callbacks, hapi  # noqa: F401
+from . import dataset, inference, reader  # noqa: F401
+from .batch import batch
 from .framework.io import load, save
 from .hapi import Model, flops, summary
 from .nn.layer.layers import ParamAttr, create_parameter
@@ -39,5 +41,5 @@ __all__ = (['resolve_device', 'set_device', 'get_device', 'seed',
             'ParamAttr', 'create_parameter', 'amp', 'nn', 'optimizer',
             'tensor', 'resilience', 'telemetry', 'framework', 'io', 'jit',
             'metric', 'static', 'vision', 'hapi', 'callbacks', 'Model',
-            'summary',
-            'flops', 'save', 'load'] + tensor.__all__)
+            'summary', 'flops', 'save', 'load', 'inference', 'reader',
+            'dataset', 'batch'] + tensor.__all__)

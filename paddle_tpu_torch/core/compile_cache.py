@@ -74,12 +74,20 @@ class GraphModule:
     the host: a capture fails loudly on a sync, and that raises.
 
     ``pool``: a ``torch.cuda.graph_pool_handle()`` shared with other
-    modules, or None for a private one (``GraphCache`` decides)."""
+    modules, or None for a private one (``GraphCache`` decides).
 
-    def __init__(self, fn, device, pool=None):
+    ``stay_eager``: called with no arguments after the warm-up; when it
+    returns True nothing is captured, ``eager`` is set, and every later
+    call runs ``fn`` on its own inputs (``jit.to_static`` keeps a
+    signature whose warm-up read a tensor predicate on the host this
+    way)."""
+
+    def __init__(self, fn, device, pool=None, stay_eager=None):
         self.fn = fn
         self.device = torch.device(device)
         self.pool = pool
+        self.stay_eager = stay_eager
+        self.eager = False
         self.graph = None
         self.inputs = None
         self.outputs = None
@@ -88,6 +96,8 @@ class GraphModule:
         self.replays = 0
 
     def __call__(self, *inputs):
+        if self.eager:
+            return self.fn(*inputs)
         if self.graph is None:
             return self._warm_up_and_capture(inputs)
         for dst, src in zip(self.inputs, inputs):
@@ -105,6 +115,9 @@ class GraphModule:
             dst.copy_(src, non_blocking=True)
         with _capture_stream(self.device) as stream:
             out = self.fn(*static)
+        if self.stay_eager is not None and self.stay_eager():
+            self.eager = True
+            return out
         graph = torch.cuda.CUDAGraph()
         rng.register_generators(graph, self.device)
         # an unreachable graph (in a reference cycle) collected during

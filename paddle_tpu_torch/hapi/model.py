@@ -46,8 +46,9 @@ equal the eager steps'.  On the CPU the cache hands out the step itself.
 cache (``compile_cache.through_cache``) exports XLA executables; a CUDA
 graph cannot be serialised, so each process captures its own.
 ``prepare(lint=)`` raises until the analysis tier is ported (ROADMAP
-Queue 1 item 11), and ``save(training=False)`` calls ``jit.save``,
-which raises until item 8b.  ``fit(profile=)`` goes to
+Queue 1 item 11).  ``save(training=False)`` calls ``jit.save(network,
+path)`` without an input spec, as the reference does, so it raises the
+reference's ``ValueError`` too.  ``fit(profile=)`` goes to
 ``telemetry.step_profiler``.  ``amp_configs`` is accepted and, as in
 the reference, not read.
 """
@@ -852,7 +853,8 @@ class Model:
     def save(self, path, training=True):
         """``path.pdparams`` (the network's state dict) and, with an
         optimizer, ``path.pdopt``, in the reference's pickle format;
-        ``training=False`` is ``jit.save`` (not ported yet)."""
+        ``training=False`` is ``jit.save(network, path)``, which, given
+        no input spec, raises the reference's ``ValueError``."""
         self._sync_back()
         if training:
             d = os.path.dirname(path)

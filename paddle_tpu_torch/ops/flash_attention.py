@@ -16,7 +16,11 @@ default precision); f32 inputs run SIMT f32 FMAs (``'simt'``).
 Plain twins, in this module: ``_reference_lse`` (the reference's
 forward twin, in torch) and ``_bwd_dq_reference``/``_bwd_dkv_reference``
 (the backward kernels' algebra written out, clamp and masking
-included).  A wrapper runs a twin only for a tensor on the CPU; on a
+included).  The forward is the operator ``paddle_tpu_torch::
+flash_attention_fwd`` (``ops/_library.py``), so ``torch.export`` keeps
+each launch as one node; the backward kernels stay ``ctypes`` launches
+(no inference path reaches them).  A wrapper runs a twin only for a
+tensor on the CPU; on a
 CUDA tensor it launches its kernel or raises.  ``chip_smoke.py`` holds
 each kernel to its own twin on the card.
 
@@ -36,6 +40,7 @@ import math
 
 import torch
 
+from . import _library
 from ._build import Kernel, aligned16, stream
 
 __all__ = ['flash_attention', 'flash_attention_lse', 'can_use_pallas']
@@ -244,14 +249,23 @@ def _on_cpu(t, name):
         raise ValueError(f'{name}: no kernel for device {t.device}')
 
 
-def _fwd(q, k, v, causal, scale):
-    """``(o in q's dtype, lse f32)``: the kernel for a CUDA tensor, the
-    plain twin for a CPU one."""
-    if q.is_cuda:
-        return _fwd_cuda(q, k, v, causal, scale)
-    _on_cpu(q, 'flash_attention')
+def _fwd_twin(q, k, v, causal, scale):
+    """The forward kernel's plain twin: ``(o in q's dtype, lse
+    f32)``."""
     o, lse = _reference_lse(q, k, v, causal, scale)
     return o.to(q.dtype), lse
+
+
+_OP = _library.op('flash_attention_fwd').default
+
+
+def _fwd(q, k, v, causal, scale):
+    """``(o in q's dtype, lse f32)`` from the operator
+    ``paddle_tpu_torch::flash_attention_fwd``: the kernel for a CUDA
+    tensor, the plain twin for a CPU one."""
+    if not q.is_cuda:
+        _on_cpu(q, 'flash_attention')
+    return _OP(q, k, v, _causal_code(causal), float(scale))
 
 
 def _bwd(q, k, v, o, lse, do, g_lse, causal, scale):

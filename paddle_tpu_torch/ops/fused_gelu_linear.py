@@ -34,8 +34,10 @@ raises.  Each kernel counts its launches by design in
 Plain twins: ``_reference`` (the kernels' arithmetic: the product of
 the operands widened to f32, not rounded to x's dtype before the bias
 as the reference's jnp ``_reference`` does for 16-bit inputs) and
-``_dz_reference`` (the backward kernel's ``dz``).  A wrapper runs a twin only for a
-tensor on the CPU; on a CUDA tensor it launches its kernel or raises.
+``_dz_reference`` (the backward kernel's ``dz``).  The forward is the
+operator ``paddle_tpu_torch::linear_gelu`` (``ops/_library.py``), so
+``torch.export`` keeps each launch as one node.  A wrapper runs a twin
+only for a tensor on the CPU; on a CUDA tensor it launches its kernel or raises.
 
 ``mlp_gelu`` is the models' dispatch: ``fc`` then the tanh-form GELU by
 default, or, with ``USE_PALLAS_MLP = True`` (the reference's opt-in
@@ -49,6 +51,7 @@ import torch
 
 from ..amp import amp_cast
 from ..nn import functional as F
+from . import _library
 from ._build import Kernel, aligned16, stream
 
 __all__ = ['fused_linear_gelu', 'mlp_gelu', 'tensor_core_route',
@@ -196,11 +199,15 @@ def _on_cpu(t, name):
         raise ValueError(f'{name}: no kernel for device {t.device}')
 
 
+_OP = _library.op('linear_gelu').default
+
+
 def _fwd(x2d, w, b, approximate):
-    if x2d.is_cuda:
-        return _fwd_cuda(x2d, w, b, approximate)
-    _on_cpu(x2d, 'fused_linear_gelu')
-    return _reference(x2d, w, b, approximate)
+    """The operator ``paddle_tpu_torch::linear_gelu``: the kernel for a
+    CUDA tensor, the plain twin for a CPU one."""
+    if not x2d.is_cuda:
+        _on_cpu(x2d, 'fused_linear_gelu')
+    return _OP(x2d, w, b, bool(approximate))
 
 
 def _dz(x2d, w, b, dy, approximate):

@@ -9,7 +9,9 @@ it, in ``variant_launches``: ``'warp'`` up to H 2048 (one row a
 above (one block a row, the row read once into registers).  Both take
 vector loads where H % 4 == 0 and the data starts on 16 bytes, scalar
 loads otherwise.
-``_reference`` is the plain PyTorch twin: the wrapper runs it only for
+The forward is the operator ``paddle_tpu_torch::fused_layer_norm``
+(``ops/_library.py``), so ``torch.export`` keeps it as one node.
+``_reference`` is the plain PyTorch twin: the operator runs it only for
 a tensor on the CPU, and ``chip_smoke.py`` holds the kernel to it on
 the card.  The backward ``_ln_bwd`` is plain PyTorch, as the
 reference's is jnp: the JAX package has no backward kernel.
@@ -18,6 +20,7 @@ import ctypes
 
 import torch
 
+from . import _library
 from ._build import Kernel, stream
 
 __all__ = ['fused_layer_norm']
@@ -96,14 +99,16 @@ def _fwd_cuda(x2d, gamma, beta, eps):
     return y, stats[0], stats[1]
 
 
+_OP = _library.op('fused_layer_norm').default
+
+
 def _fwd(x2d, gamma, beta, eps):
-    """The kernel for a CUDA tensor, the plain twin for a CPU one."""
-    if x2d.is_cuda:
-        return _fwd_cuda(x2d, gamma, beta, eps)
-    if x2d.device.type != 'cpu':
+    """The operator ``paddle_tpu_torch::fused_layer_norm``: the kernel
+    for a CUDA tensor, the plain twin for a CPU one."""
+    if x2d.device.type not in ('cuda', 'cpu'):
         raise ValueError(f'fused_layer_norm: no kernel for device '
                          f'{x2d.device}')
-    return _reference(x2d, gamma, beta, eps)
+    return _OP(x2d, gamma, beta, float(eps))
 
 
 def _ln_bwd(x2d, gamma, mean, rstd, g):

@@ -24,8 +24,11 @@ each row to its mask offset.  A mask is cast to f32 before the
 broadcast (the reference's kernel reads it as f32), which for a
 broadcast padding mask is a few KB.
 
-``_reference`` is the plain PyTorch twin (the reference's
-``_reference``): the wrapper runs it only for a tensor on the CPU, and
+The forwards are the operators ``paddle_tpu_torch::fused_softmax`` and
+``::fused_softmax_masked`` (``ops/_library.py``), so ``torch.export``
+keeps each launch as one node.  ``_reference`` is the plain PyTorch
+twin (the reference's ``_reference``): the operators run it only for a
+tensor on the CPU, and
 ``chip_smoke.py`` holds the kernels to it on the card.  The backward is
 the reference's ``_sm_bwd`` in plain PyTorch, as the reference's is jnp:
 ``dx = y * (g - sum(g * y))`` in f32, cast to y's dtype, and the mask's
@@ -40,6 +43,7 @@ import ctypes
 
 import torch
 
+from . import _library
 from ._build import Kernel, stream
 
 __all__ = ['fused_softmax']
@@ -146,13 +150,17 @@ def _fwd_cuda(x, mask):
     return y
 
 
+_OP = _library.op('fused_softmax').default
+_MASKED_OP = _library.op('fused_softmax_masked').default
+
+
 def _fwd(x, mask):
-    """The kernels for a CUDA tensor, the plain twin for a CPU one."""
-    if x.is_cuda:
-        return _fwd_cuda(x, mask)
-    if x.device.type != 'cpu':
+    """The operators ``paddle_tpu_torch::fused_softmax`` and
+    ``::fused_softmax_masked``: the kernels for a CUDA tensor, the plain
+    twin for a CPU one."""
+    if x.device.type not in ('cuda', 'cpu'):
         raise ValueError(f'fused_softmax: no kernel for device {x.device}')
-    return _reference(x, mask)
+    return _OP(x) if mask is None else _MASKED_OP(x, mask)
 
 
 def _sm_bwd(y, g):

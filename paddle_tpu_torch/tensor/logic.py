@@ -15,16 +15,27 @@ def not_equal(x, y, name=None):
     return torch.ne(x, y)
 
 
+def _operands(x, y):
+    """Both operands as tensors: a Python or numpy value beside a
+    tensor becomes one on its device (its truth is what counts), as the
+    reference's ``jnp`` ops take scalars."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(x, device=getattr(y, 'device', None))
+    if not isinstance(y, torch.Tensor):
+        y = torch.as_tensor(y, device=x.device)
+    return x, y
+
+
 def logical_and(x, y, out=None, name=None):
-    return torch.logical_and(x, y)
+    return torch.logical_and(*_operands(x, y))
 
 
 def logical_or(x, y, out=None, name=None):
-    return torch.logical_or(x, y)
+    return torch.logical_or(*_operands(x, y))
 
 
 def logical_xor(x, y, out=None, name=None):
-    return torch.logical_xor(x, y)
+    return torch.logical_xor(*_operands(x, y))
 
 
 def logical_not(x, out=None, name=None):

@@ -1,7 +1,7 @@
 """Shape ops (counterpart of ``paddle_tpu/tensor/manipulation.py``; the
 port has ``reshape``, ``flatten``, ``concat``, ``stack``, ``transpose``,
 ``split``, ``unbind``, ``squeeze``, ``unsqueeze``, ``expand``, ``tile``,
-``flip``, ``gather`` and ``gather_nd``)."""
+``flip``, ``gather``, ``gather_nd`` and ``scatter_nd_add``)."""
 import torch
 
 from ..amp import amp_cast
@@ -95,9 +95,18 @@ def expand(x, shape, name=None):
     return x.expand([int(s) for s in shape])
 
 
+def _int_list(v):
+    """An int, a list of ints or a tensor of them as a list of ints."""
+    if isinstance(v, torch.Tensor):
+        v = v.reshape(-1).tolist()
+    return [int(v)] if isinstance(v, int) else [int(r) for r in v]
+
+
 def tile(x, repeat_times, name=None):
+    """``x`` repeated ``repeat_times`` (an int, a list or a tensor)
+    along its trailing axes, as ``jnp.tile``."""
     x, = amp_cast('tile', x)
-    return x.tile(tuple(int(r) for r in repeat_times))
+    return x.tile(tuple(_int_list(repeat_times)))
 
 
 def flip(x, axis, name=None):
@@ -106,11 +115,14 @@ def flip(x, axis, name=None):
 
 
 def gather(x, index, axis=0, name=None):
-    """Rows ``index`` of ``x`` along ``axis``."""
+    """Rows ``index`` of ``x`` along ``axis``: the index's shape takes
+    the axis's place, so an int index drops the axis, as ``jnp.take``
+    does."""
     x, = amp_cast('gather', x)
-    return torch.index_select(x, int(axis), index.reshape(-1).long()) \
-        .reshape(x.shape[:int(axis) % x.dim()] + tuple(index.shape)
-                 + x.shape[int(axis) % x.dim() + 1:])
+    axis = int(axis) % x.dim()
+    index = torch.as_tensor(index, device=x.device)
+    return torch.index_select(x, axis, index.reshape(-1).long()) \
+        .reshape(x.shape[:axis] + tuple(index.shape) + x.shape[axis + 1:])
 
 
 def gather_nd(x, index, name=None):
@@ -119,5 +131,16 @@ def gather_nd(x, index, name=None):
     return x[tuple(torch.movedim(index.long(), -1, 0))]
 
 
+def scatter_nd_add(x, index, updates, name=None):
+    """``x`` with ``updates`` added at the positions ``index[...,
+    :k]`` names (repeated positions add up), as the reference's
+    ``v.at[...].add(u)``; ``x`` itself is left as it was."""
+    x, updates = amp_cast('scatter_nd_add', x, updates)
+    index = torch.as_tensor(index, device=x.device).long()
+    return x.index_put(tuple(torch.movedim(index, -1, 0)),
+                       updates.to(x.dtype), accumulate=True)
+
+
 __all__ += ['transpose', 'split', 'unbind', 'squeeze', 'unsqueeze',
-            'expand', 'tile', 'flip', 'gather', 'gather_nd']
+            'expand', 'tile', 'flip', 'gather', 'gather_nd',
+            'scatter_nd_add']

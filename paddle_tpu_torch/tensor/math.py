@@ -45,8 +45,11 @@ def sum(x, axis=None, dtype=None, keepdim=False, name=None):
 
 def mean(x, axis=None, keepdim=False, name=None):
     """Mean over ``axis`` (an int, a list, or None for every axis); in
-    f32 under AMP (``mean`` is black-listed)."""
+    f32 under AMP (``mean`` is black-listed).  A bool or integer tensor
+    averages in float32, as the reference's ``jnp.mean`` does."""
     x, = amp_cast('mean', x)
+    if not x.is_floating_point() and not x.is_complex():
+        x = x.float()
     if isinstance(axis, int):
         axis = (axis,)
     return x.mean(dim=axis, keepdim=keepdim)

@@ -26,6 +26,11 @@ def topk(x, k, axis=-1, largest=True, sorted=True, name=None):
 
 
 def argmax(x, axis=None, keepdim=False, dtype='int64', name=None):
+    """Index of the largest element along ``axis`` (of the flattened
+    ``x`` when None), the first among equals; a bool ``x`` compares as
+    0/1, as ``jnp.argmax`` does."""
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)
     if axis is None:
         return torch.argmax(x)
     return torch.argmax(x, dim=axis, keepdim=keepdim)

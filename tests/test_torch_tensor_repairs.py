@@ -16,6 +16,14 @@ to the JAX package here on the same numpy inputs (ROADMAP Queue 3, items
    ``nonzero`` (with ``as_tuple``) is ported.
 6. ``PagedKVCache(..., dtype=)`` makes its pools in that dtype.
 
+And six calls that raised in the port where the reference returns a
+value (ROADMAP Queue 3, repaired with slice 17): ``mean`` of an integer
+or bool tensor, ``argmax`` of a bool tensor, ``logical_and``/``or``/
+``xor`` with a Python scalar, ``gather`` with an int index and ``tile``
+with an int.  ``argmax``'s indices are int64 in the port (the declared
+``dtype``) and int32 in the reference (JAX without x64): the values are
+held, the dtype is the documented difference.
+
 Results and dtypes are held exactly (integer results, selections and
 f32 products of exactly representable values), floats within 1 f32 ulp
 where the two packages multiply in another order.
@@ -288,3 +296,66 @@ def test_bf16_pool_serves_paged_attention_as_the_reference():
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=2e-6)
+
+
+# -- slice 17: six calls that raised -----------------------------------------
+X6 = np.asarray([[1, -2, 3], [4, 5, -6]], np.int32)
+B6 = np.asarray([[True, False, True], [False, False, True]])
+
+RAISED_CASES = [
+    ('mean', X6, lambda P, x: P.mean(x)),
+    ('mean_axis1', X6, lambda P, x: P.mean(x, axis=1)),
+    ('mean_bool', B6, lambda P, x: P.mean(x)),
+    ('mean_bool_keepdim', B6, lambda P, x: P.mean(x, axis=1, keepdim=True)),
+    ('logical_and_scalar', X6, lambda P, x: P.logical_and(x, 2)),
+    ('logical_or_scalar', X6, lambda P, x: P.logical_or(x, 2)),
+    ('logical_xor_scalar', X6, lambda P, x: P.logical_xor(x, 2)),
+    ('logical_and_zero', X6, lambda P, x: P.logical_and(x, 0)),
+    ('gather_int', X6, lambda P, x: P.gather(x, 1)),
+    ('gather_int_axis1', X6, lambda P, x: P.gather(x, 1, axis=1)),
+    ('gather_list', X6, lambda P, x: P.gather(x, [1, 0])),
+    ('tile_int', X6, lambda P, x: P.tile(x, 2)),
+]
+
+
+@pytest.mark.parametrize('name,x,call', RAISED_CASES,
+                         ids=[c[0] for c in RAISED_CASES])
+def test_calls_that_raised_return_the_references_value(name, x, call):
+    """Equal dtypes; equal values, a float mean within 1 f32 ulp (XLA
+    multiplies by the reciprocal of the count, PyTorch divides)."""
+    want = np.asarray(call(jpaddle, jpaddle.to_tensor(x)).numpy())
+    got = _np(call(paddle, torch.from_numpy(x)))
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    if got.dtype.kind == 'f':
+        np.testing.assert_array_max_ulp(got, want, maxulp=1)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize('axis', [1, 0, None])
+def test_argmax_of_a_bool_tensor_takes_the_first_true(axis):
+    want = np.asarray(jpaddle.argmax(jpaddle.to_tensor(B6), axis).numpy())
+    got = paddle.argmax(torch.from_numpy(B6), axis)
+    assert got.dtype == torch.int64         # int32 in JAX without x64
+    np.testing.assert_array_equal(_np(got), want)
+
+
+def test_scatter_nd_add_matches_the_reference():
+    x = np.zeros([6], np.int64)
+    idx = np.asarray([[1], [3], [1]], np.int64)
+    upd = np.asarray([5, 7, 2], np.int64)
+    want = np.asarray(jpaddle.tensor.manipulation.scatter_nd_add(
+        jpaddle.to_tensor(x), jpaddle.to_tensor(idx),
+        jpaddle.to_tensor(upd)).numpy())
+    got = paddle.tensor.manipulation.scatter_nd_add(
+        torch.from_numpy(x), torch.from_numpy(idx), torch.from_numpy(upd))
+    np.testing.assert_array_equal(_np(got), want)
+    xf = np.arange(12, dtype=np.float32).reshape(3, 4)
+    idx2 = np.asarray([[0, 1], [2, 3], [0, 1]], np.int64)
+    u2 = np.asarray([0.5, -1.0, 2.0], np.float32)
+    want = np.asarray(jpaddle.tensor.manipulation.scatter_nd_add(
+        jpaddle.to_tensor(xf), jpaddle.to_tensor(idx2),
+        jpaddle.to_tensor(u2)).numpy())
+    got = paddle.tensor.manipulation.scatter_nd_add(
+        torch.from_numpy(xf), torch.from_numpy(idx2), torch.from_numpy(u2))
+    _same(got, want)
