@@ -293,7 +293,13 @@ From the repository root, with one CUDA card.  It
    f32, SGD lr 1 with a global-norm clip of 10): 2 + 5 eager steps with
    finite, falling losses, no ported kernel, words/s and an f32 step at
    B 2 against the CPU, then ``step_fused`` against eager bit for bit
-   (``lstm_lm_fused``);
+   (``lstm_lm_fused``); then the tensor library (``tensor_lib``): every
+   name of ``paddle_tpu_torch.tensor.__all__`` called on the card (each
+   call recorded) against the same call on the CPU, the random ops by
+   seed and by their laws, ``grad`` through gpt_small's training path
+   bit for bit equal to ``backward()`` with exact launches, and the
+   second order through one block against the CPU, each pass's
+   launches exact (``tensor_lib_grad``, ``tensor_lib_second_order``);
 12. prints one JSON line with the serving and training results, one
    listing every kernel (its launches on each path, each path's counts
    set to 0 just before it and read just after, and per design where a
@@ -6590,6 +6596,875 @@ def jit_deploy_phase():
 
 
 
+# -- slice 18: the tensor library and autograd ---------------------------------
+# Every function of paddle_tpu_torch.tensor.__all__ on the card, held to
+# the same call on the CPU with the same inputs: elementwise ops,
+# reductions and manipulation on gpt_small's activations [8, 1024, 768]
+# (f32, and bf16 where the case says), sort/search/top-k on [8, 50257]
+# logits (rounded to 0.1 so that ties occur), linalg on 768 x 768.
+# Tolerances, as the largest |card - CPU| over the largest |CPU value|
+# of each output: elementwise f32 1e-5 (transcendentals differ by an ulp
+# or two between CUDA's and the CPU's libm), bf16 2^-7 (one bf16 step of
+# a result rounded from f32 values that differ by an ulp); reductions
+# f32 1e-4 (sums over up to 6.3M elements in another order), bf16 2^-7;
+# linalg f32 1e-3 (cuSOLVER and LAPACK factor in other orders, 768-long
+# dot products); every integer, bool, index, sort, search and
+# manipulation result exactly.  The random ops cannot match the CPU's
+# generator: they are held by determinism and by their laws.
+TLIB_SHAPE = (8, 1024, 768)
+TLIB_VOCAB = 50257
+TLIB_N = 768
+TLIB_DRAWS = 1 << 24
+TLIB_TOL = {('elementwise', torch.float32): 1e-5,
+            ('elementwise', torch.bfloat16): 2.0 ** -7,
+            ('reduction', torch.float32): 1e-4,
+            ('reduction', torch.bfloat16): 2.0 ** -7,
+            ('linalg', torch.float32): 1e-3}
+# the WGAN-GP-style penalty through one gpt_small block on the card
+# against the CPU (f32, causal, B 2 x T 1024): each gradient's largest
+# gap over its largest |value|
+TLIB_BLOCK_BATCH, TLIB_SECOND_ORDER_TOL = 2, 1e-3
+TLIB_CONSTANT_BIAS = 'mlp.proj.bias'
+TLIB_CHI2_999 = {9: 27.877}    # chi-square 99.9% quantile by d.o.f.
+
+
+def _tlib_inputs():
+    """The phase's numpy inputs, seed 0."""
+    rs = np.random.RandomState(0)
+    x = rs.randn(*TLIB_SHAPE).astype(np.float32)
+    y = rs.randn(*TLIB_SHAPE).astype(np.float32)
+    g = rs.randn(TLIB_N, TLIB_N).astype(np.float32)
+    mat = np.eye(TLIB_N, dtype=np.float32) + 0.5 * g / np.sqrt(TLIB_N)
+    spd = (g @ g.T / TLIB_N + np.eye(TLIB_N)).astype(np.float32)
+    return {
+        'x': x, 'y': y, 'pos': np.abs(y) + 0.5,
+        'unit': np.tanh(y).astype(np.float32) * 0.9,
+        'near1': (1.0 + 1e-3 * y).astype(np.float32),
+        'ix': rs.randint(-50, 50, TLIB_SHAPE).astype(np.int32),
+        'ipos': rs.randint(1, 50, TLIB_SHAPE).astype(np.int32),
+        'halves': (rs.randint(0, 100, TLIB_SHAPE) + 0.5).astype(np.float32),
+        'logits': np.round(3 * rs.randn(8, TLIB_VOCAB), 1).astype(np.float32),
+        'mat': mat.astype(np.float32), 'spd': spd,
+        'rhs': rs.randn(TLIB_N, 64).astype(np.float32),
+        'v': rs.randn(TLIB_N).astype(np.float32),
+        'w64': rs.randn(64).astype(np.float32),
+        'm64': rs.randn(64, 64).astype(np.float32),
+        'cplx': (x[0, :4] + 1j * y[0, :4]).astype(np.complex64),
+        'idx': rs.randint(0, 1024, 512).astype(np.int64),
+        'perm': rs.permutation(1024)[:64].astype(np.int64),
+        'rows': rs.randint(0, 8, (8, 1)).astype(np.int64),
+    }
+
+
+def _tlib_cases():
+    """``(name, family, fn, bf16)``: ``fn(P, d)`` calls the op on the
+    inputs ``d`` (tensors of one device); ``bf16`` runs it a second time
+    with the float inputs in bf16."""
+    E, R, X, L = 'elementwise', 'reduction', 'exact', 'linalg'
+    cases = []
+
+    def add(name, family, fn, bf16=False):
+        cases.append((name, family, fn, bf16))
+
+    # creation (on the default device, set to each side's in turn)
+    add('to_tensor', X, lambda P, d: P.to_tensor(d['x'].cpu().numpy()[:2]))
+    add('zeros', X, lambda P, d: P.zeros(TLIB_SHAPE))
+    add('ones', X, lambda P, d: P.ones(TLIB_SHAPE, 'bfloat16'))
+    add('full', X, lambda P, d: P.full(TLIB_SHAPE, 2.5))
+    add('empty', X, lambda P, d: P.empty([4, 4]))
+    add('zeros_like', X, lambda P, d: P.zeros_like(d['x']), True)
+    add('ones_like', X, lambda P, d: P.ones_like(d['x']))
+    add('full_like', X, lambda P, d: P.full_like(d['x'], 3.0), True)
+    add('empty_like', X, lambda P, d: P.empty_like(d['x']))
+    add('arange', X, lambda P, d: P.arange(0, 1 << 20))
+    add('linspace', E, lambda P, d: P.linspace(0, 1, 1 << 20))
+    add('logspace', E, lambda P, d: P.logspace(0, 2, 4096))
+    add('eye', X, lambda P, d: P.eye(TLIB_N))
+    add('diag', X, lambda P, d: [P.diag(d['x'][0], 1), P.diag(d['v'], -2)])
+    add('diagflat', X, lambda P, d: P.diagflat(d['v']))
+    add('tril', X, lambda P, d: P.tril(d['x'], -1), True)
+    add('triu', X, lambda P, d: P.triu(d['x'], 1), True)
+    add('meshgrid', X, lambda P, d: P.meshgrid(d['x'][0, :, 0],
+                                               d['v']))
+    add('assign', X, lambda P, d: P.assign(d['x']), True)
+    add('clone', X, lambda P, d: P.clone(d['x']), True)
+
+    # elementwise
+    unary = {'exp': 'x', 'expm1': 'x', 'log': 'pos', 'log2': 'pos',
+             'log10': 'pos', 'log1p': 'pos', 'sqrt': 'pos', 'rsqrt': 'pos',
+             'square': 'x', 'abs': 'x', 'sign': 'x', 'sgn': 'x', 'sin': 'x',
+             'cos': 'x', 'tan': 'unit', 'asin': 'unit', 'acos': 'unit',
+             'atan': 'x', 'sinh': 'x', 'cosh': 'x', 'tanh': 'x',
+             'asinh': 'x', 'acosh': 'pos', 'atanh': 'unit',
+             'reciprocal': 'pos', 'floor': 'x', 'ceil': 'x', 'round': 'x',
+             'trunc': 'x', 'erf': 'x', 'erfinv': 'unit', 'digamma': 'pos',
+             'lgamma': 'pos', 'frac': 'x', 'rad2deg': 'x', 'deg2rad': 'x',
+             'angle': 'x', 'real': 'x', 'imag': 'x', 'conj': 'x',
+             'isfinite': 'x', 'isinf': 'x', 'isnan': 'x', 'logit': 'unit',
+             'stanh': 'x'}
+    low = {'exp', 'log', 'sqrt', 'rsqrt', 'square', 'abs', 'sign', 'sin',
+           'cos', 'tanh', 'floor', 'ceil', 'round', 'reciprocal', 'erf'}
+    for name, key in unary.items():
+        arg = (lambda P, d, k=key: d[k] * 0.5 + 0.5) if name == 'logit' \
+            else (lambda P, d, k=key: d[k])
+        add(name, E, lambda P, d, n=name, a=arg: getattr(P, n)(a(P, d)),
+            name in low)
+    binary = ['add', 'subtract', 'multiply', 'divide', 'floor_divide',
+              'mod', 'remainder', 'floor_mod', 'maximum', 'minimum', 'fmax',
+              'fmin', 'atan2', 'heaviside']
+    for name in binary:
+        add(name, E, lambda P, d, n=name: getattr(P, n)(d['x'], d['pos']),
+            name in ('add', 'subtract', 'multiply', 'divide', 'maximum',
+                     'minimum'))
+    add('pow', E, lambda P, d: [P.pow(d['pos'], d['unit']),
+                                P.pow(d['x'], 3)], True)
+    add('float_power', E, lambda P, d: P.float_power(d['pos'], 0.5))
+    add('gcd', X, lambda P, d: P.gcd(d['ix'], d['ipos']))
+    add('lcm', X, lambda P, d: P.lcm(d['ix'], d['ipos']))
+    add('clip', E, lambda P, d: P.clip(d['x'], -0.5, 0.5), True)
+    add('nan_to_num', E, lambda P, d: P.nan_to_num(P.log(d['x'])))
+    add('lerp', E, lambda P, d: P.lerp(d['x'], d['y'], 0.3), True)
+    add('scale', E, lambda P, d: P.scale(d['x'], 2.0, 0.5), True)
+    add('increment', E, lambda P, d: P.increment(P.clone(d['x']), 2.0))
+    add('multiply_', E, lambda P, d: P.multiply_(P.clone(d['x']), d['y']))
+    add('add_', E, lambda P, d: P.add_(P.clone(d['x']), d['y']))
+    add('subtract_', E, lambda P, d: P.subtract_(P.clone(d['x']), d['y']))
+    add('clip_', E, lambda P, d: P.clip_(P.clone(d['x']), -1.0, 1.0))
+    add('scale_', E, lambda P, d: P.scale_(P.clone(d['x']), 3.0, 1.0))
+    for name in ('tanh_', 'exp_', 'ceil_', 'floor_', 'round_'):
+        add(name, E, lambda P, d, n=name: getattr(P, n)(P.clone(d['x'])))
+    for name in ('reciprocal_', 'rsqrt_', 'sqrt_'):
+        add(name, E, lambda P, d, n=name: getattr(P, n)(P.clone(d['pos'])))
+    add('diff', E, lambda P, d: P.diff(d['x'], axis=-1), True)
+    add('take', X, lambda P, d: P.take(d['x'], d['idx'], mode='wrap'))
+    add('multiplex', X, lambda P, d: P.multiplex(
+        [d['x'][:, 0], d['y'][:, 0]], d['rows'] % 2))
+    add('add_n', E, lambda P, d: P.add_n([d['x'], d['y'], d['pos']]), True)
+    add('outer', L, lambda P, d: P.outer(d['v'], d['v']))
+    add('inner', L, lambda P, d: P.inner(d['x'][0], d['y'][0]))
+    add('kron', L, lambda P, d: P.kron(d['m64'], d['m64'][:8, :8]))
+    add('addmm', L, lambda P, d: P.addmm(d['rhs'], d['mat'], d['rhs'],
+                                         0.5, 2.0))
+    add('trace', R, lambda P, d: P.trace(d['mat']))
+    add('matmul', L, lambda P, d: P.matmul(d['x'][0], d['mat']))
+    add('conj', E, lambda P, d: P.conj(d['cplx']))
+
+    # reductions
+    for name in ('sum', 'mean', 'max', 'min', 'amax', 'amin', 'logsumexp'):
+        add(name, R, lambda P, d, n=name: [getattr(P, n)(d['x']),
+                                           getattr(P, n)(d['x'], axis=-1),
+                                           getattr(P, n)(d['x'], axis=[0, 1],
+                                                         keepdim=True)],
+            name != 'logsumexp')
+    add('prod', R, lambda P, d: P.prod(d['near1'], axis=-1))
+    # (no bf16 cumsum: a running sum rounded to bf16 at each of 768
+    # steps drifts by more than one bf16 step on either device)
+    add('cumsum', R, lambda P, d: P.cumsum(d['x'], axis=-1))
+    add('cumprod', R, lambda P, d: P.cumprod(d['near1'], dim=-1))
+    add('all', X, lambda P, d: [P.all(d['x'] > -9), P.all(d['x'] > 0, 1)])
+    add('any', X, lambda P, d: [P.any(d['x'] > 4), P.any(d['x'] > 3, 2)])
+    add('count_nonzero', X, lambda P, d: P.count_nonzero(d['x'] > 0, -1))
+    for name in ('sum', 'cumsum', 'prod', 'cumprod'):
+        add(f'{name}:int', X, lambda P, d, n=name: getattr(P, n)(
+            d['ix'][:, :, :4], **({'dim': -1} if n == 'cumprod' else
+                                  {'axis': -1})))
+    add('std', R, lambda P, d: [P.std(d['x']), P.std(d['x'], axis=1)])
+    add('var', R, lambda P, d: P.var(d['x'], axis=[0, 2], unbiased=False))
+    add('median', R, lambda P, d: [P.median(d['x'], axis=-1),
+                                   P.median(d['x'][0])])
+    add('quantile', R, lambda P, d: P.quantile(d['x'], [0.1, 0.5, 0.9],
+                                               axis=-1))
+    add('nanmean', R, lambda P, d: P.nanmean(P.log(d['x']), axis=-1))
+    add('nansum', R, lambda P, d: P.nansum(P.log(d['x']), axis=-1))
+
+    # manipulation
+    man = {
+        'reshape': lambda P, d: P.reshape(d['x'], [-1, 768]),
+        'view': lambda P, d: P.view(d['x'], [8192, 768]),
+        'flatten': lambda P, d: P.flatten(d['x'], 0, 1),
+        'transpose': lambda P, d: P.transpose(d['x'], [1, 0, 2]),
+        'moveaxis': lambda P, d: P.moveaxis(d['x'], 0, -1),
+        'concat': lambda P, d: P.concat([d['x'], d['y']], axis=1),
+        'split': lambda P, d: P.split(d['x'], 3, axis=2),
+        'chunk': lambda P, d: P.chunk(d['x'], 4, axis=1),
+        'stack': lambda P, d: P.stack([d['x'], d['y']], axis=1),
+        'unstack': lambda P, d: P.unstack(d['x'], axis=0),
+        'unbind': lambda P, d: P.unbind(d['x'], 0),
+        'squeeze': lambda P, d: P.squeeze(d['x'][:, :1], 1),
+        'unsqueeze': lambda P, d: P.unsqueeze(d['x'], [0, 2]),
+        'expand': lambda P, d: P.expand(d['x'][:, :1], [8, 1024, 768]),
+        'expand_as': lambda P, d: P.expand_as(d['x'][:1], d['x']),
+        'broadcast_to': lambda P, d: P.broadcast_to(d['v'], TLIB_SHAPE),
+        'tile': lambda P, d: P.tile(d['x'][:2], [2, 1, 1]),
+        'flip': lambda P, d: P.flip(d['x'], [0, 2]),
+        'reverse': lambda P, d: P.reverse(d['x'], 1),
+        'rot90': lambda P, d: P.rot90(d['x'], 1, [1, 2]),
+        'roll': lambda P, d: P.roll(d['x'], 5, 1),
+        'gather': lambda P, d: P.gather(d['x'], d['idx'], axis=1),
+        'gather_nd': lambda P, d: P.gather_nd(
+            d['x'], P.stack([d['idx'] % 8, d['idx']], axis=1)),
+        'index_select': lambda P, d: P.index_select(d['x'], d['idx'], 1),
+        'index_sample': lambda P, d: P.index_sample(
+            d['x'][:, 0], P.reshape(d['idx'], [8, 64]) % 768),
+        'take_along_axis': lambda P, d: P.take_along_axis(
+            d['x'], P.argsort(d['x'], axis=-1), -1),
+        'put_along_axis': lambda P, d: P.put_along_axis(
+            d['x'], P.argsort(d['x'], axis=-1)[:, :, :4], 0.0, -1),
+        'scatter': lambda P, d: P.scatter(d['x'][0], d['perm'],
+                                          d['y'][0, :64]),
+        'scatter:add': lambda P, d: P.scatter(d['x'][0], d['idx'][:64] % 16,
+                                              d['y'][0, :64],
+                                              overwrite=False),
+        'scatter_': lambda P, d: P.scatter_(P.clone(d['x'][0]),
+                                            d['idx'][:64] % 16,
+                                            d['y'][0, :64], overwrite=False),
+        'scatter_nd_add': lambda P, d: P.scatter_nd_add(
+            d['x'][0], P.reshape(d['idx'] % 16, [-1, 1]), d['y'][0, :512]),
+        'scatter_nd': lambda P, d: P.scatter_nd(
+            P.reshape(d['idx'] % 16, [-1, 1]), d['y'][0, :512], [16, 768]),
+        'repeat_interleave': lambda P, d: P.repeat_interleave(
+            d['x'][:2], 2, axis=1),
+        'cast': lambda P, d: [P.cast(d['x'], 'bfloat16'),
+                              P.cast(d['x'] * 10, 'int32')],
+        'slice': lambda P, d: P.slice(d['x'], [1, 2], [3, 10], [-5, 700]),
+        'strided_slice': lambda P, d: P.strided_slice(
+            d['x'], [1, 2], [0, 700], [1024, 3], [3, -7]),
+        'crop': lambda P, d: P.crop(d['x'], [4, 512, -1], [1, 100, 8]),
+        'tensordot': lambda P, d: P.tensordot(d['x'][0], d['mat'],
+                                              axes=[[1], [0]]),
+        'atleast_1d': lambda P, d: P.atleast_1d(d['x'][0, 0, 0]),
+        'atleast_2d': lambda P, d: P.atleast_2d(d['v']),
+        'atleast_3d': lambda P, d: P.atleast_3d(d['mat']),
+        'shard_index': lambda P, d: P.shard_index(d['ipos'], 64, 4, 1),
+        'shape': lambda P, d: P.shape(d['x']),
+        'rank': lambda P, d: P.rank(d['x']),
+        'numel': lambda P, d: P.numel(d['x']),
+        'reshape_': lambda P, d: P.reshape_(P.clone(d['x']), [8192, 768]),
+        'flatten_': lambda P, d: P.flatten_(P.clone(d['x']), 0, 1),
+        'squeeze_': lambda P, d: P.squeeze_(P.clone(d['x'][:, :1]), 1),
+        'unsqueeze_': lambda P, d: P.unsqueeze_(P.clone(d['x']), 0),
+        'unique': lambda P, d: P.unique(d['ix'], return_index=True,
+                                        return_inverse=True,
+                                        return_counts=True),
+    }
+    bf16_man = {'reshape', 'transpose', 'concat', 'split', 'stack',
+                'gather', 'scatter', 'flip', 'roll', 'cast', 'slice'}
+    # the adding scatters sum repeated rows in another order on the card
+    adding = {'scatter:add', 'scatter_', 'scatter_nd_add', 'scatter_nd'}
+    for name, fn in man.items():
+        fam = L if name == 'tensordot' else E if name in adding else X
+        add(name, fam, fn, name in bf16_man)
+
+    # logic
+    for name in ('equal', 'not_equal', 'greater_than', 'greater_equal',
+                 'less_than', 'less_equal', 'logical_and', 'logical_or',
+                 'logical_xor'):
+        add(name, X, lambda P, d, n=name: [getattr(P, n)(d['x'], d['y']),
+                                           getattr(P, n)(d['x'], 0.0)],
+            True)
+    add('logical_not', X, lambda P, d: P.logical_not(d['x'] > 0))
+    for name in ('bitwise_and', 'bitwise_or', 'bitwise_xor'):
+        add(name, X, lambda P, d, n=name: getattr(P, n)(d['ix'], d['ipos']))
+    add('bitwise_not', X, lambda P, d: P.bitwise_not(d['ix']))
+    add('allclose', X, lambda P, d: [P.allclose(d['x'], d['x'] + 1e-9),
+                                     P.allclose(d['x'], d['y'])])
+    add('isclose', X, lambda P, d: P.isclose(d['x'], d['x'] * 1.00001))
+    add('equal_all', X, lambda P, d: [P.equal_all(d['x'], d['x']),
+                                      P.equal_all(d['x'], d['y'])])
+    add('is_empty', X, lambda P, d: [P.is_empty(d['x']),
+                                     P.is_empty(d['x'][:0])])
+
+    # search (the logits: ties at 0.1 steps)
+    add('argmax', X, lambda P, d: [P.argmax(d['logits'], axis=-1),
+                                   P.argmax(d['logits'])], True)
+    add('argmin', X, lambda P, d: P.argmin(d['logits'], axis=-1,
+                                           keepdim=True), True)
+    add('argsort', X, lambda P, d: [P.argsort(d['logits'], axis=-1),
+                                    P.argsort(d['logits'], axis=-1,
+                                              descending=True)], True)
+    add('sort', X, lambda P, d: [P.sort(d['logits'], axis=-1),
+                                 P.sort(d['logits'], 0, True)], True)
+    add('topk', X, lambda P, d: [*P.topk(d['logits'], 50),
+                                 *P.topk(d['logits'], 5, largest=False)],
+        True)
+    add('where', X, lambda P, d: P.where(d['x'] > 0, d['x'], d['y']), True)
+    add('nonzero', X, lambda P, d: P.nonzero(d['logits'] > 8.0))
+    add('masked_select', X, lambda P, d: P.masked_select(d['logits'],
+                                                         d['logits'] > 8))
+    add('searchsorted', X, lambda P, d: P.searchsorted(
+        P.sort(d['logits'][0]), d['logits'][1], right=True))
+    add('kthvalue', X, lambda P, d: P.kthvalue(d['logits'], 100, axis=-1))
+    add('mode', X, lambda P, d: P.mode(d['logits'], axis=-1))
+
+    # linalg
+    lin = {
+        'mm': lambda P, d: P.mm(d['mat'], d['rhs']),
+        'bmm': lambda P, d: P.bmm(d['x'][:, :64], d['x'][:, :64].transpose(
+            1, 2)),
+        'dot': lambda P, d: P.dot(d['x'], d['y']),
+        'mv': lambda P, d: P.mv(d['mat'], d['v']),
+        't': lambda P, d: P.t(d['mat']),
+        'norm': lambda P, d: [P.norm(d['x']), P.norm(d['x'], 2, axis=-1),
+                              P.norm(d['mat'], np.inf, axis=0)],
+        'dist': lambda P, d: [P.dist(d['x'], d['y']),
+                              P.dist(d['x'], d['y'], 1)],
+        'cross': lambda P, d: P.cross(d['x'][0, :, :3], d['y'][0, :, :3]),
+        'cholesky': lambda P, d: P.cholesky(d['spd']),
+        'matrix_power': lambda P, d: P.matrix_power(d['mat'], 3),
+        'histogram': lambda P, d: P.histogram(d['halves'], 50, 0, 100),
+        'einsum': lambda P, d: P.einsum('btd,de->bte', d['x'][:2],
+                                        d['mat']),
+        'inv': lambda P, d: P.inv(d['mat']),
+        'inverse': lambda P, d: P.inverse(d['spd']),
+        'det': lambda P, d: P.det(d['mat']),
+        'slogdet': lambda P, d: P.slogdet(d['mat']),
+        'solve': lambda P, d: P.solve(d['spd'], d['rhs']),
+        'triangular_solve': lambda P, d: P.triangular_solve(
+            P.triu(d['spd']), d['rhs']),
+        'pinv': lambda P, d: P.pinv(d['rhs']),
+        'multi_dot': lambda P, d: P.multi_dot([d['mat'], d['spd'],
+                                               d['rhs']]),
+        'cond': lambda P, d: P.cond(d['spd']),
+        'matrix_rank': lambda P, d: P.matrix_rank(d['spd']),
+        'svd': lambda P, d: P.svd(d['mat'])[1],
+        'qr': lambda P, d: P.abs(P.diag(P.qr(d['mat'])[1])),
+        'eigh': lambda P, d: P.eigh(d['spd'])[0],
+    }
+    for name, fn in lin.items():
+        fam = X if name in ('t', 'histogram', 'matrix_rank') else L
+        add(name, fam, fn)
+
+    # host-side helpers on card tensors: their values, as tensors on the
+    # inputs' device
+    def host(fn):
+        return lambda P, d: torch.tensor(fn(P, d), device=d['x'].device)
+    add('is_tensor', X, host(lambda P, d: P.is_tensor(d['x'])))
+    add('broadcast_shape', X, host(
+        lambda P, d: P.broadcast_shape([8, 1, 768], [1024, 1])))
+    add('tolist', X, host(lambda P, d: P.tolist(d['v'])))
+    def array(P, d):
+        arr = P.array_write(d['x'], 1, P.array_write(d['y'], 0,
+                                                     P.create_array()))
+        return [P.array_read(arr, 1), torch.tensor(P.array_length(arr),
+                                                   device=d['x'].device)]
+    add('array', X, array)
+
+    def to_string(P, d):
+        P.set_printoptions(precision=4)
+        try:
+            return [ord(c) for c in P.tensor.to_string(d['mat'])]
+        finally:
+            P.set_printoptions(precision=8)     # the default
+    add('to_string', X, host(to_string))
+    add('check_shape', X, host(
+        lambda P, d: P.check_shape(P.shape(d['x']))))
+    add('as_strided', X, host(lambda P, d: _tlib_raises(
+        NotImplementedError, P.as_strided, d['x'], [2], [1])))
+    return cases
+
+
+def _tlib_raises(error, fn, *args):
+    """Whether ``fn(*args)`` raises ``error`` (what the reference does
+    for the op)."""
+    try:
+        fn(*args)
+    except error:
+        return True
+    return False
+
+
+class _TlibCalls:
+    """Records which names of ``P.tensor.__all__`` are called: each is
+    wrapped on ``P`` and ``P.tensor`` while the context is open, and
+    restored after."""
+
+    def __init__(self, P):
+        self.P, self.called, self.saved = P, set(), []
+
+    def __enter__(self):
+        P = self.P
+        for name in P.tensor.__all__:
+            fn = getattr(P.tensor, name)
+
+            def record(*args, _name=name, _fn=fn, **kw):
+                self.called.add(_name)
+                return _fn(*args, **kw)
+            for mod in (P, P.tensor):
+                if getattr(mod, name, None) is fn:
+                    self.saved.append((mod, name, fn))
+                    setattr(mod, name, record)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _tlib_flat(out):
+    if isinstance(out, (list, tuple)):
+        return [o for x in out for o in _tlib_flat(x)]
+    return [out]
+
+
+def _tlib_gap(got, want):
+    """``(gap, scale)``: the largest |got - want| over the finite
+    elements (NaN and inf where both are), and the largest |want|."""
+    if got.is_complex():
+        got, want = torch.view_as_real(got), torch.view_as_real(want)
+    g, w = got.double(), want.double()
+    same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+    fin = torch.isfinite(w) & torch.isfinite(g)
+    if bool((~same & ~fin).any()):
+        return float('inf'), 1.0
+    d = (g - w).abs()[fin]
+    gap = float(d.max()) if d.numel() else 0.0
+    scale = float(w.abs()[torch.isfinite(w)].max()) if w.numel() else 0.0
+    return gap, max(scale, 1e-30)
+
+
+def _tlib_run(P, fn, inputs, device):
+    P.set_device(device)
+    try:
+        with torch.no_grad():
+            out = fn(P, inputs)
+    finally:
+        P.set_device(None)
+    return _tlib_flat(out)
+
+
+def tensor_ops_vs_cpu(P):
+    """Every case on the card and on the CPU: ``(ran, exact matches,
+    {family: largest gap over scale})``; raises on a mismatch."""
+    host = _tlib_inputs()
+    on = {dev: {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+          for dev in ('cuda', 'cpu')}
+    bf16 = {dev: {k: (v.to(torch.bfloat16) if v.is_floating_point()
+                      and k not in ('mat', 'spd', 'rhs') else v)
+                  for k, v in on[dev].items()} for dev in on}
+    ran, exact, worst, bad = 0, 0, {}, []
+    for name, family, fn, with_bf16 in _tlib_cases():
+        for dtype, inputs in [(torch.float32, on)] + (
+                [(torch.bfloat16, bf16)] if with_bf16 else []):
+            try:
+                got = _tlib_run(P, fn, inputs['cuda'], 'cuda')
+                want = _tlib_run(P, fn, inputs['cpu'], 'cpu')
+                torch.cuda.synchronize()
+            except Exception as e:      # every op's failure is reported
+                bad.append(f'{name} ({dtype}) raised {type(e).__name__}: '
+                           f'{e}')
+                continue
+            ran += 1
+            if len(got) != len(want):
+                bad.append(f'{name}: {len(got)} outputs on the card, '
+                           f'{len(want)} on the CPU')
+                continue
+            # the CPU's results go to the card for the comparison, which
+            # there takes a few passes over each output instead of
+            # seconds of the host's time
+            for i, (a, b) in enumerate(zip(got, want)):
+                if a.device.type != 'cuda':
+                    bad.append(f'{name} output {i} lies on {a.device}')
+                    continue
+                b = b.to(a.device)
+                if a.dtype != b.dtype or a.shape != b.shape:
+                    bad.append(f'{name} output {i}: {a.dtype} '
+                               f'{tuple(a.shape)} on the card, {b.dtype} '
+                               f'{tuple(b.shape)} on the CPU')
+                    continue
+                if family == 'exact' or not (b.is_floating_point()
+                                             or b.is_complex()):
+                    if not torch.equal(a, b) and not (
+                            b.is_floating_point() and bool(torch.equal(
+                                a.isnan(), b.isnan())) and torch.equal(
+                                a.nan_to_num(), b.nan_to_num())):
+                        bad.append(f'{name} output {i} ({dtype}) is not '
+                                   'exact')
+                    continue
+                gap, scale = _tlib_gap(a, b)
+                tol = TLIB_TOL[(family, dtype)]
+                key = f'{family} {str(dtype)[6:]}'
+                worst[key] = max(worst.get(key, 0.0), gap / scale)
+                if gap > tol * scale:
+                    bad.append(f'{name} output {i} ({dtype}): card vs CPU '
+                               f'gap {gap:.3e} over {scale:.3e} exceeds '
+                               f'{tol}')
+            if len(got) == len(want) and all(
+                    a.shape == b.shape and a.dtype == b.dtype
+                    and torch.equal(a, b.to(a.device))
+                    for a, b in zip(got, want)):
+                exact += 1
+    if bad:
+        raise AssertionError('tensor_lib: ' + '; '.join(bad))
+    return ran, exact, worst
+
+
+def _tlib_moments(x, mean, var, what):
+    """``x``'s mean and variance within 6 standard errors of the law's
+    (the variance's standard error from the 4th central moment)."""
+    x = x.double().reshape(-1)
+    n = x.numel()
+    m, v = float(x.mean()), float(x.var())
+    m4 = float(((x - m) ** 4).mean())
+    se_m, se_v = (var / n) ** 0.5, ((m4 - var * var) / n) ** 0.5
+    if abs(m - mean) > 6 * se_m or abs(v - var) > 6 * se_v:
+        raise AssertionError(f'tensor_lib {what}: mean {m} var {v} off '
+                             f'the law\'s {mean}, {var} (n {n})')
+    return {'mean': m, 'var': v}
+
+
+def tensor_random_phase(P):
+    """The random ops on the card: the same seed repeats the bits,
+    another seed changes them, the moments follow the laws at 2^24
+    draws, multinomial passes a chi-square test, randperm and shuffle
+    give permutations, and a get/set_cuda_rng_state round trip repeats
+    the draws."""
+    P.set_device('cuda')
+    n = TLIB_DRAWS
+    draws = {
+        'rand': lambda: P.rand([n]), 'randn': lambda: P.randn([n]),
+        'standard_normal': lambda: P.standard_normal([n]),
+        'randint': lambda: P.randint(0, 10, [n]),
+        'randint_like': lambda: P.randint_like(P.zeros([n], 'int32'), 0,
+                                               10),
+        'uniform': lambda: P.uniform([n], min=2.0, max=3.0),
+        'normal': lambda: P.normal(1.0, 2.0, [n]),
+        'gaussian': lambda: P.gaussian([n], -1.0, 0.5),
+        'randperm': lambda: P.randperm(1 << 20),
+        'bernoulli': lambda: P.bernoulli(P.full([n], 0.3)),
+        'multinomial': lambda: P.multinomial(P.ones([1 << 16, 16]) / 16, 4),
+        'poisson': lambda: P.poisson(P.full([n], 3.0)),
+        'shuffle': lambda: P.shuffle(P.arange(1 << 20)),
+        'uniform_': lambda: P.uniform_(P.zeros([n])),
+        'normal_': lambda: P.normal_(P.zeros([n]), 1.0, 3.0),
+        'exponential_': lambda: P.exponential_(P.zeros([n]), 2.0),
+        'create_parameter': lambda: P.create_parameter([TLIB_N, TLIB_N],
+                                                       'float32'),
+    }
+    try:
+        for name, draw in draws.items():
+            P.seed(11)
+            a = draw()
+            P.seed(11)
+            b = draw()
+            c = draw()
+            P.seed(12)
+            d = draw()
+            if a.device.type != 'cuda':
+                raise AssertionError(f'tensor_lib {name} drew on {a.device}')
+            if not torch.equal(a, b) or torch.equal(b, c) \
+                    or torch.equal(a, d):
+                raise AssertionError(f'tensor_lib {name}: the seed does '
+                                     'not decide the bits')
+        P.seed(5)
+        laws = {
+            'rand': _tlib_moments(P.rand([n]), 0.5, 1 / 12, 'rand'),
+            'randn': _tlib_moments(P.randn([n]), 0.0, 1.0, 'randn'),
+            'uniform': _tlib_moments(P.uniform([n], min=2.0, max=3.0), 2.5,
+                                     1 / 12, 'uniform'),
+            'normal': _tlib_moments(P.normal(1.0, 2.0, [n]), 1.0, 4.0,
+                                    'normal'),
+            'gaussian': _tlib_moments(P.gaussian([n], -1.0, 0.5), -1.0,
+                                      0.25, 'gaussian'),
+            'normal_': _tlib_moments(P.normal_(P.zeros([n]), 1.0, 3.0),
+                                     1.0, 9.0, 'normal_'),
+            'uniform_': _tlib_moments(P.uniform_(P.zeros([n])), 0.0,
+                                      1 / 3, 'uniform_'),
+            'exponential_': _tlib_moments(P.exponential_(P.zeros([n]), 2.0),
+                                          0.5, 0.25, 'exponential_'),
+            'poisson': _tlib_moments(P.poisson(P.full([n], 3.0)), 3.0, 3.0,
+                                     'poisson'),
+            'bernoulli': _tlib_moments(P.bernoulli(P.full([n], 0.3)), 0.3,
+                                       0.21, 'bernoulli'),
+            'randint': _tlib_moments(P.randint(0, 10, [n]), 4.5, 8.25,
+                                     'randint'),
+        }
+        p = torch.arange(1, 11, dtype=torch.float32, device='cuda') / 55.0
+        chi2 = {}
+        for what, sample in (
+                ('multinomial replacement', lambda: P.multinomial(
+                    p, n, replacement=True)),
+                ('multinomial gumbel first draw', lambda: P.multinomial(
+                    p.expand(n // 16, 10).contiguous(), 3)[:, 0])):
+            s = sample()
+            counts = torch.bincount(s.reshape(-1), minlength=10).double()
+            expect = p.double() * s.numel()
+            chi2[what] = float(((counts - expect) ** 2 / expect).sum())
+            if chi2[what] > TLIB_CHI2_999[9]:
+                raise AssertionError(f'tensor_lib {what}: chi-square '
+                                     f'{chi2[what]:.2f} > {TLIB_CHI2_999[9]}')
+        rows = P.multinomial(p.expand(4096, 10).contiguous(), 10)
+        if not torch.equal(rows.sort(dim=1)[0], torch.arange(
+                10, device='cuda').expand(4096, 10)):
+            raise AssertionError('tensor_lib multinomial without '
+                                 'replacement repeated a category')
+        for what, perm in (('randperm', P.randperm(1 << 20)),
+                           ('shuffle', P.shuffle(P.arange(1 << 20)))):
+            if not torch.equal(perm.sort()[0], torch.arange(
+                    1 << 20, device='cuda')):
+                raise AssertionError(f'tensor_lib {what} is not a '
+                                     'permutation')
+        P.rand([7])
+        state = P.get_cuda_rng_state()
+        first = [P.randn([n]), P.randint(0, 100, [1 << 20]),
+                 P.multinomial(p, 1 << 20, replacement=True)]
+        P.set_cuda_rng_state(state)
+        again = [P.randn([n]), P.randint(0, 100, [1 << 20]),
+                 P.multinomial(p, 1 << 20, replacement=True)]
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError('tensor_lib: set_cuda_rng_state did not '
+                                 'repeat the draws')
+    finally:
+        P.set_device(None)
+    return {'draws': n, 'laws': laws, 'chi2': chi2,
+            'chi2_limit_999': TLIB_CHI2_999[9]}
+
+
+def tensor_grad_phase(P):
+    """``grad`` at the training path's shape (gpt_small, B 8 x T 1024,
+    bf16 O2, the fused head): ``P.grad(loss, params)`` equals
+    ``loss.backward()``'s ``.grad``s bit for bit, and the ``grad`` pass
+    launches exactly 25 LayerNorm, 12 flash forward, 12 dq and 12 dk/dv
+    kernels (the main path's counts)."""
+    from paddle_tpu_torch.models.gpt import gpt_small
+    from paddle_tpu_torch.ops import _build
+    model = gpt_small(device='cuda', seed=0, **TRAIN_MODEL_KW)
+    trainer = _trainer(model, amp_o2=True)
+    L = model.config.num_layers
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, model.config.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).cuda()
+    params = [p for p in model.parameters() if p.requires_grad]
+    model.train()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with trainer._autocast():
+        loss = model.loss(model(ids), ids).float().mean()
+    grads = P.grad(loss, params, retain_graph=True)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    launches = launch_counts()
+    want = {'fused_layer_norm': 2 * L + 1, 'flash_attention_fwd': L,
+            'flash_attention_bwd_dq': L, 'flash_attention_bwd_dkv': L}
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f'tensor_lib grad: {k} launched '
+                                 f'{launches[k]} times, expected {n}')
+    if any(p.grad is not None for p in params):
+        raise AssertionError('tensor_lib grad: P.grad touched a .grad')
+    loss.backward()
+    same = sum(torch.equal(g, p.grad) for g, p in zip(grads, params))
+    if same != len(params):
+        raise AssertionError(f'tensor_lib grad: {len(params) - same} of '
+                             f'{len(params)} gradients differ from '
+                             'backward()\'s')
+    out = {'loss': loss.item(), 'params': len(params), 'bit_equal': same,
+           'grad_s': grad_s, 'launches': launches}
+    del model, trainer, grads, loss, params
+    _free()
+    return out
+
+
+def _tlib_block_penalty(block, h, between=lambda: None):
+    """WGAN-GP-style: the block's input gradient under ``create_graph``,
+    its per-token norm's distance from 1 squared, averaged, then
+    ``backward`` to the block's parameters and the input; ``between``
+    runs after the ``create_graph`` pass."""
+    import paddle_tpu_torch as P
+    g, = P.grad(block(h)[0].sum(), h, create_graph=True)
+    between()
+    penalty = ((g.square().sum(dim=-1).sqrt() - 1.0) ** 2).mean()
+    penalty.backward()
+    return penalty
+
+
+# the launches of the block's second order, f32 with the fused GEMM+GELU
+# MLP: the forward and the create_graph pass launch every kernel of the
+# block (dq, dk/dv and dz for the first-order values); the penalty's
+# backward differentiates the kernels' backwards through their plain
+# composition and reaches the forward's flash node once more (through
+# the second LayerNorm's input), not its GEMM+GELU node
+TLIB_SECOND_ORDER_LAUNCHES = {
+    'create_graph': {'fused_layer_norm': 2, 'flash_attention_fwd': 1,
+                     'flash_attention_bwd_dq': 1,
+                     'flash_attention_bwd_dkv': 1,
+                     'fused_linear_gelu_fwd': 1, 'fused_linear_gelu_bwd': 1},
+    'penalty_backward': {'fused_layer_norm': 0, 'flash_attention_fwd': 0,
+                         'flash_attention_bwd_dq': 1,
+                         'flash_attention_bwd_dkv': 1,
+                         'fused_linear_gelu_fwd': 0,
+                         'fused_linear_gelu_bwd': 0},
+}
+
+
+def tensor_second_order_phase(P):
+    """A second order through one gpt_small block on the card (H 768, T
+    1024, B 2, f32, causal flash, the fused GEMM+GELU MLP): the
+    penalty's gradients match the same computation on the CPU and are
+    nonzero on every parameter (the qkv bias by thirds: its key third's
+    true gradient is 0, held to 1e-3 of the largest gradient on both
+    sides), and each pass launches the kernels
+    ``TLIB_SECOND_ORDER_LAUNCHES`` names, exactly."""
+    from paddle_tpu_torch.models.gpt import gpt_small
+    from paddle_tpu_torch.ops import _build
+    fgl = _ops_module('fused_gelu_linear')
+    res = {}
+    fgl.USE_PALLAS_MLP = True
+    try:
+        for dev in ('cuda', 'cpu'):
+            model = gpt_small(device=dev, seed=0, num_layers=1,
+                              max_seq_len=TRAIN_SEQ, dropout=0.0)
+            model.train()
+            block = model.gpt.blocks[0]
+            h_np = np.random.RandomState(3).randn(
+                TLIB_BLOCK_BATCH, TRAIN_SEQ,
+                model.config.hidden_size).astype(np.float32)
+            h = torch.tensor(h_np, device=dev, requires_grad=True)
+            between = lambda: None      # noqa: E731
+            if dev == 'cuda':
+                def between():
+                    torch.cuda.synchronize()
+                    res['create_graph'] = launch_counts()
+                    _build.reset_launches()
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                t0 = time.perf_counter()
+            penalty = _tlib_block_penalty(block, h, between)
+            if dev == 'cuda':
+                torch.cuda.synchronize()
+                res['card_s'] = time.perf_counter() - t0
+                res['penalty_backward'] = launch_counts()
+            res[dev] = (penalty.item(), h.grad.cpu(),
+                        {n: torch.zeros(p.shape) if p.grad is None
+                         else p.grad.cpu()
+                         for n, p in block.named_parameters()})
+            del model, block, h
+    finally:
+        fgl.USE_PALLAS_MLP = False
+    for run, want in TLIB_SECOND_ORDER_LAUNCHES.items():
+        for k, n in want.items():
+            if res[run][k] != n:
+                raise AssertionError(f'tensor_lib second order: {k} '
+                                     f'launched {res[run][k]} times in the '
+                                     f'{run} pass, expected {n}')
+    card, cpu = res['cuda'], res['cpu']
+    largest = max(float(g.abs().max()) for g in cpu[2].values())
+    worst = {}
+    for name, want in [('h', cpu[1])] + sorted(cpu[2].items()):
+        got = card[1] if name == 'h' else card[2][name]
+        if name == TLIB_CONSTANT_BIAS:
+            # the block's last bias adds a constant to its output, which
+            # the input gradient does not see: exactly zero on both
+            if float(want.abs().max()) or float(got.abs().max()):
+                raise AssertionError(f'tensor_lib second order: {name} '
+                                     'has a gradient')
+            continue
+        parts = [(name, got, want)]
+        if name.endswith('qkv.bias'):
+            third = want.shape[0] // 3
+            key = (got[third:2 * third], want[third:2 * third])
+            worst[f'{name} k'] = max(float(t.abs().max()) for t in key) \
+                / largest
+            if worst[f'{name} k'] > 1e-3:
+                raise AssertionError(f'tensor_lib second order: {name} key '
+                                     f'third {worst[f"{name} k"]:.3e} of the '
+                                     'largest gradient')
+            parts = [(f'{name} {t}', got[sl], want[sl])
+                     for t, sl in (('q', slice(0, third)),
+                                   ('v', slice(2 * third, None)))]
+        for what, g, w in parts:
+            scale = float(w.abs().max())
+            if scale == 0.0:
+                raise AssertionError(f'tensor_lib second order: the '
+                                     f'gradient of {what} is zero')
+            worst[what] = float((g - w).abs().max()) / scale
+            if worst[what] > TLIB_SECOND_ORDER_TOL:
+                raise AssertionError(f'tensor_lib second order: {what} '
+                                     f'{worst[what]:.3e} from the CPU')
+    rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    if rel > TLIB_SECOND_ORDER_TOL:
+        raise AssertionError(f'tensor_lib second order: penalty {card[0]} '
+                             f'vs {cpu[0]} on the CPU')
+    _free()
+    total = {k: res['create_graph'][k] + res['penalty_backward'][k]
+             for k in res['create_graph']}
+    return {'penalty': card[0], 'penalty_cpu': cpu[0],
+            'worst_rel': max(v for k, v in worst.items()
+                             if not k.endswith(' k')),
+            'key_bias_of_largest': worst['attn.qkv.bias k'],
+            'card_s': res['card_s'], 'launches': total,
+            'create_graph_launches': res['create_graph'],
+            'penalty_backward_launches': res['penalty_backward'],
+            'per_tensor': worst}
+
+
+def tensor_lib_phase():
+    """Slice 18: the tensor library and autograd on the card."""
+    import paddle_tpu_torch as P
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    t0 = time.perf_counter()
+    with _TlibCalls(P) as calls:
+        ran, exact, worst = tensor_ops_vs_cpu(P)
+        ops_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        rnd = tensor_random_phase(P)
+        rnd_s = time.perf_counter() - t1
+    missing = set(P.tensor.__all__) - calls.called
+    if missing:
+        raise AssertionError(f'tensor_lib: never called on the card: '
+                             f'{sorted(missing)}')
+    log(f'tensor_lib ({smi}): {ran} calls of every tensor op ran on the '
+        f'card against the CPU in {ops_s:.1f} s, {exact} exactly equal; '
+        'largest gap over scale by family: '
+        + ', '.join(f'{k} {v:.3e} (tol {TLIB_TOL[(k.split()[0], getattr(torch, k.split()[1]))]})'
+                    for k, v in sorted(worst.items())))
+    log(f'tensor_lib random ({smi}): every draw repeats under its seed and '
+        f'changes with another; moments within 6 SE at {rnd["draws"]} '
+        f'draws ({", ".join(f"{k} {v['mean']:.5f}" for k, v in rnd["laws"].items())}); '
+        f'chi-square {", ".join(f"{k} {v:.2f}" for k, v in rnd["chi2"].items())} '
+        f'< {rnd["chi2_limit_999"]}; permutations and the rng-state round '
+        f'trip hold ({rnd_s:.1f} s); {len(calls.called)} of the '
+        f'{len(P.tensor.__all__)} names of tensor.__all__ called')
+    grad = tensor_grad_phase(P)
+    log(f'tensor_lib grad ({smi}): gpt_small B {TRAIN_BATCH} T {TRAIN_SEQ} '
+        f'bf16 O2 fused head, loss {grad["loss"]:.4f}; paddle.grad equals '
+        f'backward() bit for bit on {grad["bit_equal"]}/{grad["params"]} '
+        f'parameters; forward + grad {grad["grad_s"]:.3f} s; launches '
+        + ', '.join(f'{k} {grad["launches"][k]}' for k in (
+            'fused_layer_norm', 'flash_attention_fwd',
+            'flash_attention_bwd_dq', 'flash_attention_bwd_dkv')))
+    second = tensor_second_order_phase(P)
+    kernels = ('fused_layer_norm', 'flash_attention_fwd',
+               'flash_attention_bwd_dq', 'flash_attention_bwd_dkv',
+               'fused_linear_gelu_fwd', 'fused_linear_gelu_bwd')
+    log(f'tensor_lib second order ({smi}): one gpt_small block with the '
+        f'fused GEMM+GELU MLP, B {TLIB_BLOCK_BATCH} T {TRAIN_SEQ} f32, '
+        f'penalty {second["penalty"]:.6f} (CPU {second["penalty_cpu"]:.6f}); '
+        f'worst gradient gap {second["worst_rel"]:.3e} of its max (tol '
+        f'{TLIB_SECOND_ORDER_TOL}), every parameter nonzero, the qkv key '
+        f'bias third {second["key_bias_of_largest"]:.3e} of the largest '
+        f'gradient; card {second["card_s"]:.3f} s; launches in the '
+        'create_graph pass ' + ', '.join(
+            f'{k} {second["create_graph_launches"][k]}' for k in kernels)
+        + '; in the penalty\'s backward ' + ', '.join(
+            f'{k} {second["penalty_backward_launches"][k]}'
+            for k in kernels))
+    total = time.perf_counter() - t0
+    log(f'tensor_lib: phase {total:.1f} s')
+    return {'ops_ran': ran, 'ops_exact': exact, 'worst_by_family': worst,
+            'ops_s': ops_s, 'random': rnd,
+            'grad': {k: v for k, v in grad.items() if k != 'launches'},
+            'second_order': {k: v for k, v in second.items()
+                             if k not in ('launches', 'per_tensor')},
+            'names_called': len(calls.called),
+            'phase_s': total, 'smi': smi,
+            'launches': grad['launches'],
+            'second_order_launches': second['launches']}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -6636,6 +7511,7 @@ def main():
     transformer_beam = transformer_beam_phase()
     lstm_lm = lstm_lm_phase()
     lstm_lm_fused = lstm_lm_fused_phase()
+    tensor_lib = tensor_lib_phase()
     log(json.dumps({'serve': serve, 'frontdoor': frontdoor,
                     'fleet': fleet,
                     **{f'serve_{m}': r[1] for m, r in serve_quant.items()},
@@ -6655,7 +7531,9 @@ def main():
                     'transformer': transformer,
                     'transformer_fused': transformer_fused,
                     'transformer_beam': transformer_beam,
-                    'lstm_lm': lstm_lm, 'lstm_lm_fused': lstm_lm_fused}))
+                    'lstm_lm': lstm_lm, 'lstm_lm_fused': lstm_lm_fused,
+                    'tensor_lib': {k: v for k, v in tensor_lib.items()
+                                   if 'launches' not in k}}))
     # 'serve', 'frontdoor', 'fleet', 'serve_int8', 'serve_int4',
     # 'gptgen', 'gpt_fused',
     # 'gpt_recipe', 'bert_dropout_fused', 'resnet_fused',
@@ -6711,7 +7589,12 @@ def main():
              'transformer_fused': transformer_fused['launches'],
              'transformer_beam': transformer_beam['launches'],
              'lstm_lm': lstm_lm['launches'],
-             'lstm_lm_fused': lstm_lm_fused['launches']}
+             'lstm_lm_fused': lstm_lm_fused['launches'],
+             # slice 18: paddle.grad through gpt_small's training path,
+             # and the block's second order (its first-order kernels)
+             'tensor_lib_grad': tensor_lib['launches'],
+             'tensor_lib_second_order':
+                 tensor_lib['second_order_launches']}
     kernels = []
     for k in _build.KERNELS:
         rows = timings[k.name]

@@ -22,7 +22,8 @@ import random
 import numpy as np
 import torch
 
-__all__ = ['seed', 'get_seed', 'generator', 'register_generators']
+__all__ = ['seed', 'get_seed', 'generator', 'register_generators',
+           'get_cuda_rng_state', 'set_cuda_rng_state']
 
 _seed = 0
 _generators = {}
@@ -79,3 +80,31 @@ def register_generators(graph, device):
             '(CUDAGraph.register_generator_state): a graph of a step '
             'that draws from core.rng cannot be captured')
     graph.register_generator_state(gen)
+
+
+def _rng_devices():
+    if torch.cuda.is_available():
+        return [torch.device('cuda', i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device('cpu')]
+
+
+def get_cuda_rng_state():
+    """The states of the port's generators, one a card in order (the
+    CPU's where there is no card), as the reference's list of states;
+    ``set_cuda_rng_state`` of it makes the next draws repeat bit for
+    bit."""
+    return [generator(d).get_state() for d in _rng_devices()]
+
+
+def set_cuda_rng_state(state_list):
+    """Restore the states ``get_cuda_rng_state`` returned."""
+    if not isinstance(state_list, (list, tuple)) or not state_list:
+        raise ValueError('expected the list returned by '
+                         'get_cuda_rng_state')
+    devices = _rng_devices()
+    if len(state_list) != len(devices):
+        raise ValueError(f'{len(state_list)} states for {len(devices)} '
+                         'devices')
+    for d, st in zip(devices, state_list):
+        generator(d).set_state(st)

@@ -15,6 +15,7 @@ import torch.nn.functional as TF
 from torch.profiler import record_function
 
 from ...amp import amp_cast
+from ...core.autograd import composed_backward
 
 __all__ = [
     'cross_entropy', 'softmax_with_cross_entropy', 'binary_cross_entropy',
@@ -47,8 +48,17 @@ def _one_hot_mask(lab, n):
                                           dtype=lab.dtype)
 
 
+def _softmax_nll(x, lab):
+    xf = x.float()
+    return (torch.logsumexp(xf, dim=-1, keepdim=True)
+            - xf.gather(-1, lab[..., None]))[..., 0]
+
+
 class _SoftmaxNLL(torch.autograd.Function):
-    """Per-token ``-log_softmax(x)[lab]`` over the last axis, in f32."""
+    """Per-token ``-log_softmax(x)[lab]`` over the last axis, in f32.
+    Under grad mode (a ``create_graph`` pass) the backward goes through
+    the plain composition ``_softmax_nll``, the logsumexp rebuilt from
+    ``x`` under autograd, so every order is exact."""
 
     @staticmethod
     def forward(ctx, x, lab):
@@ -61,13 +71,19 @@ class _SoftmaxNLL(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, lab, lse = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            return composed_backward(lambda t: _softmax_nll(t, lab), (x,),
+                                     ctx.needs_input_grad[:1], (g,)) \
+                + (None,)
         p = torch.exp(x.float() - lse)
         dx = (p - _one_hot_mask(lab, x.shape[-1]).to(p.dtype)) * g[..., None]
         return dx.to(x.dtype), None
 
 
 class _PickNLL(torch.autograd.Function):
-    """``-logp[..., lab]`` over the last axis."""
+    """``-logp[..., lab]`` over the last axis.  Its backward is linear
+    in ``g`` and free of ``logp``, so a second order through it is exact
+    as it stands."""
 
     @staticmethod
     def forward(ctx, logp, lab):

@@ -40,6 +40,7 @@ import math
 
 import torch
 
+from ..core.autograd import kernel_backward
 from . import _library
 from ._build import Kernel, aligned16, stream
 
@@ -280,7 +281,29 @@ def _bwd(q, k, v, o, lse, do, g_lse, causal, scale):
     return (_bwd_dq_reference(*args), *_bwd_dkv_reference(*args))
 
 
+def _bwd_twin(q, k, v, do, g_lse, causal, scale):
+    """The backward kernels' function in plain PyTorch: ``(dq, dk,
+    dv)``, the gradient of ``_fwd_twin`` with its graph, so that it
+    differentiates onwards in every input."""
+    qkv = [t if t.requires_grad else t.detach().requires_grad_()
+           for t in (q, k, v)]
+    with torch.enable_grad():
+        o, lse = _fwd_twin(*qkv, causal, scale)
+        outs, seeds = [o], [do.to(o.dtype)]
+        if g_lse is not None:
+            outs.append(lse)
+            seeds.append(g_lse.float())
+        return torch.autograd.grad(outs, qkv, seeds, create_graph=True)
+
+
 class _Flash(torch.autograd.Function):
+    """The forward kernel, and the dq and dk/dv kernels in the
+    backward, on every pass.  Under grad mode (a ``create_graph`` pass)
+    the kernels' gradients are a ``core.autograd.kernel_backward`` node
+    whose own derivative is that of the plain composition
+    (``_bwd_twin``), so every order is exact: no kernel has a derivative
+    of its own."""
+
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         o, lse = _fwd(q, k, v, causal, scale)
@@ -292,8 +315,16 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_o, g_lse):
         q, k, v, o, lse = ctx.saved_tensors
+        causal, scale = ctx.causal, ctx.scale
+        # the twin recomputes o and lse: the saved ones are constants here
+        o, lse = o.detach(), lse.detach()
         do = torch.zeros_like(o) if g_o is None else g_o.contiguous()
-        dq, dk, dv = _bwd(q, k, v, o, lse, do, g_lse, ctx.causal, ctx.scale)
+        dq, dk, dv = kernel_backward(
+            lambda q_, k_, v_, do_, g_: _bwd(q_, k_, v_, o, lse, do_, g_,
+                                             causal, scale),
+            lambda q_, k_, v_, do_, g_: _bwd_twin(q_, k_, v_, do_, g_,
+                                                  causal, scale),
+            q, k, v, do, g_lse)
         return dq, dk, dv, None, None
 
 

@@ -30,6 +30,8 @@ distributed slice.
 """
 import torch
 
+from ..core.autograd import composed_backward
+
 __all__ = ['fused_linear_cross_entropy']
 
 
@@ -91,7 +93,23 @@ def _backward(x, w, labels, lse, g, num_chunks):
     return dx, dw
 
 
+def _plain(x, w, labels):
+    """The loss as one plain composition (all ``[N, V]`` logits at
+    once, f32): what a second order differentiates."""
+    z = torch.mm(x.float(), w.float())
+    V = w.shape[1]
+    mine = (labels >= 0) & (labels < V)
+    picked = z.gather(1, labels.clamp(0, V - 1)[:, None])[:, 0]
+    return torch.logsumexp(z, dim=-1) - torch.where(
+        mine, picked, torch.zeros_like(picked))
+
+
 class _FusedCE(torch.autograd.Function):
+    """The chunked forward and backward.  Under grad mode (a
+    ``create_graph`` pass) the backward goes through ``_plain`` instead,
+    the logsumexp rebuilt from ``x`` and ``w`` under autograd, so every
+    order is exact."""
+
     @staticmethod
     def forward(ctx, x, w, labels, num_chunks):
         lse, zl = _forward(x, w, labels, num_chunks)
@@ -102,6 +120,10 @@ class _FusedCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, labels, lse = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            return composed_backward(
+                lambda a, b: _plain(a, b, labels), (x, w),
+                ctx.needs_input_grad[:2], (g,)) + (None, None)
         dx, dw = _backward(x, w, labels, lse, g.float(), ctx.num_chunks)
         return dx.to(x.dtype), dw.to(w.dtype), None, None
 

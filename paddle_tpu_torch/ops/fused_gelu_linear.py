@@ -51,6 +51,7 @@ import torch
 
 from ..amp import amp_cast
 from ..nn import functional as F
+from ..core.autograd import kernel_backward
 from . import _library
 from ._build import Kernel, aligned16, stream
 
@@ -218,6 +219,13 @@ def _dz(x2d, w, b, dy, approximate):
 
 
 class _FusedLinearGelu(torch.autograd.Function):
+    """The forward kernel, and the ``dz`` kernel in the backward, on
+    every pass.  Under grad mode (a ``create_graph`` pass) ``dz`` is a
+    ``core.autograd.kernel_backward`` node whose own derivative is that
+    of the plain composition ``_dz_reference``, and ``dx``/``dw``/``db``
+    are torch products of it, so every order is exact: no kernel has a
+    derivative of its own."""
+
     @staticmethod
     def forward(ctx, x2d, w, b, approximate):
         ctx.save_for_backward(x2d, w, b)
@@ -227,7 +235,12 @@ class _FusedLinearGelu(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x2d, w, b = ctx.saved_tensors
-        dz = _dz(x2d, w, b, dy.contiguous(), ctx.approximate)
+        approximate = ctx.approximate
+        dz = kernel_backward(
+            lambda x_, w_, b_, dy_: _dz(x_, w_, b_, dy_, approximate),
+            lambda x_, w_, b_, dy_: _dz_reference(x_, w_, b_, dy_,
+                                                  approximate),
+            x2d, w, b, dy.contiguous())
         need_x, need_w, need_b, _ = ctx.needs_input_grad
         dx = torch.matmul(dz, w.t()).to(x2d.dtype) if need_x else None
         dw = torch.matmul(x2d.t(), dz).to(w.dtype) if need_w else None

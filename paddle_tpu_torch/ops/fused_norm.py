@@ -14,12 +14,15 @@ The forward is the operator ``paddle_tpu_torch::fused_layer_norm``
 ``_reference`` is the plain PyTorch twin: the operator runs it only for
 a tensor on the CPU, and ``chip_smoke.py`` holds the kernel to it on
 the card.  The backward ``_ln_bwd`` is plain PyTorch, as the
-reference's is jnp: the JAX package has no backward kernel.
+reference's is jnp: the JAX package has no backward kernel.  A second
+order (``grad(create_graph=True)``) goes through the plain composition
+(``core.autograd.composed_backward``).
 """
 import ctypes
 
 import torch
 
+from ..core.autograd import composed_backward
 from . import _library
 from ._build import Kernel, stream
 
@@ -126,10 +129,17 @@ def _ln_bwd(x2d, gamma, mean, rstd, g):
 
 
 class _LayerNorm(torch.autograd.Function):
+    """The kernel's forward and ``_ln_bwd``.  Under grad mode (a
+    ``create_graph`` pass) the backward goes through the plain
+    composition ``_reference`` instead, its statistics rebuilt from
+    ``x`` under autograd, so every order is exact; no hand-written
+    kernel has a derivative of its own."""
+
     @staticmethod
     def forward(ctx, x2d, gamma, beta, eps):
         y, mean, rstd = _fwd(x2d, gamma, beta, eps)
-        ctx.save_for_backward(x2d, gamma, mean, rstd)
+        ctx.save_for_backward(x2d, gamma, beta, mean, rstd)
+        ctx.eps = eps
         ctx.has_beta = beta is not None
         ctx.dtypes = (None if gamma is None else gamma.dtype,
                       None if beta is None else beta.dtype)
@@ -137,7 +147,12 @@ class _LayerNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x2d, gamma, mean, rstd = ctx.saved_tensors
+        x2d, gamma, beta, mean, rstd = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            return composed_backward(
+                lambda x, w, b: _reference(x, w, b, ctx.eps)[0],
+                (x2d, gamma, beta), ctx.needs_input_grad[:3], (g,)) \
+                + (None,)
         dx, dgamma, dbeta = _ln_bwd(x2d, gamma, mean, rstd, g)
         gdt, bdt = ctx.dtypes
         return (dx,
