@@ -40,8 +40,9 @@ From the repository root, with one CUDA card.  It
    f32), and for 16-bit inputs a second launch of all three that must
    repeat the first bit for bit; the softmax kernel at BERT-base's
    attention scores (64 x 12 x 128 x 128, f32, bf16 and f16), at GPT's
-   row of 1024 and at a ragged row of 200 (the ``vec`` design), at rows
-   of 199 (``scalar``) and of 4096 (``block``); the masked softmax
+   row of 1024, at a ragged row of 200 and at DDPM's U-Net attention
+   rows (128 x 256 x 256 and 128 x 16 x 16, f32; the ``vec`` design), at
+   rows of 199 (``scalar``) and of 4096 (``block``); the masked softmax
    through the public ``ops.fused_softmax(x, mask)`` at BERT's shape
    with a seeded padding mask (f32 and f16), at the ragged shape and with
    a full bf16 mask; the GEMM+GELU forward and backward kernels at
@@ -300,6 +301,27 @@ From the repository root, with one CUDA card.  It
    bit for bit equal to ``backward()`` with exact launches, and the
    second order through one block against the CPU, each pass's
    launches exact (``tensor_lib_grad``, ``tensor_lib_second_order``);
+   then the vision half of ``nn``, its two models built from the public
+   layers by code the CPU tests run on both packages (``ddpm_unet``,
+   ``dcgan_models``): DDPM's CIFAR-10 U-Net (``ddpm_unet``: Ho et al.
+   2020 Appendix B, ch 128, multipliers (1, 2, 2, 2), 2 residual blocks
+   a level, GroupNorm 32, attention at 16^2 and in the middle, dropout
+   0.1, 35.7 M parameters; B 128 x 3 x 32^2 seeded synthetic images, t
+   and the noise drawn on the host, T 1000, eps-prediction MSE, Adam
+   2e-4 with a global-norm clip of 1, bf16 O2): 2 + 5 eager steps with
+   finite, falling losses and the softmax kernel exactly 6 times a step
+   on the design the wrapper names for rows of 256 and 16, ms/step,
+   images/s, MFU, idle share and peak memory; ``step_fused`` K 5 against
+   two eager trainers bit for bit (``ddpm_unet_fused``); an f32 step at
+   B 8 against the CPU; DCGAN (``dcgan``: Radford et al. 2016, 5 x 5
+   stride-2 ``Conv2DTranspose`` 1024 -> 3 at 64^2 and its mirrored
+   discriminator, B 128, two eager Adam 2e-4 / 0.5 optimizers, D and G
+   steps written as a user writes them): 2 + 5 iterations with finite
+   losses, no hand-written kernel, ms an iteration and the idle share,
+   an f32 iteration at B 8 against the CPU; and ``vision_ops``: every
+   new name of ``nn.functional``, ``nn`` and ``nn.utils`` called on the
+   card (each call recorded) against the CPU, forward and every input's
+   gradient;
 12. prints one JSON line with the serving and training results, one
    listing every kernel (its launches on each path, each path's counts
    set to 0 just before it and read just after, and per design where a
@@ -308,12 +330,12 @@ From the repository root, with one CUDA card.  It
    ``gptgen``, ``gpt_fused``, ``gpt_recipe``,
    ``bert_dropout_fused``, ``resnet_fused``, ``widedeep_fused``,
    ``longctx_fused``, ``mobilenet_v2_fused``, ``moe_fused``, ``moe_gen``,
-   ``qat_fused``, ``transformer_fused``, ``lstm_lm_fused`` and
-   ``jit_deploy_to_static`` replay graphs, ``optimizers`` half its
+   ``qat_fused``, ``transformer_fused``, ``lstm_lm_fused``,
+   ``ddpm_unet_fused`` and ``jit_deploy_to_static`` replay graphs, ``optimizers`` half its
    steps, ``jit_deploy_predictor`` and ``jit_deploy_masked`` are the
    fresh process's forwards, counted there; the vision, hapi, reader,
-   Wide&Deep, QAT and LSTM paths count 0 of each, the Transformer's
-   LayerNorm only),
+   Wide&Deep, QAT, LSTM and DCGAN paths count 0 of each, the
+   Transformer's LayerNorm only, the U-Net's softmax only),
    then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  Without a
@@ -418,6 +440,9 @@ SOFTMAX_CASES = [
      'vec'),
     ('bf16_full_mask', (8, 12, 128, 128), torch.bfloat16, (8, 12, 128, 128),
      'vec'),
+    # DDPM's U-Net attention at B 128: 16^2 and the middle block's 4^2
+    ('ddpm_16x16', (128, 256, 256), torch.float32, None, 'vec'),
+    ('ddpm_4x4', (128, 16, 16), torch.float32, None, 'vec'),
 ]
 SOFTMAX_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8,
                torch.float16: 2.0 ** -10}
@@ -709,7 +734,7 @@ def is_device_event(evt):
 # the port's record_function ranges: on the device's timeline they are
 # spans around kernels, not kernels
 ANNOTATIONS = ('ParallelTrainer.forward', 'ParallelTrainer.backward',
-               'ParallelTrainer.optimizer', 'batch_norm',
+               'ParallelTrainer.optimizer', 'batch_norm', 'group_norm',
                'multihead_attention', 'cross_entropy')
 
 
@@ -3789,14 +3814,16 @@ def _deterministic_algorithms():
 
 
 def _graph_vs_eager(what, make_trainer, batch, k, items, unit, flops,
-                    fallback_name, fallback):
+                    fallback_name, fallback, per_step=None):
     """``step_fused`` (K ``k``, 2 chunks) of ``make_trainer(fused_steps=
     k)`` against two eager trainers (``make_trainer()``), each built
     after ``paddle_tpu_torch.seed(0)``, on the same batch: losses,
     parameters and every buffer bit for bit.  Where the two eager
     trainers differ, all three run again under the context
     ``fallback()`` (``fallback_name`` in the log), and the run says so.
-    ``items`` of ``unit`` a step; ``flops`` a step for the MFU."""
+    ``items`` of ``unit`` a step; ``flops`` a step for the MFU.  The
+    fused run launches no hand-written kernel, or with ``per_step``
+    exactly that many of each a step."""
     import paddle_tpu_torch
     from paddle_tpu_torch.ops import _build
     chunk = tuple(torch.stack([b] * k) for b in batch)
@@ -3865,7 +3892,10 @@ def _graph_vs_eager(what, make_trainer, batch, k, items, unit, flops,
                                  f'step {tr._step_no}')
         losses = [float(v) for v in got_l]
         _check_losses(what, losses)
-        _no_kernel_launches(what, launches)
+        if per_step is None:
+            _no_kernel_launches(what, launches)
+        else:
+            _check_run(what, losses, launches, per_step, 2 * k)
         idle, prof_s = idle_share(lambda: tr.step_fused(*chunk))
     n_bufs = sum(1 for _ in tr.model.buffers() if _.is_floating_point())
     ms_step = dt / k * 1e3
@@ -3874,8 +3904,10 @@ def _graph_vs_eager(what, make_trainer, batch, k, items, unit, flops,
         f' (losses, every parameter and all {n_bufs} float buffers; '
         f'eager vs eager equal too'
         + (f', under {fallback_name}' if deterministic else '')
-        + f'); losses {", ".join(f"{v:.4f}" for v in losses)}; no ported '
-        f'kernel launched')
+        + f'); losses {", ".join(f"{v:.4f}" for v in losses)}; '
+        + ('no ported kernel launched' if per_step is None else
+           f'launches {_launch_summary(launches, per_step, 2 * k)}, a '
+           f'replay {graph.launches.counts()}'))
     log(f'{what}: first chunk (warm-up step + capture '
         f'{graph.capture_s:.3f} s + {k - 1} replays) {first_s:.2f} s; {k} '
         f'replayed steps in {dt:.3f} s = {ms_step:.1f} ms/step (eager '
@@ -7465,6 +7497,881 @@ def tensor_lib_phase():
             'second_order_launches': second['launches']}
 
 
+# -- the vision half of nn: DDPM's U-Net, DCGAN and every new name ---------
+
+# DDPM's CIFAR-10 model (Ho, Jain & Abbeel 2020, arXiv:2006.11239,
+# Appendix B; the authors' released unet): base channels 128 at 32^2,
+# multipliers (1, 2, 2, 2) down to 4^2, two residual blocks a level,
+# GroupNorm(32) and SiLU, dropout 0.1, self-attention at 16^2 and in the
+# middle block, T 1000 with the linear betas 1e-4 .. 0.02
+DDPM_KW = dict(ch=128, ch_mult=(1, 2, 2, 2), num_res_blocks=2,
+               attn_resolutions=(16,), dropout=0.1, resolution=32, groups=32)
+DDPM_T, DDPM_BETAS = 1000, (1e-4, 0.02)
+DDPM_BATCH, DDPM_LR, DDPM_CLIP = 128, 2e-4, 1.0
+DDPM_FUSED_K = 5
+DDPM_PARITY_BATCH = 8
+# attention blocks a forward: 2 down at 16^2, 1 in the middle at 4^2,
+# 3 up at 16^2, each one softmax launch over [B * HW, HW]
+DDPM_SOFTMAX_ROWS = {256: 5, 16: 1}
+# DCGAN (Radford, Metz & Chintala 2016, arXiv:1511.06434, section 3-4
+# and Fig. 1): z of 100 projected to 4 x 4 x 1024, four 5 x 5 stride-2
+# transposed convolutions 1024 -> 512 -> 256 -> 128 -> 3 at 64^2
+# (BatchNorm and ReLU, tanh at the output), the discriminator their
+# mirror with LeakyReLU 0.2 and no BatchNorm on its input layer; weights
+# N(0, 0.02), Adam 2e-4 with beta1 0.5 for both, B 128
+DCGAN_KW = dict(nz=100, ngf=128, ndf=128, image=64)
+DCGAN_BATCH, DCGAN_LR, DCGAN_BETA1 = 128, 2e-4, 0.5
+DCGAN_WARMUP, DCGAN_ITERS = 2, 5
+DCGAN_PARITY_BATCH = 8
+
+
+def ddpm_unet(paddle, ch, ch_mult, num_res_blocks, attn_resolutions,
+              dropout, resolution, groups, in_ch=3, T=DDPM_T,
+              betas=DDPM_BETAS):
+    """DDPM's noise-prediction U-Net built from the public ``nn`` layers
+    (``paddle`` is either package).  ``model(x0, t, noise)`` forms
+    ``x_t = sqrt(abar_t) x0 + sqrt(1 - abar_t) noise`` and returns the
+    predicted noise: the sinusoidal embedding of ``t`` through a
+    two-layer SiLU MLP, a 3 x 3 stem, residual blocks (GroupNorm, SiLU,
+    3 x 3 conv, plus the projected embedding, GroupNorm, SiLU, dropout,
+    3 x 3 conv, a 1 x 1 shortcut where the width changes), attention
+    blocks (GroupNorm, 1 x 1 q, k, v, ``softmax(q^T k / sqrt(C))`` over
+    the keys through ``F.softmax``, a 1 x 1 output), stride-2 3 x 3
+    ``'SAME'`` convolutions down, nearest ``interpolate`` x 2 and a 3 x 3
+    conv up, and GroupNorm, SiLU and a 3 x 3 conv out."""
+    nn = paddle.nn
+    F = nn.functional
+
+    class ResBlock(nn.Layer):
+        def __init__(self, cin, cout):
+            super().__init__()
+            self.norm1 = nn.GroupNorm(groups, cin)
+            self.conv1 = nn.Conv2D(cin, cout, 3, padding=1)
+            self.temb_proj = nn.Linear(4 * ch, cout)
+            self.norm2 = nn.GroupNorm(groups, cout)
+            self.dropout = nn.Dropout(dropout)
+            self.conv2 = nn.Conv2D(cout, cout, 3, padding=1)
+            self.shortcut = nn.Conv2D(cin, cout, 1) if cin != cout else \
+                nn.Identity()
+
+        def forward(self, x, temb):
+            h = self.conv1(F.silu(self.norm1(x)))
+            h = paddle.add(h, paddle.unsqueeze(
+                self.temb_proj(F.silu(temb)), [2, 3]))
+            h = self.conv2(self.dropout(F.silu(self.norm2(h))))
+            return paddle.add(self.shortcut(x), h)
+
+    class AttnBlock(nn.Layer):
+        def __init__(self, c):
+            super().__init__()
+            self.norm = nn.GroupNorm(groups, c)
+            self.q = nn.Conv2D(c, c, 1)
+            self.k = nn.Conv2D(c, c, 1)
+            self.v = nn.Conv2D(c, c, 1)
+            self.proj_out = nn.Conv2D(c, c, 1)
+
+        def forward(self, x):
+            B, C, H, W = x.shape
+            h = self.norm(x)
+            q, k, v = (paddle.reshape(f(h), [B, C, H * W])
+                       for f in (self.q, self.k, self.v))
+            w = paddle.scale(paddle.matmul(q, k, transpose_x=True),
+                             C ** -0.5)
+            w = F.softmax(w, axis=-1)
+            h = paddle.reshape(paddle.matmul(v, w, transpose_y=True),
+                               [B, C, H, W])
+            return paddle.add(x, self.proj_out(h))
+
+    class Up(nn.Layer):
+        def __init__(self, c):
+            super().__init__()
+            self.conv = nn.Conv2D(c, c, 3, padding=1)
+
+        def forward(self, x):
+            return self.conv(F.interpolate(x, scale_factor=2,
+                                           mode='nearest'))
+
+    class UNet(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.config = dict(ch=ch, ch_mult=tuple(ch_mult),
+                               num_res_blocks=num_res_blocks,
+                               attn_resolutions=tuple(attn_resolutions),
+                               resolution=resolution, groups=groups, T=T)
+            half = ch // 2
+            freqs = np.exp(-math.log(10000.0) * np.arange(half)
+                           / (half - 1)).astype(np.float32)
+            abar = np.cumprod(1.0 - np.linspace(betas[0], betas[1], T))
+            for name, value in (('freqs', freqs),
+                                ('sqrt_abar', np.sqrt(abar)),
+                                ('sqrt_1m_abar', np.sqrt(1.0 - abar))):
+                self.register_buffer(name, paddle.to_tensor(
+                    value.astype(np.float32)), persistable=False)
+            self.temb0 = nn.Linear(ch, 4 * ch)
+            self.temb1 = nn.Linear(4 * ch, 4 * ch)
+            self.conv_in = nn.Conv2D(in_ch, ch, 3, padding=1)
+            self.down, self.down_attn = nn.LayerList(), nn.LayerList()
+            self.downsample = nn.LayerList()
+            chans, cur, res = [ch], ch, resolution
+            for i, mult in enumerate(ch_mult):
+                for _ in range(num_res_blocks):
+                    self.down.append(ResBlock(cur, ch * mult))
+                    cur = ch * mult
+                    self.down_attn.append(AttnBlock(cur) if res in
+                                          attn_resolutions else nn.Identity())
+                    chans.append(cur)
+                if i != len(ch_mult) - 1:
+                    self.downsample.append(nn.Conv2D(cur, cur, 3, stride=2,
+                                                     padding='SAME'))
+                    chans.append(cur)
+                    res //= 2
+            self.mid1, self.mid_attn = ResBlock(cur, cur), AttnBlock(cur)
+            self.mid2 = ResBlock(cur, cur)
+            self.up, self.up_attn = nn.LayerList(), nn.LayerList()
+            self.upsample = nn.LayerList()
+            for i, mult in reversed(list(enumerate(ch_mult))):
+                for _ in range(num_res_blocks + 1):
+                    self.up.append(ResBlock(cur + chans.pop(), ch * mult))
+                    cur = ch * mult
+                    self.up_attn.append(AttnBlock(cur) if res in
+                                        attn_resolutions else nn.Identity())
+                if i != 0:
+                    self.upsample.append(Up(cur))
+                    res *= 2
+            self.norm_out = nn.GroupNorm(groups, cur)
+            self.conv_out = nn.Conv2D(cur, in_ch, 3, padding=1)
+
+        def eps(self, x, t):
+            args = paddle.multiply(paddle.unsqueeze(
+                paddle.cast(t, 'float32'), [1]),
+                paddle.unsqueeze(self.freqs, [0]))
+            emb = paddle.concat([paddle.sin(args), paddle.cos(args)], axis=1)
+            temb = self.temb1(F.silu(self.temb0(emb)))
+            hs = [self.conv_in(x)]
+            n = num_res_blocks
+            for i in range(len(ch_mult)):
+                for j in range(n):
+                    b = i * n + j
+                    hs.append(self.down_attn[b](self.down[b](hs[-1], temb)))
+                if i != len(ch_mult) - 1:
+                    hs.append(self.downsample[i](hs[-1]))
+            h = self.mid2(self.mid_attn(self.mid1(hs[-1], temb)), temb)
+            for i in range(len(ch_mult)):
+                for j in range(n + 1):
+                    b = i * (n + 1) + j
+                    h = self.up[b](paddle.concat([h, hs.pop()], axis=1),
+                                   temb)
+                    h = self.up_attn[b](h)
+                if i != len(ch_mult) - 1:
+                    h = self.upsample[i](h)
+            return self.conv_out(F.silu(self.norm_out(h)))
+
+        def forward(self, x0, t, noise):
+            a = paddle.reshape(paddle.gather(self.sqrt_abar, t),
+                               [-1, 1, 1, 1])
+            s = paddle.reshape(paddle.gather(self.sqrt_1m_abar, t),
+                               [-1, 1, 1, 1])
+            x = paddle.add(paddle.multiply(a, x0), paddle.multiply(s, noise))
+            return self.eps(x, t)
+
+    return UNet()
+
+
+def ddpm_loss(paddle):
+    """The simplified objective: MSE between predicted and true noise."""
+    return lambda pred, noise: paddle.nn.functional.mse_loss(pred, noise)
+
+
+def ddpm_batch(batch, resolution=32, T=DDPM_T, seed=0):
+    """``(x0, t, noise, noise)``: seeded synthetic images at CIFAR-10's
+    shape in [-1, 1] (smooth 4 x 4 blocks plus texture), ``t`` uniform
+    in [0, T) and the noise N(0, 1), all drawn on the host; the noise is
+    the model's input and the loss's label."""
+    rs = np.random.RandomState(seed)
+    r = resolution // 4
+    coarse = np.kron(rs.randn(batch, 3, 4, 4), np.ones((r, r)))
+    x0 = np.tanh(coarse + 0.3 * rs.randn(batch, 3, resolution, resolution))
+    t = rs.randint(0, T, batch).astype(np.int64)
+    noise = rs.randn(batch, 3, resolution, resolution).astype(np.float32)
+    return x0.astype(np.float32), t, noise, noise
+
+
+def ddpm_trainer(paddle, model, amp_o2, fused_steps=None, trainer_cls=None,
+                 strategy_cls=None):
+    """Adam 2e-4 with a global-norm clip of 1.0 on the MSE objective,
+    bf16 O2 when ``amp_o2``, through the package's ``ParallelTrainer``
+    (the port's unless the classes are given), three model inputs."""
+    if trainer_cls is None:
+        from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+        from paddle_tpu_torch.parallel import ParallelTrainer
+        trainer_cls, strategy_cls = ParallelTrainer, DistributedStrategy
+    strategy = strategy_cls()
+    if amp_o2:
+        strategy.amp = True
+        strategy.amp_configs['use_pure_fp16'] = True
+    opt = paddle.optimizer.Adam(
+        learning_rate=DDPM_LR, parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(DDPM_CLIP))
+    return trainer_cls(model, opt, ddpm_loss(paddle), strategy=strategy,
+                       n_inputs=3, fused_steps=fused_steps)
+
+
+def dcgan_models(paddle, nz, ngf, ndf, image):
+    """DCGAN's generator and discriminator from the public ``nn`` layers
+    (``paddle`` is either package), every convolution and linear weight
+    N(0, 0.02), no bias where a BatchNorm follows.  ``G(z)`` -> images
+    ``[B, 3, image, image]`` in (-1, 1); ``D(x)`` -> one logit a
+    sample."""
+    nn = paddle.nn
+    F = nn.functional
+    n_up = int(round(math.log2(image // 4)))
+    gch = [ngf * 2 ** (n_up - 1 - i) for i in range(n_up)] + [3]
+    dch = [3] + [ndf * 2 ** i for i in range(n_up)]
+
+    def w():
+        return paddle.ParamAttr(initializer=nn.initializer.Normal(0.0, 0.02))
+
+    class Generator(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc = nn.Linear(nz, 16 * gch[0], weight_attr=w(),
+                                bias_attr=False)
+            self.bn0 = nn.BatchNorm2D(gch[0])
+            self.ups = nn.LayerList([nn.Conv2DTranspose(
+                a, b, 5, stride=2, padding=2, output_padding=1,
+                weight_attr=w(), bias_attr=False if b != 3 else None)
+                for a, b in zip(gch[:-1], gch[1:])])
+            self.bns = nn.LayerList([nn.BatchNorm2D(b) for b in gch[1:-1]])
+
+        def forward(self, z):
+            h = F.relu(self.bn0(paddle.reshape(self.fc(z),
+                                               [-1, gch[0], 4, 4])))
+            for i, up in enumerate(self.ups):
+                h = up(h)
+                h = F.relu(self.bns[i](h)) if i < n_up - 1 else paddle.tanh(h)
+            return h
+
+    class Discriminator(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.convs = nn.LayerList([nn.Conv2D(
+                a, b, 5, stride=2, padding=2, weight_attr=w(),
+                bias_attr=None if a == 3 else False)
+                for a, b in zip(dch[:-1], dch[1:])])
+            self.bns = nn.LayerList([nn.BatchNorm2D(b) for b in dch[2:]])
+            self.fc = nn.Linear(16 * dch[-1], 1, weight_attr=w())
+
+        def forward(self, x):
+            h = x
+            for i, conv in enumerate(self.convs):
+                h = conv(h)
+                if i:
+                    h = self.bns[i - 1](h)
+                h = F.leaky_relu(h, 0.2)
+            return self.fc(paddle.flatten(h, 1))
+
+    G, D = Generator(), Discriminator()
+    G.config = D.config = dict(nz=nz, ngf=ngf, ndf=ndf, image=image)
+    return G, D
+
+
+def dcgan_optimizers(paddle, G, D):
+    return tuple(paddle.optimizer.Adam(learning_rate=DCGAN_LR,
+                                       beta1=DCGAN_BETA1,
+                                       parameters=m.parameters())
+                 for m in (G, D))
+
+
+def dcgan_iteration(paddle, G, D, opt_g, opt_d, real, z, grads=None):
+    """One D step and one G step, as a user writes them: the
+    discriminator's BCE on real (label 1) and detached fake (label 0)
+    images, ``backward()``, ``step()``; then the generator's BCE of the
+    fakes labelled real.  Returns ``(loss_d, loss_g)``; with a dict
+    ``grads``, each network's gradients as its ``step()`` sees them."""
+    F = paddle.nn.functional
+    opt_d.clear_grad()
+    opt_g.clear_grad()
+    fake = G(z)
+    d_real, d_fake = D(real), D(fake.detach())
+    loss_d = paddle.add(
+        F.binary_cross_entropy_with_logits(d_real, paddle.ones_like(d_real)),
+        F.binary_cross_entropy_with_logits(d_fake,
+                                           paddle.zeros_like(d_fake)))
+    loss_d.backward()
+    if grads is not None:
+        grads.update({f'D.{n}': p.grad.detach().clone()
+                      for n, p in D.named_parameters()})
+    opt_d.step()
+    opt_d.clear_grad()
+    d_fake = D(fake)
+    loss_g = F.binary_cross_entropy_with_logits(d_fake,
+                                                paddle.ones_like(d_fake))
+    loss_g.backward()
+    if grads is not None:
+        grads.update({f'G.{n}': p.grad.detach().clone()
+                      for n, p in G.named_parameters()})
+    opt_g.step()
+    return loss_d, loss_g
+
+
+def dcgan_batch(batch, nz, image, seed=0):
+    """Seeded synthetic images at 64^2 x 3 in [-1, 1] and N(0, 1)
+    noise vectors, drawn on the host."""
+    rs = np.random.RandomState(seed)
+    r = image // 8
+    real = np.tanh(np.kron(rs.randn(batch, 3, 8, 8), np.ones((r, r)))
+                   + 0.2 * rs.randn(batch, 3, image, image))
+    return real.astype(np.float32), rs.randn(batch, nz).astype(np.float32)
+
+
+def conv_linear_flops(model, *inputs):
+    """Forward flops of ``model(*inputs)`` in its convolutions (2 x
+    output elements x in/groups x kernel; a transposed one 2 x input
+    elements x out/groups x kernel) and linears (2 x rows x in x out),
+    counted by hooks on one forward."""
+    import paddle_tpu_torch as paddle
+    total = [0]
+
+    def hook(layer, ins, out):
+        if isinstance(layer, paddle.nn.Linear):
+            total[0] += 2 * out.numel() * layer.in_features
+        elif isinstance(layer, paddle.nn.Conv2DTranspose):
+            total[0] += 2 * ins[0].numel() * math.prod(layer.kernel_size) \
+                * (layer.out_channels // layer.groups)
+        else:
+            total[0] += 2 * out.numel() * math.prod(layer.kernel_size) * \
+                (layer.in_channels // layer.groups)
+    kinds = (paddle.nn.Conv2D, paddle.nn.Conv2DTranspose, paddle.nn.Linear)
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, kinds)]
+    try:
+        with torch.no_grad():
+            model(*inputs)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def ddpm_step_flops(model, batch):
+    """Model flops of one U-Net training step: 3 x (the forward's
+    convolution and linear flops, counted at B 1 and scaled, plus each
+    attention's two [HW, HW, C] products)."""
+    dev = next(model.parameters()).device
+    x0, t, noise, _ = (torch.from_numpy(a[:1]).to(dev) for a in batch)
+    fwd = conv_linear_flops(model, x0, t, noise)
+    cfg = model.config
+    attn = 0
+    for res, n in ((cfg['resolution'] // 2, 5), (cfg['resolution'] // 8, 1)):
+        attn += n * 2 * 2 * (res * res) ** 2 * 2 * cfg['ch']
+    return 3 * (fwd + attn) * len(batch[0])
+
+
+def _ddpm_per_step():
+    """The U-Net's kernel launches a training step: the softmax kernel
+    once an attention block, on the design the wrapper names for each
+    row width (fresh, aligned f32 scores), nothing else."""
+    fsm = _ops_module('fused_softmax')
+    per = _per_step(1, 0)
+    designs = {}
+    for width, n in DDPM_SOFTMAX_ROWS.items():
+        x = torch.empty(4, width, width, device='cuda')
+        design = fsm.design(x, torch.empty_like(x))
+        designs[width] = design
+        per['fused_softmax'] += n
+        per[f'fused_softmax:{design}'] += n
+    return per, designs
+
+
+def ddpm_unet_phase():
+    """DDPM's CIFAR-10 U-Net at its published widths trained through
+    ``ParallelTrainer`` at bf16 O2: eager steps with the softmax kernel
+    launched exactly 6 times a step, ``step_fused`` against eager bit for
+    bit, and one f32 step at B 8 against the CPU."""
+    import paddle_tpu_torch as paddle
+    per_step, designs = _ddpm_per_step()
+    paddle.seed(0)
+    model = ddpm_unet(paddle, **DDPM_KW)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = ddpm_batch(DDPM_BATCH)
+    flops = ddpm_step_flops(model, batch)
+    log(f'ddpm_unet model: Ho et al. 2020 CIFAR-10 U-Net (ch '
+        f'{DDPM_KW["ch"]}, mult {DDPM_KW["ch_mult"]}, '
+        f'{DDPM_KW["num_res_blocks"]} blocks a level, attention at '
+        f'{DDPM_KW["attn_resolutions"]} and in the middle, GroupNorm '
+        f'{DDPM_KW["groups"]}, dropout {DDPM_KW["dropout"]}), {n_params} '
+        f'parameters, seed 0; B {DDPM_BATCH} x 3 x '
+        f'{DDPM_KW["resolution"]}^2 synthetic, T {DDPM_T}, eps-prediction '
+        f'MSE, Adam {DDPM_LR} clip {DDPM_CLIP}, bf16 O2; softmax rows '
+        f'{sorted(DDPM_SOFTMAX_ROWS)} take {designs}')
+    trainer = ddpm_trainer(paddle, model, amp_o2=True)
+    losses, launches, warm_s, dt, peak = _run_steps(
+        trainer, batch, TRAIN_WARMUP, TRAIN_STEPS)
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    _check_run('ddpm_unet', losses, launches, per_step, steps)
+    idle, prof_s = idle_share(lambda: trainer.step(*batch))
+    ms_step = dt / TRAIN_STEPS * 1e3
+    mfu = flops / (ms_step / 1e3) / BF16_FLOPS_PER_S
+    log(f'ddpm_unet: losses {", ".join(f"{x:.4f}" for x in losses)} '
+        f'(finite, falling); launches '
+        f'{_launch_summary(launches, per_step, steps)}')
+    log(f'ddpm_unet: warm-up {TRAIN_WARMUP} steps {warm_s:.2f} s; '
+        f'{TRAIN_STEPS} steps in {dt:.3f} s = {ms_step:.1f} ms/step, '
+        f'{DDPM_BATCH * TRAIN_STEPS / dt:.0f} images/s; idle share '
+        f'{idle:.4f} over one profiled step ({prof_s * 1e3:.1f} ms there); '
+        f'peak max_memory_allocated {peak / 2**30:.2f} GiB; MFU {mfu:.4f} '
+        f'= {flops:.4g} flops / (step time * 989e12)')
+    summary = {'params': n_params, 'ms_per_step': ms_step,
+               'images_per_s': DDPM_BATCH * TRAIN_STEPS / dt,
+               'idle_share': idle, 'peak_bytes': peak, 'mfu': mfu,
+               'step_flops': flops, 'losses': losses, 'warmup_s': warm_s,
+               'softmax_designs': designs, 'launches': launches}
+    del model, trainer
+    _free()
+    summary['fused'] = _graph_vs_eager(
+        f'ddpm_unet_fused (B {DDPM_BATCH}, bf16 O2, dropout 0.1)',
+        lambda fused_steps=None: ddpm_trainer(
+            paddle, ddpm_unet(paddle, **DDPM_KW), amp_o2=True,
+            fused_steps=fused_steps),
+        tuple(torch.from_numpy(b).cuda() for b in batch), DDPM_FUSED_K,
+        DDPM_BATCH, 'images', flops, 'cudnn.deterministic',
+        _cudnn_deterministic, per_step=per_step)
+    kw = dict(DDPM_KW, dropout=0.0)
+    summary['parity'] = _card_vs_cpu(
+        f'ddpm_unet B {DDPM_PARITY_BATCH}, dropout 0',
+        lambda dev: _seq_model(lambda p: ddpm_unet(p, **kw), dev),
+        lambda cfg: ddpm_batch(DDPM_PARITY_BATCH, seed=1), per_step,
+        make_trainer=lambda m: ddpm_trainer(paddle, m, amp_o2=False),
+        zero_grads=('.k.bias',))
+    from paddle_tpu_torch.ops import _build
+    _build.reset_launches()
+    return summary
+
+
+def _dcgan_on(dev, batch):
+    """G and D seeded at 0 on the CPU, moved to ``dev``, their two Adam
+    optimizers, and the seeded batch there."""
+    import paddle_tpu_torch as paddle
+    paddle.seed(0)
+    paddle.set_device('cpu')
+    try:
+        G, D = dcgan_models(paddle, **DCGAN_KW)
+    finally:
+        paddle.set_device(None)
+    G, D = G.to(dev), D.to(dev)
+    opt_g, opt_d = dcgan_optimizers(paddle, G, D)
+    real, z = (torch.from_numpy(a).to(dev) for a in dcgan_batch(
+        batch, DCGAN_KW['nz'], DCGAN_KW['image']))
+    return G, D, opt_g, opt_d, real, z
+
+
+@contextlib.contextmanager
+def _activation_masks(masks, parted, replay):
+    """The port's ``F.relu`` and ``F.leaky_relu`` record each call's
+    branches (``x >= 0``) into ``masks`` or, with ``replay``, take the
+    recorded ones in call order (``parted`` gets where they differ from
+    this run's own).  DCGAN's gradients at B 8 jump where an activation
+    input within the two devices' rounding of 0 takes one side on the
+    card and the other on the CPU (each BatchNorm couples its batch, and
+    Adam's first step turns the D gradient's sign into a whole ``lr``),
+    so the CPU's run takes the card's branches, as Wide&Deep's parity
+    takes its ReLU masks."""
+    import paddle_tpu_torch.nn.functional as F
+    relu, leaky = F.relu, F.leaky_relu
+    recorded = iter(list(masks))
+
+    def forced(x):
+        mask = next(recorded).to(x.device)
+        parted.append((mask != (x >= 0)).cpu())
+        return mask
+
+    def relu_of(x, name=None):
+        if not replay:
+            masks.append((x >= 0).cpu())
+            return relu(x)
+        return torch.where(forced(x), x, torch.zeros_like(x))
+
+    def leaky_of(x, negative_slope=0.01, name=None):
+        if not replay:
+            masks.append((x >= 0).cpu())
+            return leaky(x, negative_slope)
+        return torch.where(forced(x), x, x * negative_slope)
+    F.relu, F.leaky_relu = relu_of, leaky_of
+    try:
+        yield
+    finally:
+        F.relu, F.leaky_relu = relu, leaky
+
+
+def dcgan_phase():
+    """DCGAN at its published widths, eager as a user writes it: D and G
+    steps through two Adam optimizers, finite losses, no hand-written
+    kernel, ms an iteration and the idle share; then one f32 iteration
+    at B 8 against the CPU on the card's activation branches
+    (``_activation_masks``): losses within 1e-4 and every gradient
+    within 1e-3 of its largest magnitude."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import _build
+    G, D, opt_g, opt_d, real, z = _dcgan_on('cuda', DCGAN_BATCH)
+    n_g = sum(p.numel() for p in G.parameters())
+    n_d = sum(p.numel() for p in D.parameters())
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [dcgan_iteration(paddle, G, D, opt_g, opt_d, real, z)
+              for _ in range(DCGAN_WARMUP)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    losses += [dcgan_iteration(paddle, G, D, opt_g, opt_d, real, z)
+               for _ in range(DCGAN_ITERS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches = launch_counts()
+    losses = [(float(a.detach()), float(b.detach())) for a, b in losses]
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        raise AssertionError(f'dcgan: non-finite losses {losses}')
+    _no_kernel_launches('dcgan', launches)
+    idle, prof_s = idle_share(lambda: dcgan_iteration(
+        paddle, G, D, opt_g, opt_d, real, z))
+    ms = dt / DCGAN_ITERS * 1e3
+    flops = 3 * (conv_linear_flops(G, z[:1]) + 2 * conv_linear_flops(
+        D, real[:1])) * DCGAN_BATCH
+    mfu = flops / (ms / 1e3) / F32_FLOPS_PER_S
+    log(f'dcgan model: Radford et al. 2016 (z {DCGAN_KW["nz"]}, G '
+        f'1024 -> 512 -> 256 -> 128 -> 3 by 5 x 5 stride-2 '
+        f'Conv2DTranspose, D its mirror), G {n_g} and D {n_d} parameters, '
+        f'N(0, 0.02), seed 0; B {DCGAN_BATCH} x 3 x 64^2 synthetic, Adam '
+        f'{DCGAN_LR} beta1 {DCGAN_BETA1}, f32, eager')
+    log(f'dcgan: (D, G) losses {", ".join(f"({a:.4f}, {b:.4f})" for a, b in losses)} '
+        f'(finite); no hand-written kernel launched; warm-up '
+        f'{DCGAN_WARMUP} iterations {warm_s:.2f} s; {DCGAN_ITERS} D+G '
+        f'iterations in {dt:.3f} s = {ms:.1f} ms an iteration, '
+        f'{DCGAN_BATCH * DCGAN_ITERS / dt:.0f} images/s; idle share '
+        f'{idle:.4f} over one profiled iteration ({prof_s * 1e3:.1f} ms '
+        f'there); {flops:.4g} flops an iteration, {mfu:.4f} of the f32 '
+        'peak (67e12)')
+    summary = {'g_params': n_g, 'd_params': n_d, 'ms_per_iteration': ms,
+               'images_per_s': DCGAN_BATCH * DCGAN_ITERS / dt,
+               'idle_share': idle, 'losses': losses, 'warmup_s': warm_s,
+               'iteration_flops': flops, 'f32_peak_share': mfu,
+               'launches': launches}
+    del G, D, opt_g, opt_d
+    _free()
+    got, masks, parted = [], [], []
+    for replay, dev in ((False, 'cuda'), (True, 'cpu')):
+        G, D, opt_g, opt_d, real, z = _dcgan_on(dev, DCGAN_PARITY_BATCH)
+        grads = {}
+        with _activation_masks(masks, parted, replay):
+            loss_d, loss_g = dcgan_iteration(paddle, G, D, opt_g, opt_d,
+                                             real, z, grads)
+        got.append((float(loss_d.detach()), float(loss_g.detach()),
+                    {n: g.cpu() for n, g in grads.items()}))
+    flips = int(sum(int(p.sum()) for p in parted))
+    n_masked = sum(m.numel() for m in masks)
+    (ld, lg, g_card), (ld0, lg0, g_cpu) = got
+    loss_rel = max(abs(ld - ld0) / abs(ld0), abs(lg - lg0) / abs(lg0))
+    worst, worst_name = 0.0, None
+    for name, want in g_cpu.items():
+        rel = float((g_card[name] - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    if not (loss_rel <= PARITY_LOSS_RTOL and worst <= PARITY_GRAD_RTOL):
+        raise AssertionError(
+            f'dcgan f32 iteration, card vs CPU: losses ({ld}, {lg}) vs '
+            f'({ld0}, {lg0}) (rel {loss_rel:.3e}, tol {PARITY_LOSS_RTOL}); '
+            f'worst gradient {worst_name} rel {worst:.3e} (tol '
+            f'{PARITY_GRAD_RTOL})')
+    log(f'parity: dcgan f32 D+G iteration B {DCGAN_PARITY_BATCH}, card vs '
+        f'CPU on the card\'s ReLU and LeakyReLU branches ({flips} of '
+        f'{n_masked} inputs took the other side on the CPU): losses '
+        f'({ld:.6f}, {lg:.6f}) vs ({ld0:.6f}, {lg0:.6f}) (rel '
+        f'{loss_rel:.3e}, tol {PARITY_LOSS_RTOL}); worst of '
+        f'{len(g_cpu)} gradients {worst_name} max |diff| / max |grad| '
+        f'{worst:.3e} (tol {PARITY_GRAD_RTOL})')
+    summary['parity'] = {'loss_rel': loss_rel, 'worst_grad_rel': worst,
+                         'worst_grad': worst_name, 'inputs_parted': flips}
+    _build.reset_launches()
+    return summary
+
+
+# the names of nn.functional, nn and nn.utils the vision half brings,
+# each of which vision_ops calls on the card
+VISION_FUNCTIONALS = (
+    'conv1d_transpose', 'conv2d_transpose', 'conv3d_transpose',
+    'interpolate', 'upsample', 'affine_grid', 'grid_sample', 'group_norm',
+    'instance_norm', 'local_response_norm', 'pixel_shuffle', 'unfold',
+    'bilinear', 'diag_embed', 'tanh_', 'layer_norm')
+VISION_LAYERS = (
+    'Conv1DTranspose', 'Conv2DTranspose', 'Conv3DTranspose', 'GroupNorm',
+    'InstanceNorm1D', 'InstanceNorm2D', 'InstanceNorm3D',
+    'LocalResponseNorm', 'SpectralNorm', 'Upsample', 'UpsamplingNearest2D',
+    'UpsamplingBilinear2D', 'Bilinear', 'Unfold', 'PixelShuffle',
+    'PairwiseDistance')
+VISION_UTILS = ('weight_norm', 'remove_weight_norm', 'spectral_norm')
+VISION_TOL = (1e-5, 1e-4)       # f32 forward, gradients: of the scale
+
+
+def _vision_cases():
+    """(name, fn(P, *tensors), [input shapes]) for each call of
+    the phase: ResNet-stage activations, the U-Net's and DCGAN's own
+    shapes, every interpolate mode up and down, every grid_sample mode x
+    padding x align_corners, 1/2/3-d transposes with groups, dilation,
+    asymmetric pads and output_size, NCHW and NHWC."""
+    def fn(name, *a, **kw):
+        return lambda P, *ts: getattr(P.nn.functional, name)(*ts, *a, **kw)
+
+    def layer(name, *a, **kw):
+        return lambda P, *ts: _seeded_on_cpu(
+            P, lambda: getattr(P.nn, name)(*a, **kw), ts[0])(*ts)
+    cases = [
+        ('group_norm resnet', fn('group_norm', 32), [(32, 256, 56, 56)]),
+        ('group_norm unet', lambda P, x, w, b: P.nn.functional.group_norm(
+            x, 32, 1e-5, w, b), [(128, 256, 16, 16), (256,), (256,)]),
+        ('group_norm nhwc', lambda P, x: P.nn.functional.group_norm(
+            x, 8, data_format='NHWC'), [(16, 28, 28, 64)]),
+        ('instance_norm', lambda P, x, w, b: P.nn.functional.instance_norm(
+            x, weight=w, bias=b), [(32, 256, 56, 56), (256,), (256,)]),
+        ('local_response_norm', fn('local_response_norm', 5),
+         [(32, 96, 55, 55)]),
+        ('layer_norm 2 axes', lambda P, x, w, b: P.nn.functional.layer_norm(
+            x, [56, 56], w, b), [(32, 64, 56, 56), (56, 56), (56, 56)]),
+        ('pixel_shuffle', fn('pixel_shuffle', 2), [(32, 256, 28, 28)]),
+        ('pixel_shuffle nhwc', fn('pixel_shuffle', 2, 'NHWC'),
+         [(32, 28, 28, 256)]),
+        ('unfold', fn('unfold', 3, 1, 1), [(16, 64, 28, 28)]),
+        ('bilinear', fn('bilinear'), [(512, 64), (512, 32), (128, 64, 32),
+                                      (128,)]),
+        ('diag_embed', fn('diag_embed', 1, 0, 2), [(64, 8, 128)]),
+        ('tanh_', lambda P, x: P.nn.functional.tanh_(x * 1.0),
+         [(32, 64, 56, 56)]),
+        ('affine_grid', fn('affine_grid', [32, 3, 64, 64]), [(32, 2, 3)]),
+    ]
+    for mode in ('nearest', 'bilinear', 'bicubic', 'area'):
+        for size in ([112, 112], [28, 20]):
+            cases.append((f'interpolate {mode} {size}', fn(
+                'interpolate', size=size, mode=mode), [(16, 64, 56, 56)]))
+    cases += [
+        ('interpolate unet x2', fn('interpolate', scale_factor=2),
+         [(128, 256, 16, 16)]),
+        ('interpolate linear', fn('interpolate', size=[300], mode='linear',
+                                  data_format='NCW'), [(32, 64, 128)]),
+        ('interpolate trilinear', fn('interpolate', scale_factor=1.5,
+                                     mode='trilinear'), [(4, 16, 16, 16, 16)]),
+        ('interpolate nhwc', fn('interpolate', size=[64, 48],
+                                mode='bilinear', data_format='NHWC'),
+         [(32, 56, 56, 64)]),
+        ('upsample', fn('upsample', scale_factor=2, mode='bilinear'),
+         [(32, 64, 28, 28)]),
+    ]
+    for mode in ('bilinear', 'nearest'):
+        for pad in ('zeros', 'border', 'reflection'):
+            for align in (True, False):
+                cases.append((f'grid_sample {mode} {pad} {align}', fn(
+                    'grid_sample', mode=mode, padding_mode=pad,
+                    align_corners=align), [(32, 64, 56, 56),
+                                           ('grid', 32, 48, 40, 2)]))
+    cases += [
+        ('conv2d_transpose dcgan', fn('conv2d_transpose', stride=2,
+                                      padding=2, output_padding=1),
+         [(4, 512, 8, 8), (512, 256, 5, 5)]),
+        ('conv2d_transpose groups dilation nhwc', fn(
+            'conv2d_transpose', stride=2, padding=[(0, 2), (1, 1)],
+            groups=4, dilation=2, data_format='NHWC'),
+         [(8, 28, 28, 64), (64, 16, 3, 3), (64,)]),
+        ('conv2d_transpose output_size', fn(
+            'conv2d_transpose', stride=2, padding=1, output_size=[56, 56]),
+         [(8, 128, 28, 28), (128, 64, 3, 3), (64,)]),
+        ('conv1d_transpose', fn('conv1d_transpose', stride=3, padding=[
+            (2, 0)], groups=2, output_size=[383]), [(8, 64, 128),
+                                                   (64, 16, 4)]),
+        ('conv3d_transpose', fn('conv3d_transpose', stride=2, padding=1,
+                                output_padding=1, data_format='NDHWC'),
+         [(2, 8, 8, 8, 32), (32, 16, 3, 3, 3), (16,)]),
+        ('Conv2DTranspose', layer('Conv2DTranspose', 256, 128, 5, stride=2,
+                                  padding=2, output_padding=1),
+         [(4, 256, 16, 16)]),
+        ('Conv1DTranspose', layer('Conv1DTranspose', 32, 16, 3, stride=2),
+         [(8, 32, 64)]),
+        ('Conv3DTranspose', layer('Conv3DTranspose', 16, 8, 2, stride=2),
+         [(2, 16, 8, 8, 8)]),
+        ('GroupNorm', layer('GroupNorm', 32, 256), [(32, 256, 28, 28)]),
+        ('InstanceNorm1D', layer('InstanceNorm1D', 64), [(32, 64, 512)]),
+        ('InstanceNorm2D', layer('InstanceNorm2D', 64), [(32, 64, 56, 56)]),
+        ('InstanceNorm3D', layer('InstanceNorm3D', 16),
+         [(4, 16, 16, 16, 16)]),
+        ('LocalResponseNorm', layer('LocalResponseNorm', 5),
+         [(8, 256, 27, 27)]),
+        ('SpectralNorm', layer('SpectralNorm', [512, 256, 5, 5],
+                               power_iters=10), [(512, 256, 5, 5)]),
+        ('Upsample', layer('Upsample', scale_factor=2, mode='bicubic'),
+         [(16, 64, 28, 28)]),
+        ('UpsamplingNearest2D', layer('UpsamplingNearest2D',
+                                      scale_factor=2), [(32, 128, 28, 28)]),
+        ('UpsamplingBilinear2D', layer('UpsamplingBilinear2D',
+                                       size=[112, 112]), [(16, 64, 56, 56)]),
+        ('Bilinear', layer('Bilinear', 64, 32, 128), [(512, 64),
+                                                      (512, 32)]),
+        ('Unfold', layer('Unfold', 2, 2), [(16, 64, 56, 56)]),
+        ('PixelShuffle', layer('PixelShuffle', 3), [(16, 576, 16, 16)]),
+        ('PairwiseDistance', layer('PairwiseDistance', 3.0),
+         [(4096, 256), (4096, 256)]),
+        ('weight_norm', _weight_norm_case, [(64, 128, 28, 28)]),
+        ('spectral_norm', _spectral_norm_case, [(64, 128, 28, 28)]),
+    ]
+    return cases
+
+
+def _seeded_on_cpu(P, build, like):
+    """``build()`` from seed 5 on the CPU, moved to ``like``'s device:
+    the same weights on either side of the comparison (each device's
+    generator draws its own)."""
+    P.seed(5)
+    P.set_device('cpu')
+    try:
+        layer = build()
+    finally:
+        P.set_device('cuda' if like.is_cuda else 'cpu')
+    return layer.to(like.device)
+
+
+def _weight_norm_case(P, x):
+    conv = P.nn.utils.weight_norm(_seeded_on_cpu(
+        P, lambda: P.nn.Conv2D(128, 64, 3, padding=1), x))
+    y = conv(x)
+    P.nn.utils.remove_weight_norm(conv)
+    return y, conv(x)
+
+
+def _spectral_norm_case(P, x):
+    conv = P.nn.utils.spectral_norm(_seeded_on_cpu(
+        P, lambda: P.nn.Conv2D(128, 64, 3, padding=1), x),
+        n_power_iterations=2)
+    conv.weight_u.copy_(torch.linspace(-1.0, 1.0, 64))
+    conv.weight_u.div_(conv.weight_u.norm())
+    return conv(x)
+
+
+class _VisionCalls:
+    """Records which of the vision half's names are called: the functionals
+    wrapped on ``P.nn.functional``, the layers' ``forward`` and the
+    utils on ``P.nn.utils``, restored after."""
+
+    def __init__(self, P):
+        self.P, self.called, self.saved = P, set(), []
+
+    def _wrap(self, owner, attr, name):
+        fn = getattr(owner, attr)
+
+        def record(*args, _fn=fn, **kw):
+            self.called.add(name)
+            return _fn(*args, **kw)
+        self.saved.append((owner, attr, fn))
+        setattr(owner, attr, record)
+
+    def __enter__(self):
+        P = self.P
+        for name in VISION_FUNCTIONALS:
+            self._wrap(P.nn.functional, name, name)
+        for name in VISION_LAYERS:
+            self._wrap(getattr(P.nn, name), 'forward', name)
+        for name in VISION_UTILS:
+            self._wrap(P.nn.utils, name, name)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self.saved):
+            setattr(owner, attr, fn)
+        return False
+
+
+def _vision_inputs(shapes, seed):
+    rs = np.random.RandomState(seed)
+    out = []
+    for s in shapes:
+        if s[0] == 'grid':
+            out.append(rs.uniform(-1.2, 1.2, s[1:]).astype(np.float32))
+        else:
+            out.append(rs.randn(*s).astype(np.float32))
+    return out
+
+
+def _vision_run(P, fn, arrays, device, seed):
+    """Outputs and every input's gradient of ``sum(out * cot)`` on
+    ``device`` (cotangents seeded on the host)."""
+    ts = [torch.from_numpy(a).to(device).requires_grad_(True)
+          for a in arrays]
+    P.set_device(device)
+    try:
+        outs = fn(P, *ts)
+    finally:
+        P.set_device(None)
+    outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+    rs = np.random.RandomState(seed + 100)
+    cots = [torch.from_numpy(rs.randn(*o.shape).astype(np.float32)).to(
+        device) for o in outs]
+    grads = torch.autograd.grad(
+        sum((o.float() * c).sum() for o, c in zip(outs, cots)), ts,
+        allow_unused=True)
+    return [o.detach() for o in outs], [
+        torch.zeros_like(t) if g is None else g for t, g in zip(ts, grads)]
+
+
+def vision_ops_phase():
+    """Every new name of ``nn.functional``, ``nn`` and ``nn.utils`` on
+    the card against the same call on the CPU, forward and every input's
+    gradient, f32 within VISION_TOL of each tensor's largest magnitude;
+    each name's call recorded."""
+    import paddle_tpu_torch as P
+    t0 = time.perf_counter()
+    worst_f, worst_g, bad, ran = 0.0, 0.0, [], 0
+    with _VisionCalls(P) as calls:
+        for i, (name, fn, shapes) in enumerate(_vision_cases()):
+            arrays = _vision_inputs(shapes, i)
+            got = _vision_run(P, fn, arrays, 'cuda', i)
+            want = _vision_run(P, fn, arrays, 'cpu', i)
+            torch.cuda.synchronize()
+            ran += 1
+            for kind, tol, pairs in (('output', VISION_TOL[0],
+                                      zip(got[0], want[0])),
+                                     ('gradient', VISION_TOL[1],
+                                      zip(got[1], want[1]))):
+                for j, (a, b) in enumerate(pairs):
+                    if a.device.type != 'cuda' or a.shape != b.shape or \
+                            a.dtype != b.dtype:
+                        bad.append(f'{name} {kind} {j}: {a.device} '
+                                   f'{tuple(a.shape)} {a.dtype} vs '
+                                   f'{tuple(b.shape)} {b.dtype}')
+                        continue
+                    b = b.to(a.device)
+                    scale = max(float(b.abs().max()), 1e-30)
+                    rel = float((a - b).abs().max()) / scale
+                    if kind == 'output':
+                        worst_f = max(worst_f, rel)
+                    else:
+                        worst_g = max(worst_g, rel)
+                    if rel > tol:
+                        bad.append(f'{name} {kind} {j}: card vs CPU '
+                                   f'{rel:.3e} of its scale > {tol}')
+    if bad:
+        raise AssertionError('vision_ops: ' + '; '.join(bad))
+    names = set(VISION_FUNCTIONALS) | set(VISION_LAYERS) | set(VISION_UTILS)
+    missing = names - calls.called
+    if missing:
+        raise AssertionError(f'vision_ops: never called on the card: '
+                             f'{sorted(missing)}')
+    dt = time.perf_counter() - t0
+    log(f'vision_ops: {ran} cases, every one of the {len(names)} new names '
+        f'called on the card against the CPU, f32: worst output '
+        f'{worst_f:.3e} (tol {VISION_TOL[0]}), worst input gradient '
+        f'{worst_g:.3e} (tol {VISION_TOL[1]}) of each tensor\'s largest '
+        f'magnitude; {dt:.1f} s')
+    return {'cases': ran, 'names_called': len(calls.called),
+            'worst_output_rel': worst_f, 'worst_grad_rel': worst_g,
+            'phase_s': dt}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -7512,6 +8419,9 @@ def main():
     lstm_lm = lstm_lm_phase()
     lstm_lm_fused = lstm_lm_fused_phase()
     tensor_lib = tensor_lib_phase()
+    ddpm = ddpm_unet_phase()
+    dcgan = dcgan_phase()
+    vision_ops = vision_ops_phase()
     log(json.dumps({'serve': serve, 'frontdoor': frontdoor,
                     'fleet': fleet,
                     **{f'serve_{m}': r[1] for m, r in serve_quant.items()},
@@ -7533,7 +8443,14 @@ def main():
                     'transformer_beam': transformer_beam,
                     'lstm_lm': lstm_lm, 'lstm_lm_fused': lstm_lm_fused,
                     'tensor_lib': {k: v for k, v in tensor_lib.items()
-                                   if 'launches' not in k}}))
+                                   if 'launches' not in k},
+                    'ddpm_unet': {k: v for k, v in ddpm.items()
+                                  if k != 'launches'}
+                    | {'fused': {k: v for k, v in ddpm['fused'].items()
+                                 if k != 'launches'}},
+                    'dcgan': {k: v for k, v in dcgan.items()
+                              if k != 'launches'},
+                    'vision_ops': vision_ops}))
     # 'serve', 'frontdoor', 'fleet', 'serve_int8', 'serve_int4',
     # 'gptgen', 'gpt_fused',
     # 'gpt_recipe', 'bert_dropout_fused', 'resnet_fused',
@@ -7594,7 +8511,12 @@ def main():
              # and the block's second order (its first-order kernels)
              'tensor_lib_grad': tensor_lib['launches'],
              'tensor_lib_second_order':
-                 tensor_lib['second_order_launches']}
+                 tensor_lib['second_order_launches'],
+             # the vision half: the softmax kernel in the U-Net's
+             # attention, 6 a step; DCGAN launches none (checked there)
+             'ddpm_unet': ddpm['launches'],
+             'ddpm_unet_fused': ddpm['fused']['launches'],
+             'dcgan': dcgan['launches']}
     kernels = []
     for k in _build.KERNELS:
         rows = timings[k.name]

@@ -20,8 +20,12 @@ op of ``tensor``, the dtype names, the places and device queries,
 high-level API (``Model``, ``summary``, ``flops``, ``save``, ``load``),
 the fluid-era ``batch``, and the ``nn``, ``optimizer``, ``amp``, ``io``,
 ``metric``, ``hapi``, ``callbacks``, ``jit``, ``static``, ``framework``,
-``vision``, ``inference``, ``reader``, ``dataset`` and ``autograd``
-packages.
+``vision``, ``inference``, ``reader``, ``dataset``, ``autograd``,
+``regularizer``, ``parallel``, ``models`` and ``distributed`` packages
+(none of which starts a thread, a process group or a CUDA context on
+import).  ``models`` is imported at its first use as
+``paddle_tpu_torch.models``: a process that serves a saved model (an
+``inference.Predictor``) never loads the model zoo's code.
 
 The package imports ``torch``, numpy and the standard library only —
 never ``jax`` and nothing of ``paddle_tpu``.
@@ -47,6 +51,7 @@ from . import telemetry  # noqa: F401
 from . import framework, io, jit, metric, static, vision  # noqa: F401
 from . import callbacks, hapi  # noqa: F401
 from . import dataset, inference, reader  # noqa: F401
+from . import distributed, parallel, regularizer  # noqa: F401
 from .batch import batch
 from .framework.io import load, save
 from .hapi import Model, flops, summary
@@ -68,12 +73,21 @@ def in_dynamic_mode():
 
 in_dygraph_mode = in_dynamic_mode
 
+
+def __getattr__(name):
+    """``models`` on first use (module docstring)."""
+    if name == 'models':
+        import importlib
+        return importlib.import_module('.models', __name__)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
+
 __all__ = (['resolve_device', 'set_device', 'get_device', 'seed',
             'ParamAttr', 'create_parameter', 'amp', 'nn', 'optimizer',
             'tensor', 'resilience', 'telemetry', 'framework', 'io', 'jit',
             'metric', 'static', 'vision', 'hapi', 'callbacks', 'Model',
             'summary', 'flops', 'save', 'load', 'inference', 'reader',
-            'dataset', 'batch', 'autograd', 'Tensor', 'Parameter',
+            'dataset', 'batch', 'autograd', 'regularizer', 'parallel',
+            'distributed', 'Tensor', 'Parameter',
             'VarBase', 'no_grad', 'enable_grad', 'is_grad_enabled',
             'set_grad_enabled', 'grad', 'dtype', 'bool', 'float16',
             'bfloat16', 'float32', 'float64', 'int8', 'int16', 'int32',

@@ -23,8 +23,9 @@ import contextlib
 
 import torch
 
-__all__ = ['auto_cast', 'amp_cast', 'decorate', 'is_amp_enabled',
-           'GradScaler', 'WHITE_LIST', 'BLACK_LIST', 'KEEP_LIST']
+__all__ = ['auto_cast', 'amp_guard', 'amp_cast', 'decorate', 'amp_decorate',
+           'is_amp_enabled', 'amp_state', 'GradScaler', 'WHITE_LIST',
+           'BLACK_LIST', 'KEEP_LIST']
 
 # the reference's lists, unchanged (paddle_tpu/amp/__init__.py:28-65)
 WHITE_LIST = frozenset({
@@ -134,8 +135,17 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
          _state.black) = prev
 
 
+amp_guard = auto_cast
+
+
 def is_amp_enabled():
     return _state.enabled
+
+
+def amp_state():
+    """The active policy (``enabled``, ``level``, ``dtype`` and the
+    lists), the reference's ``amp_state``."""
+    return _state
 
 
 def decorate(models, optimizers=None, level='O1', dtype='bfloat16',
@@ -154,6 +164,9 @@ def decorate(models, optimizers=None, level='O1', dtype='bfloat16',
                         p.data = p.data.to(target)
     out = models if single else model_list
     return out if optimizers is None else (out, optimizers)
+
+
+amp_decorate = decorate
 
 
 class GradScaler:

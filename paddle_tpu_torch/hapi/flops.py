@@ -23,10 +23,9 @@ def _count(layer, inp, out):
     in_shape = inp[0].shape if inp else []
     out_shape = out.shape if isinstance(out, torch.Tensor) else \
         (out[0].shape if isinstance(out, (list, tuple)) and out else [])
-    # the reference's table also names Conv*DTranspose and GroupNorm,
-    # which come to the port with ROADMAP Queue 1 item 7b (and their
-    # rows with them)
-    if isinstance(layer, (nn.Conv1D, nn.Conv2D, nn.Conv3D)):
+    if isinstance(layer, (nn.Conv1D, nn.Conv2D, nn.Conv3D,
+                          nn.Conv1DTranspose, nn.Conv2DTranspose,
+                          nn.Conv3DTranspose)):
         kernel_ops = _prod(layer.kernel_size) * \
             (layer.in_channels // layer.groups)
         bias_ops = 1 if layer.bias is not None else 0
@@ -37,7 +36,7 @@ def _count(layer, inp, out):
         bias_ops = out_f if layer.bias is not None else 0
         return batch * (in_shape[-1] * out_f + bias_ops)
     if isinstance(layer, (nn.BatchNorm, nn.BatchNorm1D, nn.BatchNorm2D,
-                          nn.BatchNorm3D, nn.LayerNorm)):
+                          nn.BatchNorm3D, nn.LayerNorm, nn.GroupNorm)):
         return 2 * _prod(in_shape)
     if isinstance(layer, (nn.ReLU, nn.ReLU6, nn.Sigmoid, nn.Softmax,
                           nn.GELU, nn.Tanh)):

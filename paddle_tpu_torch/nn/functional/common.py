@@ -1,10 +1,25 @@
 """Common functionals (counterpart of
-``paddle_tpu/nn/functional/common.py``; the port has ``linear``, the
-dropouts, ``embedding`` and ``embedding_prefix``, ``one_hot``, ``pad``,
+``paddle_tpu/nn/functional/common.py``): ``linear``, the dropouts,
+``embedding`` and ``embedding_prefix``, ``one_hot``, ``pad``,
 ``label_smooth``, ``cosine_similarity``, ``normalize``,
-``sequence_mask`` and ``gather_tree``; the vision half, ``interpolate``,
-``unfold`` and the rest, waits for its slice).  Each casts its inputs
-through the AMP policy under the reference's op name."""
+``sequence_mask``, ``gather_tree``, and the vision half:
+``interpolate``/``upsample``, ``unfold``, ``bilinear``,
+``pixel_shuffle`` and ``diag_embed``.  Each casts its inputs through
+the AMP policy under the reference's op name.
+
+``interpolate`` is the reference's, which is ``jax.image.resize`` and
+not ``torch.nn.functional.interpolate``: ``'nearest'`` takes input
+index ``i * in // out``; the linear modes (``'linear'``,
+``'bilinear'``, ``'trilinear'`` and ``'area'``) and ``'bicubic'`` are
+a weight matrix per resized axis (``_resize_weights``), the triangle or
+Keys' cubic (a = -0.5) at half-pixel centres, widened by ``in / out``
+when downsampling (antialiasing) and normalised per output, applied by
+a product along that axis.  ``align_corners`` and ``align_mode`` are
+taken and not read, as in the reference; the output size is
+``int(in * scale_factor)``.
+"""
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as TF
@@ -16,7 +31,8 @@ from .norm import _scalar
 __all__ = ['linear', 'dropout', 'dropout2d', 'dropout3d', 'alpha_dropout',
            'embedding', 'embedding_prefix', 'one_hot', 'pad',
            'cosine_similarity', 'normalize', 'label_smooth',
-           'sequence_mask', 'gather_tree']
+           'sequence_mask', 'gather_tree', 'interpolate', 'upsample',
+           'bilinear', 'pixel_shuffle', 'unfold', 'diag_embed']
 
 _DROPOUT_MODES = ('upscale_in_train', 'downscale_in_infer')
 
@@ -210,3 +226,140 @@ def gather_tree(ids, parents):
         out[t] = ids[t].gather(-1, beams)
         beams = parents[t].gather(-1, beams)
     return torch.stack(out, 0)
+
+
+def _triangle(x):
+    return np.maximum(np.float32(0), np.float32(1) - np.abs(x))
+
+
+def _keys_cubic(x):
+    """Keys' cubic convolution kernel, a = -0.5 (``jax.image``'s)."""
+    f = np.float32
+    out = ((f(1.5) * x - f(2.5)) * x) * x + f(1.)
+    out = np.where(x >= 1., ((f(-0.5) * x + f(2.5)) * x - f(4.)) * x + f(2.),
+                   out)
+    return np.where(x >= 2., f(0.), out).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=128)
+def _resize_matrix(n_in, n_out, cubic):
+    """``jax.image.resize``'s ``[n_in, n_out]`` f32 weights for one
+    axis: the kernel at ``|sample - j|`` (``sample = (i + 0.5) * in /
+    out - 0.5``) over ``max(in / out, 1)``, each column divided by its
+    sum, and zero where the sample lies outside the input."""
+    f = np.float32
+    inv_scale = f(1.) / f(n_out / n_in)
+    kernel_scale = max(inv_scale, f(1.))
+    sample = (np.arange(n_out, dtype=f) + f(0.5)) * inv_scale \
+        - f(0.) * inv_scale - f(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f)[:, None]) \
+        / kernel_scale
+    w = (_keys_cubic if cubic else _triangle)(x.astype(f))
+    total = w.sum(axis=0, keepdims=True, dtype=f)
+    w = np.where(np.abs(total) > 1000. * float(np.finfo(f).eps),
+                 w / np.where(total != 0, total, f(1.)), f(0.))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, f(0.)).astype(f)
+
+
+@functools.lru_cache(maxsize=128)
+def _resize_weights(n_in, n_out, cubic, dtype, device):
+    """``_resize_matrix`` in ``dtype`` on ``device``, made once."""
+    return torch.from_numpy(_resize_matrix(n_in, n_out, cubic)).to(
+        device=device, dtype=dtype)
+
+
+def _nearest(x, axis, n_in, n_out):
+    """Input index ``i * n_in // n_out`` along ``axis``: a broadcast when
+    ``n_out`` is a multiple of ``n_in`` (its gradient a sum, not a
+    scatter), a gather otherwise."""
+    if n_out % n_in == 0:
+        r = n_out // n_in
+        shape = list(x.shape)
+        shape.insert(axis + 1, r)
+        out = x.unsqueeze(axis + 1).expand(shape)
+        return out.reshape(x.shape[:axis] + (n_out,) + x.shape[axis + 1:])
+    idx = torch.arange(n_out, device=x.device) * n_in // n_out
+    return x.index_select(axis, idx)
+
+
+_RESIZE = {'nearest': 'nearest', 'bilinear': 'linear', 'trilinear': 'linear',
+           'linear': 'linear', 'bicubic': 'cubic', 'area': 'linear'}
+
+
+def interpolate(x, size=None, scale_factor=None, mode='nearest',
+                align_corners=False, align_mode=0, data_format='NCHW',
+                name=None):
+    """Resize the spatial axes to ``size`` or ``int(in * scale_factor)``
+    as the reference does (module docstring)."""
+    x, = amp_cast('interpolate', x)
+    channel_last = data_format in ('NHWC', 'NWC', 'NDHWC')
+    n_sp = x.dim() - 2
+    axes = list(range(1, 1 + n_sp)) if channel_last else \
+        list(range(2, 2 + n_sp))
+    in_sizes = [x.shape[a] for a in axes]
+    if size is not None:
+        size = [int(s) for s in (size if isinstance(size, (list, tuple))
+                                 else [size])]
+    else:
+        sf = scale_factor if isinstance(scale_factor, (list, tuple)) else \
+            [scale_factor] * n_sp
+        size = [int(in_sizes[i] * float(sf[i])) for i in range(n_sp)]
+    method = _RESIZE[mode]
+    out = x
+    for i, a in enumerate(axes):
+        n_in, n_out = in_sizes[i], size[i]
+        if method == 'nearest':
+            out = _nearest(out, a, n_in, n_out)
+        elif n_in != n_out:
+            w = _resize_weights(n_in, n_out, method == 'cubic', x.dtype,
+                                x.device)
+            out = (out.movedim(a, -1) @ w).movedim(-1, a)
+    return out
+
+
+def upsample(x, size=None, scale_factor=None, mode='nearest',
+             align_corners=False, align_mode=0, data_format='NCHW',
+             name=None):
+    return interpolate(x, size, scale_factor, mode, align_corners,
+                       align_mode, data_format)
+
+
+def bilinear(x1, x2, weight, bias=None, name=None):
+    """``out[b, o] = x1[b] @ weight[o] @ x2[b] + bias[o]``, ``weight
+    [out, in1, in2]``."""
+    a, b, w, bias = amp_cast('bilinear', x1, x2, weight, bias)
+    out = torch.einsum('bi,oij,bj->bo', a, w, b)
+    return out if bias is None else out + bias
+
+
+def pixel_shuffle(x, upscale_factor, data_format='NCHW', name=None):
+    """``[N, C r^2, H, W] -> [N, C, H r, W r]``; in NHWC the channels
+    split as ``(r, r, C)``, the reference's order."""
+    x, = amp_cast('pixel_shuffle', x)
+    r = int(upscale_factor)
+    if data_format == 'NCHW':
+        n, c, h, w = x.shape
+        v = x.reshape(n, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+        return v.reshape(n, c // (r * r), h * r, w * r)
+    n, h, w, c = x.shape
+    v = x.reshape(n, h, w, r, r, c // (r * r)).permute(0, 1, 3, 2, 4, 5)
+    return v.reshape(n, h * r, w * r, c // (r * r))
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """Sliding ``[C * kh * kw]`` patches of an NCHW ``x`` as columns,
+    ``[N, C * kh * kw, L]`` (im2col), the input padded by
+    ``paddings[0]`` and ``paddings[1]`` on both sides of each axis."""
+    from .conv import _tuple
+    x, = amp_cast('unfold', x)
+    pd = _tuple(paddings, 2)
+    return TF.unfold(x, _tuple(kernel_sizes, 2), dilation=_tuple(
+        dilations, 2), padding=(pd[0], pd[1]), stride=_tuple(strides, 2))
+
+
+def diag_embed(input, offset=0, dim1=-2, dim2=-1, name=None):
+    """The last axis of ``input`` on the ``offset`` diagonal of the
+    ``(dim1, dim2)`` planes of a new tensor."""
+    x, = amp_cast('diag_embed', input)
+    return torch.diag_embed(x, offset, dim1, dim2)

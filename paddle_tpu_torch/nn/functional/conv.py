@@ -23,7 +23,19 @@ gradients, without a launch.
 An f32 convolution computes in f32 on the card whatever the process's
 ``torch.backends.cudnn.allow_tf32`` says: forward and backward run with
 the flag off (the rest of the port keeps TF32 off too), as XLA's f32
-convolution does.  The transposed convolutions are not ported yet.
+convolution does.
+
+The transposed convolutions take the reference's signature and
+semantics (its ``lax`` convolution over the stride-dilated input with
+the flipped, swapped kernel): the weight is ``[in, out/groups, *k]``
+(PyTorch's layout too), ``'SAME'`` pads ``(k - 1) // 2`` on both sides,
+``'VALID'`` nothing, and ``output_size`` becomes one-sided extra
+padding, a ``ValueError`` when no such padding reaches it.  The product
+is one cuDNN transposed convolution under the same TF32 guard: with the
+reference's padding where it is symmetric and ``output_padding`` is
+below the stride or the dilation (what PyTorch can express), otherwise
+unpadded and then cropped (or extended with zeros) to the reference's
+window.
 """
 import contextlib
 
@@ -126,30 +138,34 @@ def _ieee_f32():
             torch.backends.cudnn.allow_tf32 = True
 
 
-def _convolution(x, w, stride, padding, dilation, groups):
+def _convolution(x, w, stride, padding, dilation, groups, opad=None):
+    """``aten.convolution``; transposed when ``opad`` (its
+    ``output_padding``) is given."""
     n = x.dim() - 2
-    return torch.ops.aten.convolution(x, w, None, stride, padding, dilation,
-                                      False, [0] * n, groups)
+    return torch.ops.aten.convolution(
+        x, w, None, stride, padding, dilation, opad is not None,
+        [0] * n if opad is None else opad, groups)
 
 
 def _convolution_backward(gy, x, w, stride, padding, dilation, groups,
-                          mask):
+                          opad, mask):
     n = x.dim() - 2
     return torch.ops.aten.convolution_backward(
-        gy, x, w, None, stride, padding, dilation, False, [0] * n, groups,
-        mask)
+        gy, x, w, None, stride, padding, dilation, opad is not None,
+        [0] * n if opad is None else opad, groups, mask)
 
 
 class _Conv(torch.autograd.Function):
-    """Convolution without bias, forward and backward under
-    ``_ieee_f32``."""
+    """Convolution without bias (transposed when ``opad`` is not None),
+    forward and backward under ``_ieee_f32``."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, padding, dilation, groups):
-        ctx.conf = (stride, padding, dilation, groups)
+    def forward(ctx, x, w, stride, padding, dilation, groups, opad=None):
+        ctx.conf = (stride, padding, dilation, groups, opad)
         ctx.save_for_backward(x, w)
         with _ieee_f32():
-            return _convolution(x, w, stride, padding, dilation, groups)
+            return _convolution(x, w, stride, padding, dilation, groups,
+                                opad)
 
     @staticmethod
     def backward(ctx, gy):
@@ -157,7 +173,15 @@ class _Conv(torch.autograd.Function):
         mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False]
         with _ieee_f32():
             gx, gw, _ = _convolution_backward(gy, x, w, *ctx.conf, mask)
-        return gx, gw, None, None, None, None
+        return gx, gw, None, None, None, None, None
+
+
+def _add_bias(y, bias, channel_last):
+    if bias is None:
+        return y
+    shape = [1] * y.dim()
+    shape[-1 if channel_last else 1] = bias.shape[0]
+    return y + bias.reshape(shape)
 
 
 def _conv(x, w, bias, stride, padding, dilation, groups, n, data_format):
@@ -191,11 +215,7 @@ def _conv(x, w, bias, stride, padding, dilation, groups, n, data_format):
     y = _Conv.apply(xf, w, list(stride), sym, list(dilation), int(groups))
     if channel_last:
         y = to_channel_last(y, n)
-    if bias is not None:
-        shape = [1] * y.dim()
-        shape[-1 if channel_last else 1] = bias.shape[0]
-        y = y + bias.reshape(shape)
-    return y
+    return _add_bias(y, bias, channel_last)
 
 
 def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
@@ -216,11 +236,80 @@ def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
                  data_format)
 
 
-def _transpose_not_ported(*args, **kwargs):
-    raise NotImplementedError(
-        'the transposed convolutions are not ported yet (ROADMAP Queue 1 '
-        'item 7)')
+def _output_padding(output_size, sizes, ksize, stride, dilation, pad):
+    """The one-sided extra padding that takes each axis to
+    ``output_size``: ``ValueError`` when it is not in ``[0, stride)``,
+    as in the reference."""
+    if isinstance(pad, str):
+        raise TypeError('output_size takes an explicit padding, as in '
+                        'the reference')
+    opad = []
+    for i, (size, k, s, d, (lo, hi)) in enumerate(zip(
+            sizes, ksize, stride, dilation, pad)):
+        base = (size - 1) * s - lo - hi + (k - 1) * d + 1
+        extra = int(output_size[i]) - base
+        if not 0 <= extra < max(s, 1):
+            raise ValueError(f'output_size[{i}]={output_size[i]} not '
+                             f'reachable from input size {size} (minimal '
+                             f'{base})')
+        opad.append(extra)
+    return opad
 
 
-conv1d_transpose = conv2d_transpose = conv3d_transpose = \
-    _transpose_not_ported
+def _conv_transpose(x, w, bias, stride, padding, output_padding, groups,
+                    dilation, n, data_format, output_size=None):
+    if x.dim() != n + 2:
+        raise ValueError(f'conv{n}d_transpose takes a {n + 2}-D input, got '
+                         f'shape {tuple(x.shape)}')
+    channel_last = data_format in CHANNEL_LAST
+    x, w, bias = amp_cast(f'conv{n}d_transpose', x, w, bias)
+    stride = _tuple(stride, n)
+    dilation = _tuple(dilation, n)
+    pad = _padding(padding, n)
+    xf = to_channel_first(x, n) if channel_last else x
+    ksize = list(w.shape[2:])
+    opad = list(_tuple(output_padding, n)) if output_padding else [0] * n
+    if output_size is not None:
+        opad = _output_padding(_tuple(output_size, n), xf.shape[2:], ksize,
+                               stride, dilation, pad)
+    if pad == 'VALID':
+        pad = [(0, 0)] * n
+    elif pad == 'SAME':
+        pad = [((k - 1) // 2, (k - 1) // 2) for k in ksize]
+    elif len(pad) != n:
+        raise ValueError(f'conv{n}d_transpose: {len(pad)} padding pairs '
+                         f'for {n} spatial axes')
+    conf = (list(stride), list(dilation), int(groups))
+    if all(lo == hi and o < max(s, d) for (lo, hi), o, s, d in zip(
+            pad, opad, stride, dilation)):
+        y = _Conv.apply(xf, w, conf[0], [lo for lo, _ in pad], conf[1],
+                        conf[2], opad)
+    else:
+        # what PyTorch cannot express: the whole transpose, then the
+        # reference's window (a negative pad crops)
+        y = _Conv.apply(xf, w, conf[0], [0] * n, conf[1], conf[2], [0] * n)
+        y = pad_pairs(y, [(-lo, o - hi) for (lo, hi), o in zip(pad, opad)])
+    if channel_last:
+        y = to_channel_last(y, n)
+    return _add_bias(y, bias, channel_last)
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format='NCL', name=None):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           groups, dilation, 1, data_format, output_size)
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format='NCHW', name=None):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           groups, dilation, 2, data_format, output_size)
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format='NCDHW', name=None):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           groups, dilation, 3, data_format, output_size)

@@ -1,42 +1,79 @@
 """Normalization functionals (counterpart of
-``paddle_tpu/nn/functional/norm.py``; the port has ``layer_norm`` and
-``batch_norm``)."""
+``paddle_tpu/nn/functional/norm.py``): ``layer_norm``, ``batch_norm``,
+``instance_norm``, ``group_norm`` and ``local_response_norm``, each
+with the reference's arithmetic and dtypes.
+
+The statistics accumulate in f32: the variance is two-pass for an f32
+input and one-pass for a 16-bit one (``_one_pass_var``).  The dtypes
+follow the reference's formulas, not PyTorch's ops: ``group_norm``
+normalises in x's dtype and then multiplies by the weight in the
+weight's, so a bf16 ``x`` with f32 weight and bias comes back f32;
+``instance_norm`` folds weight and bias into an f32 scale and shift
+cast to x's dtype, so it comes back in x's.  ``local_response_norm``
+divides by ``(k + alpha * sum(x^2))^beta`` over a channel window padded
+``(size // 2, size - size // 2 - 1)``, with ``alpha`` not divided by
+``size`` (PyTorch's divides it).  ``group_norm`` runs inside a
+``group_norm`` ``record_function`` range, as ``batch_norm`` does, so a
+profile of a step can attribute its kernels.
+"""
 import math
 
 import torch
+import torch.nn.functional as TF
 from torch.profiler import record_function
 
 from ...amp import amp_cast
 from ...ops.fused_norm import fused_layer_norm
 from .conv import CHANNEL_LAST
 
-__all__ = ['layer_norm', 'batch_norm']
+__all__ = ['batch_norm', 'layer_norm', 'instance_norm', 'group_norm',
+           'local_response_norm']
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
                name=None):
-    """LayerNorm over the last axis, through ``fused_layer_norm`` (the
-    kernel on a CUDA tensor, with or without weight/bias).  It is on
-    the AMP keep list: a bf16 ``x`` keeps f32 gamma/beta and f32
-    statistics.  The reference's multi-axis plain path has no caller in
-    the port yet."""
+    """LayerNorm over the trailing ``normalized_shape``.  Over the last
+    axis alone it runs ``fused_layer_norm`` (the kernel on a CUDA
+    tensor, with or without weight/bias); over more axes the
+    reference's plain path: f32 statistics, ``1 / sqrt(var + eps)``
+    rounded to x's dtype, ``(x - mean) * inv`` then the weight and bias
+    in x's dtype.  It is on the AMP keep list: a bf16 ``x`` keeps f32
+    gamma/beta and f32 statistics."""
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
-    if len(tuple(normalized_shape)) != 1:
-        raise NotImplementedError(
-            'layer_norm over more than one axis is not ported yet')
     x, weight, bias = amp_cast('layer_norm', x, weight, bias)
-    return fused_layer_norm(x, weight, bias, eps=epsilon)
+    n_axes = len(tuple(normalized_shape))
+    if n_axes == 1:
+        return fused_layer_norm(x, weight, bias, eps=epsilon)
+    axes = tuple(range(x.dim() - n_axes, x.dim()))
+    mean, var = _stats(x, axes)
+    inv = (1.0 / torch.sqrt(var + epsilon)).to(x.dtype)
+    out = (x - mean.to(x.dtype)) * inv
+    if weight is not None:
+        out = out * weight.to(x.dtype)
+    if bias is not None:
+        out = out + bias.to(x.dtype)
+    return out
 
 
-def _one_pass_var(v, axes, mean):
+def _one_pass_var(v, axes, mean, keepdim=False):
     """E[x^2] - E[x]^2 with an f32 mean of the squares, clamped at 0.
     A bf16 ``v`` is squared in bf16 (the reference keeps the square in
     bf16 so its autodiff saves no f32 copy); other dtypes upcast
     first."""
     sq = v.square() if v.dtype == torch.bfloat16 else v.float().square()
-    var = sq.mean(dim=axes, dtype=torch.float32) - mean.square()
+    var = sq.mean(dim=axes, dtype=torch.float32, keepdim=keepdim) \
+        - mean.square()
     return torch.clamp_min(var, 0.0)
+
+
+def _stats(v, axes):
+    """(mean, variance) over ``axes``, kept as size-1 dims, in f32: the
+    two-pass variance for an f32 ``v``, ``_one_pass_var`` otherwise."""
+    mean = v.mean(dim=axes, dtype=torch.float32, keepdim=True)
+    if v.dtype == torch.float32:
+        return mean, v.var(dim=axes, correction=0, keepdim=True)
+    return mean, _one_pass_var(v, axes, mean, keepdim=True)
 
 
 def _scalar(value, dtype):
@@ -124,3 +161,73 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
             shift = shift + bias.float()
         return (x * scale.reshape(shape).to(x.dtype)
                 + shift.reshape(shape).to(x.dtype))
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format='NCHW', name=None):
+    """Normalisation of each (sample, channel) over its spatial axes;
+    weight and bias fold into an f32 scale and shift, applied in x's
+    dtype.  The running statistics, ``use_input_stats`` and
+    ``momentum`` are taken and not read, as in the reference."""
+    channel_last = data_format in CHANNEL_LAST
+    x, weight, bias = amp_cast('instance_norm', x, weight, bias)
+    ch = x.dim() - 1 if channel_last else 1
+    red = tuple(range(1, x.dim() - 1)) if channel_last else \
+        tuple(range(2, x.dim()))
+    shape = [1] * x.dim()
+    shape[ch] = x.shape[ch]
+    mean, var = _stats(x, red)
+    scale = 1.0 / torch.sqrt(var + eps)
+    shift = -mean * scale
+    if weight is not None:
+        w = weight.reshape(shape).float()
+        scale, shift = scale * w, shift * w
+    if bias is not None:
+        shift = shift + bias.reshape(shape).float()
+    return x * scale.to(x.dtype) + shift.to(x.dtype)
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format='NCHW', name=None):
+    """Normalisation over each group of ``C / num_groups`` channels and
+    the spatial axes: f32 statistics, ``(x - mean) * inv`` in x's dtype,
+    then ``* weight + bias`` in the promoted dtype (f32 for a bf16 ``x``
+    with f32 parameters, as in the reference)."""
+    channel_last = data_format in CHANNEL_LAST
+    x, weight, bias = amp_cast('group_norm', x, weight, bias)
+    with record_function('group_norm'):
+        v = x.movedim(-1, 1) if channel_last else x
+        n, c = v.shape[0], v.shape[1]
+        grouped = v.reshape((n, num_groups, c // num_groups)
+                            + tuple(v.shape[2:]))
+        mean, var = _stats(grouped, tuple(range(2, grouped.dim())))
+        inv = 1.0 / torch.sqrt(var + epsilon)
+        out = ((grouped - mean.to(grouped.dtype)) * inv.to(grouped.dtype)
+               ).reshape(v.shape)
+        shape = [1] * v.dim()
+        shape[1] = c
+        if weight is not None:
+            out = out * weight.reshape(shape)
+        if bias is not None:
+            out = out + bias.reshape(shape)
+        return out.movedim(1, -1) if channel_last else out
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format='NCHW', name=None):
+    """``x / (k + alpha * s)^beta``, ``s`` the sum of squares over a
+    window of ``size`` channels padded ``(size // 2, size - size // 2 -
+    1)``; ``alpha`` is not divided by ``size`` (the reference's
+    formula), and the constants meet a 16-bit ``x`` rounded to its
+    dtype, as the reference's weakly typed ones do."""
+    x, = amp_cast('local_response_norm', x)
+    ch = x.dim() - 1 if data_format in CHANNEL_LAST else 1
+    half = size // 2
+    sq = x.square()
+    pads = [0, 0] * (x.dim() - 1 - ch) + [half, size - half - 1]
+    padded = TF.pad(sq, pads)
+    acc = sum(padded.narrow(ch, i, x.shape[ch]) for i in range(size))
+    dt = x.dtype
+    base = _scalar(k, dt) + _scalar(alpha, dt) * acc
+    return x / base.pow(_scalar(beta, dt))

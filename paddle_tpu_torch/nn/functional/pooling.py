@@ -23,7 +23,8 @@ The reference's semantics, in PyTorch's pooling calls:
   is ``amax``, whose gradient splits evenly between ties, as
   ``jnp.max``'s does.
 Channels-last inputs are permuted to a ``channels_last`` view, as in
-``conv.py``.  ``return_mask=True`` is not ported.
+``conv.py``.  The max pools take ``return_mask`` and, as the reference,
+never read it: the pooled tensor alone comes back.
 """
 import math
 
@@ -42,11 +43,6 @@ __all__ = [
 ]
 
 _MAX = {1: TF.max_pool1d, 2: TF.max_pool2d, 3: TF.max_pool3d}
-
-
-def _no_mask(return_mask):
-    if return_mask:
-        raise NotImplementedError('return_mask=True is not ported')
 
 
 def _window_sum(x, ksize, stride, n):
@@ -137,21 +133,18 @@ def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
 
 def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, name=None):
-    _no_mask(return_mask)
     return _pool(x, kernel_size, stride, padding, 1, 'NCL', 'max',
                  ceil_mode=ceil_mode)
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format='NCHW', name=None):
-    _no_mask(return_mask)
     return _pool(x, kernel_size, stride, padding, 2, data_format, 'max',
                  ceil_mode=ceil_mode)
 
 
 def max_pool3d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format='NCDHW', name=None):
-    _no_mask(return_mask)
     return _pool(x, kernel_size, stride, padding, 3, data_format, 'max',
                  ceil_mode=ceil_mode)
 
@@ -197,15 +190,12 @@ def adaptive_avg_pool3d(x, output_size, data_format='NCDHW', name=None):
 
 
 def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
-    _no_mask(return_mask)
     return _adaptive(x, output_size, 1, 'max', 'NCL')
 
 
 def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
-    _no_mask(return_mask)
     return _adaptive(x, output_size, 2, 'max', 'NCHW')
 
 
 def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
-    _no_mask(return_mask)
     return _adaptive(x, output_size, 3, 'max', 'NCDHW')

@@ -1,7 +1,11 @@
-"""Weight initializers (counterpart of ``paddle_tpu/nn/initializer``; the
-port has ``Constant``, ``Normal``, ``Uniform``, ``XavierNormal``,
-``XavierUniform``, ``KaimingUniform`` and ``calculate_gain``, what the
-ported layers and models use).
+"""Weight initializers (counterpart of ``paddle_tpu/nn/initializer``):
+``Constant``, ``Normal``, ``TruncatedNormal`` (N(0, 1) cut at +-2, then
+scaled), ``Uniform``, the Xavier and Kaiming pairs, ``Assign``,
+``Bilinear`` (the transposed convolution's upsampling kernel, exact),
+``calculate_gain``, and ``set_global_initializer`` with
+``get_default_init``, which ``Layer.create_parameter`` reads for a
+parameter with neither an attr's initializer nor a layer default, as
+the reference does.
 
 An initializer is called as ``init(shape, dtype, generator)`` and
 returns a tensor drawn from the explicit ``torch.Generator`` on that
@@ -15,10 +19,15 @@ draws are torch's, so parity tests carry weights across.
 """
 import math
 
+import numpy as np
 import torch
 
-__all__ = ['Initializer', 'Constant', 'Normal', 'Uniform', 'XavierNormal',
-           'XavierUniform', 'KaimingUniform', 'calculate_gain']
+from ..core.dtype import convert_dtype, get_default_dtype  # noqa: F401
+
+__all__ = ['Initializer', 'Constant', 'Normal', 'TruncatedNormal',
+           'Uniform', 'XavierNormal', 'XavierUniform', 'KaimingNormal',
+           'KaimingUniform', 'Assign', 'Bilinear', 'calculate_gain',
+           'set_global_initializer', 'get_default_init']
 
 
 def _fans(shape):
@@ -84,6 +93,23 @@ class Normal(Initializer):
         return (self.mean + self.std * z).to(dtype)
 
 
+class TruncatedNormal(Initializer):
+    """``mean + std * z`` with ``z`` N(0, 1) cut to [-2, 2] (drawn by
+    the inverse CDF of a uniform between the cut's probabilities, as
+    ``jax.random.truncated_normal`` draws it)."""
+
+    def __init__(self, mean=0.0, std=1.0):
+        self.mean, self.std = mean, std
+
+    def _generate(self, shape, dtype, generator):
+        lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 /
+                                                           math.sqrt(2.0))
+        u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                       device=_dev(generator))
+        z = math.sqrt(2.0) * torch.erfinv(lo + u * (hi - lo))
+        return (self.mean + self.std * z.clamp(-2.0, 2.0)).to(dtype)
+
+
 class XavierNormal(Initializer):
     """N(0, gain^2 * 2 / (fan_in + fan_out)), the fans counted as the
     reference counts them (``_fans``)."""
@@ -128,6 +154,23 @@ class Uniform(Initializer):
         return (u * (self.high - self.low) + self.low).to(dtype)
 
 
+class KaimingNormal(Initializer):
+    """N(0, gain^2 / fan_in)."""
+
+    def __init__(self, fan_in=None, negative_slope=0.0,
+                 nonlinearity='relu'):
+        self.fan_in = fan_in
+        self.negative_slope = negative_slope
+        self.nonlinearity = nonlinearity
+
+    def _generate(self, shape, dtype, generator):
+        fi = self.fan_in if self.fan_in is not None else _fans(shape)[0]
+        gain = calculate_gain(self.nonlinearity, self.negative_slope)
+        z = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=_dev(generator))
+        return (z * (gain / math.sqrt(fi))).to(dtype)
+
+
 class KaimingUniform(Initializer):
     """U[-limit, limit) with ``limit = gain * sqrt(3 / fan_in)``."""
 
@@ -142,3 +185,56 @@ class KaimingUniform(Initializer):
         gain = calculate_gain(self.nonlinearity, self.negative_slope)
         limit = gain * math.sqrt(3.0 / fi)
         return Uniform(-limit, limit)._generate(shape, dtype, generator)
+
+
+class Assign(Initializer):
+    """The given value (a tensor, array or nested list), reshaped to the
+    parameter's shape and cast to its dtype."""
+
+    def __init__(self, value):
+        self.assigned = value
+
+    def _generate(self, shape, dtype, generator):
+        v = self.assigned
+        v = v.detach() if torch.is_tensor(v) else torch.as_tensor(
+            np.asarray(v))
+        return v.to(device=_dev(generator), dtype=dtype).reshape(shape)
+
+
+class Bilinear(Initializer):
+    """The bilinear-upsampling kernel of a transposed convolution:
+    ``weight[..., y, x] = (1 - |x/f - c|)(1 - |y/f - c|)`` with
+    ``f = ceil(W / 2)`` and ``c = (2f - 1 - f % 2) / (2f)``, so a
+    transposed convolution of stride ``f`` interpolates bilinearly."""
+
+    def _generate(self, shape, dtype, generator):
+        if len(shape) != 4:
+            raise ValueError('Bilinear initializer expects a 4-D weight '
+                             f'shape, got {shape}')
+        H, W = shape[-2], shape[-1]
+        f = int(math.ceil(W / 2.0))
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        x = torch.arange(W, dtype=torch.float32, device=_dev(generator))
+        y = torch.arange(H, dtype=torch.float32, device=_dev(generator))
+        k = (1.0 - (y / f - c).abs())[:, None] * (1.0 - (x / f - c).abs())
+        return k.expand(shape).to(dtype).contiguous()
+
+
+_global_weight_init = None
+_global_bias_init = None
+
+
+def set_global_initializer(weight_init, bias_init=None):
+    """The initializers ``get_default_init`` hands out from now on
+    (None restores the reference's defaults)."""
+    global _global_weight_init, _global_bias_init
+    _global_weight_init, _global_bias_init = weight_init, bias_init
+
+
+def get_default_init(is_bias):
+    """A bias's or a weight's initializer when neither its attr nor its
+    layer names one: the global one if set, else zeros for a bias and
+    XavierNormal for a weight."""
+    if is_bias:
+        return _global_bias_init or Constant(0.0)
+    return _global_weight_init or XavierNormal()

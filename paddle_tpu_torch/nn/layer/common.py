@@ -1,6 +1,7 @@
 """Common layers (counterpart of ``paddle_tpu/nn/layer/common.py``):
 ``Linear``, ``Embedding``, the dropouts, ``Flatten``, the pads,
-``Identity`` and ``CosineSimilarity``.
+``Identity``, ``CosineSimilarity``, ``Upsample`` and its nearest and
+bilinear forms, ``Bilinear`` and ``Unfold``.
 
 The signatures are the reference's, positional arguments included
 (``Linear(in, out, weight_attr, bias_attr, name)``,
@@ -18,16 +19,19 @@ on every device.  ``Embedding``'s ``padding_idx`` row is zeroed at
 construction and its lookups are masked (``F.embedding``), so that row
 gets no gradient.
 """
+import math
+
 import torch
 
 from ...core.device import resolve_device
 from .. import functional as F
-from ..initializer import Normal, XavierNormal
+from ..initializer import Normal, Uniform, XavierNormal
 from .layers import Layer
 
 __all__ = ['Linear', 'Embedding', 'Dropout', 'Dropout2D', 'Dropout3D',
            'AlphaDropout', 'Flatten', 'Pad1D', 'Pad2D', 'Pad3D',
-           'CosineSimilarity', 'Identity']
+           'CosineSimilarity', 'Identity', 'Upsample', 'UpsamplingNearest2D',
+           'UpsamplingBilinear2D', 'Bilinear', 'Unfold']
 
 
 class Linear(Layer):
@@ -190,3 +194,72 @@ class Identity(Layer):
 
     def forward(self, x):
         return x
+
+
+class Upsample(Layer):
+    """``F.interpolate`` with the layer's size or scale and mode."""
+
+    def __init__(self, size=None, scale_factor=None, mode='nearest',
+                 align_corners=False, align_mode=0, data_format='NCHW',
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format='NCHW',
+                 name=None):
+        super().__init__(size, scale_factor, 'nearest',
+                         data_format=data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format='NCHW',
+                 name=None):
+        super().__init__(size, scale_factor, 'bilinear', True,
+                         data_format=data_format)
+
+
+class Bilinear(Layer):
+    """``F.bilinear`` with ``weight [out, in1, in2]`` and bias, both
+    ``Uniform(+-1/sqrt(in1))`` by default."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None, *,
+                 device=None):
+        super().__init__()
+        device = resolve_device(device)
+        bound = 1.0 / math.sqrt(in1_features)
+        self.weight = self.create_parameter(
+            [out_features, in1_features, in2_features], attr=weight_attr,
+            default_initializer=Uniform(-bound, bound), device=device)
+        self.bias = self.create_parameter(
+            [out_features], attr=bias_attr, is_bias=True,
+            default_initializer=Uniform(-bound, bound), device=device)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.kernel_sizes = kernel_sizes
+        self.strides = strides
+        self.paddings = paddings
+        self.dilations = dilations
+
+    def forward(self, x):
+        return F.unfold(x, self.kernel_sizes, self.strides, self.paddings,
+                        self.dilations)

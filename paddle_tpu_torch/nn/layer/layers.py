@@ -10,8 +10,10 @@ torch's, whose keys are the reference's.
 
 A parameter is drawn at construction from its device's generator
 (``core.rng``, reseeded by ``paddle_tpu_torch.seed``), by the
-``ParamAttr``'s initializer, else the layer's default, else the
-reference's (zeros for a bias, XavierNormal otherwise).  The attr's
+``ParamAttr``'s initializer, else the layer's default, else
+``initializer.get_default_init`` (the global initializer if one was
+set, else zeros for a bias and XavierNormal otherwise), as in the
+reference.  The attr's
 ``learning_rate`` lands in ``param.optimize_attr`` (the eager
 ``optimizer.step()`` scales the parameter's rate by it, as the
 reference's does), ``need_clip`` and ``regularizer`` on the parameter,
@@ -30,7 +32,7 @@ from torch import nn
 
 from ...core import rng
 from ...core.device import resolve_device
-from ..initializer import Constant, Initializer, XavierNormal
+from ..initializer import Initializer, get_default_init
 
 __all__ = ['ParamAttr', 'Layer', 'create_parameter', 'deferred_init']
 
@@ -87,9 +89,8 @@ def create_parameter(shape, dtype=None, name=None, attr=None, is_bias=False,
                      device=None):
     """A parameter of ``shape`` on ``device``, drawn from ``generator``
     (the device's ``core.rng`` generator when None) by ``attr``'s
-    initializer, else ``default_initializer``, else the reference's
-    default (zeros for ``is_bias``, XavierNormal otherwise); None when
-    ``attr`` is False."""
+    initializer, else ``default_initializer``, else
+    ``get_default_init(is_bias)``; None when ``attr`` is False."""
     attr = ParamAttr._to_attr(attr)
     if attr is False:
         return None
@@ -97,7 +98,7 @@ def create_parameter(shape, dtype=None, name=None, attr=None, is_bias=False,
     init = attr.initializer if attr is not None and \
         attr.initializer is not None else default_initializer
     if init is None:
-        init = Constant(0.0) if is_bias else XavierNormal()
+        init = get_default_init(is_bias)
     if not isinstance(init, Initializer):
         raise TypeError(f'initializer {init!r} is not one of '
                         'paddle_tpu_torch.nn.initializer')

@@ -236,16 +236,25 @@ def test_f32_conv_turns_tf32_off_forward_and_backward(monkeypatch):
 
 
 def test_transposed_convs_and_masks_raise():
-    x = torch.zeros(1, 1, 4, 4)
-    for fn in (F.conv1d_transpose, F.conv2d_transpose, F.conv3d_transpose):
-        with pytest.raises(NotImplementedError):
-            fn(x, x)
-    with pytest.raises(NotImplementedError):
-        F.max_pool2d(x, 2, return_mask=True)
-    with pytest.raises(NotImplementedError):
-        F.adaptive_max_pool2d(x, 2, return_mask=True)
+    """The calls that raised before the vision slice now run and agree
+    with the reference: the three transposed convolutions, and the max
+    pools with ``return_mask=True`` (the reference never reads the flag
+    and returns the pooled tensor alone).  A padding string other than
+    ``'SAME'``/``'VALID'`` still raises."""
+    rs = np.random.RandomState(0)
+    for n in (1, 2, 3):
+        x, w = _rand(rs, 1, 2, *(4,) * n), _rand(rs, 2, 3, *(2,) * n)
+        name = f'conv{n}d_transpose'
+        _compare(lambda v, k: getattr(JF, name)(v, k, stride=2),
+                 lambda v, k: getattr(F, name)(v, k, stride=2), [x, w])
+    x = _rand(rs, 1, 1, 4, 4)
+    _compare(lambda v: JF.max_pool2d(v, 2, return_mask=True),
+             lambda v: F.max_pool2d(v, 2, return_mask=True), [x])
+    _compare(lambda v: JF.adaptive_max_pool2d(v, 2, return_mask=True),
+             lambda v: F.adaptive_max_pool2d(v, 2, return_mask=True), [x])
     with pytest.raises(ValueError):
-        F.conv2d(x, torch.zeros(1, 1, 1, 1), padding='FULL')
+        F.conv2d(torch.from_numpy(x), torch.zeros(1, 1, 1, 1),
+                 padding='FULL')
 
 
 # (kind, n, data_format, kernel, stride, padding, ceil_mode, exclusive)

@@ -46,10 +46,11 @@ def _first(out):
     return out
 
 
-def jax_vjp(jm, fn, inputs, seed=7):
+def jax_vjp(jm, fn, inputs, seed=7, jit=False):
     """(output, {param: grad}, [input grads]) of ``sum(first(fn(jm,
-    *inputs)) * cot)`` by jax.value_and_grad; float ``inputs`` (numpy)
-    get gradients, others are constants."""
+    *inputs)) * cot)`` by jax.value_and_grad (under one ``jax.jit`` with
+    ``jit``: one compile instead of one a primitive); float ``inputs``
+    (numpy) get gradients, others are constants."""
     params, buffers = jm.functional_state()
     diff = [i for i, a in enumerate(inputs)
             if np.issubdtype(np.asarray(a).dtype, np.floating)]
@@ -68,9 +69,10 @@ def jax_vjp(jm, fn, inputs, seed=7):
             jm.load_functional_state(*saved)
         return jnp.sum(out.astype(jnp.float32) * cot(out.shape, seed)), out
 
-    (_, out), grads = jax.value_and_grad(
-        f, argnums=tuple(range(len(diff) + 1)), has_aux=True)(
-            params, *[jnp.asarray(inputs[i]) for i in diff])
+    vg = jax.value_and_grad(f, argnums=tuple(range(len(diff) + 1)),
+                            has_aux=True)
+    (_, out), grads = (jax.jit(vg) if jit else vg)(
+        params, *[jnp.asarray(inputs[i]) for i in diff])
     return (np32(out), {k: np32(v) for k, v in grads[0].items()},
             [np32(g) for g in grads[1:]])
 
@@ -97,11 +99,12 @@ def close(got, want, tol, what):
     assert err <= tol, f'{what}: max |diff| / scale {err:.3e} > {tol}'
 
 
-def compare_vjp(jm, pm, fn, inputs, tol, grad_tol, skip=()):
+def compare_vjp(jm, pm, fn, inputs, tol, grad_tol, skip=(), jit=False):
     """Output, every parameter gradient (those named in ``skip`` only
     checked to be tiny on both sides: their true value is 0) and every
-    float input's gradient of ``fn`` on the JAX and port layers."""
-    want, jg, jxg = jax_vjp(jm, fn, inputs)
+    float input's gradient of ``fn`` on the JAX and port layers (the JAX
+    side under ``jax.jit`` with ``jit``)."""
+    want, jg, jxg = jax_vjp(jm, fn, inputs, jit=jit)
     got, pg, pxg = port_vjp(pm, fn, inputs)
     assert got.shape == want.shape, (got.shape, want.shape)
     close(got, want, tol, 'output')

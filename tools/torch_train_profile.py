@@ -1,6 +1,6 @@
 """Where the port's training time goes, on one CUDA card.
 
-    python3 tools/torch_train_profile.py [--model gpt|gpt_recipe|longctx|moe|bert|bert_flash|bert_gemm_gelu|resnet50|qat|widedeep|transformer|lstm_lm] [--path fused|eager] [--steps 2] [--out build/torch_train_profile.json]
+    python3 tools/torch_train_profile.py [--model gpt|gpt_recipe|longctx|moe|bert|bert_flash|bert_gemm_gelu|resnet50|qat|widedeep|transformer|lstm_lm|ddpm_unet] [--path fused|eager] [--steps 2] [--out build/torch_train_profile.json]
 
 Run from the repository root.  Training steps at full width with random
 seeded weights, in the configuration of one of ``chip_smoke.py``'s
@@ -45,7 +45,15 @@ attention and the label-smoothed loss (``seq_split``: the kernels inside
 the ``multihead_attention`` and ``cross_entropy`` ranges, which the
 port's layers mark); ``--model lstm_lm`` Zaremba's large PTB LSTM LM
 (2 x 1500, vocabulary 10000, B 20 x 35 steps, f32, SGD lr 1 with a
-global-norm clip of 10; ``chip_smoke.lstm_lm_trainer``).
+global-norm clip of 10; ``chip_smoke.lstm_lm_trainer``); ``--model
+ddpm_unet`` DDPM's CIFAR-10 U-Net (``chip_smoke.DDPM_KW``: ch 128,
+multipliers (1, 2, 2, 2), GroupNorm 32, attention at 16^2, dropout 0.1;
+B 128 x 3 x 32^2, bf16 O2, Adam 2e-4 with a global-norm clip of 1;
+``chip_smoke.ddpm_trainer``), whose device time is also split into
+GroupNorm (every GroupNorm of the step timed alone, forward and
+backward, by ``gn_breakdown``, and the forward's kernels inside the
+``group_norm`` ranges), the convolutions (the cuDNN kinds), the softmax
+kernel and the copies and casts.
 ``--path fused`` (the default) trains through
 ``ParallelTrainer(fused_steps=--steps).step_fused``, the step as a
 replayed CUDA graph: one chunk warms up (the first step eager, the
@@ -98,7 +106,8 @@ KINDS = [('conv forward (cuDNN)', ('fprop', 'implicit_convolve',
          ('flash_attention_bwd_dkv', ('flash_bwd_dkv',)),
          ('fused_layer_norm', ('layer_norm_warp<', 'layer_norm_block<')),
          # PyTorch's own are softmax_warp_forward/backward
-         ('fused_softmax', ('softmax_warp<', 'softmax_block<')),
+         ('fused_softmax', ('softmax_vec<', 'softmax_scalar<',
+                            'softmax_warp<', 'softmax_block<')),
          # the tensor-core and the SIMT design
          ('fused_linear_gelu', ('linear_gelu_wgmma<', 'linear_gelu<')),
          ('matmul (cuBLAS/CUTLASS)', ('gemm', 'cutlass', 'sm90_xmma',
@@ -157,6 +166,14 @@ def _setup(model_name, fused_steps=None):
                                                fused_steps=fused_steps),
                 batch, chip_smoke.TRANSFORMER_BATCH
                 * chip_smoke.TRANSFORMER_TGT, False)
+    if model_name == 'ddpm_unet':
+        import paddle_tpu_torch as paddle
+        paddle.seed(0)
+        model = chip_smoke.ddpm_unet(paddle, **chip_smoke.DDPM_KW)
+        return (chip_smoke.ddpm_trainer(paddle, model, amp_o2=True,
+                                        fused_steps=fused_steps),
+                chip_smoke.ddpm_batch(chip_smoke.DDPM_BATCH),
+                chip_smoke.DDPM_BATCH, False)
     if model_name == 'lstm_lm':
         import paddle_tpu_torch as paddle
         paddle.seed(0)
@@ -269,7 +286,8 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
         'model': model_name, 'path': path, 'steps': steps,
         'loss': float(loss),
         'wall_ms_per_step': wall_us / steps / 1e3,
-        {'resnet50': 'imgs', 'qat': 'imgs', 'widedeep': 'examples',
+        {'resnet50': 'imgs', 'qat': 'imgs', 'ddpm_unet': 'imgs',
+         'widedeep': 'examples',
          'transformer': 'target_tokens', 'lstm_lm': 'words'}.get(
             model_name, 'tokens')
         + '_per_s_under_profiler': tokens * steps / (wall_us / 1e6),
@@ -300,6 +318,18 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
         res['widedeep_split'] = widedeep_split(res, device, events, steps)
     if model_name == 'transformer':
         res['seq_split'] = seq_split(device, events, steps)
+    if model_name == 'ddpm_unet':
+        res['seq_split'] = seq_split(device, events, steps, ('group_norm',))
+        gn = gn_breakdown(trainer, batch)
+        kinds = res['device_ms_per_step_by_kind']
+        busy = res['device_busy_ms_per_step']
+        gn['share_of_device_busy'] = (gn['fwd_bwd_ms_per_step'] / busy
+                                      if busy else None)
+        gn['convolutions_ms_per_step'] = sum(
+            v for k, v in kinds.items() if k.startswith('conv'))
+        gn['softmax_ms_per_step'] = kinds.get('fused_softmax', 0.0)
+        gn['copies_casts_ms_per_step'] = kinds.get('copy / cast', 0.0)
+        res['group_norm'] = gn
     if model_name == 'resnet50':
         res['conv_and_layout_kernels'] = [
             {'name': name[:160], 'count_per_step': n / steps,
@@ -334,6 +364,15 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
     for k, v in {**res.get('widedeep_split', {}),
                  **res.get('seq_split', {})}.items():
         print(f'  split  {v:9.3f} ms/step {k}')
+    if 'group_norm' in res:
+        gn = res['group_norm']
+        print(f'  group_norm: {gn["layers"]} layers, forward + backward '
+              f'alone {gn["fwd_bwd_ms_per_step"]:.3f} ms/step (forward '
+              f'{gn["fwd_ms_per_step"]:.3f}), a share '
+              f'{gn["share_of_device_busy"]} of the device-busy time; '
+              f'convolutions {gn["convolutions_ms_per_step"]:.3f}, softmax '
+              f'{gn["softmax_ms_per_step"]:.3f}, copies and casts '
+              f'{gn["copies_casts_ms_per_step"]:.3f} ms/step')
     if 'batch_norm' in res:
         bn = res['batch_norm']
         print(f'  batch_norm: {bn["layers"]} layers, forward + backward '
@@ -343,12 +382,12 @@ def training_breakdown(model_name='gpt', steps=2, top=20, path='fused'):
     return res
 
 
-def seq_split(device, events, steps):
-    """Device ms per step of the kernels launched inside each
-    ``SEQ_RANGES`` range, forward only (the backward's kernels run
-    outside any range)."""
+def seq_split(device, events, steps, names=SEQ_RANGES):
+    """Device ms per step of the kernels launched inside each of the
+    ``names`` ranges, forward only (the backward's kernels run outside
+    any range)."""
     out = {}
-    for name in SEQ_RANGES:
+    for name in names:
         spans = [(e.time_range.start, e.time_range.end) for e in device
                  if e.name == name]
         inside = [e for e in events if any(
@@ -455,12 +494,69 @@ def bn_breakdown(trainer, batch, iters=5):
                                         for c in cases)}
 
 
+def gn_breakdown(trainer, batch, iters=5):
+    """Device ms a step of every GroupNorm of the model alone, as
+    ``bn_breakdown`` times the BatchNorms: each one's input shape and
+    dtype from one training forward under the trainer's AMP policy, then
+    ``F.group_norm`` forward and backward on seeded inputs of those
+    shapes with the layer's f32 weight and bias."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.layer.norm import GroupNorm
+    model = trainer.model
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp: seen.append((mod, inp[0].shape, inp[0].dtype)))
+        for m in model.modules() if isinstance(m, GroupNorm)]
+    xs = [torch.from_numpy(b).to(trainer.device)
+          for b in batch[:trainer.n_inputs]]
+    try:
+        with torch.no_grad(), trainer._autocast():
+            model.train()(*xs)
+    finally:
+        for h in hooks:
+            h.remove()
+    gen = torch.Generator(device=trainer.device).manual_seed(0)
+    cases = []
+    for mod, shape, dtype in seen:
+        x = torch.randn(shape, generator=gen, device=trainer.device,
+                        dtype=torch.float32).to(dtype).requires_grad_(True)
+        cases.append((mod, x, torch.randn(shape, generator=gen,
+                                          device=trainer.device),
+                      mod.weight.detach().clone().requires_grad_(True),
+                      mod.bias.detach().clone().requires_grad_(True)))
+
+    def run(backward):
+        for mod, x, g, w, b in cases:
+            with trainer._autocast():
+                out = F.group_norm(x, mod.num_groups, mod.epsilon, w, b,
+                                   mod.data_format)
+            if backward:
+                out.backward(g.to(out.dtype))
+
+    def timed(backward):
+        run(backward)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                run(backward)
+            torch.cuda.synchronize()
+        busy, _ = _busy_us([e for e in prof.events()
+                            if chip_smoke.is_device_event(e)
+                            and e.name not in RANGES])
+        return busy / iters / 1e3
+    return {'layers': len(cases), 'fwd_ms_per_step': timed(False),
+            'fwd_bwd_ms_per_step': timed(True),
+            'input_bytes_per_step': sum(c[1].numel() * c[1].element_size()
+                                        for c in cases)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--model', choices=('gpt', 'gpt_recipe', 'longctx', 'moe',
                                         *BERT_RUN, 'resnet50', 'qat',
                                         'widedeep', 'transformer',
-                                        'lstm_lm'),
+                                        'lstm_lm', 'ddpm_unet'),
                     default='gpt')
     ap.add_argument('--path', choices=('fused', 'eager'), default='fused')
     ap.add_argument('--steps', type=int, default=2)
