@@ -21,7 +21,8 @@ high-level API (``Model``, ``summary``, ``flops``, ``save``, ``load``),
 the fluid-era ``batch``, and the ``nn``, ``optimizer``, ``amp``, ``io``,
 ``metric``, ``hapi``, ``callbacks``, ``jit``, ``static``, ``framework``,
 ``vision``, ``inference``, ``reader``, ``dataset``, ``autograd``,
-``regularizer``, ``parallel``, ``models`` and ``distributed`` packages
+``regularizer``, ``parallel``, ``models``, ``distributed``, ``device``,
+``ops``, ``profiler``, ``quantization`` and ``utils`` packages
 (none of which starts a thread, a process group or a CUDA context on
 import).  ``models`` is imported at its first use as
 ``paddle_tpu_torch.models``: a process that serves a saved model (an
@@ -53,7 +54,10 @@ from . import callbacks, hapi  # noqa: F401
 from . import dataset, inference, reader  # noqa: F401
 from . import distributed, parallel, regularizer  # noqa: F401
 from . import incubate  # noqa: F401
+from . import device, ops, profiler, quantization, utils  # noqa: F401
 from .batch import batch
+from .distributed.parallel import DataParallel
+from .framework import ComplexTensor
 from .framework.io import load, save
 from .hapi import Model, flops, summary
 from .nn.layer.layers import ParamAttr, create_parameter
@@ -88,7 +92,9 @@ __all__ = (['resolve_device', 'set_device', 'get_device', 'seed',
             'metric', 'static', 'vision', 'hapi', 'callbacks', 'Model',
             'summary', 'flops', 'save', 'load', 'inference', 'reader',
             'dataset', 'batch', 'autograd', 'regularizer', 'parallel',
-            'distributed', 'incubate', 'Tensor', 'Parameter',
+            'distributed', 'incubate', 'device', 'ops', 'profiler',
+            'quantization', 'utils', 'DataParallel', 'ComplexTensor',
+            'Tensor', 'Parameter',
             'VarBase', 'no_grad', 'enable_grad', 'is_grad_enabled',
             'set_grad_enabled', 'grad', 'dtype', 'bool', 'float16',
             'bfloat16', 'float32', 'float64', 'int8', 'int16', 'int32',

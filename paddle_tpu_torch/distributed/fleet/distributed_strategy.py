@@ -1,10 +1,19 @@
 """DistributedStrategy — training strategy configuration (counterpart of
 ``paddle_tpu/distributed/fleet/distributed_strategy.py``).
 
-The reference's toggles and configs, unchanged.  The port's single-device
-``ParallelTrainer`` honours ``amp`` and ``amp_configs['use_pure_fp16']``
-(bf16 O1 or O2) and raises ``NotImplementedError`` on any other toggle
-that is set; the rest arrive with the distributed slice.
+The reference's toggles and configs, unchanged.  The port's
+single-device ``ParallelTrainer`` honours what the reference's does
+without a mesh: ``amp`` (``amp_configs['use_pure_fp16']``: bf16 O1 or
+O2), ``recompute`` (the whole forward recomputed in the backward;
+``recompute_configs`` unread, as there) and ``gradient_merge``
+(``k_steps`` micro-batches in one step, their gradients averaged
+whatever ``avg`` says, as there); ``lamb`` and ``dgc`` act through
+``fleet.distributed_optimizer``.  ``sharding`` at stages 0-2,
+``tensor_parallel``, ``sequence_parallel``, ``localsgd``, ``lars`` and
+``pipeline`` (which warns) change nothing on one device, as in the
+reference; ``a_sync`` warns and ZeRO stage 3 raises
+(``fleet_base.validate_strategy``).  The parallel degrees above 1 are
+ROADMAP item 9b.
 """
 
 __all__ = ['DistributedStrategy']

@@ -10,6 +10,7 @@ import torch.nn.functional as TF
 
 from ...amp import amp_cast
 from ...core import rng
+from ...core.dtype import convert_dtype
 from ...ops.fused_softmax import fused_softmax
 
 __all__ = [
@@ -65,10 +66,12 @@ def softmax(x, axis=-1, dtype=None, name=None):
     ``fused_softmax`` (the hand-written kernel on a CUDA tensor), any
     other through ``torch.softmax``, as in the reference.  ``softmax``
     is black-listed under AMP, so the kernel sees f32 scores; ``dtype``
-    casts the input first."""
+    (a torch dtype, a name or a numpy dtype) casts the input first, so
+    the result takes it, where the reference reads no ``dtype`` and
+    keeps x's."""
     x, = amp_cast('softmax', x)
     if dtype is not None:
-        x = x.to(dtype)
+        x = x.to(convert_dtype(dtype))
     if axis in (-1, x.dim() - 1):
         return fused_softmax(x)
     return torch.softmax(x, dim=axis)
@@ -77,7 +80,7 @@ def softmax(x, axis=-1, dtype=None, name=None):
 def log_softmax(x, axis=-1, dtype=None, name=None):
     x, = amp_cast('log_softmax', x)
     if dtype is not None:
-        x = x.to(dtype)
+        x = x.to(convert_dtype(dtype))
     return torch.log_softmax(x, dim=axis)
 
 

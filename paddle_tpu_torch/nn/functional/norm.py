@@ -23,6 +23,7 @@ import torch.nn.functional as TF
 from torch.profiler import record_function
 
 from ...amp import amp_cast
+from ...core.recompute import recomputing
 from ...ops.fused_norm import fused_layer_norm
 from .conv import CHANNEL_LAST
 
@@ -96,7 +97,10 @@ def _update_running(running, batch_stat, momentum):
     """``running <- running * momentum + batch * (1 - momentum)`` as the
     reference's Tensor ops compute it (each cast by the AMP policy: bf16
     under O2), written back in ``running``'s dtype in place, so a
-    captured graph keeps the buffer's address."""
+    captured graph keeps the buffer's address.  A recomputation
+    (``core.recompute``) writes nothing: the forward moved them once."""
+    if recomputing():
+        return
     a = _multiply(running, momentum)
     b = _multiply(batch_stat, 1.0 - momentum)
     a, b = amp_cast('add', a, b)

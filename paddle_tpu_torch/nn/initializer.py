@@ -22,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-from ..core.dtype import convert_dtype, get_default_dtype  # noqa: F401
+from ..core.dtype import convert_dtype, get_default_dtype
 
 __all__ = ['Initializer', 'Constant', 'Normal', 'TruncatedNormal',
            'Uniform', 'XavierNormal', 'XavierUniform', 'KaimingNormal',
@@ -58,7 +58,11 @@ def _dev(generator):
 
 
 class Initializer:
-    def __call__(self, shape, dtype=torch.float32, generator=None):
+    def __call__(self, shape, dtype=None, generator=None):
+        """A draw of ``shape`` in ``dtype`` (a torch dtype, one of the
+        reference's names or a numpy dtype; None takes
+        ``get_default_dtype()``, as the reference's)."""
+        dtype = convert_dtype(dtype) or get_default_dtype()
         return self._generate(tuple(int(s) for s in shape), dtype,
                               generator)
 

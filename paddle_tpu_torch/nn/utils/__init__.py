@@ -19,13 +19,15 @@ constant to autograd, as in the reference (PyTorch's own
 ``spectral_norm`` differentiates through sigma).  The state-dict keys
 are the reference's, ``weight_u`` included, so ``convert.
 load_numpy_state`` carries the reference's ``u`` across, and with it
-the same sigma.
+the same sigma.  Under recompute (``core.recompute``) the
+recomputation takes the forward's ``u`` and sigma and writes nothing.
 """
 import torch
 from torch import nn
 
 from ...amp import amp_cast
 from ...core import rng
+from ...core.recompute import forward_value, recomputing
 
 __all__ = ['weight_norm', 'remove_weight_norm', 'spectral_norm']
 
@@ -79,7 +81,9 @@ def spectral_norm(layer, name='weight', n_power_iterations=1, eps=1e-12,
         if wp is None:
             wp = getattr(mod, name + '_orig')
         buf = getattr(mod, name + '_u')
-        with torch.no_grad():
+
+        @torch.no_grad()
+        def power():
             wmat = wp.detach().movedim(dim, 0).reshape(rows, -1)
             u = buf
             for _ in range(n_power_iterations):
@@ -87,8 +91,14 @@ def spectral_norm(layer, name='weight', n_power_iterations=1, eps=1e-12,
                 v = v / torch.clamp_min(torch.linalg.vector_norm(v), eps)
                 u = wmat @ v
                 u = u / torch.clamp_min(torch.linalg.vector_norm(u), eps)
-            sigma = u @ wmat @ v
-            buf.copy_(u)
+            return u, u @ wmat @ v
+
+        # a recomputation reads the forward's u and sigma, not the u the
+        # forward moved, and moves nothing
+        u, sigma = forward_value(power)
+        if not recomputing():
+            with torch.no_grad():
+                buf.copy_(u)
         if name in mod._parameters:
             mod.register_parameter(name + '_orig',
                                    mod._parameters.pop(name))

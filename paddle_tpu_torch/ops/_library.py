@@ -1,4 +1,4 @@
-"""The forward kernels as ``torch.library`` operators.
+"""The kernels as ``torch.library`` operators.
 
 A hand-written kernel is launched through ``ctypes`` from a Python
 wrapper (``_build.Kernel.launch``), which reads data pointers.  Under
@@ -15,6 +15,17 @@ fixed schema:
     fused_softmax_masked(x, mask) -> y
     linear_gelu(x, w, b?, approximate) -> y
 
+and so is every backward kernel, for a trace that runs nothing
+(``profiler.op_summary`` runs a training step on fake tensors, so its
+backward reaches these too; on real tensors the backward launches its
+kernels directly, without the dispatcher's cost on every training step:
+``traced``):
+
+    flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale) -> dq
+    flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+        -> (dk, dv)
+    linear_gelu_bwd(x, w, b?, dy, approximate) -> dz
+
 Its CUDA implementation is the wrapper's launch (``_fwd_cuda`` of the
 module named below, which checks, picks the design and counts the
 launch as before), its CPU implementation the plain twin, and its fake
@@ -26,14 +37,12 @@ runs.
 
 Registration happens when this module is imported (``paddle_tpu_torch.
 ops`` imports it); it imports ``torch`` only, so it may come first.
-The backward kernels stay plain ``ctypes`` launches inside their
-``autograd.Function``s: no inference path reaches them.
 """
 import importlib
 
 import torch
 
-__all__ = ['NAMESPACE', 'op', 'CAUSAL_MODE']
+__all__ = ['NAMESPACE', 'op', 'CAUSAL_MODE', 'traced']
 
 NAMESPACE = 'paddle_tpu_torch'
 
@@ -94,6 +103,22 @@ def _gelu_fake(x, w, b, approximate):
     return x.new_empty((x.shape[0], w.shape[1]))
 
 
+def _dq_fake(q, k, v, do, lse, delta, causal, scale):
+    return torch.empty_like(q)
+
+
+def _dkv_fake(q, k, v, do, lse, delta, causal, scale):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_bwd_args(q, k, v, do, lse, delta, causal, scale):
+    return q, k, v, do, lse, delta, CAUSAL_MODE[causal], scale
+
+
+def _gelu_bwd_fake(x, w, b, dy, approximate):
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
 _define('fused_layer_norm',
         '(Tensor x, Tensor? gamma, Tensor? beta, float eps) '
         '-> (Tensor, Tensor, Tensor)',
@@ -111,6 +136,26 @@ _define('fused_softmax_masked', '(Tensor x, Tensor mask) -> Tensor',
 _define('linear_gelu',
         '(Tensor x, Tensor w, Tensor? b, bool approximate) -> Tensor',
         'fused_gelu_linear', '_fwd_cuda', '_reference', _gelu_fake)
+_FLASH_BWD = ('(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, '
+              'Tensor delta, int causal, float scale)')
+_define('flash_attention_bwd_dq', f'{_FLASH_BWD} -> Tensor',
+        'flash_attention', '_bwd_dq_cuda', '_bwd_dq_reference', _dq_fake,
+        adapt=_flash_bwd_args)
+_define('flash_attention_bwd_dkv', f'{_FLASH_BWD} -> (Tensor, Tensor)',
+        'flash_attention', '_bwd_dkv_cuda', '_bwd_dkv_reference', _dkv_fake,
+        adapt=_flash_bwd_args)
+_define('linear_gelu_bwd',
+        '(Tensor x, Tensor w, Tensor? b, Tensor dy, bool approximate) '
+        '-> Tensor',
+        'fused_gelu_linear', '_bwd_cuda', '_dz_reference', _gelu_bwd_fake)
+
+def traced(t):
+    """True for a fake tensor (a trace that runs nothing): the backward
+    kernels' callers take their operators for it, and launch directly
+    for a real tensor."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
 
 def op(name):
     """The overload packet ``torch.ops.paddle_tpu_torch.<name>``."""

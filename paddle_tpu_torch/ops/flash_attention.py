@@ -269,11 +269,21 @@ def _fwd(q, k, v, causal, scale):
     return _OP(q, k, v, _causal_code(causal), float(scale))
 
 
+_DQ_OP = _library.op('flash_attention_bwd_dq').default
+_DKV_OP = _library.op('flash_attention_bwd_dkv').default
+
+
 def _bwd(q, k, v, o, lse, do, g_lse, causal, scale):
-    """``(dq, dk, dv)``; ``delta`` here, outside the kernels."""
+    """``(dq, dk, dv)``: the kernels for CUDA tensors, the plain twins
+    for CPU ones, and for fake tensors the operators ``paddle_tpu_torch::
+    flash_attention_bwd_dq``/``_dkv`` (``_library.traced``); ``delta``
+    here, outside the kernels."""
     delta = (do.float() * o.float()).sum(dim=-1)
     if g_lse is not None:
         delta = delta - g_lse.float()
+    if _library.traced(q):
+        args = (q, k, v, do, lse, delta, _causal_code(causal), float(scale))
+        return (_DQ_OP(*args), *_DKV_OP(*args))
     args = (q, k, v, do, lse, delta, causal, scale)
     if q.is_cuda:
         return (_bwd_dq_cuda(*args), *_bwd_dkv_cuda(*args))

@@ -211,7 +211,15 @@ def _fwd(x2d, w, b, approximate):
     return _OP(x2d, w, b, bool(approximate))
 
 
+_BWD_OP = _library.op('linear_gelu_bwd').default
+
+
 def _dz(x2d, w, b, dy, approximate):
+    """The backward kernel for a CUDA tensor, the plain twin for a CPU
+    one, and for a fake tensor the operator ``paddle_tpu_torch::
+    linear_gelu_bwd`` (``_library.traced``)."""
+    if _library.traced(x2d):
+        return _BWD_OP(x2d, w, b, dy, bool(approximate))
     if x2d.is_cuda:
         return _bwd_cuda(x2d, w, b, dy, approximate)
     _on_cpu(x2d, 'fused_linear_gelu backward')

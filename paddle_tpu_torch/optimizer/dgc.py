@@ -34,18 +34,27 @@ __all__ = ['DGCMomentum']
 def quantile_linear(flat, q):
     """``jnp.quantile(flat, q)`` (method 'linear') of a 1-D f32 tensor
     at a 0-d f32 tensor ``q``, on the device: position ``q * (n - 1)``
-    in f32, the two order statistics around it from a sort, weighted
-    ``1 - frac`` and ``frac``."""
+    in f32, the two order statistics around it from a sort (on the CPU
+    from ``kthvalue``: the same two numbers), weighted ``1 - frac`` and
+    ``frac``."""
     n = flat.numel()
-    a = torch.sort(flat).values
     pos = q * float(np.float32(n) - np.float32(1))
     low, high = torch.floor(pos), torch.ceil(pos)
     hw = pos - low
     lw = 1 - hw
-    low = low.clamp(0, n - 1).long().view(1)
-    high = high.clamp(0, n - 1).long().view(1)
-    thr = (torch.index_select(a, 0, low)[0] * lw
-           + torch.index_select(a, 0, high)[0] * hw)
+    low, high = low.clamp(0, n - 1).long(), high.clamp(0, n - 1).long()
+    if not flat.is_cuda:
+        # the host reads the positions for free: the two order
+        # statistics by selection, the sort's numbers in linear time
+        lo, hi = int(low), int(high)
+        a_lo = torch.kthvalue(flat, lo + 1).values
+        a_hi = a_lo if hi == lo else torch.kthvalue(flat, hi + 1).values
+        nan = torch.isnan(flat).any()
+        return torch.where(nan, torch.full_like(a_lo, float('nan')),
+                           a_lo * lw + a_hi * hw)
+    a = torch.sort(flat).values
+    thr = (torch.index_select(a, 0, low.view(1))[0] * lw
+           + torch.index_select(a, 0, high.view(1))[0] * hw)
     return torch.where(torch.isnan(a[-1]), a[-1], thr)
 
 

@@ -72,11 +72,45 @@ mask read, as the reference's.  ``fused_chunk_len`` passes the budget to
 ``scan_loop.clamp_chunk``; without a step-time estimate (the planner,
 ROADMAP item 11) K passes through.
 
+The strategy (``strategy=``, or the one ``fleet.distributed_optimizer``
+put on the optimizer) is checked by ``fleet.validate_strategy`` and
+read as the reference's single-device trainer reads it:
+
+- ``amp``: the forward and the loss under ``amp.auto_cast`` (O1, or O2
+  with ``amp_configs['use_pure_fp16']``);
+- ``recompute``: the model's whole forward (not the loss) runs through
+  ``core.recompute.checkpoint``, as the reference wraps it in
+  ``jax.checkpoint``: its activations are recomputed in the backward,
+  under the forward's AMP policy and dropout masks and without a second
+  write of any buffer, eagerly, under ``nan_guard`` and inside
+  ``step_fused``'s graph (``recompute_configs`` unread, as there);
+- ``gradient_merge``: ``gradient_merge_configs['k_steps']`` = k
+  micro-batches in one step, as the reference's scan: batch dim 0 is
+  cut into k slices (it must divide), ``clear_grad`` once, k forward
+  and backward passes accumulating into ``.grad`` (the buffers move k
+  times), the gradients divided by k (whatever ``avg`` says, as
+  there), one update, and the mean of the k losses returned; under
+  ``nan_guard`` the merged gradients and that mean decide the step;
+- ``pipeline`` warns (there is no ``pp`` axis), and the toggles that
+  need a mesh (``sharding`` at stages 0-2, ``tensor_parallel``,
+  ``sequence_parallel``, ``localsgd``) change nothing, as in the
+  reference.  A parallel degree or a world above 1 raises
+  (ROADMAP item 9b).
+
+``profile=`` (True, a spec string or dict, a ``ProfileSchedule``; None
+defers to ``PADDLE_TPU_PROFILE``) arms ``telemetry.step_profiler``
+over the step loop: each ``step`` (each ``step_fused`` chunk, as a
+span of K steps) is observed, a window's ``torch.profiler`` trace is
+parsed into its ``profile_capture`` event, and ``finish_profile``
+closes an open window and returns the windows; a profiler failure never
+fails a step.  ``op_summary(*batch)`` is ``profiler.op_summary`` of one
+training step traced on fake tensors: nothing runs, no kernel launches,
+no parameter, slot, buffer or generator moves.
+
 Everything else the reference adds around the single-device step — a
-mesh, the pipeline engine, quantized collectives, auto-sharding, lint,
-profiling and the cluster and supervisor planes — raises
-``NotImplementedError`` when asked for, as does any strategy toggle
-other than ``amp``.
+mesh, the pipeline engine, quantized collectives, auto-sharding, lint
+and the cluster and supervisor planes — raises ``NotImplementedError``
+when asked for.
 """
 import contextlib
 import os
@@ -87,14 +121,10 @@ import torch
 from torch.profiler import record_function
 
 from .. import amp as amp_mod
-from ..core import compile_cache, scan_loop
+from ..core import compile_cache, recompute, scan_loop
 from ..resilience import NanSentinel, finite_step, guard_update
 
 __all__ = ['ParallelTrainer']
-
-# toggles that mean nothing on one device (the reference keeps them for
-# parity too)
-_PARITY_TOGGLES = ('amp', 'fuse_all_reduce_ops')
 
 
 class ParallelTrainer:
@@ -114,7 +144,7 @@ class ParallelTrainer:
         asked = [name for name, value in (
             ('mesh', mesh), ('lint', lint),
             ('auto_shard', auto_shard), ('hbm_budget_gb', hbm_budget_gb),
-            ('calibration', calibration), ('profile', profile),
+            ('calibration', calibration),
             ('quant_collectives', quant_collectives),
             ('cluster_stats', cluster_stats),
             ('supervisor', supervisor)) if value]
@@ -124,13 +154,9 @@ class ParallelTrainer:
                 'port trains on one device')
         self.strategy = strategy or getattr(optimizer, '_fleet_strategy',
                                             None)
+        self._merge_k = 1
         if self.strategy is not None:
-            extra = [t for t in self.strategy.enabled_toggles()
-                     if t not in _PARITY_TOGGLES]
-            if extra:
-                raise NotImplementedError(
-                    f'DistributedStrategy toggles {extra} are not ported '
-                    'yet; the port honours amp only')
+            self._merge_k = self._check_strategy(self.strategy)
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -160,6 +186,37 @@ class ParallelTrainer:
         self._ckpt_mgr = None
         # the last save's staging copy: the next step waits on it
         self._save_fence = None
+        # profile: None -> the PADDLE_TPU_PROFILE env decides; latched
+        # on first use
+        self.profile = profile
+        self._profiler = None
+        self._profiler_init = False
+        self._profile_calls = -1
+
+    @staticmethod
+    def _check_strategy(st):
+        """``fleet.validate_strategy``, the reference's warning for
+        ``pipeline`` without a ``pp`` axis, the refusal of parallel
+        degrees and worlds above 1 (item 9b); returns the merge's k."""
+        from ..distributed import env as _env
+        from ..distributed.env import ITEM_9B
+        from ..distributed.fleet.fleet_base import _degrees, validate_strategy
+        validate_strategy(st)
+        world = _env.get_world_size()
+        wide = {k: v for k, v in _degrees(st, world).items() if v > 1}
+        if world > 1 or wide:
+            raise NotImplementedError(
+                f'ParallelTrainer in a world of {world} with degrees '
+                f'{wide}: {ITEM_9B}')
+        if st.pipeline:
+            warnings.warn(
+                'strategy.pipeline=True but the mesh has no pp axis '
+                '(>1); running without pipeline parallelism. Set '
+                'hybrid_configs.pp_degree before fleet.init.',
+                UserWarning, stacklevel=3)
+        if not st.gradient_merge:
+            return 1
+        return int(st.gradient_merge_configs.get('k_steps', 1) or 1)
 
     def _autocast(self):
         st = self.strategy
@@ -186,28 +243,68 @@ class ParallelTrainer:
         vals = [self._to_device(b) for b in batch]
         return vals[:self.n_inputs], vals[self.n_inputs:]
 
+    def _forward_backward(self, batch):
+        """One forward (the model under ``strategy.recompute`` through
+        ``core.recompute``) and backward of ``batch``, its gradients
+        added into ``.grad``; returns the loss, f32, 0-d, detached."""
+        xs, ys = batch[:self.n_inputs], batch[self.n_inputs:]
+        # the ranges name the step's phases in a torch.profiler trace
+        with record_function('ParallelTrainer.forward'), self._autocast():
+            if self.strategy is not None and self.strategy.recompute:
+                out = recompute.checkpoint(self.model, *xs)
+            else:
+                out = self.model(*xs)
+            # the loss runs under the forward's policy, as in the
+            # reference: black-listed loss ops promote to f32
+            loss = self.loss_fn(out, *ys).float().mean()
+        with record_function('ParallelTrainer.backward'):
+            loss.backward()
+        return loss.detach()
+
+    def _micro_batches(self, batch):
+        """``strategy.gradient_merge``'s k slices of every batch array
+        along dim 0 (which must divide by k, as the reference's reshape
+        demands)."""
+        k = self._merge_k
+        for v in batch:
+            if v.dim() == 0 or v.shape[0] % k:
+                size = v.numel()
+                shape = (k, v.shape[0] // k if v.dim() else 0) + \
+                    tuple(v.shape[1:])
+                raise TypeError(
+                    f'cannot reshape array of shape {tuple(v.shape)} '
+                    f'(size {size}) into shape {shape} (size '
+                    f'{int(np.prod(shape))}): gradient_merge k_steps={k} '
+                    'must divide the batch')
+        return [[v.narrow(0, i * (v.shape[0] // k), v.shape[0] // k)
+                 for v in batch] for i in range(k)]
+
     def _step(self, *batch, guard=False):
         """Forward, backward and the optimizer's update of one batch of
         device tensors, with the step's scalars already loaded into the
         optimizer: device work only, so ``step_fused`` captures it.
-        Returns the loss (f32, 0-d, on the device), and with ``guard``
-        ``(loss, ok)``: the update and the model's float buffers kept
-        only where ``ok``, the step's finite flag, is set."""
-        xs, ys = batch[:self.n_inputs], batch[self.n_inputs:]
+        Under ``gradient_merge`` the k micro-batches' passes accumulate
+        into ``.grad``, divided by k before the update.  Returns the
+        loss (f32, 0-d, on the device; the micro-losses' mean), and with
+        ``guard`` ``(loss, ok)``: the update and the model's float
+        buffers kept only where ``ok``, the step's finite flag, is
+        set."""
         self.model.train()
         self.optimizer.clear_grad()
         if guard:
             bufs = [b for b in self.model.buffers() if b.is_floating_point()]
             old = [b.detach().clone() for b in bufs]
-        # the ranges name the step's phases in a torch.profiler trace
-        with record_function('ParallelTrainer.forward'), self._autocast():
-            # the loss runs under the forward's policy, as in the
-            # reference: black-listed loss ops promote to f32
-            loss = self.loss_fn(self.model(*xs), *ys)
-            loss = loss.float().mean()
-        with record_function('ParallelTrainer.backward'):
-            loss.backward()
-        loss = loss.detach()
+        k = self._merge_k
+        if k == 1:
+            loss = self._forward_backward(batch)
+        else:
+            losses = [self._forward_backward(mb)
+                      for mb in self._micro_batches(batch)]
+            loss = torch.stack(losses).mean()
+            with torch.no_grad():
+                for p in self.optimizer._params:
+                    if p.grad is not None:
+                        p.grad.div_(k)
         opt = self.optimizer
         if not guard:
             with record_function('ParallelTrainer.optimizer'):
@@ -266,6 +363,7 @@ class ParallelTrainer:
             if wd is not None:
                 wd.step_finished(t)
         self._stepped = True
+        self._observe_profile(loss)
         if not self.nan_guard:
             self._step_no = opt._global_step = t
             return loss
@@ -338,6 +436,7 @@ class ParallelTrainer:
             if wd is not None:
                 wd.step_finished(self._step_no + k)
         self._stepped = True
+        self._observe_profile(losses, span=k)
         if not self.nan_guard:
             self._step_no = opt._global_step = self._step_no + k
             return losses
@@ -379,6 +478,101 @@ class ParallelTrainer:
                 'updates', RuntimeWarning, stacklevel=3)
             return False
         return True
+
+    # -- the sampled profiler (telemetry.profile) ----------------------------
+    def _ensure_profiler(self):
+        """Latch the sampled step profiler on first use; None when
+        profiling is off (the per-step cost is then one attribute
+        read), or when arming it failed: profiling never kills a
+        step."""
+        if not self._profiler_init:
+            self._profiler_init = True
+            try:
+                from ..telemetry import step_profiler
+                self._profiler = step_profiler(self.profile,
+                                               name='parallel')
+            except Exception:   # profiling must never kill a step
+                self._profiler = None
+        return self._profiler
+
+    def _observe_profile(self, sync, span=1):
+        """One step (or a chunk of ``span``) dispatched: its 0-based call
+        index to the profiler, which opens or closes a window there."""
+        prof = self._ensure_profiler()
+        if prof is None:
+            return
+        n = self._profile_calls + 1
+        self._profile_calls = n + span - 1
+        prof.observe(n, sync=sync, span=span)
+
+    def finish_profile(self, sync=None):
+        """Close the sampled profiler at the end of a step loop: an open
+        window is stopped, parsed and emitted (pass the last loss as
+        ``sync``).  Returns the windows' summaries (``[]`` when
+        profiling is off)."""
+        prof = self._profiler
+        if prof is None:
+            return []
+        prof.close(sync=sync)
+        return prof.windows
+
+    def op_summary(self, *batch, sorted_by='total', **kwargs):
+        """``profiler.op_summary`` of one training step of ``batch`` —
+        forward, backward and update, under the strategy — traced on
+        fake tensors: nothing runs, no kernel launches, and the
+        parameters, their gradients, the optimizer's slots and scalars,
+        the buffers and the generators are left as they were.  Returns
+        the rows."""
+        from ..profiler import op_summary
+        vals = tuple(self._to_device(b) for b in batch)
+        return op_summary(self._step, *vals, sorted_by=sorted_by,
+                          swap=self._fake_state, **kwargs)
+
+    @contextlib.contextmanager
+    def _fake_state(self, mode):
+        """Fake copies of the state a step writes, in place of the live
+        tensors for the block: the model's parameters and buffers, the
+        optimizer's parameter list, slots and scalar buffer (and the maps
+        keyed by a parameter's id), and the modules' train flags."""
+        from torch.nn.utils.stateless import _reparametrize_module
+        model, opt = self.model, self.optimizer
+
+        def fake(t):
+            return mode.from_tensor(t.detach())
+
+        params = dict(model.named_parameters())
+        swap = {n: fake(p).requires_grad_(p.requires_grad)
+                for n, p in params.items()}
+        swap.update({n: fake(b) for n, b in model.named_buffers()})
+        by_id = {id(p): swap[n] for n, p in params.items()}
+        saved = dict(opt.__dict__)
+        modes = [(m, m.training) for m in model.modules()]
+        opt._parameter_list = [by_id.get(id(p), p) for p in opt._params]
+        opt._accumulators = {
+            id(by_id[pid]): {n: fake(v) if torch.is_tensor(v) else v
+                             for n, v in slots.items()}
+            for pid, slots in saved['_accumulators'].items()
+            if pid in by_id}
+        opt._param_names = {id(by_id[k]): v
+                            for k, v in saved['_param_names'].items()
+                            if k in by_id}
+        opt._ctx_names = {id(by_id[k]): v
+                          for k, v in saved['_ctx_names'].items()
+                          if k in by_id}
+        names = opt._scalar_names()
+        real = saved.get('_scalar_buf')
+        buf = fake(real if real is not None else torch.zeros(
+            len(names), dtype=torch.float32, device=self.device))
+        opt._scalar_buf = buf
+        opt._scalars = {n: buf[i] for i, n in enumerate(names)}
+        try:
+            with _reparametrize_module(model, swap):
+                yield
+        finally:
+            opt.__dict__.clear()
+            opt.__dict__.update(saved)
+            for m, training in modes:
+                m.training = training
 
     # -- the watchdog --------------------------------------------------------
     def _ensure_watchdog(self):

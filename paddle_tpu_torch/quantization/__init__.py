@@ -38,6 +38,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..amp import amp_cast
+from ..core.recompute import forward_value, recomputing
 from ..distributed.fleet.meta_parallel import (ColumnParallelLinear,
                                                RowParallelLinear)
 from ..nn.layer.common import Linear
@@ -150,16 +151,20 @@ class FakeQuantMovingAverageAbsMax(nn.Module):
         old = scale[0]
         cur = x.detach().abs().amax().float()
         if self.training:
-            # JAX's weak-typed scalars: r meets old in old's dtype (bf16
-            # under O2), 1 - r meets cur in f32
-            r = self.moving_rate
-            moved = torch.full((), r, dtype=old.dtype, device=old.device) \
-                * old + torch.full((), 1 - r, device=cur.device) * cur
-            new = torch.where(old > 0, moved, cur)
+            def moved():
+                # JAX's weak-typed scalars: r meets old in old's dtype
+                # (bf16 under O2), 1 - r meets cur in f32
+                r = self.moving_rate
+                m = torch.full((), r, dtype=old.dtype, device=old.device) \
+                    * old + torch.full((), 1 - r, device=cur.device) * cur
+                return torch.where(old > 0, m, cur)
+            # a recomputation (core.recompute) takes the forward's scale,
+            # not one moved from the scale the forward wrote
+            new = forward_value(moved)
         else:
             new = torch.where(old > 0, old, cur)
         out = _fq(x, new.to(x.dtype), _qmax(self.bits))
-        if self.training:
+        if self.training and not recomputing():
             with torch.no_grad():
                 self.scale.copy_(new.reshape(1))
         return out

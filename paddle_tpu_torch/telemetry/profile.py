@@ -14,9 +14,10 @@ its ``profile_capture`` event).
    exports the window's Chrome trace as
    ``<dir>/trace-<name>-step<lo:06d>/trace.json.gz``, one directory a
    window, named as the reference names them;
-2. **parse** — the exported trace's device events (kernels and memory
-   copies on the GPU timeline) become the window's device time;
-   kernels whose name carries ``nccl`` count as collective time;
+2. **parse** — ``profiler.trace.parse_trace`` of the exported trace:
+   its device events (kernels and memory copies on the GPU timeline;
+   the CPU ops where there is none) become the window's device time,
+   and kernels whose name carries ``nccl`` count as collective time;
 3. **emit** — one ``profile_capture`` event per window with the
    reference's fields (window, step range, dir, trace, n_ops,
    n_events, device_total_us, collective_total_us, source,
@@ -140,36 +141,12 @@ def resolve_schedule(profile=None):
     return ProfileSchedule.parse(profile)
 
 
-# Chrome-trace categories of work on the device's timeline
-_DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
-
-
 def _parse_chrome_trace(path):
     """Device time of one exported trace: the reference's
-    ``TraceProfile.summary()`` fields."""
-    import gzip
-    import json
-    opener = gzip.open if path.endswith('.gz') else open
-    with opener(path, 'rt') as fh:
-        doc = json.load(fh)
-    events = doc.get('traceEvents', []) if isinstance(doc, dict) else doc
-    ops, device_us, coll_us, n = set(), 0.0, 0.0, 0
-    for ev in events:
-        if ev.get('ph') != 'X':
-            continue
-        n += 1
-        if str(ev.get('cat', '')).lower() not in _DEVICE_CATS:
-            continue
-        dur = float(ev.get('dur', 0.0))
-        name = str(ev.get('name', ''))
-        ops.add(name)
-        device_us += dur
-        if 'nccl' in name.lower():
-            coll_us += dur
-    return {'n_ops': len(ops), 'n_events': n,
-            'device_total_us': round(device_us, 3),
-            'collective_total_us': round(coll_us, 3),
-            'source': path}
+    ``TraceProfile.summary()`` fields, from the port's one trace parser
+    (``profiler.trace``)."""
+    from ..profiler.trace import parse_trace
+    return parse_trace(path).summary()
 
 
 _warmed = []

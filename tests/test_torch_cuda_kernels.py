@@ -47,7 +47,7 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.ops import flash_attention as fa
+fa = importlib.import_module('paddle_tpu_torch.ops.flash_attention')
 from paddle_tpu_torch.ops import fused_gelu_linear as fgl
 from paddle_tpu_torch.ops import fused_norm
 

@@ -379,9 +379,11 @@ def test_what_is_not_ported_raises(weights, ids, tmp_path):
     pm = _port_model(weights, fused_head=True)
     opt = AdamW(parameters=pm.parameters())
     for kw in (dict(mesh=object()), dict(supervisor=True),
-               dict(profile=True), dict(lint=True)):
+               dict(lint=True)):
         with pytest.raises(NotImplementedError):
             ParallelTrainer(pm, opt, pm.loss, **kw)
+    # profile= arms the sampled profiler now
+    # (tests/test_torch_profiler.py)
     # the NaN guard trains now, eager and fused
     # (tests/test_torch_nan_guard.py), and so do the watchdog and
     # checkpointing (tests/test_torch_trainer_resume.py)
@@ -389,9 +391,12 @@ def test_what_is_not_ported_raises(weights, ids, tmp_path):
                          watchdog=False)
     tr.save_checkpoint(tmp_path / 'ckpt', async_save=False)
     assert tr.restore_checkpoint(tmp_path / 'ckpt') == 0
+    # recompute and gradient merge train now
+    # (tests/test_torch_fleet_strategy.py); a parallel degree above 1
+    # waits for data and tensor parallelism (ROADMAP item 9b)
     st = DistributedStrategy()
-    st.recompute = True
-    with pytest.raises(NotImplementedError, match='recompute'):
+    st.hybrid_configs['mp_degree'] = 2
+    with pytest.raises(NotImplementedError, match='9b'):
         ParallelTrainer(pm, opt, pm.loss, strategy=st)
     # dropout trains now (tests/test_torch_dropout.py), and so does MoE
     # (tests/test_torch_moe.py): a dense model's loss ignores aux_losses,

@@ -646,3 +646,30 @@ def test_guarded_step_fused_equals_eager_for_every_optimizer(weights, i):
     for (n, p), (_, q) in zip(eager.model.named_parameters(),
                               fused.model.named_parameters()):
         assert torch.equal(p, q), n
+
+
+@pytest.mark.parametrize('n', [2, 7, 1000, 100_003])
+def test_dgc_threshold_on_the_cpu_is_the_cards_sort(n, monkeypatch):
+    """DGC's threshold on the CPU takes its two order statistics by
+    selection (``kthvalue``) where the card sorts: the same numbers, so
+    the card's branch (run here on the CPU) bit for bit, and
+    ``jnp.quantile`` within one f32 ulp as that branch is; NaN where
+    ``|v|`` holds one."""
+    from paddle_tpu_torch.optimizer.dgc import quantile_linear
+    v = np.abs(np.random.RandomState(n).randn(n)).astype(np.float32)
+    qs = (0.0, 0.5, 0.75, 0.9, 0.999, 1.0)
+
+    def thresholds(x):
+        return [quantile_linear(torch.from_numpy(x),
+                                torch.tensor(q, dtype=torch.float32))
+                for q in qs]
+    got = thresholds(v)
+    with monkeypatch.context() as m:
+        m.setattr(torch.Tensor, 'is_cuda', property(lambda self: True))
+        sort = thresholds(v)
+    for q, a, b in zip(qs, got, sort):
+        assert a.numpy().tobytes() == b.numpy().tobytes(), q
+        want = np.asarray(jnp.quantile(jnp.asarray(v), jnp.float32(q)))
+        np.testing.assert_allclose(a.numpy(), want, rtol=1.2e-7, atol=0)
+    v[n // 2] = np.nan
+    assert all(torch.isnan(t) for t in thresholds(v))

@@ -15,7 +15,8 @@
   the fault-tolerance tools (``chaos_run``'s built-in worker exits
   non-zero naming ``device='cpu'`` and spawns nothing; the resilience,
   checkpoint, elastic, launch and auto-checkpoint modules and both
-  tools import without ``jax``).
+  tools import without ``jax``, and so do the fleet, recompute,
+  profiler and utils modules of the training strategies).
 """
 import ast
 import os
@@ -111,7 +112,20 @@ def test_import_leaves_jax_unloaded():
             'paddle_tpu_torch.distributed.launch, '
             'paddle_tpu_torch.incubate.checkpoint.auto_checkpoint, '
             'paddle_tpu_torch.tools.check_ckpt, '
-            'paddle_tpu_torch.tools.chaos_run; '
+            'paddle_tpu_torch.tools.chaos_run, '
+            'paddle_tpu_torch.distributed.env, '
+            'paddle_tpu_torch.distributed.parallel, '
+            'paddle_tpu_torch.distributed.fleet.fleet_base, '
+            'paddle_tpu_torch.distributed.fleet.role_maker, '
+            'paddle_tpu_torch.distributed.fleet.topology, '
+            'paddle_tpu_torch.distributed.fleet.data_generator, '
+            'paddle_tpu_torch.distributed.fleet.metrics, '
+            'paddle_tpu_torch.distributed.fleet.utils.fs, '
+            'paddle_tpu_torch.distributed.fleet.utils.ps_util, '
+            'paddle_tpu_torch.distributed.fleet.utils.recompute, '
+            'paddle_tpu_torch.core.recompute, paddle_tpu_torch.device, '
+            'paddle_tpu_torch.profiler, paddle_tpu_torch.profiler.trace, '
+            'paddle_tpu_torch.utils, paddle_tpu_torch.utils.profiler; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "paddle_tpu")]; print(bad); '
             'sys.exit(1 if bad else 0)')

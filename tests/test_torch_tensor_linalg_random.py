@@ -433,8 +433,10 @@ def test_every_reference_name_is_ported():
     ported = set(paddle_tpu_torch.tensor.__all__)
     assert set(paddle_tpu.tensor.__all__) <= ported
     assert len(set(paddle_tpu.tensor.__all__)) == 262
-    later = {'DataParallel', 'ComplexTensor', 'enable_static',
-             'disable_static', 'enable_dygraph', 'disable_dygraph'}
+    # DataParallel and ComplexTensor came with the training strategies'
+    # slice; the static mode is ROADMAP item 12
+    later = {'enable_static', 'disable_static', 'enable_dygraph',
+             'disable_dygraph'}
     missing = set(paddle_tpu.__all__) - set(paddle_tpu_torch.__all__)
     assert missing == later, missing - later
     for name in paddle_tpu_torch.__all__:
