@@ -3983,10 +3983,11 @@ def _graph_vs_eager(what, make_trainer, batch, k, items, unit, flops,
 def _exact_batch_norm(x, running_mean, running_var, weight=None,
                       bias=None, training=False, momentum=0.9,
                       epsilon=1e-5, data_format='NCHW',
-                      use_global_stats=None, name=None):
+                      use_global_stats=None, name=None, group=None):
     """The float64 witness's BatchNorm: batch statistics in the input's
     own dtype, two-pass (the port's keeps the reference's f32 statistics
-    whatever the dtype); the running statistics stay as they are."""
+    whatever the dtype); the running statistics stay as they are.  One
+    process: ``group`` is None."""
     ch = x.dim() - 1 if data_format in ('NHWC', 'NLC', 'NDHWC') else 1
     red = tuple(i for i in range(x.dim()) if i != ch)
     shape = [1] * x.dim()
@@ -9079,6 +9080,12 @@ STRATEGY_STEPS = 10     # every strategy run: 10 steps on one seeded batch
 STRATEGY_WARMUP = 2     # of which the first 2 are not timed (eager runs)
 STRATEGY_K = 5          # step_fused's K: two chunks make the 10 steps
 STRATEGY_DROPOUTS = (0.0, 0.1)   # flash at 0, the softmax branch at 0.1
+# the strategy and profiler phases run gpt_small's widths at 4 of its 12
+# layers: recompute, gradient merge and the profiler's windows take the
+# same paths at any depth, and the smoke stays inside its time limit on
+# a slow host with the dist phases after them
+STRATEGY_LAYERS = 4
+STRATEGY_MODEL_KW = dict(TRAIN_MODEL_KW, num_layers=STRATEGY_LAYERS)
 MERGE_BATCH, MERGE_K = 32, 4     # 4 micro-batches of the cell's B 8
 MERGE_POISON = 2        # the micro-batch whose rows carry a NaN loss weight
 # the large-batch recipe LAMB was made for (You et al. 2019, "Large Batch
@@ -9180,10 +9187,10 @@ def _bit_equal_runs(what, got, want, gen=True):
     if not torch.equal(got['losses'], want['losses']) or bad or (
             gen and not torch.equal(got['gen'], want['gen'])):
         diff = float((got['losses'] - want['losses']).abs().max())
+        same_gen = torch.equal(got['gen'], want['gen']) if gen else None
         raise AssertionError(
             f'{what}: losses differ by {diff:.3e}, {len(bad)} parameters '
-            f'differ ({bad[:3]}), generator equal '
-            f'{torch.equal(got["gen"], want["gen"])}')
+            f'differ ({bad[:3]}), generator equal {same_gen}')
 
 
 def _summary_of(run):
@@ -9199,7 +9206,7 @@ def strategy_recompute_phase():
     every block recomputed through ``fleet.utils.recompute``."""
     from paddle_tpu_torch.distributed.fleet.utils import recompute
     from paddle_tpu_torch.models.gpt import GPTConfig, gpt_small
-    cfg = GPTConfig(**TRAIN_MODEL_KW)       # gpt_small's widths
+    cfg = GPTConfig(**STRATEGY_MODEL_KW)       # gpt_small's widths
     ids = np.random.RandomState(0).randint(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)
     L = cfg.num_layers
@@ -9207,7 +9214,7 @@ def strategy_recompute_phase():
     for p in STRATEGY_DROPOUTS:
         def make(p=p):
             return gpt_small(device='cuda', seed=0,
-                             **dict(TRAIN_MODEL_KW, dropout=p))
+                             **dict(STRATEGY_MODEL_KW, dropout=p))
         kern = dict(softmax=1) if p else dict(flash=1)
         none = _strategy_run(make, (ids, ids))
         _check_run(f'strategy_recompute none p {p}',
@@ -9251,7 +9258,7 @@ def strategy_recompute_phase():
             blk.forward = functools.partial(recompute, blk.forward)
 
     def make0():
-        return gpt_small(device='cuda', seed=0, **TRAIN_MODEL_KW)
+        return gpt_small(device='cuda', seed=0, **STRATEGY_MODEL_KW)
     blocks = _strategy_run(make0, (ids, ids), wrap=per_block)
     per = _per_step(L, 2 * L + 1, flash=1, recompute=True,
                              ln_recomputed=2 * L)
@@ -9321,13 +9328,13 @@ def strategy_merge_phase():
     without merge."""
     import paddle_tpu_torch
     from paddle_tpu_torch.models.gpt import GPTConfig, gpt_small
-    cfg = GPTConfig(**TRAIN_MODEL_KW)
+    cfg = GPTConfig(**STRATEGY_MODEL_KW)
     ids = np.random.RandomState(0).randint(
         0, cfg.vocab_size, (MERGE_BATCH, TRAIN_SEQ)).astype(np.int64)
     L = cfg.num_layers
 
     def make():
-        return gpt_small(device='cuda', seed=0, **TRAIN_MODEL_KW)
+        return gpt_small(device='cuda', seed=0, **STRATEGY_MODEL_KW)
     per = _per_step(L, 2 * L + 1, flash=1, merge=MERGE_K)
     # the hand-written step, then a trainer's first step against it
     want_p, want_l = _hand_merged_step(make, ids)
@@ -9530,12 +9537,12 @@ def profiler_phase():
     from paddle_tpu_torch.models.gpt import GPTConfig, gpt_small
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.parallel import ParallelTrainer
-    cfg = GPTConfig(**TRAIN_MODEL_KW)
+    cfg = GPTConfig(**STRATEGY_MODEL_KW)
     L = cfg.num_layers
     ids = np.random.RandomState(0).randint(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)
     paddle_tpu_torch.seed(0)
-    model = gpt_small(device='cuda', seed=0, **TRAIN_MODEL_KW)
+    model = gpt_small(device='cuda', seed=0, **STRATEGY_MODEL_KW)
     tr = _fleet_trainer(model)
     tr.step(ids, ids)
     torch.cuda.synchronize()
@@ -9658,6 +9665,456 @@ def profiler_phase():
             'launches': launches}
 
 
+# slice 22: data and tensor parallelism over torch.distributed
+DIST_NCCL_LAYERS = 4        # dist_nccl: gpt_small's widths, depth cut
+DIST_F32_LAYERS = 2         # dist_gpt's f32 parity runs: 3 steps
+DIST_F32_STEPS = 3
+DIST_BF16_LAYERS = 4        # dist_gpt's bf16 O2 runs: 10 falling steps
+DIST_BF16_STEPS = 10
+DIST_BF16_WARMUP = 2
+DIST_DROP_LAYERS = 2        # dist_gpt's dropout 0.1 runs (the softmax
+DIST_DROP_STEPS = 3         # branch, the model_parallel stream under tp)
+DIST_LOSS_RTOL, DIST_PARAM_TOL = 1e-5, 1e-4
+DIST_CONFIGS = {'dp2': dict(dp=2, tp=1), 'tp2': dict(dp=1, tp=2)}
+DIST_TIMEOUT = 420          # a dist_gpt world's wall-clock limit (s)
+DIST_GLOO_LINE = (
+    'dist_gpt: a world of 2 processes on the one card, its collectives '
+    'over gloo through pinned host memory (NCCL refuses two ranks on one '
+    'device): every collective on a CUDA tensor is staged to the host and '
+    'back; these are not times of data parallelism over NCCL')
+
+
+def _nccl_definitions():
+    """Every collective of ``distributed.collective`` on CUDA tensors in
+    a world of one NCCL rank, each against its definition there (the
+    rank's own tensor, or the list of it); returns the names checked."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    if tdist.get_backend() != 'nccl' or C.staged_through_host():
+        raise AssertionError('dist_nccl: the world group is not NCCL')
+    x = torch.arange(12, dtype=torch.float32, device='cuda').reshape(3, 4) \
+        + 1.0
+    checked = []
+
+    def same(name, got, want):
+        if isinstance(want, list):
+            ok = len(got) == len(want) and all(
+                torch.equal(a, b) for a, b in zip(got, want))
+        else:
+            ok = torch.equal(got, want)
+        if not ok:
+            raise AssertionError(f'dist_nccl: {name} differs from its '
+                                 'definition at one rank')
+        checked.append(name)
+    for op in ('SUM', 'MAX', 'MIN', 'PROD', 'AVG'):
+        same(f'all_reduce_{op}', dist.all_reduce(
+            x.clone(), getattr(C.ReduceOp, op)), x)
+    parts = []
+    same('all_gather', dist.all_gather(parts, x.clone()), x)
+    same('all_gather_list', parts, [x])
+    same('all_gather_axis1', dist.all_gather([], x.clone(), axis=1), x)
+    if dist.all_gather_object([], {'r': 0}) != [{'r': 0}]:
+        raise AssertionError('dist_nccl: all_gather_object')
+    checked.append('all_gather_object')
+    same('broadcast', dist.broadcast(x.clone(), 0), x)
+    same('reduce', dist.reduce(x.clone(), 0), x)
+    same('scatter', dist.scatter(torch.zeros_like(x), [x * 2], 0), x * 2)
+    same('alltoall', dist.alltoall([x + 1]), [x + 1])
+    same('p2p', C.p2p(x.clone(), 0, 0), x)
+    same('send', dist.send(x.clone(), 0, src=0), x)
+    same('recv', dist.recv(x.clone(), 0), x)
+    same('p2p_rotate', C.p2p_rotate(x.clone()), x)
+    dist.barrier()
+    same('wait', dist.wait(x.clone()), x)
+    same('all_reduce_graph_replay', _nccl_graph_replay(x), x * 8)
+    return checked
+
+
+def _nccl_graph_replay(x):
+    """One all_reduce (after a doubling) captured in a CUDA graph on a
+    side stream, replayed 3 times on ``x``: ``x * 8`` at one rank."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    buf = x.clone()
+    dist.all_reduce(buf)                    # the communicator, warm
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph, stream=side):
+            buf.mul_(2.0)
+            dist.all_reduce(buf, C.ReduceOp.SUM)
+    torch.cuda.current_stream().wait_stream(side)
+    buf.copy_(x)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    return buf
+
+
+def dist_nccl_phase():
+    """One process, one NCCL rank: every collective of
+    ``distributed.collective`` on CUDA tensors against its definition,
+    an all_reduce captured in a CUDA graph and replayed, then the GPT
+    cell through ``fleet.init`` at degrees 1 with the NCCL group up,
+    eager and through ``step_fused`` (K 5) under ``nan_guard`` (the
+    world's MIN of the finite flag, an NCCL all_reduce the captured step
+    replays), each bit-equal to the same run without a process group,
+    launches exact.  The process group is destroyed after."""
+    import os
+    import tempfile
+    import torch.distributed as tdist
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_small
+    kw = dict(TRAIN_MODEL_KW, num_layers=DIST_NCCL_LAYERS)
+    ids = _dist_ids(GPTConfig(**kw).vocab_size)
+    L = DIST_NCCL_LAYERS
+    per = _per_step(L, 2 * L + 1, flash=1)
+
+    def make():
+        return gpt_small(device='cuda', seed=0, **kw)
+
+    def runs(what):
+        # under nan_guard the step reduces its finite flag over the world
+        # (MIN): with the group up that all_reduce is captured in the
+        # step's graph and replayed
+        out = {m: _strategy_run(make, (ids, ids), fused=m == 'fused',
+                                nan_guard=True)
+               for m in ('eager', 'fused')}
+        for m, r in out.items():
+            _check_run(f'dist_nccl {what} {m}', r['losses'].tolist(),
+                       r['launches'], per, STRATEGY_STEPS)
+        return out
+    free = runs('without a group')
+    workdir = tempfile.mkdtemp(prefix='dist_nccl_')
+    env = {'PADDLE_DIST_INIT_METHOD': 'file://' + os.path.join(workdir,
+                                                               'store'),
+           'PADDLE_TRAINERS_NUM': '1', 'PADDLE_TRAINER_ID': '0',
+           'PADDLE_DISTRI_BACKEND': 'nccl'}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        dist.init_parallel_env()
+        init_s = time.perf_counter() - t0
+        checked = _nccl_definitions()
+        grouped = runs('with the NCCL group')
+    finally:
+        dist.set_mesh(None)
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for m in grouped:
+        _bit_equal_runs(f'dist_nccl {m}: with the NCCL group vs without',
+                        grouped[m], free[m])
+    log(f'dist_nccl: one NCCL rank up in {init_s:.2f} s; {len(checked)} '
+        f'collectives on CUDA tensors equal their definitions '
+        f'({", ".join(checked)}), an all_reduce replayed from a CUDA '
+        f'graph 3 times; gpt_small ({L} layers) B {TRAIN_BATCH} T '
+        f'{TRAIN_SEQ} bf16 O2 under nan_guard through fleet.init at '
+        f'degrees 1, {STRATEGY_STEPS} steps eager and through step_fused K '
+        f'{STRATEGY_K} (the flag\'s all_reduce in the graph): each bit-equal to the run without a process group '
+        f'(losses, every parameter, the generator); launches '
+        f'{_launch_summary(grouped["eager"]["launches"], per, STRATEGY_STEPS)}'
+        f'; ms/step eager {grouped["eager"]["ms_per_step"]:.2f} '
+        f'(without a group {free["eager"]["ms_per_step"]:.2f}), replayed '
+        f'{grouped["fused"]["ms_per_step"]:.2f} '
+        f'({free["fused"]["ms_per_step"]:.2f})')
+    return {'collectives': checked, 'init_s': init_s,
+            **{m: _summary_of(r) for m, r in grouped.items()},
+            'without_group': {m: _summary_of(r) for m, r in free.items()}}
+
+
+def _dist_ids(vocab):
+    return np.random.RandomState(0).randint(
+        0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)
+
+
+def _kernel_shapes():
+    """Wrap the flash kernels' and the softmax kernel's launch functions
+    to record the shapes they launch at (flash ``[B*H, T, D]``, softmax
+    its input's); returns the set of ``(module, function, shape)``."""
+    seen = set()
+    for mod, names in (('flash_attention', ('_fwd_cuda', '_bwd_dq_cuda',
+                                            '_bwd_dkv_cuda')),
+                       ('fused_softmax', ('_fwd_cuda',))):
+        m = _ops_module(mod)
+        for name in names:
+            fn = getattr(m, name)
+
+            def wrap(*args, fn=fn, key=(mod, name), **kw):
+                seen.add(key + (tuple(args[0].shape),))
+                return fn(*args, **kw)
+            setattr(m, name, wrap)
+    return seen
+
+
+def dist_worker_main(workdir, config):
+    """One rank of dist_gpt's world (``chip_smoke.py --dist-worker DIR
+    CONFIG``, started by ``distributed.utils.start_local_trainers``):
+    ``fleet.init`` over the config's degrees, the f32 parity run at
+    DIST_F32_LAYERS and the bf16 O2 run at DIST_BF16_LAYERS of
+    gpt_small, each with every count at 0 just before and read just
+    after; writes its result and its f32 parameters under ``workdir``."""
+    import os
+    import paddle_tpu_torch
+    from paddle_tpu_torch.distributed import env, fleet
+    from paddle_tpu_torch.models.gpt import gpt_small
+    from paddle_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for mod in ('fused_norm', 'flash_attention', 'fused_softmax',
+                'fused_gelu_linear'):
+        _ops_module(mod)                                # registers
+    shapes = _kernel_shapes()
+    deg = DIST_CONFIGS[config]
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs['dp_degree'] = deg['dp']
+    s.hybrid_configs['mp_degree'] = deg['tp']
+    fleet.init(is_collective=True, strategy=s)
+    rank = env.get_rank()
+    res = {'rank': rank, 'coords': env.get_mesh().coords}
+    for run, layers, o2, steps, p in (
+            ('f32', DIST_F32_LAYERS, False, DIST_F32_STEPS, 0.0),
+            ('bf16', DIST_BF16_LAYERS, True, DIST_BF16_STEPS, 0.0),
+            ('dropout', DIST_DROP_LAYERS, True, DIST_DROP_STEPS, 0.1)):
+        paddle_tpu_torch.seed(0)
+        model = gpt_small(device='cuda', seed=0,
+                          **dict(TRAIN_MODEL_KW, num_layers=layers,
+                                 dropout=p))
+        tr = _trainer(model, o2)
+        ids = _dist_ids(model.config.vocab_size)
+        _free()
+        shapes.clear()
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        warm = DIST_BF16_WARMUP if run == 'bf16' else 0
+        losses = [tr.step(ids, ids) for _ in range(warm)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [tr.step(ids, ids) for _ in range(steps - warm)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        res[run] = {'losses': [tr.loss_float(x) for x in losses],
+                    'launches': launch_counts(), 'layers': layers,
+                    'steps': steps,
+                    'ms_per_step': dt / (steps - warm) * 1e3,
+                    'peak_bytes': torch.cuda.max_memory_allocated(),
+                    'shapes': sorted(shapes)}
+        if run == 'f32':
+            torch.save({n: p.detach().cpu()
+                        for n, p in model.named_parameters()},
+                       os.path.join(workdir, f'params{rank}.pt'))
+            try:
+                tr.step_fused(ids[None], ids[None])
+                res['fused_refused'] = None
+            except RuntimeError as e:
+                res['fused_refused'] = str(e)
+        del tr, model
+        _free()
+    with open(os.path.join(workdir, f'rank{rank}.json'), 'w') as f:
+        json.dump(res, f)
+    torch.distributed.barrier()
+    return 0
+
+
+def _dist_reference():
+    """The world-1 f32 run dist_gpt's worlds must equal: losses, the
+    parameters after DIST_F32_STEPS steps, the entries whose first
+    gradient is round-off (held to AdamW's bound), and the layers'
+    tensor-parallel specs."""
+    from paddle_tpu_torch.convert import shard_specs
+    from paddle_tpu_torch.models.gpt import gpt_small
+    model = gpt_small(device='cuda', seed=0,
+                      **dict(TRAIN_MODEL_KW, num_layers=DIST_F32_LAYERS))
+    tr = _trainer(model, False)
+    ids = _dist_ids(model.config.vocab_size)
+    losses = [tr.loss_float(tr.step(ids, ids))]
+    noisy = {n: (p.grad.abs() <= 1e-6 * p.grad.abs().max()).cpu()
+             for n, p in model.named_parameters()}
+    losses += [tr.loss_float(tr.step(ids, ids))
+               for _ in range(DIST_F32_STEPS - 1)]
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    cfg, specs = model.config, shard_specs(model)
+    del tr, model
+    _free()
+    return losses, params, noisy, cfg, specs
+
+
+def _dist_world(config, workdir):
+    """Start the config's two ranks on the card over gloo and wait (the
+    world's own wall-clock limit kills both); returns their results."""
+    import os
+    from paddle_tpu_torch.distributed.utils import (
+        get_cluster, run_local_trainers, start_local_trainers)
+    os.makedirs(workdir, exist_ok=True)
+    env = dict(os.environ,
+               PADDLE_DISTRI_BACKEND='gloo', GLOO_SOCKET_IFNAME='lo',
+               PADDLE_DIST_INIT_METHOD='file://' + os.path.join(workdir,
+                                                                'store'),
+               PADDLE_DIST_TIMEOUT=str(DIST_TIMEOUT))
+    cluster, pod = get_cluster(['127.0.0.1'], '127.0.0.1',
+                               [['127.0.0.1:0', '127.0.0.1:1']], [0, 0])
+    procs = start_local_trainers(
+        cluster, pod, os.path.abspath(__file__),
+        ['--dist-worker', workdir, config],
+        log_dir=os.path.join(workdir, 'logs'), env=env)
+    try:
+        run_local_trainers(procs, 2, timeout=DIST_TIMEOUT)
+    except (RuntimeError, TimeoutError):
+        for r in range(2):
+            path = os.path.join(workdir, 'logs', f'workerlog.{r}')
+            if os.path.exists(path):
+                with open(path, errors='replace') as f:
+                    log(f'dist_gpt {config} rank {r} log:\n'
+                        + f.read()[-4000:])
+        raise
+    out = []
+    for r in range(2):
+        with open(os.path.join(workdir, f'rank{r}.json')) as f:
+            res = json.load(f)
+        res['params'] = torch.load(os.path.join(workdir, f'params{r}.pt'))
+        out.append(res)
+    return out
+
+
+def _dist_params_close(what, got, want, noisy, h):
+    """Every parameter within DIST_PARAM_TOL (relative and absolute);
+    the attention key's bias (columns ``[h, 2h)`` of the qkv bias) and
+    the round-off entries within AdamW's bound, ``2 * lr * steps``."""
+    loose_bound = 2 * TRAIN_LR * DIST_F32_STEPS
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name]
+        loose = noisy[name].clone()
+        if name.endswith('attn.qkv.bias'):
+            loose[h:2 * h] = True
+        diff = (g - w).abs()
+        tight = diff[~loose] - DIST_PARAM_TOL * w.abs()[~loose]
+        if tight.numel() and float(tight.max()) > DIST_PARAM_TOL:
+            raise AssertionError(f'{what}: {name} differs from world 1 by '
+                                 f'{float(diff[~loose].max()):.3e}')
+        if loose.any() and float(diff[loose].max()) > loose_bound:
+            raise AssertionError(f'{what}: {name} (round-off entries) '
+                                 f'by {float(diff[loose].max()):.3e}')
+        if (~loose).any():
+            worst = max(worst, float(diff[~loose].max()))
+    return worst
+
+
+def dist_gpt_phase():
+    """Two processes on the one card over gloo (DIST_GLOO_LINE):
+    gpt_small at full width, global B 8 x T 1024, at dp 2 and at tp 2
+    (6 heads a rank).  f32 at DIST_F32_LAYERS, DIST_F32_STEPS steps,
+    against the world-1 run on the same global batch (losses, the
+    gathered parameters); bf16 O2 at DIST_BF16_LAYERS, 10 falling,
+    finite steps; bf16 O2 at dropout 0.1 (the softmax kernel, the
+    ``model_parallel`` stream under tp); each rank's launches exact and
+    every kernel at its local shape."""
+    import tempfile
+    from paddle_tpu_torch.convert import gather_state
+    from paddle_tpu_torch.distributed.env import Mesh
+    log(DIST_GLOO_LINE)
+    want_l, want_p, noisy, cfg, specs = _dist_reference()
+    hd = cfg.hidden_size // cfg.num_heads
+    out = {}
+    for config, deg in DIST_CONFIGS.items():
+        t0 = time.perf_counter()
+        ranks = _dist_world(config, tempfile.mkdtemp(
+            prefix=f'dist_gpt_{config}_'))
+        wall = time.perf_counter() - t0
+        local_bh = TRAIN_BATCH // deg['dp'] * cfg.num_heads // deg['tp']
+        local_b = TRAIN_BATCH // deg['dp']
+        want_shapes = {
+            'f32': {('flash_attention', f, (local_bh, TRAIN_SEQ, hd))
+                    for f in ('_fwd_cuda', '_bwd_dq_cuda', '_bwd_dkv_cuda')},
+            'dropout': {('fused_softmax', '_fwd_cuda',
+                         (local_b, cfg.num_heads // deg['tp'], TRAIN_SEQ,
+                          TRAIN_SEQ))}}
+        want_shapes['bf16'] = want_shapes['f32']
+        for r in ranks:
+            for run, kern in (('f32', dict(flash=1, flash_design='simt')),
+                              ('bf16', dict(flash=1)),
+                              ('dropout', dict(softmax=1))):
+                rr = r[run]
+                L = rr['layers']
+                per = _per_step(L, 2 * L + 1, **kern)
+                _check_run(f'dist_gpt {config} rank {r["rank"]} {run}',
+                           rr['losses'], rr['launches'], per, rr['steps'],
+                           falls=run == 'bf16')
+                shapes = {(m, f, tuple(shape))
+                          for m, f, shape in rr['shapes']}
+                if shapes != want_shapes[run]:
+                    raise AssertionError(
+                        f'dist_gpt {config} rank {r["rank"]} {run}: '
+                        f'kernels launched at {sorted(shapes)}, expected '
+                        f'{sorted(want_shapes[run])}')
+            if 'gloo' not in (r['fused_refused'] or ''):
+                raise AssertionError(
+                    f'dist_gpt {config} rank {r["rank"]}: step_fused on a '
+                    f'gloo world was not refused ({r["fused_refused"]})')
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(r['f32']['losses'], want_l))
+            if rel > DIST_LOSS_RTOL:
+                raise AssertionError(f'dist_gpt {config} rank {r["rank"]}: '
+                                     f'f32 losses {r["f32"]["losses"]} vs '
+                                     f'world 1 {want_l} (rel {rel:.2e})')
+        if deg['tp'] > 1:
+            got = gather_state(
+                [{n: t.numpy() for n, t in r['params'].items()}
+                 for r in ranks], Mesh(['dp', 'tp'], [1, 2]), specs)
+            got = {n: torch.from_numpy(np.ascontiguousarray(v))
+                   for n, v in got.items()}
+        else:
+            got = ranks[0]['params']
+        worst = _dist_params_close(f'dist_gpt {config}', got, want_p, noisy,
+                                   cfg.hidden_size)
+        for r in ranks[1:]:
+            if deg['tp'] == 1 and any(not torch.equal(r['params'][n], got[n])
+                                      for n in got):
+                raise AssertionError(f'dist_gpt {config}: the dp replicas '
+                                     'differ')
+        b = [r['bf16'] for r in ranks]
+        log(f'dist_gpt {config}: 2 ranks (gloo, one card) in {wall:.1f} s '
+            f'of wall; f32 {DIST_F32_LAYERS} layers x {DIST_F32_STEPS} '
+            f'steps: losses {ranks[0]["f32"]["losses"]} vs world 1 '
+            f'{want_l}, gathered parameters within {worst:.2e}; bf16 O2 '
+            f'{DIST_BF16_LAYERS} layers: losses {b[0]["losses"][0]:.4f} -> '
+            f'{b[0]["losses"][-1]:.4f}, ms/step '
+            f'{[round(x["ms_per_step"], 2) for x in b]}, peak '
+            f'{[round(x["peak_bytes"] / 2**30, 2) for x in b]} GiB a rank; '
+            f'flash at [{local_bh}, {TRAIN_SEQ}, {hd}], launches a rank '
+            + _launch_summary(b[0]['launches'], _per_step(
+                DIST_BF16_LAYERS, 2 * DIST_BF16_LAYERS + 1, flash=1),
+                DIST_BF16_STEPS)
+            + f'; dropout 0.1 ({DIST_DROP_LAYERS} layers, '
+            f'{DIST_DROP_STEPS} steps): losses '
+            f'{[round(x, 4) for x in ranks[0]["dropout"]["losses"]]}, '
+            'softmax at '
+            f'{sorted(want_shapes["dropout"])[0][2]}, launches a rank '
+            + _launch_summary(ranks[0]['dropout']['launches'], _per_step(
+                DIST_DROP_LAYERS, 2 * DIST_DROP_LAYERS + 1, softmax=1),
+                DIST_DROP_STEPS))
+        out[config] = {
+            'wall_s': wall, 'transport': 'gloo (host-staged), one card',
+            'f32_losses': ranks[0]['f32']['losses'], 'world1_losses': want_l,
+            'param_max_diff': worst,
+            'bf16_losses': b[0]['losses'],
+            'ms_per_step': [x['ms_per_step'] for x in b],
+            'peak_bytes': [x['peak_bytes'] for x in b],
+            'dropout_losses': [r['dropout']['losses'] for r in ranks],
+            'launches': {f'rank{r["rank"]}_{run}': r[run]['launches']
+                         for r in ranks
+                         for run in ('f32', 'bf16', 'dropout')}}
+    return out
+
+
 def _without_launches(tree):
     """A phase's summary for the JSON line, its launch tables left out
     (they go to the kernels line)."""
@@ -9724,6 +10181,8 @@ def main():
     strategy_merge = strategy_merge_phase()
     strategy_lamb = strategy_lamb_phase()
     profiler_run = profiler_phase()
+    dist_gpt = dist_gpt_phase()
+    dist_nccl = dist_nccl_phase()
     log(json.dumps({'serve': serve, 'frontdoor': frontdoor,
                     'fleet': fleet,
                     **{f'serve_{m}': r[1] for m, r in serve_quant.items()},
@@ -9765,7 +10224,9 @@ def main():
                         strategy_recompute),
                     'strategy_merge': _without_launches(strategy_merge),
                     'strategy_lamb': _without_launches(strategy_lamb),
-                    'profiler': _without_launches(profiler_run)}))
+                    'profiler': _without_launches(profiler_run),
+                    'dist_nccl': _without_launches(dist_nccl),
+                    'dist_gpt': _without_launches(dist_gpt)}))
     # 'serve', 'frontdoor', 'fleet', 'serve_int8', 'serve_int4',
     # 'gptgen', 'gpt_fused',
     # 'gpt_recipe', 'bert_dropout_fused', 'resnet_fused',
@@ -9851,7 +10312,14 @@ def main():
              **{f'strategy_merge_{run}': r['launches']
                 for run, r in strategy_merge.items()},
              'strategy_lamb': strategy_lamb['launches'],
-             'profiler': profiler_run['launches']}
+             'profiler': profiler_run['launches'],
+             # slice 22: the NCCL rank's GPT cell, and each gloo rank of
+             # the two worlds on the card (counted in its own process)
+             **{f'dist_nccl_{m}': dist_nccl[m]['launches']
+                for m in ('eager', 'fused')},
+             **{f'dist_gpt_{config}_{key}': n
+                for config, r in dist_gpt.items()
+                for key, n in r['launches'].items()}}
     kernels = []
     for k in _build.KERNELS:
         rows = timings[k.name]
@@ -9893,6 +10361,8 @@ def main():
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--elastic-worker']:
         sys.exit(elastic_worker_main(sys.argv[2]))
+    if sys.argv[1:2] == ['--dist-worker']:
+        sys.exit(dist_worker_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ['--optimizers-cpu']:
         sys.exit(optimizers_cpu_main(sys.argv[2], int(sys.argv[3]),
                                      int(sys.argv[4])))

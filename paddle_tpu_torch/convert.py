@@ -16,6 +16,15 @@ every layout is kept as it is, ``Linear.weight`` ``[in, out]`` and the
 recurrent weights ``[gates * hidden, in]`` (``weight_ih_l0``, ...; the
 LSTM's gates in the order i, f, g, o).  A non-persistable buffer (a
 position table) stays out of both.
+
+Under tensor parallelism each rank holds shards (``fleet.meta_
+parallel``): ``shard_state(params, mesh, rank, model)`` cuts the full
+numpy parameters to rank ``rank``'s along the mesh's ``tp`` axis,
+following the spec that ``model``'s layers declare for each parameter
+(``shard_specs``, from ``parallel.api.collect_param_shardings``) and
+its sections (a fused qkv's columns are three sections, so a rank holds
+whole heads of q, k and v); ``gather_state`` joins the ranks' shards
+back into the full parameters.
 """
 import numpy as np
 import torch
@@ -23,7 +32,8 @@ import torch
 from .core.device import resolve_device
 
 __all__ = ['state_from_numpy', 'load_numpy_state', 'load_quantized_state',
-           'load_train_state']
+           'load_train_state', 'shard_state', 'gather_state',
+           'shard_specs']
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.float64): torch.float64,
@@ -142,3 +152,71 @@ def load_train_state(trainer, params, opt_state, step, buffers=None):
     opt._accumulators = accumulators
     opt._global_step = trainer._step_no = int(step)
     return trainer
+
+
+def shard_specs(model):
+    """``{parameter name: (sharded dim, sections)}`` of ``model``'s
+    parameters split over ``tp`` (the others are replicated)."""
+    from .parallel.api import collect_param_shardings
+    out = {}
+    groups = {}
+    for prefix, mod in model.named_modules():
+        for name, g in (getattr(mod, '_shard_groups', {}) or {}).items():
+            groups[f'{prefix}.{name}' if prefix else name] = g
+    for name, spec in collect_param_shardings(model).items():
+        if spec and 'tp' in spec:
+            out[name] = (list(spec).index('tp'), groups.get(name, 1))
+    return out
+
+
+def _specs(specs):
+    if isinstance(specs, torch.nn.Module):
+        return shard_specs(specs)
+    return dict(specs)
+
+
+def _tp(mesh, rank):
+    coords = dict(zip(mesh.axis_names, (int(c) for c in np.argwhere(
+        mesh.devices == rank)[0])))
+    return mesh.shape.get('tp', 1), coords.get('tp', 0)
+
+
+def shard_state(params, mesh, rank, specs):
+    """Rank ``rank``'s shards of the full numpy ``params`` on ``mesh``
+    (module docstring).  ``specs``: the model the parameters belong to
+    (its layers' specs, built on any device and at any world size) or
+    a dict from ``shard_specs``."""
+    from .distributed.fleet.meta_parallel import take_shard
+    tp, r = _tp(mesh, rank)
+    specs = _specs(specs)
+    out = {}
+    for name, value in params.items():
+        value = np.asarray(value)
+        if name in specs and tp > 1:
+            dim, groups = specs[name]
+            value = np.ascontiguousarray(
+                take_shard(value, dim, tp, r, groups))
+        out[name] = value
+    return out
+
+
+def gather_state(shards, mesh, specs):
+    """The full parameters from ``shards``, every rank's state (numpy,
+    indexed by global rank): the ``tp`` ranks of the first ``dp`` row
+    joined, the replicated ones taken from rank 0.  ``specs`` as for
+    ``shard_state``."""
+    from .distributed.collective import _comm_lists
+    from .distributed.fleet.meta_parallel import join_shards
+    tp = mesh.shape.get('tp', 1)
+    row = _comm_lists(mesh, ('tp',))[0] if tp > 1 else [0]
+    first = shards[int(row[0])]
+    specs = _specs(specs)
+    out = {}
+    for name, value in first.items():
+        if name in specs and tp > 1:
+            dim, groups = specs[name]
+            out[name] = join_shards([np.asarray(shards[int(r)][name])
+                                     for r in row], dim, groups)
+        else:
+            out[name] = np.asarray(value)
+    return out

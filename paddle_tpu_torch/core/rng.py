@@ -5,7 +5,9 @@ splits per draw.  The port keeps one explicit ``torch.Generator`` per
 device, created at first use and seeded from the global seed, so a
 draw on the card stays on the card and never touches PyTorch's default
 generators.  ``seed(s)`` (also ``paddle_tpu_torch.seed``) resets them
-all to ``s`` and, as the reference's does, seeds ``random`` and numpy.
+all to ``s`` and, as the reference's does, seeds ``random`` and numpy;
+``fold_in(i)`` (a data-parallel rank, set by ``fleet.init``) mixes ``i``
+into the devices' seed, so each rank draws its own stream.
 
 The bits cannot match ``jax.random``'s: the same seed gives other
 draws in the two packages, so tests compare distributions or cases
@@ -36,12 +38,21 @@ import random
 import numpy as np
 import torch
 
-__all__ = ['seed', 'get_seed', 'generator', 'register_generators',
+__all__ = ['seed', 'get_seed', 'fold_in', 'generator', 'register_generators',
            'get_cuda_rng_state', 'set_cuda_rng_state', 'region_enter',
            'region_drew', 'region_replay', 'scoped']
 
 _seed = 0
+_fold = 0
 _generators = {}
+
+
+def _device_seed():
+    """The devices' seed: the global seed, mixed with the folded-in
+    index where it is not 0."""
+    if not _fold:
+        return _seed
+    return (_seed * 1000003 + _fold * 7919 + 104729) % (2 ** 63)
 
 
 def seed(s):
@@ -50,9 +61,20 @@ def seed(s):
     global _seed
     _seed = int(s)
     for gen in _generators.values():
-        gen.manual_seed(_seed)
+        gen.manual_seed(_device_seed())
     random.seed(_seed)
     np.random.seed(_seed % (2 ** 32))
+
+
+def fold_in(index):
+    """Give the device generators a stream of their own for ``index``
+    (a data-parallel rank; 0 is the plain seed), reseeding them where
+    it changes."""
+    global _fold
+    if int(index) != _fold:
+        _fold = int(index)
+        for gen in _generators.values():
+            gen.manual_seed(_device_seed())
 
 
 def get_seed():
@@ -85,7 +107,7 @@ def _device_generator(device):
     gen = _generators.get(device)
     if gen is None:
         gen = torch.Generator(device=device)
-        gen.manual_seed(_seed)
+        gen.manual_seed(_device_seed())
         _generators[device] = gen
     return gen
 

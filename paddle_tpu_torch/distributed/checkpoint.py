@@ -50,8 +50,9 @@ phases (``save_sharded(two_phase=True)``, ``save_host_shard``).
 Not ported: ``compile_cache.warm_start`` (the reference pre-loads
 exported XLA executables beside a run directory before a restore); a
 CUDA graph cannot be serialised, so a restored trainer captures its
-graphs anew at its first chunk.  Restoring onto another mesh waits for
-data and tensor parallelism (ROADMAP Queue 1 item 9): the manifest
+graphs anew at its first chunk.  Checkpoints at a world above 1 and
+restoring onto another mesh wait for ROADMAP Queue 1 item 9b's second
+part (the trainer refuses them there): the manifest
 records the saving ``process_count`` and a restore into another logs
 ``reshape_restore``, as the reference does.
 """

@@ -1,12 +1,13 @@
 """paddle_tpu_torch.distributed.fleet — the distributed training facade
-on one process (counterpart of ``paddle_tpu/distributed/fleet``).
+(counterpart of ``paddle_tpu/distributed/fleet``).
 
-``fleet.init(is_collective=True, strategy=s)``, then
+``fleet.init(is_collective=True, strategy=s)`` (the process group and
+the mesh of ``s.hybrid_configs``' degrees), then
 ``fleet.distributed_optimizer(opt)`` (the Lamb and DGC swaps, the
 strategy carried on the optimizer), then ``ParallelTrainer``, which
-honours ``s.amp``, ``s.recompute`` and ``s.gradient_merge``.  The
-reference's 25 public names are here; what needs several processes
-raises, citing ROADMAP item 9b.
+honours ``s.amp``, ``s.recompute`` and ``s.gradient_merge`` over ``dp``
+and ``tp``.  The reference's 25 public names are here; ``pp``, ``sp``
+and ``ep`` degrees above 1 raise, citing ROADMAP items 9c and 9d.
 """
 from .distributed_strategy import DistributedStrategy  # noqa: F401
 from .fleet_base import (  # noqa: F401

@@ -2,18 +2,19 @@
 ``paddle_tpu/distributed/fleet/distributed_strategy.py``).
 
 The reference's toggles and configs, unchanged.  The port's
-single-device ``ParallelTrainer`` honours what the reference's does
-without a mesh: ``amp`` (``amp_configs['use_pure_fp16']``: bf16 O1 or
+``ParallelTrainer`` honours: ``amp`` (``amp_configs['use_pure_fp16']``: bf16 O1 or
 O2), ``recompute`` (the whole forward recomputed in the backward;
 ``recompute_configs`` unread, as there) and ``gradient_merge``
 (``k_steps`` micro-batches in one step, their gradients averaged
 whatever ``avg`` says, as there); ``lamb`` and ``dgc`` act through
 ``fleet.distributed_optimizer``.  ``sharding`` at stages 0-2,
 ``tensor_parallel``, ``sequence_parallel``, ``localsgd``, ``lars`` and
-``pipeline`` (which warns) change nothing on one device, as in the
+``pipeline`` (which warns) change nothing at ``dp`` 1, as in the
 reference; ``a_sync`` warns and ZeRO stage 3 raises
-(``fleet_base.validate_strategy``).  The parallel degrees above 1 are
-ROADMAP item 9b.
+(``fleet_base.validate_strategy``).  ``hybrid_configs``' ``dp_degree``
+and ``mp_degree`` lay the mesh ``fleet.init`` builds; ZeRO over ``dp``
+above 1 and the ``pp`` degree are ROADMAP item 9d, ``sp`` and ``ep``
+item 9c.
 """
 
 __all__ = ['DistributedStrategy']

@@ -1,13 +1,20 @@
-"""The fleet singleton on one process (counterpart of
+"""The fleet singleton (counterpart of
 ``paddle_tpu/distributed/fleet/fleet_base.py``).
 
-``fleet.init(strategy=)`` records the strategy and the role maker and
-resolves the hybrid degrees as the reference does (``dp_degree`` -1
-takes what the other degrees leave of the world).  Where the reference
-then builds one mesh over every chip, the port runs one process a card
-and no mesh yet: at a world of 1 with every degree 1 it records a
-``HybridCommunicateGroup`` of sizes 1 and ranks 0, and a degree above 1
-raises (ROADMAP Queue 1 item 9b), as do the group handles.
+``fleet.init(strategy=)`` records the strategy and the role maker,
+brings up the process group where the launcher asked for one
+(``parallel.ensure_process_group``), resolves the hybrid degrees as the
+reference does (``dp_degree`` -1 takes what ``mp * pp * sp * ep``
+leave of the world) and installs the mesh over the ranks, axes ``(pp,
+dp, sp, ep, tp)`` with ``tp`` innermost, so a ``tp`` group is a run of
+consecutive ranks.  ``HybridCommunicateGroup`` answers this rank's
+coordinate and world size along each axis and hands out the real
+groups (the reference, one process over every chip, answers rank 0).
+At a world above 1 the default generators fold in this rank's ``dp``
+coordinate (``core.rng.fold_in``): the ranks of a ``tp`` group draw the
+same masks on replicated activations, the ``dp`` ranks other ones.  A
+``pp``, ``sp`` or ``ep`` degree above 1 raises (ROADMAP items 9c and
+9d).
 
 ``distributed_optimizer`` is the reference's: ``strategy.lamb`` swaps
 the optimizer for ``Lamb`` (the live learning-rate object, the
@@ -18,30 +25,31 @@ optimizer; the strategy rides the optimizer as ``_fleet_strategy``,
 where ``ParallelTrainer`` finds it.  The reference swaps nothing for
 ``lars``, and neither does the port.  ``validate_strategy`` warns for
 ``a_sync`` and refuses ZeRO stage 3, as there.  The worker/server role
-functions answer for one worker and no server.
+functions answer for the workers and no server.
 """
 import warnings
 
 from .. import env as _env
-from ..env import ITEM_9B
+from ..env import ITEM_9C, ITEM_9D
 from .distributed_strategy import DistributedStrategy
 
 __all__ = ['init', 'get_fleet', 'Fleet', 'HybridCommunicateGroup',
            'distributed_optimizer', 'distributed_model',
            'get_hybrid_communicate_group', 'validate_strategy']
 
+AXES = ('pp', 'dp', 'sp', 'ep', 'tp')
 
 
 class HybridCommunicateGroup:
-    """Rank and world size along each parallel dimension: sizes 1 and
-    ranks 0 on one process.  The group handles raise (item 9b)."""
+    """This rank's coordinate, world size and group along each parallel
+    axis of the mesh."""
 
-    def __init__(self, degrees=None):
-        d = dict(degrees or {})
-        self._dp = d.get('dp', 1)
-        self._mp = d.get('tp', 1)
-        self._pp = d.get('pp', 1)
-        self._sp = d.get('sp', 1)
+    def __init__(self, mesh):
+        self._mesh = mesh
+        self._dp = mesh.axis_size('dp')
+        self._mp = mesh.axis_size('tp')
+        self._pp = mesh.axis_size('pp')
+        self._sp = mesh.axis_size('sp')
 
     def get_data_parallel_world_size(self):
         return self._dp
@@ -56,29 +64,29 @@ class HybridCommunicateGroup:
         return self._sp
 
     def get_data_parallel_rank(self):
-        return 0
+        return self._mesh.coords['dp']
 
     def get_model_parallel_rank(self):
-        return 0
+        return self._mesh.coords['tp']
 
     def get_stage_id(self):
-        return 0
+        return self._mesh.coords['pp']
 
-    def _group(self, axis):
-        raise NotImplementedError(f'the {axis} process group: {ITEM_9B}')
+    def get_global_rank(self):
+        return self._mesh.rank
 
     def get_model_parallel_group(self):
-        return self._group('tp')
+        return self._mesh.group('tp')
 
     def get_data_parallel_group(self):
-        return self._group('dp')
+        return self._mesh.group('dp')
 
     def get_pipe_parallel_group(self):
-        return self._group('pp')
+        return self._mesh.group('pp')
 
     def topology(self):
-        """The mesh, which the port does not build (item 9b): None."""
-        return None
+        """The mesh (``CommunicateTopology.from_mesh`` describes it)."""
+        return self._mesh
 
 
 def _degrees(strategy, world):
@@ -92,6 +100,14 @@ def _degrees(strategy, world):
     if dp is None or dp <= 0:
         dp = max(1, world // (mp * pp * sp * ep))
     return {'pp': pp, 'dp': dp, 'sp': sp, 'ep': ep, 'tp': mp}
+
+
+def check_degrees(degrees):
+    """Refuse the axes the port does not run yet."""
+    for axis, item in (('pp', ITEM_9D), ('sp', ITEM_9C), ('ep', ITEM_9C)):
+        if degrees.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f'{axis}_degree {degrees[axis]}: {item}')
 
 
 class Fleet:
@@ -111,16 +127,19 @@ class Fleet:
         return self._util
 
     def init(self, role_maker=None, is_collective=True, strategy=None):
+        from ...core import rng
+        from ..parallel import ensure_process_group
         strategy = strategy or DistributedStrategy()
+        ensure_process_group()
         degrees = _degrees(strategy, _env.get_world_size())
-        wide = {k: v for k, v in degrees.items() if v > 1}
-        if wide:
-            raise NotImplementedError(
-                f'fleet.init with degrees {wide}: {ITEM_9B}')
+        check_degrees(degrees)
+        mesh = _env.build_mesh([(a, degrees[a]) for a in AXES])
+        _env.set_mesh(mesh)
+        rng.fold_in(mesh.coords['dp'] if mesh.size > 1 else 0)
         self._role_maker = role_maker
         self._util = None   # fleet.util follows this role maker
         self._strategy = strategy
-        self._hcg = HybridCommunicateGroup(degrees)
+        self._hcg = HybridCommunicateGroup(mesh)
         self._is_initialized = True
         return self
 
@@ -145,8 +164,7 @@ def get_hybrid_communicate_group():
 
 
 def distributed_model(model):
-    """The reference's wrap: ``DataParallel`` (one rank: the model
-    unchanged)."""
+    """The reference's wrap: ``DataParallel`` over the ``dp`` group."""
     from ..parallel import DataParallel
     return DataParallel(model)
 
@@ -248,7 +266,7 @@ def is_server():
 
 
 def barrier_worker():
-    """A barrier over the workers: nothing to wait for on one."""
+    """A barrier over the workers."""
     _fleet.util.barrier()
 
 
@@ -263,8 +281,9 @@ def init_server(*args, **kwargs):
 def run_server():
     raise NotImplementedError(
         'there is no separate server process: the parameter server is '
-        'replaced by sharded embeddings (ROADMAP Queue 1 item 9b) and the '
-        'host embedding (item 9d)')
+        'replaced by vocab-parallel embeddings '
+        '(fleet.VocabParallelEmbedding) and the host embedding (ROADMAP '
+        'Queue 1 item 9d)')
 
 
 def stop_worker():

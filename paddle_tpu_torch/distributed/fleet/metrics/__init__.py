@@ -3,11 +3,13 @@ of ``paddle_tpu/distributed/fleet/metrics``): each worker keeps local
 accumulators, and these helpers reduce them over the workers before the
 final formula, as the reference's ``metric.py`` does.
 
-The port takes the reference's host route: the values (numpy arrays,
-torch tensors or numbers) go through ``fleet.util.all_reduce``, the
-value itself on one worker.  The in-step route over a mesh axis comes
-with data parallelism (ROADMAP Queue 1 item 9b).  ``scope`` is
-accepted and unread; ``util`` overrides the default ``fleet.util``.
+Two routes, as the reference's: inside a training step over ``dp``
+(``collective.axis_scope``) a tensor is all-reduced over the ``dp``
+group on its device (the tensor itself where ``dp`` is 1), the
+reference's in-trace ``psum``; otherwise the values (numpy arrays,
+torch tensors or numbers) go through ``fleet.util.all_reduce`` on the
+host, the value itself on one worker.  ``scope`` is accepted and
+unread; ``util`` overrides the default ``fleet.util``.
 """
 import math
 
@@ -27,8 +29,18 @@ def _default_util():
     return get_fleet().util
 
 
-def _reduce(value, mode, util=None):
-    """The all-trainer reduce of a host value."""
+def _reduce(value, mode, util=None, axis='dp'):
+    """The all-trainer reduce: over the step's ``dp`` group for a tensor
+    inside a step, on the host otherwise."""
+    import torch
+    from ... import collective
+    if torch.is_tensor(value) and axis in collective.current_axes():
+        group = collective.scope_group(axis)
+        if group is None:
+            return value
+        op = {'sum': collective.ReduceOp.SUM, 'max': collective.ReduceOp.MAX,
+              'min': collective.ReduceOp.MIN}[mode]
+        return collective.all_reduce(value.clone(), op, group)
     arr = np.asarray(_unwrap(value))
     if util is None:
         util = _default_util()

@@ -6,13 +6,16 @@ host-side helpers.
 
 Workers are processes; there are no parameter-server processes, so the
 server roles report none unless configured.  ``UtilBase``'s
-``all_reduce`` and ``barrier`` act on one process, as the reference's
-do there: the value itself, and no wait.  Across several processes
-they raise (ROADMAP item 9b).
+``all_reduce``, ``all_gather`` and ``barrier`` act on host values over
+the process group's world (``torch.distributed``'s object gather, the
+reduction in numpy), and on one process they are the value itself and
+no wait, as the reference's are there.  A role maker that counts
+several workers with no process group up raises.
 """
 import os
 
 import numpy as np
+import torch
 
 from .. import env as _env
 
@@ -110,22 +113,40 @@ class UtilBase:
             return self._role_maker._worker_index()
         return _env.get_rank()
 
-    def _single(self, what):
+    def _world(self, what):
+        """Whether the workers span a process group (False: one
+        worker)."""
         n = self._pcount()
-        if n != 1:
-            raise NotImplementedError(
-                f'fleet.util.{what} over {n} workers: host collectives '
-                'over torch.distributed are not ported yet (ROADMAP Queue '
-                '1 item 9b)')
+        if n == 1:
+            return False
+        if _env._dist() is None or _env.get_world_size() != n:
+            raise RuntimeError(
+                f'fleet.util.{what} over {n} workers needs their process '
+                'group: call fleet.init or distributed.init_parallel_env '
+                'in every worker first')
+        return True
+
+    def all_gather(self, input, comm_world='worker'):
+        """Every worker's ``input``, in rank order."""
+        if not self._world('all_gather'):
+            return [input]
+        out = [None] * self._pcount()
+        torch.distributed.all_gather_object(out, input)
+        return out
 
     def all_reduce(self, input, mode='sum', comm_world='worker'):
-        """The reduce of ``input`` over the workers: on one worker, the
-        value itself (as a numpy array)."""
-        self._single('all_reduce')
-        return np.asarray(input)
+        """The elementwise ``mode`` (sum, max, min) of ``input`` over the
+        workers, as a numpy array."""
+        if mode not in ('sum', 'max', 'min'):
+            raise ValueError(f"mode must be 'sum', 'max' or 'min', got "
+                             f'{mode!r}')
+        parts = [np.asarray(v) for v in self.all_gather(np.asarray(input),
+                                                        comm_world)]
+        return getattr(np, mode)(np.stack(parts), axis=0)
 
     def barrier(self, comm_world='worker'):
-        self._single('barrier')
+        if self._world('barrier'):
+            torch.distributed.barrier()
 
     def get_file_shard(self, files):
         """``files`` split evenly over the workers, the earlier workers

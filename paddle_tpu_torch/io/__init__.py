@@ -248,8 +248,10 @@ class DistributedBatchSampler(BatchSampler):
     """Shards sample indices across data-parallel ranks.
 
     Reference: io/dataloader/batch_sampler.py::DistributedBatchSampler.
-    The ranks are ``torch.distributed``'s when a process group is up,
-    else one rank.
+    ``num_replicas`` and ``rank`` default to the global mesh's ``dp``
+    size and this rank's ``dp`` coordinate (``fleet.init``), else to
+    ``torch.distributed``'s world when a process group is up, else one
+    rank.
     """
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
@@ -293,8 +295,12 @@ class DistributedBatchSampler(BatchSampler):
 
 
 def _world():
-    """(world size, rank) of the ``torch.distributed`` group, (1, 0)
-    without one."""
+    """(size, rank) of the data-parallel axis: the global mesh's ``dp``,
+    else the ``torch.distributed`` group, (1, 0) without one."""
+    from ..distributed import env as _env
+    mesh = _env.get_mesh()
+    if mesh is not None and 'dp' in mesh.shape:
+        return mesh.axis_size('dp'), mesh.coords['dp']
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size(), dist.get_rank()

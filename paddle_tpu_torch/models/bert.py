@@ -17,8 +17,19 @@ labels ignored, through the fused MLM head (``ops/fused_ce.py``) when
 The model is built in training mode, as the reference's layers are;
 ``device=None`` is the CUDA card, ``seed`` draws the init from an
 explicit CPU ``torch.Generator``.  Dropout draws come from the
-device's generator (``core.rng``).  The mesh paths (``maybe_shard``,
-tensor parallelism) wait for the distributed slice.
+device's generator (``core.rng``).
+
+Over a mesh: the layers are ``fleet.meta_parallel``'s, so under ``tp``
+each rank holds ``num_heads / tp`` heads (whole heads of the fused
+qkv), the MLP's column and row shards and the word embedding's vocab
+rows; the tied decoder's input crosses ``copy_to_region`` and the MLM
+loss is the vocab-parallel cross entropy.  The MLM mean divides the
+masked sum by the count of labels that are not ``-100`` over the whole
+global batch: inside a training step over ``dp`` (``collective.
+axis_scope``) the count is all-reduced over ``dp`` and the rank's sum
+scaled by the ``dp`` size, so the ranks' mean is the reference's loss
+whatever each rank's share of the masked tokens.  Attention dropout
+under ``tp`` draws from the ``model_parallel`` stream.
 """
 import math
 
@@ -27,16 +38,19 @@ from torch import nn
 
 from ..amp import amp_cast
 from ..core.device import resolve_device
+from ..distributed import collective
 from ..distributed.fleet.meta_parallel import (
-    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    copy_to_region, parallel_cross_entropy, tp_state)
 from ..nn import functional as F
 from ..nn.layer.common import Dropout, Embedding, Linear
 from ..nn.layer.layers import deferred_init
 from ..nn.layer.norm import LayerNorm
 from ..ops.flash_attention import can_use_pallas, flash_attention
-from ..ops.fused_ce import fused_linear_cross_entropy
+from ..ops.fused_ce import (fused_linear_cross_entropy,
+                            fused_linear_cross_entropy_tp)
 from ..ops.fused_gelu_linear import mlp_gelu
-from .gpt import _add
+from .gpt import _add, local_heads, tp_dropout
 
 __all__ = ['BertConfig', 'BertModel', 'BertForPretraining', 'bert_tiny',
            'bert_base', 'bert_large']
@@ -71,11 +85,13 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         if cfg.hidden_size % cfg.num_heads:
             raise ValueError('hidden_size must be a multiple of num_heads')
-        self.n_head = cfg.num_heads
+        self.n_head = local_heads(cfg.num_heads)
         self.head_dim = cfg.hidden_size // cfg.num_heads
+        self._tp_group = tp_state()[0]
         self.qkv = ColumnParallelLinear(cfg.hidden_size,
                                         3 * cfg.hidden_size,
-                                        gather_output=False, device=device)
+                                        gather_output=False, device=device,
+                                        groups=3)
         self.proj = RowParallelLinear(cfg.hidden_size, cfg.hidden_size,
                                       input_is_parallel=True, device=device)
         self.drop = Dropout(cfg.dropout)
@@ -106,10 +122,10 @@ class BertSelfAttention(nn.Module):
                 att = _add(att, torch.as_tensor(attn_mask,
                                                 device=att.device))
             att = F.softmax(att, axis=-1)
-            att = self.drop(att)
+            att = tp_dropout(self.drop, att, self._tp_group)
             att, v = amp_cast('matmul', att, v)
             y = torch.matmul(att, v)
-        y = y.transpose(1, 2).reshape(B, T, H)
+        y = y.transpose(1, 2).reshape(B, T, nh * hd)
         return self.proj(y)
 
 
@@ -210,6 +226,7 @@ class BertForPretraining(nn.Module):
         if self.config.fused_head and self.training:
             # the tied-decoder matmul happens inside loss()
             return h, nsp_logits
+        h = copy_to_region(h, self.bert.word_emb._tp_group)
         h, w = amp_cast('matmul', h, self.bert.word_emb.weight)
         return torch.matmul(h, w.t()), nsp_logits
 
@@ -218,24 +235,35 @@ class BertForPretraining(nn.Module):
         ``-100`` (mean over them, at least 1), plus the NSP cross
         entropy when ``nsp_labels`` are given.  The fused branch is
         keyed off the shape the forward produced, as in the
-        reference."""
+        reference.  Over ``dp`` and ``tp`` see the module docstring."""
         logits, nsp_logits = outputs
         cfg = self.config
         B, T, D = logits.shape
         labels = torch.as_tensor(mlm_labels, device=logits.device) \
             .reshape(B * T).long()
-        if cfg.fused_head and D == cfg.hidden_size and D != cfg.vocab_size:
-            h, w = amp_cast('fused_mlm_head_ce', logits,
-                            self.bert.word_emb.weight)
-            losses = fused_linear_cross_entropy(
-                h.reshape(B * T, D), w.t(), labels,
-                num_chunks=cfg.fused_head_chunks)
+        emb = self.bert.word_emb
+        group, dp = emb._tp_group, collective.scope_group('dp')
+        valid = labels != -100
+        if cfg.fused_head and D == cfg.hidden_size and \
+                D != emb.num_embeddings:
+            h, w = amp_cast('fused_mlm_head_ce', logits, emb.weight)
+            if group is not None:
+                losses = fused_linear_cross_entropy_tp(
+                    h.reshape(B * T, D), w.t(), labels, group=group,
+                    num_chunks=cfg.fused_head_chunks)
+            else:
+                losses = fused_linear_cross_entropy(
+                    h.reshape(B * T, D), w.t(), labels,
+                    num_chunks=cfg.fused_head_chunks)
             # -100 labels land in no vocab chunk; masking the loss zeroes
             # both the value and the gradient
-            valid = labels != -100
-            n = valid.sum().clamp_min(1)
-            mlm = torch.where(valid, losses, torch.zeros_like(losses)) \
-                .sum() / n
+            mlm = _masked_mean(
+                torch.where(valid, losses, torch.zeros_like(losses)),
+                valid, dp)
+        elif group is not None or dp is not None:
+            per = parallel_cross_entropy(logits.reshape(B * T, D), labels,
+                                         group, emb.vocab_start)
+            mlm = _masked_mean(per.float(), valid, dp)
         else:
             mlm = F.cross_entropy(logits.reshape(B * T, D), labels,
                                   ignore_index=-100)
@@ -243,6 +271,18 @@ class BertForPretraining(nn.Module):
             return mlm
         nsp = torch.as_tensor(nsp_labels, device=logits.device)
         return _add(mlm, F.cross_entropy(nsp_logits, nsp))
+
+
+def _masked_mean(per, valid, dp):
+    """The masked sum over the count of valid labels (at least 1); with
+    ``dp`` (the step's data-parallel group) the count is the global one
+    and the sum scaled by the group's size, so the ranks' mean is the
+    global masked mean."""
+    n = valid.sum().to(per.dtype)
+    if dp is None:
+        return per.sum() / n.clamp_min(1)
+    n = collective.all_reduce(n.detach().clone(), group=dp)
+    return per.sum() * float(dp.nranks) / n.clamp_min(1)
 
 
 def bert_tiny(device=None, seed=0, **kw):

@@ -24,7 +24,18 @@ MoE: with ``moe_num_experts > 0`` every ``moe_every``-th block's MLP is
 a ``SwitchMoE`` (``incubate/moe.py``), ``loss`` adds the mean of the
 blocks' load-balance terms times ``moe_aux_weight``, and ``generate``
 does not pad the prompt (padded rows would take expert capacity).
-Sequence parallelism and striped sp wait for the multi-chip slice.
+Tensor parallelism (the mesh's ``tp`` axis, ``fleet.init`` with
+``mp_degree``): the layers are ``fleet.meta_parallel``'s, each rank
+holding its shard, so attention runs ``num_heads / tp`` local heads
+(the fused qkv keeps whole heads, ``groups=3``), the tied head's input
+crosses ``copy_to_region`` (its gradient all-reduced) and the loss is
+the vocab-parallel cross entropy, fused (``fused_linear_cross_entropy_
+tp``) or not (``parallel_cross_entropy``).  Attention-probability
+dropout draws from the ``model_parallel`` stream there (other masks on
+each rank's heads); the other dropouts act on replicated activations
+and draw the same masks on every ``tp`` rank.  The cached (serving)
+forward under tensor parallelism, and sequence parallelism, are not
+ported yet (ROADMAP items 9b's second part and 9c).
 """
 import functools
 import math
@@ -35,15 +46,19 @@ from torch import nn
 from ..amp import amp_cast
 from ..core.compile_cache import GraphCache, bucket_pow2
 from ..core.device import resolve_device
+from ..distributed import env as _env
 from ..distributed.fleet.meta_parallel import (
-    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    copy_to_region, get_rng_state_tracker, parallel_cross_entropy,
+    tp_state)
 from ..incubate.moe import SwitchMoE
 from ..nn import functional as F
 from ..nn.layer.common import Dropout, Embedding
 from ..nn.layer.layers import deferred_init
 from ..nn.layer.norm import LayerNorm
 from ..ops.flash_attention import can_use_pallas, flash_attention
-from ..ops.fused_ce import fused_linear_cross_entropy
+from ..ops.fused_ce import (fused_linear_cross_entropy,
+                            fused_linear_cross_entropy_tp)
 from ..ops.fused_gelu_linear import mlp_gelu
 from ..ops.paged_attention import paged_attention, write_kv
 from ..ops.sampling import sample_rows
@@ -61,8 +76,8 @@ class GPTConfig:
     ``fused_head_chunks`` chunks.  ``moe_*``: routed experts
     (``SwitchMoE``) on every ``moe_every``-th block when
     ``moe_num_experts > 0``, and the load-balance term's weight in the
-    loss.  ``sequence_parallel`` and ``striped_sp`` need a mesh (ROADMAP
-    Queue 1 item 9) and raise when set; ``scan_decode_blocks`` is the
+    loss.  ``sequence_parallel`` and ``striped_sp`` are sequence
+    parallelism (ROADMAP Queue 1 item 9c) and raise when set; ``scan_decode_blocks`` is the
     reference's compile-time lever with token-exact results, which the
     port has no use for; ``initializer_range`` is read by neither
     package's init."""
@@ -79,8 +94,7 @@ class GPTConfig:
                              ('striped_sp', striped_sp)):
             if value:
                 raise NotImplementedError(
-                    f'GPTConfig({field}=True) needs a device mesh, which '
-                    'the port does not have yet (ROADMAP Queue 1 item 9)')
+                    f'GPTConfig({field}=True): {_env.ITEM_9C}')
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -120,6 +134,24 @@ def _cached_attention(q, kb, vb, p):
     return torch.matmul(att, vb)
 
 
+def local_heads(num_heads):
+    """The heads this rank's attention holds: ``num_heads / tp``."""
+    tp = tp_state()[1]
+    if num_heads % tp:
+        raise ValueError(f'num_heads {num_heads} does not divide over '
+                         f'tp {tp}')
+    return num_heads // tp
+
+
+def tp_dropout(drop, x, group):
+    """``drop(x)`` for an activation sharded over ``tp`` (local heads):
+    from the ``model_parallel`` stream where there is a ``tp`` group."""
+    if group is None:
+        return drop(x)
+    with get_rng_state_tracker().rng_state('model_parallel'):
+        return drop(x)
+
+
 class CausalSelfAttention(nn.Module):
     """Multi-head causal attention over a dense or a paged KV cache."""
 
@@ -127,11 +159,13 @@ class CausalSelfAttention(nn.Module):
         super().__init__()
         if cfg.hidden_size % cfg.num_heads:
             raise ValueError('hidden_size must be a multiple of num_heads')
-        self.n_head = cfg.num_heads
+        self.n_head = local_heads(cfg.num_heads)
         self.head_dim = cfg.hidden_size // cfg.num_heads
+        self._tp_group = tp_state()[0]
         self.qkv = ColumnParallelLinear(cfg.hidden_size,
                                         3 * cfg.hidden_size,
-                                        gather_output=False, device=device)
+                                        gather_output=False, device=device,
+                                        groups=3)
         self.proj = RowParallelLinear(cfg.hidden_size, cfg.hidden_size,
                                       input_is_parallel=True, device=device)
         self.attn_drop = Dropout(cfg.dropout)
@@ -161,12 +195,16 @@ class CausalSelfAttention(nn.Module):
         mask = torch.ones((T, T), dtype=att.dtype, device=att.device).tril()
         att = att - (1.0 - mask) * 1e9
         att = F.softmax(att, axis=-1)
-        att = self.attn_drop(att)
+        att = tp_dropout(self.attn_drop, att, self._tp_group)
         att, v = amp_cast('matmul', att, v)
         return torch.matmul(att, v)
 
     def forward(self, x, cache=None, pos=None):
         B, T, H = x.shape
+        if cache is not None and self._tp_group is not None:
+            raise NotImplementedError(
+                f'the cached (serving) forward under tensor parallelism: '
+                f'{_env.ITEM_9B}')
         qkv = self.qkv(x).reshape(B, T, 3, self.n_head, self.head_dim)
         q = qkv[:, :, 0].transpose(1, 2)             # [B, nh, T, hd]
         k = qkv[:, :, 1].transpose(1, 2)
@@ -203,7 +241,7 @@ class CausalSelfAttention(nn.Module):
                 vb[:, :, p:p + T] = v.to(vb.dtype)
             y = _cached_attention(q, kb, vb, p)
             new_cache = (kb, vb)
-        y = y.transpose(1, 2).reshape(B, T, H)
+        y = y.transpose(1, 2).reshape(B, T, self.n_head * self.head_dim)
         return self.resid_drop(self.proj(y)), new_cache
 
 
@@ -342,6 +380,8 @@ class GPTForCausalLM(nn.Module):
         return self
 
     def _head(self, h):
+        """The tied head: this rank's vocab columns under ``tp``."""
+        h = copy_to_region(h, self.gpt.wte._tp_group)
         h, w = amp_cast('matmul', h, self.gpt.wte.weight)
         return torch.matmul(h, w.t())
 
@@ -393,13 +433,25 @@ class GPTForCausalLM(nn.Module):
         cfg = self.config
         B, T, D = logits.shape
         labels = torch.as_tensor(labels, device=logits.device)
-        if cfg.fused_head and D == cfg.hidden_size and D != cfg.vocab_size:
-            h, w = amp_cast('fused_lm_head_ce', logits, self.gpt.wte.weight)
+        wte = self.gpt.wte
+        group = wte._tp_group
+        if cfg.fused_head and D == cfg.hidden_size and \
+                D != wte.num_embeddings:
+            h, w = amp_cast('fused_lm_head_ce', logits, wte.weight)
+            args = (h[:, :-1, :].reshape(B * (T - 1), D), w.t(),
+                    labels[:, 1:].reshape(B * (T - 1)))
+            if group is not None:
+                return fused_linear_cross_entropy_tp(
+                    *args, group=group,
+                    num_chunks=cfg.fused_head_chunks).mean()
             losses = fused_linear_cross_entropy(
-                h[:, :-1, :].reshape(B * (T - 1), D), w.t(),
-                labels[:, 1:].reshape(B * (T - 1)),
-                num_chunks=cfg.fused_head_chunks)
+                *args, num_chunks=cfg.fused_head_chunks)
             return losses.mean()
+        if group is not None:
+            return parallel_cross_entropy(
+                logits[:, :-1, :].reshape(B * (T - 1), D),
+                labels[:, 1:].reshape(B * (T - 1)), group,
+                wte.vocab_start).mean()
         return F.cross_entropy(logits[:, :-1, :].reshape(B * (T - 1), D),
                                labels[:, 1:].reshape(B * (T - 1)))
 

@@ -11,7 +11,8 @@ capture it.
 ``ClipGradByNorm`` scales a tensor by ``min(clip / max(n, 1e-12), 1)``;
 ``ClipGradByGlobalNorm`` scales every tensor by ``clip / max(n, clip)``
 with ``n`` the norm over all of them (the squares summed per tensor, the
-tensors' sums added in order).
+tensors' sums added in order).  Either norm is the whole logical
+tensor's: a shard's squares are summed over its tensor-parallel group.
 """
 import warnings
 
@@ -31,14 +32,36 @@ def _over(c, t):
     return torch.full_like(t, c) / t
 
 
-def _sum_squares(grads):
+def _sum_squares(grads, params=None):
     """``sum(square(g))`` of each tensor, added in order (the
-    reference's Python ``sum``), as a 0-d tensor."""
-    total = None
-    for g in grads:
+    reference's Python ``sum``), as a 0-d tensor.  A gradient of a
+    parameter held in shards over tensor parallelism (``_tp_group``) has
+    its squares summed over that group, once for all such tensors."""
+    total, shards = None, {}
+    for i, g in enumerate(grads):
         s = g.square().sum()
+        group = getattr(params[i], '_tp_group', None) if params else None
+        if group is not None:
+            prev = shards.get(id(group), (group, None))[1]
+            shards[id(group)] = (group, s if prev is None else prev + s)
+            continue
         total = s if total is None else total + s
+    if shards:
+        from ..distributed import collective
+        for group, part in shards.values():
+            part = collective.all_reduce(part, group=group)
+            total = part if total is None else total + part
     return total
+
+
+def clip_with_params(clip, grads, params):
+    """``clip.clip_values(grads)``, and with ``params`` too where one of
+    them is held in shards over tensor parallelism (a norm then sums a
+    shard's squares over its group), so a clip written for the
+    reference's one-argument ``clip_values`` keeps working on one card."""
+    if any(getattr(p, '_tp_group', None) is not None for p in params):
+        return clip.clip_values(grads, params)
+    return clip.clip_values(grads)
 
 
 class ClipGradBase:
@@ -46,15 +69,17 @@ class ClipGradBase:
         """``[(param, grad)] -> [(param, clipped grad)]`` (eager API)."""
         return self._dygraph_clip(params_grads)
 
-    def clip_values(self, grads):
-        """``[grad] -> [clipped grad]`` (the trainer's functional API)."""
+    def clip_values(self, grads, params=None):
+        """``[grad] -> [clipped grad]`` (the trainer's functional API);
+        ``params``, where given, are the gradients' parameters."""
         raise NotImplementedError
 
     def _dygraph_clip(self, params_grads):
         out = list(params_grads)
         idx = [i for i, (p, g) in enumerate(out)
                if g is not None and _clipped(p)]
-        for i, g in zip(idx, self.clip_values([out[i][1] for i in idx])):
+        for i, g in zip(idx, clip_with_params(
+                self, [out[i][1] for i in idx], [out[i][0] for i in idx])):
             out[i] = (out[i][0], g)
         return out
 
@@ -64,7 +89,7 @@ class ClipGradByValue(ClipGradBase):
         self.max = float(max)
         self.min = float(min) if min is not None else -float(max)
 
-    def clip_values(self, grads):
+    def clip_values(self, grads, params=None):
         return [torch.clamp(g, self.min, self.max) for g in grads]
 
 
@@ -72,10 +97,10 @@ class ClipGradByNorm(ClipGradBase):
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
 
-    def clip_values(self, grads):
+    def clip_values(self, grads, params=None):
         out = []
-        for g in grads:
-            n = torch.sqrt(g.square().sum())
+        for i, g in enumerate(grads):
+            n = torch.sqrt(_sum_squares([g], params and [params[i]]))
             scale = torch.clamp_max(
                 _over(self.clip_norm, torch.clamp_min(n, 1e-12)), 1.0)
             out.append(g * scale)
@@ -87,10 +112,10 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.clip_norm = float(clip_norm)
         self.group_name = group_name
 
-    def clip_values(self, grads):
+    def clip_values(self, grads, params=None):
         if not grads:
             return []
-        gn = torch.sqrt(_sum_squares(grads))
+        gn = torch.sqrt(_sum_squares(grads, params))
         scale = _over(self.clip_norm, torch.clamp_min(gn, self.clip_norm))
         return [g * scale for g in grads]
 

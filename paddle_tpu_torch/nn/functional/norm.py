@@ -107,9 +107,49 @@ def _update_running(running, batch_stat, momentum):
     running.copy_(a + b)
 
 
+class _SumOver(torch.autograd.Function):
+    """A sum over the ranks of a group: all-reduce forward, and the
+    gradient all-reduced backward (every rank's sum reads every
+    rank's input)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        from ...distributed import collective
+        ctx.group = group
+        return collective.all_reduce(t.contiguous().clone(), group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ...distributed import collective
+        return collective.all_reduce(g.contiguous().clone(),
+                                     group=ctx.group), None
+
+
+def _group_stats(x, red, shape, group):
+    """``(mean, var, n)`` over ``red`` and every rank of ``group``, f32,
+    ``n`` the global count as a device tensor: the sums and the count
+    all-reduced (two passes for f32 input, the sum of squares for
+    16-bit), differentiable through ``_SumOver``."""
+    from ...distributed import collective
+    n = torch.full((), float(math.prod(x.shape[i] for i in red)),
+                   dtype=torch.float32, device=x.device)
+    n = collective.all_reduce(n, group=group)
+    mean = _SumOver.apply(x.sum(dim=red, dtype=torch.float32), group) / n
+    if x.dtype == torch.float32:
+        d = x - mean.reshape(shape)
+        var = _SumOver.apply(d.square().sum(dim=red), group) / n
+    else:
+        sq = x.square() if x.dtype == torch.bfloat16 else x.float().square()
+        var = torch.clamp_min(
+            _SumOver.apply(sq.sum(dim=red, dtype=torch.float32), group) / n
+            - mean.square(), 0.0)
+    return mean, var, n
+
+
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
-               data_format='NCHW', use_global_stats=None, name=None):
+               data_format='NCHW', use_global_stats=None, name=None,
+               group=None):
     """BatchNorm over every axis but the channel's, the reference's
     arithmetic.
 
@@ -134,11 +174,15 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     with record_function('batch_norm'):
         if training and not use_global_stats:
             x, weight, bias = amp_cast('batch_norm', x, weight, bias)
-            mean = x.mean(dim=red, dtype=f32)
-            if x.dtype == f32:
-                var = x.var(dim=red, correction=0)
+            synced = group is not None and group.nranks > 1
+            if synced:
+                mean, var, n_all = _group_stats(x, red, shape, group)
             else:
-                var = _one_pass_var(x, red, mean)
+                mean = x.mean(dim=red, dtype=f32)
+                if x.dtype == f32:
+                    var = x.var(dim=red, correction=0)
+                else:
+                    var = _one_pass_var(x, red, mean)
             scale = 1.0 / torch.sqrt(var + epsilon)
             if weight is not None:
                 scale = scale * weight.float()
@@ -151,9 +195,9 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
             if running_mean is not None:
                 _update_running(running_mean, mean.detach(), momentum)
             if running_var is not None:
-                _update_running(running_var,
-                                _multiply(var.detach(), n / max(n - 1, 1)),
-                                momentum)
+                unbiased = var.detach() * (n_all / (n_all - 1).clamp_min(1)) \
+                    if synced else _multiply(var.detach(), n / max(n - 1, 1))
+                _update_running(running_var, unbiased, momentum)
             return out
         x, rm, rv, weight, bias = amp_cast('batch_norm', x, running_mean,
                                            running_var, weight, bias)

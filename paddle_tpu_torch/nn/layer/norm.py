@@ -97,12 +97,20 @@ class _BatchNormBase(Layer):
             if self.bias is not None:
                 self.bias.zero_()
 
+    def _group(self):
+        """The ranks the batch statistics span: the ``dp`` group inside
+        a data-parallel step (``collective.axis_scope``), as under the
+        reference's ``dp`` mesh."""
+        from ...distributed import collective
+        return collective.scope_group('dp')
+
     def forward(self, x):
         return F.batch_norm(
             x, self._mean, self._variance, self.weight, self.bias,
             training=self.training, momentum=self.momentum,
             epsilon=self.epsilon, data_format=self.data_format,
-            use_global_stats=self.use_global_stats)
+            use_global_stats=self.use_global_stats,
+            group=self._group() if self.training else None)
 
 
 class BatchNorm(_BatchNormBase):
@@ -133,12 +141,43 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """Cross-replica statistics wait for the distributed slice."""
+    """BatchNorm whose training statistics span the ranks: the ``dp``
+    group inside a data-parallel step, else the mesh's ``dp`` group,
+    else every rank of the process group (one process: its own
+    batch)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            'SyncBatchNorm waits for the distributed slice (ROADMAP Queue '
-            '1 item 9)')
+    def _group(self):
+        from ...distributed import collective
+        from ...distributed import env as _env
+        group = collective.scope_group('dp')
+        if group is not None:
+            return group
+        mesh = _env.get_mesh()
+        if mesh is not None and mesh.axis_size('dp') > 1:
+            return mesh.group('dp')
+        world = collective.get_group(0)
+        return None if collective._local(world) else world
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """Every BatchNorm sublayer of ``layer`` swapped in place for a
+        ``SyncBatchNorm`` holding its parameters and statistics."""
+        for name, sub in list(layer.named_children()):
+            if isinstance(sub, _BatchNormBase) and \
+                    not isinstance(sub, SyncBatchNorm):
+                new = SyncBatchNorm(sub.num_features, sub.momentum,
+                                    sub.epsilon,
+                                    data_format=sub.data_format,
+                                    device=sub._mean.device)
+                with torch.no_grad():
+                    for attr in ('weight', 'bias', '_mean', '_variance'):
+                        mine, theirs = getattr(new, attr), getattr(sub, attr)
+                        if mine is not None and theirs is not None:
+                            mine.copy_(theirs)
+                setattr(layer, name, new)
+            else:
+                cls.convert_sync_batchnorm(sub)
+        return layer
 
 
 class GroupNorm(Layer):

@@ -29,6 +29,14 @@ The backward is a ``torch.autograd.Function`` (the reference's
 the kernels, and the lse cotangent folds in as ``delta - g_lse``, which
 keeps the lse gradient exact (d lse / d s = p).
 
+``flash_attention_spmd``/``can_use_pallas_spmd`` are the reference's
+mesh forms: each rank holds its ``[B/dp, H/tp, T, D]`` block of q, k
+and v (batch over ``dp``, heads over ``tp``) and launches the same
+kernels on its local ``[B/dp * H/tp, T, D]``; attention is independent
+per head, so no collective runs.  A mesh with ``sp`` or ``pp`` above 1
+raises (ROADMAP item 9c).  GPT and BERT make the same launch through
+``flash_attention`` on their local heads.
+
 The TPU gates (the ``_tuned_blocks`` table, ``DEFAULT_BLOCK_Q/K`` and
 ``shapes_tile``'s ``T % block``, blocks >= 128, ``d % 64``) do not
 carry over: the kernels take any ``T >= 1`` (the ragged last tile is
@@ -44,7 +52,8 @@ from ..core.autograd import kernel_backward
 from . import _library
 from ._build import Kernel, aligned16, stream
 
-__all__ = ['flash_attention', 'flash_attention_lse', 'can_use_pallas']
+__all__ = ['flash_attention', 'flash_attention_lse', 'can_use_pallas',
+           'flash_attention_spmd', 'can_use_pallas_spmd']
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
@@ -365,3 +374,40 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
     or raises; on CPU tensors it runs their plain twins."""
     return flash_attention_lse(q, k, v, causal, scale, block_q,
                                block_k)[0]
+
+
+def _mesh_axes(mesh, dp_axis, tp_axis):
+    shape = dict(mesh.shape) if mesh is not None else {}
+    if shape.get('sp', 1) > 1 or shape.get('pp', 1) > 1:
+        from ..distributed.env import ITEM_9C
+        raise NotImplementedError(
+            f'flash attention over a mesh with sp or pp above 1 '
+            f'({shape}): {ITEM_9C}')
+    return shape.get(dp_axis, 1), shape.get(tp_axis, 1)
+
+
+def can_use_pallas_spmd(B, H, T, d, mesh, dp_axis='dp', tp_axis='tp'):
+    """Gate for ``flash_attention_spmd``: ``B`` and ``H`` (the global
+    batch and heads) divide the mesh's ``dp`` and ``tp`` and the local
+    shape is the kernels'."""
+    if mesh is None:
+        return False
+    dp, tp = _mesh_axes(mesh, dp_axis, tp_axis)
+    if B % dp or H % tp:
+        return False
+    return can_use_pallas(T, T, d)
+
+
+def flash_attention_spmd(q, k, v, mesh, causal=False, scale=None,
+                         dp_axis='dp', tp_axis='tp'):
+    """Attention over this rank's ``[B/dp, H/tp, T, D]`` blocks of q, k
+    and v: one launch of the kernels on the local ``[B/dp * H/tp, T,
+    D]`` (module docstring).  Returns the local ``[B/dp, H/tp, T, D]``
+    output."""
+    _mesh_axes(mesh, dp_axis, tp_axis)
+    B, H, T, D = q.shape
+    o = flash_attention(q.reshape(B * H, T, D),
+                        k.reshape(B * H, k.shape[2], D),
+                        v.reshape(B * H, v.shape[2], D), causal=causal,
+                        scale=scale)
+    return o.reshape(B, H, T, D)

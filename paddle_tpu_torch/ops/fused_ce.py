@@ -25,14 +25,19 @@ which is what the reference's f32 dots do on the TPU at XLA's default
 one-pass bf16 precision).  ``dx`` and ``dw`` come back in the inputs'
 dtypes.
 
-``fused_linear_cross_entropy_tp`` (vocab-parallel) waits for the
-distributed slice.
+``fused_linear_cross_entropy_tp`` is the vocab-parallel head: each
+rank holds ``w``'s columns of its ``tp`` index and takes its local
+chunks' max, sum of exponentials and target logit; the max is
+all-reduced (MAX), the rescaled sums and the target logit (which lives
+on one rank) summed over the group, as the reference composes them
+inside ``shard_map``.  The backward recomputes the local chunks; ``dx``
+is all-reduced over the group, ``dw`` stays local.
 """
 import torch
 
 from ..core.autograd import composed_backward
 
-__all__ = ['fused_linear_cross_entropy']
+__all__ = ['fused_linear_cross_entropy', 'fused_linear_cross_entropy_tp']
 
 
 def _chunks(V, num_chunks):
@@ -60,6 +65,12 @@ def _owned(labels, c0, c1):
 
 def _forward(x, w, labels, num_chunks):
     """Per-row ``(lse, label logit)`` by the online logsumexp."""
+    m, s, zl = _stats(x, w, labels, num_chunks)
+    return torch.log(s) + m, zl
+
+
+def _stats(x, w, labels, num_chunks):
+    """Per-row running max, sum of exponentials and label logit."""
     n = x.shape[0]
     m = torch.full((n,), float('-inf'), device=x.device)
     s = torch.zeros((n,), device=x.device)
@@ -73,7 +84,7 @@ def _forward(x, w, labels, num_chunks):
         loc, mine = _owned(labels, c0, c1)
         picked = z.gather(1, loc.clamp(0, c1 - c0 - 1)[:, None])[:, 0]
         zl = zl + torch.where(mine, picked, torch.zeros_like(picked))
-    return torch.log(s) + m, zl
+    return m, s, zl
 
 
 def _backward(x, w, labels, lse, g, num_chunks):
@@ -143,3 +154,50 @@ def fused_linear_cross_entropy(x, w, labels, num_chunks=8):
         raise ValueError(f'num_chunks must be >= 1, got {num_chunks}')
     labels = labels.reshape(-1).long()
     return _FusedCE.apply(x, w, labels, int(num_chunks))
+
+
+class _FusedCETP(torch.autograd.Function):
+    """The vocab-parallel chunked forward and backward (module
+    docstring); ``labels`` are local to this rank's columns."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, group, num_chunks):
+        from ..distributed import collective
+        m, s, zl = _stats(x, w, labels, num_chunks)
+        big = collective.all_reduce(m.clone(), collective.ReduceOp.MAX,
+                                    group)
+        total = collective.all_reduce(s * torch.exp(m - big), group=group)
+        lse = torch.log(total) + big
+        zl = collective.all_reduce(zl, group=group)
+        ctx.save_for_backward(x, w, labels, lse)
+        ctx.group, ctx.num_chunks = group, num_chunks
+        return lse - zl
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..distributed import collective
+        x, w, labels, lse = ctx.saved_tensors
+        dx, dw = _backward(x, w, labels, lse, g.float(), ctx.num_chunks)
+        dx = collective.all_reduce(dx, group=ctx.group)
+        return dx.to(x.dtype), dw.to(w.dtype), None, None, None
+
+
+def fused_linear_cross_entropy_tp(x, w_shard, labels, group=None,
+                                  num_chunks=4, axis='tp'):
+    """Per-example CE of ``softmax(x @ w)`` where this rank holds
+    ``w_shard [H, V/tp]``, the columns ``[r Vs, (r+1) Vs)`` of ``w`` for
+    its index ``r`` in ``group`` (default: the global mesh's ``axis``
+    group).  ``x [N, H]`` replicated over the group, ``labels [N]``
+    global ids.  Returns f32 ``[N]`` losses, the same on every rank."""
+    from ..distributed import collective
+    if group is None:
+        group = collective.new_group(axes=(axis,))
+    if x.dim() != 2 or w_shard.dim() != 2 or x.shape[1] != w_shard.shape[0]:
+        raise ValueError(f'fused_linear_cross_entropy_tp: x [N, H] and w '
+                         f'[H, V/tp], got {tuple(x.shape)} and '
+                         f'{tuple(w_shard.shape)}')
+    col0 = max(group.rank, 0) * w_shard.shape[1]
+    labels = labels.reshape(-1).long() - col0
+    if group.process_group is None:
+        return fused_linear_cross_entropy(x, w_shard, labels, num_chunks)
+    return _FusedCETP.apply(x, w_shard, labels, group, int(num_chunks))

@@ -279,10 +279,15 @@ def mlp_gelu(x, fc, shard_spec=None):
     """The fc+GELU half of a transformer MLP (``fc`` is a Linear with
     ``weight [in, out]`` and ``bias``): ``gelu(fc(x), approximate=True)``
     by default; with ``USE_PALLAS_MLP`` on, the fused kernels under the
-    AMP name ``'fused_linear_gelu'`` (white-listed).  ``shard_spec`` is
-    accepted for signature parity and has no effect on one device."""
+    AMP name ``'fused_linear_gelu'`` (white-listed).  A column-parallel
+    ``fc`` takes its input through its region boundary (``enter``).
+    ``shard_spec`` is accepted for signature parity; the port's layers
+    hold their shards."""
     del shard_spec
     if USE_PALLAS_MLP:
+        enter = getattr(fc, 'enter', None)
+        if enter is not None:
+            x = enter(x)
         xv, wv, bv = amp_cast('fused_linear_gelu', x, fc.weight, fc.bias)
         return fused_linear_gelu(xv, wv, bv, approximate=True)
     return F.gelu(fc(x), approximate=True)

@@ -35,9 +35,15 @@ def _f32_correction(beta, t):
     return np.float32(1.0) - np.float32(beta) ** np.float32(t)
 
 
-def _f32_norm(x):
-    """``sqrt(sum(square(x)))`` in f32, a 0-d device tensor."""
-    return torch.sqrt(x.float().square().sum())
+def _f32_norm(x, group=None):
+    """``sqrt(sum(square(x)))`` in f32, a 0-d device tensor; the squares
+    summed over ``group`` too where ``x`` is a shard of a parameter held
+    over tensor parallelism."""
+    s = x.float().square().sum()
+    if group is not None:
+        from ..distributed import collective
+        s = collective.all_reduce(s, group=group)
+    return torch.sqrt(s)
 
 
 class Adam(Optimizer):
@@ -156,7 +162,8 @@ class Lamb(Optimizer):
         mhat = _by(torch.div, m, s['c1'])
         vhat = _by(torch.div, v, s['c2'])
         r = mhat / (torch.sqrt(vhat) + eps) + self._lamb_wd * p
-        w_norm, r_norm = _f32_norm(p), _f32_norm(r)
+        group = getattr(p, '_tp_group', None)
+        w_norm, r_norm = _f32_norm(p, group), _f32_norm(r, group)
         trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
                             torch.ones_like(w_norm))
         return p - (s['lr'] * trust * r).to(p.dtype)

@@ -51,6 +51,7 @@ selects on the device instead.
 import numpy as np
 import torch
 
+from ..nn.clip import clip_with_params
 from .lr import LRScheduler
 
 __all__ = ['Optimizer']
@@ -198,7 +199,8 @@ class Optimizer:
         grads = [p.grad for _, p in pg]
         clip = self._grad_clip
         if clip is not None:
-            grads = clip.clip_values(grads) if functional else [
+            grads = clip_with_params(clip, grads, [p for _, p in pg]) \
+                if functional else [
                 g for _, g in clip([(p, g) for (_, p), g in
                                     zip(pg, grads)])]
         for (i, p), g in zip(pg, grads):

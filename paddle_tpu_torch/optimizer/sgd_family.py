@@ -119,8 +119,9 @@ class Lars(Momentum):
         self._lars_wd = lars_weight_decay
 
     def _rule(self, p, g, state, s):
-        w_norm = torch.sqrt(p.float().square().sum())
-        g_norm = torch.sqrt(g.float().square().sum())
+        from .adam import _f32_norm
+        group = getattr(p, '_tp_group', None)
+        w_norm, g_norm = _f32_norm(p, group), _f32_norm(g, group)
         local_lr = torch.where(
             (w_norm > 0) & (g_norm > 0),
             self._lars_coeff * w_norm /

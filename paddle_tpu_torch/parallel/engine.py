@@ -1,4 +1,5 @@
-"""ParallelTrainer on one device (counterpart of
+"""ParallelTrainer, one process a card, over a data- and
+tensor-parallel mesh of such processes (counterpart of
 ``paddle_tpu/parallel/engine.py``).
 
 ``step(*batch)`` runs forward and loss under the strategy's AMP policy
@@ -93,9 +94,34 @@ read as the reference's single-device trainer reads it:
   ``nan_guard`` the merged gradients and that mean decide the step;
 - ``pipeline`` warns (there is no ``pp`` axis), and the toggles that
   need a mesh (``sharding`` at stages 0-2, ``tensor_parallel``,
-  ``sequence_parallel``, ``localsgd``) change nothing, as in the
-  reference.  A parallel degree or a world above 1 raises
-  (ROADMAP item 9b).
+  ``sequence_parallel``, ``localsgd``) change nothing at ``dp`` 1, as
+  in the reference; ZeRO ``sharding`` over ``dp`` above 1 raises
+  (ROADMAP item 9d), as does DGC over tensor-parallel shards.
+
+In a world of several processes (``fleet.init`` or
+``init_parallel_env`` first; without a mesh the trainer lays ``{'dp':
+world}`` over the ranks) the contract is the reference's mesh step:
+the ``dp`` replicas start from ``dp`` rank 0's parameters and buffers
+(broadcast when the trainer is built, as DDP does); every rank calls
+``step(*batch)`` with the same global batch and uploads only its ``dp``
+rows, the contiguous ``P('dp')`` slice of each
+batch array (under ``gradient_merge``, micro-batch ``i`` is global rows
+``[iB/k, (i+1)B/k)`` and then its ``dp`` slice, the reference's reshape
+order).  The forward, loss and backward run under
+``collective.axis_scope`` of the mesh's axes (``BatchNorm``'s
+statistics and BERT's masked mean span the global batch there); the
+model's tensor-parallel layers keep their gradients local; every
+gradient is then summed over ``dp`` in flat buckets and divided by the
+``dp`` size (``distributed.parallel.allreduce_gradients``), and the
+loss returned is the ranks' mean, the global loss of a loss that is a
+mean over rows.  A loss that sums its rows gets the ranks' mean of the
+local sums (DDP's convention; the reference's would be the global
+sum).  Under ``nan_guard`` the finite flag is reduced with MIN over the
+world, so every rank skips the same step.  ``step_fused`` on the card
+captures the NCCL collectives in its graph (its first, eager step
+warms the communicator up); on a gloo group with the model on the card
+it raises, since gloo's collectives go through host memory.
+Checkpoints at a world above 1 raise (ROADMAP item 9b's second part).
 
 ``profile=`` (True, a spec string or dict, a ``ProfileSchedule``; None
 defers to ``PADDLE_TPU_PROFILE``) arms ``telemetry.step_profiler``
@@ -107,10 +133,10 @@ fails a step.  ``op_summary(*batch)`` is ``profiler.op_summary`` of one
 training step traced on fake tensors: nothing runs, no kernel launches,
 no parameter, slot, buffer or generator moves.
 
-Everything else the reference adds around the single-device step — a
-mesh, the pipeline engine, quantized collectives, auto-sharding, lint
-and the cluster and supervisor planes — raises ``NotImplementedError``
-when asked for.
+Everything else the reference adds around the step — the pipeline
+engine and quantized collectives (item 9d), auto-sharding and lint
+(item 11), the cluster and supervisor planes (item 10) — raises
+``NotImplementedError`` when asked for.
 """
 import contextlib
 import os
@@ -122,13 +148,16 @@ from torch.profiler import record_function
 
 from .. import amp as amp_mod
 from ..core import compile_cache, recompute, scan_loop
+from ..distributed import collective
+from ..distributed import env as _env
 from ..resilience import NanSentinel, finite_step, guard_update
 
 __all__ = ['ParallelTrainer']
 
 
 class ParallelTrainer:
-    """Model + optimizer + loss on one device.
+    """Model + optimizer + loss on this rank's device (module
+    docstring).
 
     ``loss_fn(outputs, *labels) -> scalar tensor``; ``batch[:n_inputs]``
     feed the model, the rest the loss."""
@@ -141,27 +170,41 @@ class ParallelTrainer:
                  cluster_stats=None, supervisor=None):
         del donate
         self.fused_steps = scan_loop.resolve_fused_steps(fused_steps)
-        asked = [name for name, value in (
-            ('mesh', mesh), ('lint', lint),
-            ('auto_shard', auto_shard), ('hbm_budget_gb', hbm_budget_gb),
-            ('calibration', calibration),
-            ('quant_collectives', quant_collectives),
-            ('cluster_stats', cluster_stats),
-            ('supervisor', supervisor)) if value]
-        if asked:
-            raise NotImplementedError(
-                f'ParallelTrainer: {", ".join(asked)} not ported yet; the '
-                'port trains on one device')
+        for item, names in (
+                ('ROADMAP item 9d', (('quant_collectives',
+                                      quant_collectives),)),
+                ('ROADMAP item 10', (('cluster_stats', cluster_stats),
+                                     ('supervisor', supervisor))),
+                ('ROADMAP item 11', (('lint', lint),
+                                     ('auto_shard', auto_shard),
+                                     ('hbm_budget_gb', hbm_budget_gb),
+                                     ('calibration', calibration)))):
+            asked = [name for name, value in names if value]
+            if asked:
+                raise NotImplementedError(
+                    f'ParallelTrainer: {", ".join(asked)} not ported yet '
+                    f'({item})')
+        self.mesh = self._resolve_mesh(mesh)
+        self._dp = self.mesh.axis_size('dp') if self.mesh else 1
+        self._dp_rank = self.mesh.coords.get('dp', 0) if self.mesh else 0
+        self._dp_group = self.mesh.group('dp') if self._dp > 1 else None
+        self._world = collective.get_group(0)
         self.strategy = strategy or getattr(optimizer, '_fleet_strategy',
                                             None)
         self._merge_k = 1
         if self.strategy is not None:
-            self._merge_k = self._check_strategy(self.strategy)
+            self._merge_k = self._check_strategy(self.strategy, self.mesh,
+                                                 optimizer)
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.n_inputs = n_inputs
         self.device = next(model.parameters()).device
+        if self._dp_group is not None:
+            # the dp replicas start from dp rank 0's state, as DDP's do
+            with torch.no_grad():
+                for t in list(model.parameters()) + list(model.buffers()):
+                    collective.broadcast(t.data, 0, self._dp_group)
         # AdamW's apply_decay_param_fun sees the parameter names
         optimizer._param_names.update(
             {id(p): n for n, p in model.named_parameters()})
@@ -194,20 +237,56 @@ class ParallelTrainer:
         self._profile_calls = -1
 
     @staticmethod
-    def _check_strategy(st):
+    def _resolve_mesh(mesh):
+        """The mesh the step runs over: ``mesh``, the global one, or
+        ``{'dp': world}`` where a process group of several ranks is up
+        and none is installed.  A world of several processes without its
+        process group raises."""
+        mesh = mesh or _env.get_mesh()
+        if mesh is not None and not isinstance(mesh, _env.Mesh):
+            raise TypeError(f'mesh must be a distributed.env.Mesh '
+                            f'(distributed.build_mesh), got {mesh!r}')
+        if mesh is not None or _env.get_world_size() <= 1:
+            return mesh
+        if _env._dist() is None:
+            raise RuntimeError(
+                f'ParallelTrainer in a world of {_env.get_world_size()} '
+                'processes needs the process group: call fleet.init or '
+                'distributed.init_parallel_env first')
+        from ..distributed.parallel import init_parallel_env
+        init_parallel_env()
+        return _env.get_mesh()
+
+    @staticmethod
+    def _check_strategy(st, mesh=None, optimizer=None):
         """``fleet.validate_strategy``, the reference's warning for
-        ``pipeline`` without a ``pp`` axis, the refusal of parallel
-        degrees and worlds above 1 (item 9b); returns the merge's k."""
-        from ..distributed import env as _env
-        from ..distributed.env import ITEM_9B
-        from ..distributed.fleet.fleet_base import _degrees, validate_strategy
+        ``pipeline`` without a ``pp`` axis, the refusal of what the port
+        does not run over a mesh yet (items 9b, 9c, 9d); returns the
+        merge's k."""
+        from ..distributed.fleet.fleet_base import (_degrees, check_degrees,
+                                                    validate_strategy)
         validate_strategy(st)
-        world = _env.get_world_size()
-        wide = {k: v for k, v in _degrees(st, world).items() if v > 1}
-        if world > 1 or wide:
+        if mesh is not None:
+            check_degrees(dict(mesh.shape))
+        else:
+            degrees = _degrees(st, _env.get_world_size())
+            check_degrees(degrees)
+            wide = {k: v for k, v in degrees.items() if v > 1}
+            if wide:
+                raise ValueError(
+                    f'strategy degrees {wide} need a mesh of '
+                    f'{int(np.prod(list(wide.values())))} ranks; this '
+                    f'world has {_env.get_world_size()}: call fleet.init')
+        dp = mesh.axis_size('dp') if mesh is not None else 1
+        tp = mesh.axis_size('tp') if mesh is not None else 1
+        if st.sharding and dp > 1:
             raise NotImplementedError(
-                f'ParallelTrainer in a world of {world} with degrees '
-                f'{wide}: {ITEM_9B}')
+                f'ZeRO sharding over dp {dp}: {_env.ITEM_9D}')
+        from ..optimizer import DGCMomentum
+        if tp > 1 and isinstance(optimizer, DGCMomentum):
+            raise NotImplementedError(
+                f'DGC over tensor-parallel shards (tp {tp}): '
+                f'{_env.ITEM_9B}')
         if st.pipeline:
             warnings.warn(
                 'strategy.pipeline=True but the mesh has no pp axis '
@@ -240,8 +319,52 @@ class ParallelTrainer:
         return value.to(self.device)
 
     def _split(self, batch):
-        vals = [self._to_device(b) for b in batch]
+        vals = [self._to_device(self._local_rows(b)) for b in batch]
         return vals[:self.n_inputs], vals[self.n_inputs:]
+
+    def _local_rows(self, value, dim=0):
+        """This rank's ``dp`` rows of a global batch array along ``dim``
+        (module docstring: under ``gradient_merge`` the k micro-batches'
+        slices, in order); the array itself at ``dp`` 1 or 0-d."""
+        dp = self._dp
+        if dp == 1 or getattr(value, 'ndim', 0) <= dim:
+            return value
+        n, k = value.shape[dim], self._merge_k
+        if n % (k * dp):
+            raise ValueError(
+                f'a global batch of {n} rows does not split into '
+                f'{k} micro-batch(es) over dp {dp}')
+        m, r = n // (k * dp), self._dp_rank
+        if k == 1:
+            idx = slice(r * m, (r + 1) * m)
+            return value[(slice(None),) * dim + (idx,)]
+        rows = np.concatenate([np.arange(i * n // k + r * m,
+                                         i * n // k + (r + 1) * m)
+                               for i in range(k)])
+        if torch.is_tensor(value):
+            return value.index_select(
+                dim, torch.as_tensor(rows, device=value.device))
+        return np.take(np.asarray(value), rows, axis=dim)
+
+    def _scope(self):
+        """The mesh's axes for ``collective.axis_scope`` around the
+        forward and backward (nothing without a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return collective.axis_scope(*self.mesh.axis_names)
+
+    def _sync(self, loss):
+        """Sum the gradients over ``dp`` and divide by its size, and
+        return the ranks' mean of ``loss`` (the loss itself at ``dp``
+        1)."""
+        if self._dp_group is None:
+            return loss
+        from ..distributed.parallel import allreduce_gradients
+        with record_function('ParallelTrainer.allreduce'):
+            allreduce_gradients(self.optimizer._params, self._dp_group,
+                                scale=1.0 / self._dp)
+            total = collective.all_reduce(loss.clone(), group=self._dp_group)
+        return total / self._dp
 
     def _forward_backward(self, batch):
         """One forward (the model under ``strategy.recompute`` through
@@ -249,7 +372,8 @@ class ParallelTrainer:
         added into ``.grad``; returns the loss, f32, 0-d, detached."""
         xs, ys = batch[:self.n_inputs], batch[self.n_inputs:]
         # the ranges name the step's phases in a torch.profiler trace
-        with record_function('ParallelTrainer.forward'), self._autocast():
+        with record_function('ParallelTrainer.forward'), self._autocast(), \
+                self._scope():
             if self.strategy is not None and self.strategy.recompute:
                 out = recompute.checkpoint(self.model, *xs)
             else:
@@ -257,7 +381,7 @@ class ParallelTrainer:
             # the loss runs under the forward's policy, as in the
             # reference: black-listed loss ops promote to f32
             loss = self.loss_fn(out, *ys).float().mean()
-        with record_function('ParallelTrainer.backward'):
+        with record_function('ParallelTrainer.backward'), self._scope():
             loss.backward()
         return loss.detach()
 
@@ -305,6 +429,7 @@ class ParallelTrainer:
                 for p in self.optimizer._params:
                     if p.grad is not None:
                         p.grad.div_(k)
+        loss = self._sync(loss)
         opt = self.optimizer
         if not guard:
             with record_function('ParallelTrainer.optimizer'):
@@ -313,6 +438,11 @@ class ParallelTrainer:
         with record_function('ParallelTrainer.optimizer'), torch.no_grad():
             ok = finite_step(loss, [p.grad for p in opt._params
                                     if p.grad is not None])
+            if not collective._local(self._world):
+                flag = collective.all_reduce(
+                    ok.to(torch.float32), collective.ReduceOp.MIN,
+                    self._world)
+                ok = flag > 0
             opt._guard = ok
             try:
                 opt._update()
@@ -343,7 +473,7 @@ class ParallelTrainer:
         """One training step; returns the step's loss (f32, 0-d, on the
         device; no host sync, except the finite flag under
         ``nan_guard``)."""
-        vals = tuple(self._to_device(b) for b in batch)
+        vals = tuple(self._to_device(self._local_rows(b)) for b in batch)
         self._await_save()
         opt = self.optimizer
         t = self._step_no + 1
@@ -392,7 +522,9 @@ class ParallelTrainer:
         one f32 device tensor, with no host sync (under ``nan_guard`` one:
         the chunk's finite mask).  Losses, update math and step counters
         equal K calls of ``step``."""
-        stacked = tuple(self._to_device(b) for b in batch)
+        self._check_capturable()
+        stacked = tuple(self._to_device(self._local_rows(b, dim=1))
+                        for b in batch)
         k = int(stacked[0].shape[0]) if stacked[0].dim() else 0
         if k < 1 or any(v.dim() == 0 or v.shape[0] != k for v in stacked):
             raise ValueError(
@@ -447,6 +579,24 @@ class ParallelTrainer:
                 self._nan_rollback()
                 break
         return losses
+
+    def _check_capturable(self):
+        """A captured step cannot run a collective that goes through host
+        memory (gloo with the model on the card): refuse before any
+        step runs."""
+        if self.device.type != 'cuda' or self.mesh is None or \
+                self.mesh.size == 1:
+            return
+        if collective.staged_through_host(self._world):
+            raise RuntimeError(
+                'step_fused captures the step in a CUDA graph, and this '
+                'world\'s collectives run over gloo through host memory: '
+                'use NCCL (PADDLE_DISTRI_BACKEND=nccl) or call step')
+
+    def _one_world(self, what):
+        if self.mesh is not None and self.mesh.size > 1:
+            raise NotImplementedError(
+                f'{what} in a world of {self.mesh.size}: {_env.ITEM_9B}')
 
     def _nan_rollback(self):
         """Sentinel-demanded rollback: reload the last COMMITTED
@@ -634,6 +784,7 @@ class ParallelTrainer:
         """Save the train state as step ``_step_no`` under `directory`
         (async by default; returns the save's handle)."""
         from ..distributed.checkpoint import CheckpointManager
+        self._one_world('save_checkpoint')
         mgr = self._ckpt_mgr
         if (mgr is None or mgr.directory != os.path.abspath(directory)
                 or mgr.keep != keep or mgr.async_save != async_save):
@@ -653,6 +804,7 @@ class ParallelTrainer:
         distributed.checkpoint.CheckpointManager."""
         from ..convert import load_train_state
         from ..distributed.checkpoint import CheckpointManager
+        self._one_world('restore_checkpoint')
         mgr = self._ckpt_mgr
         if mgr is not None:
             # drain the in-flight async save BEFORE any swap: dropping
@@ -679,11 +831,17 @@ class ParallelTrainer:
     @torch.no_grad()
     def eval_step(self, *batch):
         """Forward and loss in eval mode, no AMP (as the reference):
-        ``(outputs, loss)``."""
+        ``(outputs, loss)``; over ``dp`` the outputs are this rank's rows
+        and the loss the ranks' mean."""
         xs, ys = self._split(batch)
         self.model.eval()
-        out = self.model(*xs)
-        return out, self.loss_fn(out, *ys).float().mean()
+        with self._scope():
+            out = self.model(*xs)
+            loss = self.loss_fn(out, *ys).float().mean()
+        if self._dp_group is not None:
+            loss = collective.all_reduce(loss, group=self._dp_group) / \
+                self._dp
+        return out, loss
 
     def loss_float(self, loss):
         return float(loss)

@@ -15,10 +15,10 @@
   watchdog   deadline budgets and the Watchdog thread for one rank.
 
 Still waiting: ``ChaosCluster`` and chaos's ``drift`` and collective
-faults (the multi-process topology and ``distributed.collective``,
-ROADMAP Queue 1 items 9 and 10), the watchdog's cluster quorum
-(``transport=``/``kv=``, item 9), ``plangen`` and the plan
-``supervisor`` (items 10 and 11).
+faults (the host transport of ``distributed.collective``, ROADMAP Queue
+1 item 9b's second part, and item 10), the watchdog's cluster quorum
+(``transport=``/``kv=``, item 9b's second part), ``plangen`` and the
+plan ``supervisor`` (items 10 and 11).
 """
 from .manifest import (  # noqa: F401
     MANIFEST_NAME, TWO_PHASE_DIR, write_manifest, read_manifest,

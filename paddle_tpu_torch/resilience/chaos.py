@@ -465,9 +465,10 @@ class ChaosEngine:
                           if f.kind in _WAITING_KINDS})
         if waiting:
             raise NotImplementedError(
-                f'ChaosEngine: {waiting} need distributed.collective and '
-                'the plan supervisor, which are not ported yet (ROADMAP '
-                'Queue 1 items 9 and 10)')
+                f'ChaosEngine: {waiting} need the host transport of '
+                'distributed.collective and the plan supervisor, which are '
+                'not ported yet (ROADMAP Queue 1 item 9b, second part, '
+                'and item 10)')
         from . import manifest as _manifest
         from ..distributed import checkpoint as _ckpt
 
@@ -805,14 +806,15 @@ class ChaosCluster:
     """The reference's multi-process chaos topology (N workers under
     elastic supervision over a shared key-value transport, collective
     seams, cross-rank final-state agreement).  Not ported yet: it needs
-    ``distributed.collective`` and multi-process training (ROADMAP Queue
-    1 items 9 and 10)."""
+    the host transport of ``distributed.collective`` (ROADMAP Queue 1
+    item 9b, second part) and item 10."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            'ChaosCluster needs distributed.collective and multi-process '
-            'training, which are not ported yet (ROADMAP Queue 1 items 9 '
-            'and 10); supervise one worker with tools.chaos_run')
+            'ChaosCluster needs the host transport of '
+            'distributed.collective, which is not ported yet (ROADMAP '
+            'Queue 1 item 9b, second part, and item 10); supervise one '
+            'worker with tools.chaos_run')
 
 
 def load_run_events(workdir):

@@ -27,8 +27,8 @@
 The cluster half — ``transport=``/``kv=``, the peers' heartbeats over
 the key-value store, the quorum and the coordinated abort — needs
 ``distributed/collective.py``'s ``HostCollectives`` and raises
-``NotImplementedError`` until data and tensor parallelism land (ROADMAP
-Queue 1 item 9).
+``NotImplementedError`` until that host transport lands (ROADMAP Queue
+1 item 9b, second part).
 """
 import contextlib
 import json
@@ -299,7 +299,7 @@ class Watchdog:
                 'Watchdog(transport=/kv=): the heartbeat quorum and the '
                 'coordinated abort ride distributed.collective\'s '
                 'HostCollectives, which is not ported yet (ROADMAP Queue '
-                '1 item 9, data and tensor parallelism)')
+                '1 item 9b, second part: the host transport)')
         self.budget = budget or Budget()
         self.name = name
         self.transport = None

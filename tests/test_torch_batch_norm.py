@@ -251,8 +251,13 @@ def test_layers_buffers_and_state_keys():
         'weight', 'bias', '_mean', '_variance'}
     assert nn.BatchNorm1D(C, device='cpu').data_format == 'NCL'
     assert nn.BatchNorm3D(C, device='cpu').data_format == 'NCDHW'
-    with pytest.raises(NotImplementedError):
-        nn.SyncBatchNorm(C)
+    # SyncBatchNorm: a BatchNorm whose statistics span the ranks; in a
+    # process without a process group, this one's batch
+    sync = nn.SyncBatchNorm(C, data_format='NHWC', device='cpu')
+    x = torch.randn(2, 3, 3, C)
+    torch.testing.assert_close(sync.train()(x), layer.train()(x),
+                               rtol=0, atol=0)
+    assert set(sync.state_dict()) == set(layer.state_dict())
     seq = nn.Sequential(nn.Conv2D(3, C, 1, device='cpu'),
                         nn.BatchNorm2D(C, device='cpu'))
     assert list(seq.state_dict()) == ['0.weight', '0.bias', '1.weight',

@@ -201,9 +201,13 @@ def test_argument_checks(tmp_path):
         with pytest.raises(SystemExit) as ei:
             launch.launch_main(argv)
         assert ei.value.code == 2, text
-    with pytest.raises(NotImplementedError, match='item 9'):
+    # the rendezvous is ported (tests/test_torch_data_parallel.py::
+    # test_launch_starts_one_worker_a_card); a missing script is a usage
+    # error before any worker starts
+    with pytest.raises(SystemExit) as ei:
         launch.launch_main(['--coordinator', 'h:1', '--nnodes', '2',
                             '--node-rank', '0', 'x.py'])
+    assert ei.value.code == 2
 
 
 # ------------------------------------------------------- auto-checkpoint --

@@ -72,6 +72,7 @@ def _cpu_and_no_mesh():
     yield
     paddle.set_device(None)
     jenv.set_mesh(None)
+    paddle.distributed.set_mesh(None)
 
 
 TOL, GRAD_TOL, O2_LOSS_RTOL, SWAP_TOL = 2e-5, 1e-4, 2e-3, 2e-5
@@ -655,20 +656,31 @@ def test_toggles_without_a_mesh_train_as_none(weights):
 
 
 def test_parallel_degrees_and_worlds_above_one_raise(weights, monkeypatch):
+    """Degrees above 1 train in a world of several processes
+    (tests/test_torch_data_parallel.py); in a world of one they need
+    more ranks than there are, as the reference's mesh needs more
+    devices, and a launcher's world without its process group is an
+    error, not a silent world of one."""
     pm = gpt_tiny(device='cpu', **MODEL_KW)
     opt = AdamW(parameters=pm.parameters())
     st = fleet.DistributedStrategy()
     st.hybrid_configs['mp_degree'] = 2
-    with pytest.raises(NotImplementedError, match='9b'):
+    with pytest.raises(ValueError, match='need 2 > 1 devices'):
         fleet.init(is_collective=True, strategy=st)
-    with pytest.raises(NotImplementedError, match='9b'):
+    with pytest.raises(ValueError, match='need a mesh of 2 ranks'):
         ParallelTrainer(pm, opt, pm.loss, strategy=st)
+    st.hybrid_configs['mp_degree'] = 1
+    st.hybrid_configs['pp_degree'] = 2
+    with pytest.raises(NotImplementedError, match='item 9d'):
+        fleet.init(is_collective=True, strategy=st)
     monkeypatch.setenv('PADDLE_TRAINERS_NUM', '2')
-    with pytest.raises(NotImplementedError, match='9b'):
+    with pytest.raises(RuntimeError, match='needs the process group'):
         ParallelTrainer(pm, opt, pm.loss, strategy=fleet.DistributedStrategy())
-    with pytest.raises(NotImplementedError, match='9b'):
-        paddle.DataParallel(pm)
-    with pytest.raises(NotImplementedError, match='9b'):
+    monkeypatch.setenv('PADDLE_DIST_INIT_METHOD', 'file:///nonexistent/x')
+    monkeypatch.setattr(torch.distributed, 'init_process_group',
+                        lambda *a, **k: (_ for _ in ()).throw(
+                            RuntimeError('rendezvous')))
+    with pytest.raises(RuntimeError, match='rendezvous'):
         fleet.init(is_collective=True)
 
 
@@ -682,8 +694,11 @@ def test_fleet_init_records_the_strategy_and_a_unit_group():
             hcg.get_pipe_parallel_world_size(),
             hcg.get_data_parallel_rank(), hcg.get_stage_id()) == \
         (1, 1, 1, 0, 0)
-    with pytest.raises(NotImplementedError, match='9b'):
-        hcg.get_data_parallel_group()
+    # the groups are real (one rank each here; four ranks in
+    # tests/test_torch_data_parallel.py)
+    assert hcg.get_data_parallel_group().ranks == [0]
+    assert dict(hcg.topology().shape) == {'pp': 1, 'dp': 1, 'sp': 1,
+                                          'ep': 1, 'tp': 1}
     assert (fleet.worker_index(), fleet.worker_num(),
             fleet.is_first_worker(), fleet.is_worker()) == (0, 1, True, True)
     assert (fleet.server_num(), fleet.server_endpoints(to_string=True),
@@ -730,7 +745,8 @@ def test_data_parallel_at_one_rank_is_the_layer():
     assert list(dp.parameters()) == list(lin.parameters())
     assert isinstance(paddle.distributed.init_parallel_env(),
                       paddle.distributed.ParallelEnv)
-    with pytest.raises(NotImplementedError, match='9b'):
+    # more devices than the world has: the reference's mesh error
+    with pytest.raises(ValueError, match='need 2 > 1 devices'):
         paddle.distributed.init_parallel_env(n_devices=2)
 
 
@@ -822,8 +838,10 @@ def test_role_makers_and_util_match_the_reference(monkeypatch, capsys):
     with pytest.raises(TypeError):
         util.get_file_shard('a,b')
     assert fleet.util is fleet.get_fleet().util
+    # several workers without their process group: an error (the host
+    # collectives over 4 ranks: tests/test_torch_data_parallel.py)
     many = fleet.UtilBase(fleet.UserDefinedRoleMaker(worker_num=2))
-    with pytest.raises(NotImplementedError, match='9b'):
+    with pytest.raises(RuntimeError, match='process group'):
         many.all_reduce([1.0])
 
 

@@ -378,10 +378,12 @@ def test_eval_step_returns_logits_and_the_jax_loss(weights, ids):
 def test_what_is_not_ported_raises(weights, ids, tmp_path):
     pm = _port_model(weights, fused_head=True)
     opt = AdamW(parameters=pm.parameters())
-    for kw in (dict(mesh=object()), dict(supervisor=True),
-               dict(lint=True)):
+    for kw in (dict(supervisor=True), dict(lint=True)):
         with pytest.raises(NotImplementedError):
             ParallelTrainer(pm, opt, pm.loss, **kw)
+    # a mesh is the port's (distributed.build_mesh), not any object
+    with pytest.raises(TypeError, match='Mesh'):
+        ParallelTrainer(pm, opt, pm.loss, mesh=object())
     # profile= arms the sampled profiler now
     # (tests/test_torch_profiler.py)
     # the NaN guard trains now, eager and fused
@@ -392,11 +394,13 @@ def test_what_is_not_ported_raises(weights, ids, tmp_path):
     tr.save_checkpoint(tmp_path / 'ckpt', async_save=False)
     assert tr.restore_checkpoint(tmp_path / 'ckpt') == 0
     # recompute and gradient merge train now
-    # (tests/test_torch_fleet_strategy.py); a parallel degree above 1
-    # waits for data and tensor parallelism (ROADMAP item 9b)
+    # (tests/test_torch_fleet_strategy.py), and so do parallel degrees
+    # above 1 in a world of several processes
+    # (tests/test_torch_data_parallel.py); in a world of one they need
+    # more ranks than there are
     st = DistributedStrategy()
     st.hybrid_configs['mp_degree'] = 2
-    with pytest.raises(NotImplementedError, match='9b'):
+    with pytest.raises(ValueError, match='need a mesh'):
         ParallelTrainer(pm, opt, pm.loss, strategy=st)
     # dropout trains now (tests/test_torch_dropout.py), and so does MoE
     # (tests/test_torch_moe.py): a dense model's loss ignores aux_losses,

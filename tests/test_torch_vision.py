@@ -154,11 +154,11 @@ def _port_loss_grads(pm, x, y, level=None, training=True):
 def _exact_batch_norm(x, running_mean, running_var, weight=None,
                       bias=None, training=False, momentum=0.9,
                       epsilon=1e-5, data_format='NCHW',
-                      use_global_stats=None, name=None):
+                      use_global_stats=None, name=None, group=None):
     """The float64 witness's BatchNorm: batch statistics in the input's
     own dtype, two-pass (the port's, as the reference's, takes any
     input that is not f32 to f32 one-pass statistics); the running
-    statistics stay as they are."""
+    statistics stay as they are.  One process: ``group`` is None."""
     ch = x.dim() - 1 if data_format in ('NHWC', 'NLC', 'NDHWC') else 1
     red = tuple(i for i in range(x.dim()) if i != ch)
     shape = [1] * x.dim()
